@@ -1,0 +1,105 @@
+"""Pair-geometry of the oxDNA-family terms on Vec3 fields (any shape).
+
+Counterpart of the vector forms in mythos_tpu/energy/dna1/geometry.py
+(``unbonded_geometry_vec``, ``coax_geometry_vec`` and the bonded geometry).
+One set of formulas serves both evaluation paths of the port: the
+pair-list reference (``safe_arccos``) and the stencil band twin
+(``arccos_poly``, as the kernels use).
+
+Pair-direction conventions (as in the reference):
+* bonded pairs:   dr_site = site[i] - site[j]  (i the 3'-side)
+* unbonded pairs: dr_site = site[j] - site[i]
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mythos_tpu_torch.soa import Vec3, vdot, vnorm
+from mythos_tpu_torch.utils.math import safe_arccos
+
+
+class UnbondedGeometry(NamedTuple):
+    """Angle set shared by hydrogen bonding and cross stacking."""
+
+    r_base: torch.Tensor
+    theta1: torch.Tensor
+    theta2: torch.Tensor
+    theta3: torch.Tensor
+    theta4: torch.Tensor
+    theta7: torch.Tensor
+    theta8: torch.Tensor
+
+
+class CoaxGeometry(NamedTuple):
+    """Angle set of oxDNA2 coaxial stacking (no phi modulations)."""
+
+    r_stack: torch.Tensor
+    theta1: torch.Tensor
+    theta4: torch.Tensor
+    theta5: torch.Tensor
+    theta6: torch.Tensor
+
+
+class BondedGeometry(NamedTuple):
+    """Angle set of bonded stacking."""
+
+    r_stack: torch.Tensor
+    theta4: torch.Tensor
+    theta5: torch.Tensor
+    theta6: torch.Tensor
+    cosphi1: torch.Tensor
+    cosphi2: torch.Tensor
+
+
+def unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos):
+    dr = base_j - base_i
+    r = vnorm(dr)
+    inv_r = 1.0 / r
+    return UnbondedGeometry(
+        r_base=r,
+        theta1=arccos(-vdot(a1_i, a1_j)),
+        theta2=arccos(-vdot(a1_j, dr) * inv_r),
+        theta3=arccos(vdot(a1_i, dr) * inv_r),
+        theta4=arccos(vdot(n_i, n_j)),
+        theta7=arccos(-vdot(n_j, dr) * inv_r),
+        theta8=math.pi - arccos(vdot(n_i, dr) * inv_r),
+    )
+
+
+def coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos):
+    dr = stack_j - stack_i
+    r = vnorm(dr)
+    u = dr * (1.0 / r)
+    return CoaxGeometry(
+        r_stack=r,
+        theta1=arccos(-vdot(a1_i, a1_j)),
+        theta4=arccos(vdot(n_i, n_j)),
+        theta5=arccos(vdot(n_i, u)),
+        theta6=arccos(-vdot(n_j, u)),
+    )
+
+
+def bonded_geometry_vec(back_i, back_j, stack_i, stack_j, n_i, n_j, a2_i, a2_j, arccos=safe_arccos):
+    """Stacking geometry of bonded pairs (``back`` = the stacking cosphi site)."""
+    dr_back = back_i - back_j
+    inv_rb = 1.0 / vnorm(dr_back)
+    dr_stack = stack_i - stack_j
+    r_stack = vnorm(dr_stack)
+    inv_rs = 1.0 / r_stack
+    return BondedGeometry(
+        r_stack=r_stack,
+        theta4=arccos(vdot(n_i, n_j)),
+        theta5=math.pi - arccos(vdot(n_j, dr_stack) * inv_rs),
+        theta6=math.pi - arccos(vdot(n_i, dr_stack) * inv_rs),
+        cosphi1=-vdot(a2_i, dr_back) * inv_rb,
+        cosphi2=-vdot(a2_j, dr_back) * inv_rb,
+    )
+
+
+def gather(v: Vec3, idx) -> Vec3:
+    """Rows ``idx`` of an (n,) Vec3 field."""
+    return Vec3(v.x[idx], v.y[idx], v.z[idx])
