@@ -16,7 +16,17 @@ Phases, one line each; any failure exits non-zero:
    (rtol 2e-4, atol 5e-5);
 5. the main path: ``entry.build_sim(mode="stencil", model="dna2")`` at
    10k nt runs 2000 Langevin steps (50 chunks) through K1 and K2, and a
-   40-bp run on the card agrees with the same run on the CPU twins.
+   40-bp run on the card agrees with the same run on the CPU twins;
+6. the tile kernels K3 (forces), K4 (energies) and K5 (row gradients)
+   against their plain versions at 10k nt, on the block tables of a
+   0.01-jittered ideal duplex and of the 270-degree arc (K2's tolerance,
+   else the float32 budget of phase 4 against a float64 plain version);
+7. the block tier: ``build_sim(mode="block", block_size=8)`` on the
+   10k-nt duplex bent into a 270-degree arc, 400 steps through K3;
+8. one DiffTRe step at 10k nt (after a warm-up step): stencil MD (K1,
+   K2), the tile map of 10 states (K4; backward K5), propeller-twist
+   loss, gradients, one Adam step; and (8b) a 40-bp DiffTRe loss and its gradients on fixed states
+   agree between the card and the CPU plain versions.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -26,6 +36,7 @@ a CUDA device. Imports torch, numpy and mythos_tpu_torch only.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -34,6 +45,22 @@ import time
 N_BP = 5000
 N_STEPS = 2000
 KT = 296.15 * 0.1 / 300.0
+BLOCK_STEPS = 400  # phase 7
+DIFFTRE_STEPS, DIFFTRE_SAVE = 400, 40  # phase 8: 10 states
+
+#: the H100 SXM's published peaks (data sheet, 700 W): HBM bytes/s, fp32
+#: (non-tensor) FLOP/s -- the bound of a kernel is the larger of its bytes
+#: and its operations over these
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+#: operations per unit of work, estimated from the kernels' source
+#: (stencil_physics.cuh): an unbonded pair with all five terms, its value
+#: and the gradient on both bodies; its value alone; the weight-free hb
+#: product; a Debye-only pair (gradient, value); a bonded pair's gradient;
+#: one particle's BAOAB update (two exact rotors)
+FLOP_PAIR_GRAD, FLOP_PAIR_ENERGY, FLOP_PAIR_HB = 1500, 650, 220
+FLOP_DEBYE_GRAD, FLOP_DEBYE_ENERGY = 45, 35
+FLOP_BOND_GRAD, FLOP_BODY_STEP = 900, 250
 
 
 def _events_ms(fn, reps: int) -> tuple[list[float], object]:
@@ -56,6 +83,35 @@ def _within(got, ref, rtol: float, atol: float) -> tuple[bool, float]:
     return bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
 
 
+def _bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_b, t_o = n_bytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _band_pairs(ctx) -> tuple[int, int]:
+    """(pairs within the short-range reach, Debye-only pairs) of the band."""
+    n, w_s = ctx.n, max(ctx.w_terms)
+    short = sum(n - d for d in range(1, w_s + 1)) - (n - 2)  # less the bonds at offset 2
+    return short, sum(n - d for d in range(w_s + 1, ctx.w_wide + 1))
+
+
+def _checked(name, got, plain, plain64):
+    """K2's tolerance (rtol 1e-4, atol 1e-4 max|plain|), else the float32
+    budget of phase 4 per output column: max|kernel - f32| <= 2 max|f32 -
+    f64| + 5e-5 + 2e-4 max|f64|. (ok, rule, max_abs_err)."""
+    ok, err = _within(got, plain, rtol=1e-4, atol=1e-4 * float(plain.abs().max()))
+    if ok:
+        return True, "K2 tolerance", err
+    g, p, p64 = (x.double().reshape(x.shape[0], -1) if x.dim() > 1 else x.double()[:, None]
+                 for x in (got, plain, plain64))
+    err_k = (g - p).abs().amax(0)
+    limit = 2 * (p - p64).abs().amax(0) + 5e-5 + 2e-4 * p64.abs().amax(0)
+    print(f"    {name}: column max|kernel-f32| {[f'{v:.1e}' for v in err_k.tolist()]} "
+          f"limit {[f'{v:.1e}' for v in limit.tolist()]}")
+    return bool((err_k <= limit).all()), "float64 budget", err
+
+
 def main() -> int:
     import torch
 
@@ -63,11 +119,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU", file=sys.stderr)
         return 2
 
+    import mythos_tpu_torch.energy.dna2 as dna2
     from mythos_tpu_torch.entry import build_sim
     from mythos_tpu_torch.io.synthetic import synthetic_duplex
-    from mythos_tpu_torch.ops import _build
+    from mythos_tpu_torch.observables import PropellerTwist
+    from mythos_tpu_torch.ops import _build, tiles
     from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.optimization.difftre import difftre_loss, difftre_step
     from mythos_tpu_torch.rigid_body import RigidBody
+    from mythos_tpu_torch.simulators.neighbors import block_neighbor_list_for_topology, strand_interleave_perm
+    from mythos_tpu_torch.soa import to_soa
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -199,13 +260,256 @@ def main() -> int:
     if not (okc and okq):
         raise SystemExit("the card's trajectory disagrees with the CPU twins")
 
+    # bounds of K1/K2 at this run's band (estimated operation counts)
+    short, far = _band_pairs(ctx)
+    k2_bound = _bound(2 * 7 * n * 4, short * FLOP_PAIR_GRAD + far * FLOP_DEBYE_GRAD)
+    k1_bound = _bound(
+        (19 + 20) * n * 4 + u * 6 * n * 2,
+        u * (short * FLOP_PAIR_GRAD + far * FLOP_DEBYE_GRAD + (n - 2) * FLOP_BOND_GRAD + n * FLOP_BODY_STEP),
+    )
+
+    # 6. the tile kernels against their plain versions at 10k nt
+    def table_sim(bend):
+        top, b = synthetic_duplex(N_BP, bend=bend, dtype=torch.float32, device=dev)
+        e, s_ = build_sim(top, KT, mode="block", block_size=8, init_centers=b.center, device=dev)
+        return top, b, e, s_
+
+    tile_rec = {k: {"err": 0.0} for k in ("K3", "K4", "K5")}
+    for label, bend in (("ideal", None), ("arc270", math.radians(270))):
+        _, b0, e_b, sim_b = table_sim(bend)
+        nbl = sim_b.neighbors
+        tables = nbl.idx if isinstance(nbl.idx, tuple) else (nbl.idx,)
+        jb = to_soa(jittered(b0))
+        print(f"[6 tiles] {label}: B={nbl.block_size} caps tight/wide {nbl.capacity_inner}/{nbl.capacity} "
+              f"(two-level: {nbl.r_cutoff_inner is not None}) banded={nbl.banded} overflow={bool(nbl.did_overflow)}")
+        ctxs = tiles.prepare_contexts(e_b, nbl.idx, nbl.block_size, perm=nbl.perm)
+        # every kind the kernels know, on this run's tables: the sizing's
+        # own contexts, plus short + debye on the one table when it collapsed
+        checks = list(zip(ctxs, tables))
+        if len(ctxs) == 1:
+            checks += [(tiles.prepare_tile_context(e_b, tables[0], nbl.block_size, kind, nbl.perm),
+                        tables[0]) for kind in ("short", "debye")]
+        for ci, (tctx, ids) in enumerate(checks):
+            sp = tctx.spec
+            rows = tiles.dynamic_rows(tctx, jb).contiguous()
+            P = tctx.params
+            rows64, P64 = rows.double(), P.double()
+            gt = tiles.term_weights(P, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device=dev)
+            runs = {
+                "K3": (lambda: tiles.tile_forces(rows, P, ids, sp), lambda: tiles.tile_forces_plain(rows, P, ids, sp),
+                       lambda: tiles.tile_forces_plain(rows64, P64, ids, sp)),
+                "K4": (lambda: tiles.tile_energies(rows, P, ids, sp),
+                       lambda: tiles.tile_energies_plain(rows, P, ids, sp),
+                       lambda: tiles.tile_energies_plain(rows64, P64, ids, sp)),
+                "K5": (lambda: tiles.tile_row_grads(rows, P, ids, gt, sp),
+                       lambda: tiles.tile_row_grads_plain(rows, P, ids, gt, sp),
+                       lambda: tiles.tile_row_grads_plain(rows64, P64, ids, gt.double(), sp)),
+            }
+            line = []
+            for key, (kern, plain, plain64) in runs.items():
+                k_ms, got = _events_ms(kern, 20)
+                p_ms, ref = _events_ms(plain, 3)
+                ok, rule, err = _checked(key, got, ref, plain64())
+                line.append(f"{key} err {err:.2e} ({rule}) {statistics.median(k_ms):.4f}/{statistics.median(p_ms):.2f} ms")
+                if not ok:
+                    raise SystemExit(f"{key} disagrees with its plain version ({label}, {sp.kind})")
+                rec = tile_rec[key]
+                rec["err"] = max(rec["err"], err)
+                if label == "ideal" and ci == 0:  # the main path's table
+                    rec.update(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms), ctx=tctx, ids=ids,
+                               rows=rows)
+            k3 = tiles.tile_forces(rows, P, ids, sp)
+            k5 = tiles.tile_row_grads(rows, P, ids, tiles.term_weights(P, sp), sp)[:, : sp.n_force_fields]
+            ok35, err35 = _within(k5, k3, rtol=1e-5, atol=5e-6)
+            print(f"  {sp.kind} cap {sp.cap}: " + "; ".join(line) + f"; K5 body vs K3 {err35:.1e}")
+            if not ok35:
+                raise SystemExit("K5's body fields disagree with K3")
+
+    # pair counts of the main-path table (ideal duplex): K3/K5 evaluate the
+    # full mask, K4 the triangle; the bound counts each unordered pair once
+    def pairs_of(rec):
+        c, ids = rec["ctx"], rec["ids"]
+        ri, cj = tiles._split(rec["rows"], tiles._gather_cols(rec["rows"], ids, c.spec), c.spec)
+        return int(tiles._tile_mask(ri, cj, c.spec, triangular=True).sum())
+
+    sp0, pairs0 = tile_rec["K3"]["ctx"].spec, pairs_of(tile_rec["K3"])
+    in_bytes = sp0.n_pad * sp0.n_fields * 4 + sp0.n_blocks * sp0.cap * 4 + 4 * st.param_offsets()["TOTAL"]
+    tile_rec["K3"]["bound"] = _bound(in_bytes + sp0.n_pad * 12 * 4, pairs0 * FLOP_PAIR_GRAD)
+    tile_rec["K4"]["bound"] = _bound(in_bytes + 5 * 4, pairs0 * FLOP_PAIR_ENERGY)
+    tile_rec["K5"]["bound"] = _bound(in_bytes + sp0.n_pad * 16 * 4, pairs0 * (FLOP_PAIR_GRAD + FLOP_PAIR_HB))
+    print(f"[6 tiles] main-path table ({sp0.kind}, cap {sp0.cap}): {pairs0} unordered pairs; bounds "
+          + ", ".join(f"{k} {v['bound'][0]:.4f} ms ({v['bound'][1]})" for k, v in tile_rec.items()))
+
+    # 7. the block tier on the 270-degree arc: warm-up run, then the counted, timed run
+    top_a, body_a, e_a, sim_a = table_sim(math.radians(270))
+    n_tables = 2 if sim_a.neighbors.r_cutoff_inner is not None else 1
+    sim_a.run(e_a.opt_params(), body_a, sim_a.save_every, torch.Generator(device=dev).manual_seed(4))
+    tiles.tile_forces.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_a = sim_a.run(e_a.opt_params(), body_a, BLOCK_STEPS, torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    el_a = time.perf_counter() - t0
+    k3_launches = tiles.tile_forces.launches
+    tr_a = out_a.observables[0]
+    fin_a = bool(torch.isfinite(tr_a.center).all() and torch.isfinite(tr_a.orientation).all())
+    qdev_a = float((tr_a.orientation.norm(dim=-1) - 1.0).abs().max())
+    ovf_a = bool(tr_a.metadata["neighbor_overflow"].any())
+    print(f"[7 block tier] {BLOCK_STEPS} steps at {top_a.n_nucleotides} nt, 270-degree arc, {n_tables} table(s): "
+          f"{el_a:.3f} s = {BLOCK_STEPS / el_a * 60.0:.1f} steps/min on {smi}; K3 {k3_launches} launches "
+          f"(~{k3_launches * tile_rec['K3']['ms'] / 1e3 / el_a:.0%} of the run at phase 6's K3 time); "
+          f"states {tuple(tr_a.center.shape)} finite={fin_a} max||q|-1|={qdev_a:.2e} overflow={ovf_a}")
+    if not fin_a or qdev_a > 1e-5 or ovf_a:
+        raise SystemExit("block tier produced a bad trajectory")
+    if k3_launches < BLOCK_STEPS * n_tables:
+        raise SystemExit(f"block tier did not run through K3: {k3_launches} launches")
+    # where a block step's time goes: one rebuild interval under the profiler
+    # (its host overhead makes the idle share an upper bound)
+    from torch.profiler import ProfilerActivity, profile
+
+    u_a = sim_a.save_every
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim_a.run(e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(9))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernel_ms = sum(dev_us(e) for e in ev if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+    n_launch = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    top = sorted((e for e in ev if not str(getattr(e, "device_type", "")).endswith("CUDA")),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
+    print(f"[7 profile] {u_a} steps under torch.profiler: wall {wall_ms:.1f} ms, device kernels {kernel_ms:.1f} ms "
+          f"(idle share {1 - kernel_ms / wall_ms:.0%}), {n_launch / u_a:.0f} launches per step; host top: "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.0f} ms" for e in top))
+
+    # 8. one DiffTRe step at 10k nt: stencil MD -> tile map -> loss -> grads -> Adam
+    map_nbl = block_neighbor_list_for_topology(
+        topology, dna2.default_neighbor_cutoff(), block_size=8, init_centers=body.center, symmetric=True,
+        r_cutoff_inner=dna2.short_range_neighbor_cutoff(), perm=strand_interleave_perm(topology),
+    )
+    map_tables = 2 if map_nbl.r_cutoff_inner is not None else 1
+    n_nt = topology.n_nucleotides
+    bps = torch.tensor([[i, n_nt - 1 - i] for i in range(N_BP)], device=dev)
+    observable = PropellerTwist(rigid_body_transform_fn=dna2.default_transform_soa_fn(), h_bonded_base_pairs=bps)
+    sim_d = sim.replace(save_every=DIFFTRE_SAVE)
+
+    def fresh_params():
+        return {k: v.detach().clone().requires_grad_(True) for k, v in energy_fn.opt_params().items()}
+
+    warm = fresh_params()  # warm-up step (first-call costs), then the counted, timed one
+    difftre_step(energy_fn, sim_d, map_nbl, observable, 21.7, torch.optim.Adam(warm.values(), lr=1e-3),
+                 torch.Generator(device=dev).manual_seed(7), opt_params=warm, init_state=body, n_steps=DIFFTRE_STEPS)
+    opt = fresh_params()
+    before = {k: v.detach().clone() for k, v in opt.items()}
+    for fn in (st.field_grads, st.multistep_chunk, tiles.tile_energies, tiles.tile_row_grads, tiles.tile_forces):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = difftre_step(energy_fn, sim_d, map_nbl, observable, 21.7, torch.optim.Adam(opt.values(), lr=1e-3),
+                       torch.Generator(device=dev).manual_seed(6), opt_params=opt, init_state=body,
+                       n_steps=DIFFTRE_STEPS)
+    torch.cuda.synchronize()
+    el_d = time.perf_counter() - t0
+    d_launches = {"K1": st.multistep_chunk.launches, "K2": st.field_grads.launches,
+                  "K4": tiles.tile_energies.launches, "K5": tiles.tile_row_grads.launches}
+    n_states = DIFFTRE_STEPS // DIFFTRE_SAVE
+    traj_d = res["trajectory"]
+    with torch.no_grad():
+        e_map = energy_fn.replace(map_neighbors=map_nbl).with_params(res["params"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        e_map.map(RigidBody(traj_d.center, traj_d.orientation))
+        torch.cuda.synchronize()
+        el_map = time.perf_counter() - t1
+    # the step's pieces on the same trajectory: MD alone, the map's forward
+    # through the loss, and the backward (K5 and the parameter gradient)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sim_d.run({k: v.detach() for k, v in opt.items()}, body, DIFFTRE_STEPS, torch.Generator(device=dev).manual_seed(6))
+        torch.cuda.synchronize()
+        el_md = time.perf_counter() - t1
+    probe = fresh_params()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss_p, _ = difftre_loss(energy_fn, map_nbl, observable, 21.7, probe, RigidBody(traj_d.center, traj_d.orientation), KT)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    loss_p.backward()
+    torch.cuda.synchronize()
+    el_fwd, el_bwd = t2 - t1, time.perf_counter() - t2
+    print(f"[8 difftre pieces] MD {el_md:.3f} s, map + loss forward {el_fwd:.3f} s, backward {el_bwd:.3f} s")
+    g_max = max(float(g.abs().max()) for g in res["grads"].values())
+    finite_g = all(bool(torch.isfinite(g).all()) for g in res["grads"].values())
+    moved = any(not torch.equal(before[k], res["params"][k]) for k in opt)
+    print(f"[8 difftre] {DIFFTRE_STEPS} MD steps + {n_states} states x {map_tables} table(s) at {n_nt} nt: "
+          f"{el_d:.3f} s per step; map alone {n_states / el_map:.1f} states/s; loss {res['loss'].item():.6g} "
+          f"n_eff {res['n_eff'].item():.6g} max|grad| {g_max:.4g} params moved={moved} launches={d_launches} on {smi}")
+    if not (bool(torch.isfinite(res["loss"])) and finite_g and moved):
+        raise SystemExit("the DiffTRe step gave a non-finite loss or gradient, or moved no parameter")
+    if d_launches["K4"] != n_states * map_tables or d_launches["K5"] < 1 or d_launches["K1"] != DIFFTRE_STEPS // u:
+        raise SystemExit(f"the DiffTRe step did not run through the kernels: {d_launches}")
+
+    # 8b. a 40-bp DiffTRe loss on fixed states: card (K4, K5) vs CPU plain versions
+    gen_c = torch.Generator().manual_seed(8)
+    top_s2, body_c = synthetic_duplex(40, dtype=torch.float32, device="cpu")
+    cs = body_c.center[None] + 0.01 * torch.randn((3, *body_c.center.shape), generator=gen_c)
+    qs = body_c.orientation[None] + 0.01 * torch.randn((3, *body_c.orientation.shape), generator=gen_c)
+    qs = qs / qs.norm(dim=-1, keepdim=True)
+    n40 = top_s2.n_nucleotides
+    bps40 = torch.tensor([[i, n40 - 1 - i] for i in range(40)])
+
+    def small_loss(device):
+        e40 = dna2.create_default_energy_fn(top_s2, device=device)
+        states = RigidBody(cs.to(device), qs.to(device))
+        nbl40 = block_neighbor_list_for_topology(
+            top_s2, dna2.default_neighbor_cutoff(), block_size=8, init_centers=states.center[0], symmetric=True,
+            r_cutoff_inner=dna2.short_range_neighbor_cutoff(), perm=strand_interleave_perm(top_s2),
+        )
+        p40 = {k: v.detach().clone().requires_grad_(True) for k, v in e40.opt_params().items()}
+        obs40 = PropellerTwist(rigid_body_transform_fn=dna2.default_transform_soa_fn(),
+                               h_bonded_base_pairs=bps40.to(device))
+        loss40, _ = difftre_loss(e40, nbl40, obs40, 21.7, p40, states, KT)
+        loss40.backward()
+        return loss40.item(), {k: (torch.zeros_like(v) if v.grad is None else v.grad).cpu() for k, v in p40.items()}
+
+    before5 = tiles.tile_row_grads.launches
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = small_loss(dev), small_loss("cpu")
+    g_scale = max(float(g.abs().max()) for g in g_cpu.values())
+    g_err = max(float((g_gpu[k] - g_cpu[k]).abs().max()) for k in g_cpu)
+    ok_g = all(bool(((g_gpu[k] - g_cpu[k]).abs() <= 1e-2 * g_cpu[k].abs() + 1e-3 * g_scale).all()) for k in g_cpu)
+    ok_l = abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu) + 1e-6
+    print(f"[8b difftre small input] 40 bp, 3 fixed states: loss card {l_gpu:.8g} CPU {l_cpu:.8g}; "
+          f"max|grad card - CPU| {g_err:.3e} (max|grad| {g_scale:.3e}; rtol 1e-2, atol 1e-3 max|grad|); "
+          f"K5 launches {tiles.tile_row_grads.launches - before5}")
+    if not (ok_l and ok_g):
+        raise SystemExit("the card's DiffTRe loss or gradients disagree with the CPU plain versions")
+
+    src = "mythos_tpu_torch/ops/csrc/"
+    tile_launch = {"K3": k3_launches, "K4": d_launches["K4"], "K5": d_launches["K5"]}
+    tile_meta = {
+        "K3": ("tile_forces", "mythos_tpu/ops/oxdna_tiles.py:1094"),
+        "K4": ("tile_energies", "mythos_tpu/ops/oxdna_tiles.py:1079"),
+        "K5": ("tile_row_grads", "mythos_tpu/ops/oxdna_tiles.py:1094"),
+    }
     kernels = [
-        {"name": "K1 multistep_chunk", "route": "cuda", "source": "mythos_tpu_torch/ops/csrc/multistep.cu",
+        {"name": "K1 multistep_chunk", "route": "cuda", "source": src + "multistep.cu",
          "replaces": "mythos_tpu/ops/stencil.py:2236", "launches": launches["K1"], "max_abs_err": err1,
-         "ms": statistics.median(k1_ms), "plain_ms": statistics.median(tw1_ms)},
-        {"name": "K2 field_grads", "route": "cuda", "source": "mythos_tpu_torch/ops/csrc/stencil_grads.cu",
+         "ms": statistics.median(k1_ms), "plain_ms": statistics.median(tw1_ms), "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "K2 field_grads", "route": "cuda", "source": src + "stencil_grads.cu",
          "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": launches["K2"], "max_abs_err": err2,
-         "ms": statistics.median(k2_ms), "plain_ms": statistics.median(tw_ms)},
+         "ms": statistics.median(k2_ms), "plain_ms": statistics.median(tw_ms), "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+    ] + [
+        {"name": f"{k} {tile_meta[k][0]}", "route": "cuda", "source": src + "tiles.cu", "replaces": tile_meta[k][1],
+         "launches": tile_launch[k], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
+        for k, r in tile_rec.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

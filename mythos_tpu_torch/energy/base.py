@@ -133,6 +133,24 @@ class BaseEnergyFunction:
     def bonded_neighbors(self) -> np.ndarray:
         return np.asarray(self.topology.bonded_neighbors)
 
+    def bond_index(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(i, j) of the bonded pairs as long tensors on ``device``, cached:
+        a step on the card then copies no index array from the host."""
+        return self._cached("bonds", device, lambda: tuple(torch.as_tensor(self.bonded_neighbors.T).long()))
+
+    def seq_index(self, device) -> torch.Tensor:
+        """The (N,) sequence as a long tensor on ``device``, cached."""
+        return self._cached("seq", device, lambda: torch.as_tensor(self.seq).long())
+
+    def _cached(self, key: str, device, make):
+        # shared by the copies with_params makes (same topology)
+        cache = self.__dict__.setdefault("_device_cache", {})
+        k = (key, str(torch.device(device)))
+        if k not in cache:
+            v = make()
+            cache[k] = tuple(x.to(device) for x in v) if isinstance(v, tuple) else v.to(device)
+        return cache[k]
+
     def opt_params(self) -> dict:
         return self.params.opt_params
 
@@ -146,13 +164,24 @@ class BaseEnergyFunction:
 
 
 class ComposedEnergyFunction:
-    """Weighted sum of energy terms sharing one parameter namespace."""
+    """Weighted sum of energy terms sharing one parameter namespace.
 
-    def __init__(self, energy_fns: list[BaseEnergyFunction], weights: torch.Tensor | None = None) -> None:
+    ``map_neighbors`` (a symmetric simulators.neighbors.BlockNeighborList)
+    switches :meth:`map` to the tile kernels: the DiffTRe re-evaluation.
+    """
+
+    def __init__(
+        self, energy_fns: list[BaseEnergyFunction], weights: torch.Tensor | None = None, map_neighbors=None
+    ) -> None:
         if weights is not None and len(weights) != len(energy_fns):
             raise ValueError(ERR_COMPOSED_ENERGY_FN_LEN_MISMATCH)
         self.energy_fns = list(energy_fns)
         self.weights = weights
+        self.map_neighbors = map_neighbors
+
+    def replace(self, **kw) -> "ComposedEnergyFunction":
+        fields = {"energy_fns": self.energy_fns, "weights": self.weights, "map_neighbors": self.map_neighbors}
+        return ComposedEnergyFunction(**(fields | kw))
 
     def opt_params(self) -> dict:
         return {k: v for fn in self.energy_fns for k, v in fn.opt_params().items()}
@@ -167,7 +196,7 @@ class ComposedEnergyFunction:
             fns.append(fn.with_params(**mine))
         if unused := set(replacements) - used:
             raise ValueError(f"Some parameters were not used in any energy function: {unused}.")
-        return ComposedEnergyFunction(fns, self.weights)
+        return self.replace(energy_fns=fns)
 
     def term_weights(self) -> list:
         return [1.0 if self.weights is None else self.weights[i] for i in range(len(self.energy_fns))]
@@ -186,3 +215,30 @@ class ComposedEnergyFunction:
     def __call__(self, body) -> torch.Tensor:
         vals = self.compute_terms(body)
         return vals.sum() if self.weights is None else (self.weights * vals).sum()
+
+    def map(self, states) -> torch.Tensor:
+        """(S,) energies of stacked states (``center`` (S, N, 3),
+        ``orientation`` (S, N, 4)).
+
+        With ``map_neighbors`` set, the contexts (packed parameters, static
+        row fields) are prepared once, each state rebuilds its tables, and
+        the unbonded terms run through K4 (ops.tiles.unbonded_tile_energies,
+        differentiable in the parameters); a state whose table overflowed
+        reads NaN, so that reweighting it fails loudly. Without it, every
+        state runs the pair-list reference path.
+        """
+        from mythos_tpu_torch.rigid_body import RigidBody
+
+        if self.map_neighbors is None:
+            return torch.stack([self(RigidBody(c, q)) for c, q in zip(states.center, states.orientation, strict=True)])
+        from mythos_tpu_torch.ops import tiles
+        from mythos_tpu_torch.soa import BodySoA, Quat, Vec3
+
+        nbl = self.map_neighbors
+        ctxs = tiles.prepare_contexts(self, nbl.idx, nbl.block_size, perm=nbl.perm)
+        out = []
+        for c, q in zip(states.center, states.orientation, strict=True):
+            ids, overflow = nbl.build(c)
+            e = tiles.fused_energy_ctx(self, ctxs, BodySoA(Vec3(*c.unbind(-1)), Quat(*q.unbind(-1))), ids)
+            out.append(torch.where(overflow, torch.full_like(e, torch.nan), e))
+        return torch.stack(out)

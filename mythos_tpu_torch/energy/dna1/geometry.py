@@ -101,5 +101,7 @@ def bonded_geometry_vec(back_i, back_j, stack_i, stack_j, n_i, n_j, a2_i, a2_j, 
 
 
 def gather(v: Vec3, idx) -> Vec3:
-    """Rows ``idx`` of an (n,) Vec3 field."""
-    return Vec3(v.x[idx], v.y[idx], v.z[idx])
+    """Rows ``idx`` of an (n,) Vec3 field. ``index_select``: its backward
+    is one ``index_add_``, not the sort of an accumulating ``index_put_``."""
+    idx = torch.as_tensor(idx, device=v.x.device)
+    return Vec3(*(torch.index_select(c, 0, idx) for c in v))

@@ -56,9 +56,9 @@ class Fene(BaseEnergyFunction):
     """Smoothed FENE backbone springs over bonded pairs."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        bn = self.bonded_neighbors
+        i, j = self.bond_index(nuc.back.x.device)
         p = self.params
-        r = vnorm(geom.gather(nuc.back, bn[:, 0]) - geom.gather(nuc.back, bn[:, 1]), 0.0)
+        r = vnorm(geom.gather(nuc.back, i) - geom.gather(nuc.back, j), 0.0)
         return v_fene_smooth(r, p.eps_backbone, p.r0_backbone, p.delta_backbone, p.fmax, p.finf).sum()
 
 
@@ -96,8 +96,7 @@ class BondedExcludedVolume(BaseEnergyFunction):
     """Excluded volume on bonded pairs (3 site pairs, no backbone-backbone)."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        bn = self.bonded_neighbors
-        i, j = bn[:, 0], bn[:, 1]
+        i, j = self.bond_index(nuc.back.x.device)
         base_i, base_j = geom.gather(nuc.base, i), geom.gather(nuc.base, j)
         back_i, back_j = geom.gather(nuc.back, i), geom.gather(nuc.back, j)
         p = self.params
@@ -293,7 +292,7 @@ class HydrogenBonding(_UnbondedPairs):
             geom.gather(nuc.a1, i), geom.gather(nuc.a1, j),
             geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
         )
-        seq = torch.as_tensor(self.seq, device=g.r_base.device, dtype=torch.long)
+        seq = self.seq_index(g.r_base.device)
         w = self.params.eps_hb_weights[seq[i], seq[j]]
         return (w * hb_product(self.params, g)).sum()
 

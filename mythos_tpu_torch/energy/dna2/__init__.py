@@ -34,6 +34,7 @@ from mythos_tpu_torch.energy.dna2.terms import (
     DebyeConfiguration,
     Stacking,
 )
+from mythos_tpu_torch.utils import devices
 
 #: geometry keys of the transform (site offsets along the body frame)
 GEOMETRY_KEYS = (
@@ -105,15 +106,55 @@ def default_transform_soa_fn():
 
 
 def create_default_energy_fn(
-    topology, dtype: torch.dtype = torch.float32, device: torch.device | str = "cpu"
+    topology, dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda"
 ) -> ComposedEnergyFunction:
-    """The full default oxDNA2 composed energy function for a topology."""
+    """The full default oxDNA2 composed energy function for a topology,
+    its parameters on ``device`` (the card unless the caller asks for the CPU)."""
+    device = devices.resolve(device)
     transform = default_transform_soa_fn()
     fns = [
         cls(cfg.init_params(), topology, transform)
         for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype, device), strict=True)
     ]
     return ComposedEnergyFunction(fns)
+
+
+def max_site_offset() -> float:
+    """Largest |site - COM| offset of the default dna2 geometry."""
+    g = geometry()
+    back = float(np.hypot(g["com_to_backbone_x"], g["com_to_backbone_y"]))
+    return max(back, abs(g["com_to_backbone_dna1"]), abs(g["com_to_hb"]), abs(g["com_to_stacking"]))
+
+
+def _pair_cutoffs() -> dict[str, float]:
+    """Site-level cutoff of each unbonded term (float64 derivation)."""
+    p = {
+        cls.__name__: cfg.init_params()
+        for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype=torch.float64, device="cpu"),
+                            strict=True)
+    }
+    px = p["UnbondedExcludedVolume"]
+    return {
+        "UnbondedExcludedVolume": float(max(px.dr_c_base, px.dr_c_back_base, px.dr_c_base_back, px.dr_c_backbone)),
+        "HydrogenBonding": float(p["HydrogenBonding"].dr_c_high_hb),
+        "CrossStacking": float(p["CrossStacking"].dr_c_high_cross),
+        "CoaxialStacking": float(p["CoaxialStacking"].dr_c_high_coax),
+        "Debye": float(p["Debye"].r_cut),
+    }
+
+
+def default_neighbor_cutoff() -> float:
+    """COM-distance cutoff covering every unbonded term of the default model
+    (mythos_tpu.energy.dna2.default_neighbor_cutoff)."""
+    return max(_pair_cutoffs().values()) + 2.0 * max_site_offset()
+
+
+def short_range_neighbor_cutoff() -> float:
+    """COM-distance cutoff over every unbonded term except Debye-Hueckel:
+    the tight table of a two-level block neighbor list."""
+    cut = _pair_cutoffs()
+    del cut["Debye"]
+    return max(cut.values()) + 2.0 * max_site_offset()
 
 
 def per_term_site_cutoffs() -> dict:
@@ -150,9 +191,11 @@ def per_term_site_cutoffs() -> dict:
 __all__ = [
     "create_default_energy_fn",
     "default_configs",
+    "default_neighbor_cutoff",
     "default_energy_configs",
     "default_energy_fns",
     "default_transform_soa_fn",
     "geometry",
     "per_term_site_cutoffs",
+    "short_range_neighbor_cutoff",
 ]

@@ -23,15 +23,14 @@ class Stacking(BaseEnergyFunction):
     """dna1 stacking evaluated against the dna1-compatible backbone site."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        bn = self.bonded_neighbors
-        i, j = bn[:, 0], bn[:, 1]
+        i, j = self.bond_index(nuc.back.x.device)
         g = geom.bonded_geometry_vec(
             geom.gather(nuc.back_dna1, i), geom.gather(nuc.back_dna1, j),
             geom.gather(nuc.stack, i), geom.gather(nuc.stack, j),
             geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
             geom.gather(nuc.a2, i), geom.gather(nuc.a2, j),
         )
-        seq = torch.as_tensor(self.seq, device=g.r_stack.device, dtype=torch.long)
+        seq = self.seq_index(g.r_stack.device)
         w = self.params.eps_stack[seq[i], seq[j]]
         return (w * t1.stack_product(self.params, g)).sum()
 

@@ -1,17 +1,24 @@
-"""User entry point: build the simulator of the ported main path.
+"""User entry point: build the simulator of a ported tier.
 
-Counterpart of ``__graft_entry__._build_sim`` for ``mode="stencil"``,
-``model="dna2"`` -- the configuration ``bench.py`` runs by default: an
-oxDNA2 energy on the banded stencil over the strand-interleave slot order,
-a site-mode band sized from the initial conformation, and rigid-body BAOAB
-with dt 5e-3, mass 1, inertia 1 and friction gamma = (kT/2.5, kT/7.5).
-Other modes and models are not ported yet and raise.
+Counterpart of ``__graft_entry__._build_sim`` for ``model="dna2"``, rigid-
+body BAOAB with dt 5e-3, mass 1, inertia 1 and friction gamma = (kT/2.5,
+kT/7.5):
+
+* ``mode="stencil"`` -- the configuration ``bench.py`` runs by default: the
+  banded stencil over the strand-interleave slot order, a site-mode band
+  sized from the initial conformation (kernels K1, K2);
+* ``mode="block"`` -- the block tier for general conformations: a
+  symmetric two-level (tight, wide) block-neighbor table over the same
+  slot order, rebuilt every ``neighbor_update_every`` steps (kernel K3).
+
+Other modes and models are not ported yet and raise. Everything runs on
+the card unless ``device="cpu"`` asks for the plain versions.
 
 Example (one H100)::
 
-    topology, body = synthetic_duplex(5000, dtype=torch.float32, device="cuda")
+    topology, body = synthetic_duplex(5000, dtype=torch.float32)
     energy_fn, sim = build_sim(topology, kT, init_centers=body.center,
-                               init_orientation=body.orientation, device="cuda")
+                               init_orientation=body.orientation)
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = sim.run(energy_fn.opt_params(), body, 2000, gen)
 """
@@ -21,8 +28,13 @@ from __future__ import annotations
 import torch
 
 import mythos_tpu_torch.energy.dna2 as dna2
-from mythos_tpu_torch.simulators.cuda import CudaSimulator
-from mythos_tpu_torch.simulators.neighbors import stencil_band_for_site_cutoffs, strand_interleave_perm
+from mythos_tpu_torch.simulators.cuda import BlockSimulator, CudaSimulator
+from mythos_tpu_torch.simulators.neighbors import (
+    block_neighbor_list_for_topology,
+    stencil_band_for_site_cutoffs,
+    strand_interleave_perm,
+)
+from mythos_tpu_torch.utils import devices
 
 
 def build_sim(
@@ -34,17 +46,37 @@ def build_sim(
     init_centers=None,
     init_orientation=None,
     site_margin: int = 1,
-    device: torch.device | str = "cpu",
+    block_size: int = 8,
+    device: torch.device | str = "cuda",
 ):
-    """(energy_fn, CudaSimulator) of the stencil tier in float32 (the
-    kernels' type); the reference's ``_build_sim`` arguments, less
-    ``dr_threshold`` (the site-mode band never reads it) and
-    ``block_size``/``checkpoint_every`` (other tiers), plus ``device``."""
-    if mode != "stencil" or model != "dna2":
-        raise NotImplementedError(f"mode={mode!r}, model={model!r} is not ported yet (stencil/dna2 only)")
+    """(energy_fn, simulator) of one tier in float32 (the kernels' type);
+    the reference's ``_build_sim`` arguments less ``checkpoint_every`` and
+    ``dr_threshold`` (the block tables' skin is the reference's default
+    0.5; the site-mode stencil band reads none), plus ``device``.
+    ``block_size`` sizes the block tier's tables."""
+    if mode not in ("stencil", "block") or model != "dna2":
+        raise NotImplementedError(f"mode={mode!r}, model={model!r} is not ported yet (stencil or block, dna2)")
+    device = devices.resolve(device)
+    energy_fn = dna2.create_default_energy_fn(topology, dtype=torch.float32, device=device)
+    dynamics = dict(
+        dt=5e-3, kT=float(kT), mass=1.0, inertia=(1.0, 1.0, 1.0), gamma_t=float(kT) / 2.5, gamma_r=float(kT) / 7.5,
+        save_every=neighbor_update_every, neighbor_update_every=neighbor_update_every,
+    )
+    if mode == "block":
+        if init_centers is None:
+            raise ValueError("the block tables are sized from init_centers")
+        neighbors = block_neighbor_list_for_topology(
+            topology,
+            dna2.default_neighbor_cutoff(),
+            block_size=block_size,
+            init_centers=torch.as_tensor(init_centers, device=device),
+            symmetric=True,
+            r_cutoff_inner=dna2.short_range_neighbor_cutoff(),
+            perm=strand_interleave_perm(topology),
+        )
+        return energy_fn, BlockSimulator(energy_fn=energy_fn, neighbors=neighbors, **dynamics)
     if init_centers is None or init_orientation is None:
         raise ValueError("the site-mode stencil band is sized from init_centers and init_orientation")
-    energy_fn = dna2.create_default_energy_fn(topology, dtype=torch.float32, device=device)
     band = stencil_band_for_site_cutoffs(
         topology,
         dna2.per_term_site_cutoffs(),
@@ -53,16 +85,4 @@ def build_sim(
         perm=strand_interleave_perm(topology),
         site_margin=site_margin,
     )
-    sim = CudaSimulator(
-        energy_fn=energy_fn,
-        band=band,
-        dt=5e-3,
-        kT=float(kT),
-        mass=1.0,
-        inertia=(1.0, 1.0, 1.0),
-        gamma_t=float(kT) / 2.5,
-        gamma_r=float(kT) / 7.5,
-        save_every=neighbor_update_every,
-        neighbor_update_every=neighbor_update_every,
-    )
-    return energy_fn, sim
+    return energy_fn, CudaSimulator(energy_fn=energy_fn, band=band, **dynamics)

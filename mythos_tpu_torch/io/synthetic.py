@@ -1,7 +1,8 @@
 """Synthetic system generators (no input files needed).
 
 Counterpart of mythos_tpu/io/synthetic.py: the same ideal B-/A-form duplex,
-built in numpy (float64) and returned as a torch ``RigidBody``.
+optionally bent along a circular arc, built in numpy (float64) and returned
+as a torch ``RigidBody``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 import mythos_tpu_torch.utils.constants as const
 from mythos_tpu_torch.io.topology import Topology, bonded_neighbors_for
 from mythos_tpu_torch.rigid_body import RigidBody
+from mythos_tpu_torch.utils import devices
 
 
 def _frame_to_quat(a1: np.ndarray, a3: np.ndarray) -> np.ndarray:
@@ -41,14 +43,19 @@ def _frame_to_quat(a1: np.ndarray, a3: np.ndarray) -> np.ndarray:
 def synthetic_duplex(
     n_bp: int = 8,
     form: str = "B",
+    bend: float | None = None,
     dtype: torch.dtype = torch.float64,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[Topology, RigidBody]:
     """Ideal duplex of ``n_bp`` base pairs: (Topology, RigidBody).
 
     Strand 2 runs antiparallel; ``form`` "B" is B-DNA-like (rise 0.39,
-    twist 34.3 deg, radius 0.6), "A" the A-RNA-like helix.
+    twist 34.3 deg, radius 0.6), "A" the A-RNA-like helix. ``bend``: total
+    bend angle (radians) of the helix axis along a circular arc in the x-z
+    plane; the local structure stays ideal while index-distant segments
+    approach in space (the block tier's general conformation).
     """
+    device = devices.resolve(device)
     n = 2 * n_bp
     seq = "ACGT" * (n_bp // 4 + 1)
     s1 = seq[:n_bp]
@@ -77,8 +84,23 @@ def synthetic_duplex(
             a3 = np.array([0.0, 0.0, 1.0]) * (1 if strand == 0 else -1)
             centers.append(np.array([-radius * a1[0], -radius * a1[1], i * rise]))
             quats.append(_frame_to_quat(a1, a3))
+    centers, quats = np.array(centers), np.array(quats)
+    if bend:
+        # z -> theta = z * bend / L; positions rotate about y by theta
+        # (R_y(-theta): x -> (c, 0, s), z -> (-s, 0, c)) and every quaternion
+        # is pre-multiplied by the same world rotation (cos(theta/2), 0, -sin(theta/2), 0)
+        z = centers[:, 2]
+        length = float(z.max() - z.min()) or 1.0
+        theta = (z - z.min()) * (float(bend) / length)
+        r_c = length / float(bend)
+        ct, st = np.cos(theta), np.sin(theta)
+        x = centers[:, 0]
+        centers = np.stack([(r_c + x) * ct - r_c, centers[:, 1], (r_c + x) * st], axis=1)
+        c, s = np.cos(theta / 2), np.sin(theta / 2)
+        w, qx, qy, qz = quats[:, 0], quats[:, 1], quats[:, 2], quats[:, 3]
+        quats = np.stack([c * w + s * qy, c * qx - s * qz, c * qy - s * w, c * qz + s * qx], axis=1)
     body = RigidBody(
-        center=torch.as_tensor(np.array(centers), dtype=dtype, device=device),
-        orientation=torch.as_tensor(np.array(quats), dtype=dtype, device=device),
+        center=torch.as_tensor(centers, dtype=dtype, device=device),
+        orientation=torch.as_tensor(quats, dtype=dtype, device=device),
     )
     return topology, body

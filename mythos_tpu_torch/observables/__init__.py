@@ -1,0 +1,5 @@
+"""Observables of trajectories (port of mythos_tpu.observables)."""
+
+from mythos_tpu_torch.observables.propeller import PropellerTwist
+
+__all__ = ["PropellerTwist"]

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded through :mod:`ctypes`.
-The build runs at first use -- never at import -- into
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one
+process per source, all started together, then linked into one shared
+library with a plain C interface, loaded through :mod:`ctypes`. The build
+runs at first use -- never at import -- into
 ``ops/_build/<hash of the sources and flags>/``, so a checkout builds
 everything it needs from its own sources, and an edit rebuilds.
 """
@@ -21,10 +22,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-LIB_NAME = "libmythos_stencil.so"
+LIB_NAME = "libmythos_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,11 @@ SIGNATURES = {
         _P, _P, _P, _I, _I,  # wstack, dirf, checks, n_checks, check_dm
         _P, _P, _I, _P, _P,  # ou, noise, n_inner, state, stream
     ),
+    # params, rows, ids, n, n_blocks, block_size, cap, kind, then n_pad, out, stream
+    "tile_forces": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "tile_row_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # ... then partials, out, stream
+    "tile_energies": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -70,14 +75,31 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, _sources())]
+    nvcc = find_nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n{err[-4000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(f"$ {' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"link (rc {res.returncode}):\n{res.stderr[-4000:]}")
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(f"$ {' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n{res.stderr[-4000:]}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib, seconds
 

@@ -1,10 +1,13 @@
-// Per-slot oxDNA2 stencil physics shared by the K1 and K2 kernels.
+// oxDNA2 pair physics shared by the stencil kernels K1/K2 and the tile
+// kernels K3/K4/K5.
 //
-// Every function here is written for ONE slot t and reads the positions of
-// its band neighbours from global memory, so a kernel is one thread per
-// slot. Functions are __host__ __device__ so that the same arithmetic can be
-// compiled for the CPU as well; the kernels live in stencil_grads.cu (K2)
-// and multistep.cu (K1).
+// The slot_* functions are written for ONE slot t and read the positions of
+// its band neighbours from global memory, so a stencil kernel is one thread
+// per slot; the pair functions (unbonded_pair, unbonded_pair_energy,
+// hb_prod) take two bodies, which the tile kernels read from their row
+// arrays. Functions are __host__ __device__ so that the same arithmetic can
+// be compiled for the CPU as well; the kernels live in stencil_grads.cu
+// (K2), multistep.cu (K1) and tiles.cu (K3-K5).
 //
 // Derivatives are written by hand (the Pallas kernels differentiate their
 // scalar chains with jax.vjp in-kernel): every smoothed base function
@@ -427,6 +430,64 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
     g.stack_i -= gv;
   }
   add_side(P, g, side_j, acc);
+}
+
+// Weight-free hydrogen-bonding product f1(r) * prod f4 of pair (i, j) (the
+// tile kernels' triangular hb-weight gradient, ops/oxdna_tiles.py:705-714)
+HD float hb_prod(const float* P, const Body& bi, const Body& bj) {
+  float hbo = P[P_GEOM + 2];
+  V3 v = (bj.com + hbo * bj.a1) - (bi.com + hbo * bi.a1);
+  float r = norm(v);
+  V3 u = v * (1.f / r);
+  float c[6] = {-dot(bi.a1, bj.a1), -dot(bj.a1, u), dot(bi.a1, u), dot(bi.a3, bj.a3), -dot(bj.a3, u), dot(bi.a3, u)};
+  float h = f1(r < 1e-8f ? 1e-8f : r, P + P_HB, 1.f).v;
+  for (int k = 0; k < 6; ++k) {
+    float th = acos_poly(c[k]).v;
+    h *= f4(k == 5 ? PI_F - th : th, P + P_HB + 9 + 5 * k).v;
+  }
+  return h;
+}
+
+// Unweighted energies of unbonded pair (i, j): e[0..4] = excluded volume,
+// hydrogen bonding (times w_hb), cross stacking, coax (the short-range
+// terms, when `short_terms`) and Debye-Hueckel (times qq, when
+// `debye_term`). The values of the functions unbonded_pair differentiates.
+HD void unbonded_pair_energy(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, bool short_terms,
+                             bool debye_term, float* e) {
+  float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
+  V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
+  V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
+  float r_bb = norm(back_j - back_i);
+  for (int k = 0; k < 5; ++k) e[k] = 0.f;
+  if (short_terms) {
+    const float* E = P + P_EXC;
+    float eps = E[0];
+    e[0] = exc_f3(norm(base_j - base_i), eps, E + 1).v + exc_f3(norm(base_j - back_i), eps, E + 5).v +
+           exc_f3(norm(back_j - base_i), eps, E + 9).v + exc_f3(r_bb, eps, E + 13).v;
+    V3 v = base_j - base_i;
+    float r = norm(v);
+    V3 u = v * (1.f / r);
+    float c[6] = {-dot(bi.a1, bj.a1), -dot(bj.a1, u), dot(bi.a1, u), dot(bi.a3, bj.a3), -dot(bj.a3, u), dot(bi.a3, u)};
+    float rr = r < 1e-8f ? 1e-8f : r;
+    float hb = f1(rr, P + P_HB, 1.f).v, cr = f2(rr, P + P_CROSS).v;
+    for (int k = 0; k < 6; ++k) {
+      float th = acos_poly(c[k]).v;
+      if (k == 5) th = PI_F - th;
+      hb *= f4(th, P + P_HB + 9 + 5 * k).v;
+      cr *= k < 3 ? f4(th, P + P_CROSS + 9 + 5 * k).v : f4_sym(th, P + P_CROSS + 9 + 5 * k).v;
+    }
+    e[1] = hb * w_hb;
+    e[2] = cr;
+    V3 vs = (bj.com + sto * bj.a1) - (bi.com + sto * bi.a1);
+    float rs = norm(vs);
+    V3 us = vs * (1.f / rs);
+    float t1 = acos_poly(-dot(bi.a1, bj.a1)).v, t4 = acos_poly(dot(bi.a3, bj.a3)).v;
+    float t5 = acos_poly(dot(bi.a3, us)).v, t6 = acos_poly(-dot(bj.a3, us)).v;
+    const float* C = P + P_COAX;
+    e[3] = f2(rs < 1e-8f ? 1e-8f : rs, C).v * f4(t4, C + 9).v * (f4(t1, C + 14).v + f6(t1, C[29], C[30]).v) *
+           f4_sym(t5, C + 19).v * f4_sym(t6, C + 24).v;
+  }
+  if (debye_term) e[4] = debye(r_bb, P + P_DEBYE).v * qq;
 }
 
 // Bonded pair (i, j = i + 2) with direction flag dirf (+1: i is the

@@ -1,0 +1,542 @@
+"""Block-tile oxDNA2 unbonded physics: host prep, plain versions, kernels.
+
+Counterpart of the host side of mythos_tpu/ops/oxdna_tiles.py. Particles
+(in ``perm`` order) form index blocks of B; a symmetric block-neighbor
+table (simulators.neighbors.BlockNeighborList) lists each row block's
+column blocks. Per-particle data is one (n_pad, F) row array: the body
+fields (com, a1, a2, a3 -- a2 as its own fields, as the reference keeps
+it, so that quaternion cotangents off the unit sphere agree) followed by
+a static tail (hb weight factors, Debye charge factor, bonded partners,
+the global id). The "debye" kind carries only the backbone site.
+
+Three kernels, hand-written in CUDA (``ops/csrc/tiles.cu``), carry the
+tables, beside their plain PyTorch versions (autograd over a gathered
+(nb, B, cap*B) tile evaluation; a wrapper runs the plain version for CPU
+tensors only, and on a CUDA tensor launches its kernel or raises):
+
+* K3 :func:`tile_forces` -- row forces under the full mask (replaces
+  ``_bwd_rows_impl(forces_only=True)``): the block tier's force.
+* K4 :func:`tile_energies` -- per-term sums under the triangular mask
+  (replaces ``_fwd_impl``): the DiffTRe re-evaluation.
+* K5 :func:`tile_row_grads` -- the row gradients of K4's sums for a
+  cotangent (replaces ``_bwd_rows_impl``): K4's backward.
+
+:class:`UnbondedTileEnergies` ties K4 to K5, and its parameter gradient
+to :func:`params_grad` (the port of ``_params_grad_xla``: autograd over
+the batched tile evaluation, as the reference leaves it to XLA). The
+tiles read the packed parameter vector of ops/stencil.py (``P_*`` offsets
+of ``stencil_physics.cuh``), the one vector K1/K2 read.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses as dc
+
+import numpy as np
+import torch
+
+import mythos_tpu_torch.energy.dna1.terms as t1
+import mythos_tpu_torch.energy.dna2.terms as t2
+from mythos_tpu_torch.energy import blocks
+from mythos_tpu_torch.energy.dna1 import geometry as geom
+from mythos_tpu_torch.energy.dna2.nucleotide import NucleotideSoA
+from mythos_tpu_torch.ops import stencil
+from mythos_tpu_torch.soa import BodySoA, Quat, Vec3, quat_frame_soa, vnorm
+from mythos_tpu_torch.utils.math import arccos_poly
+
+#: row layout of the "full"/"short" kinds (mythos_tpu/ops/oxdna_tiles.py:57-73)
+_COM, _A1, _A2, _A3 = 0, 3, 6, 9
+_HW = 12  # left hb-weight factor one_hot(seq) @ W (4)
+_OH = 16  # right hb-weight factor one_hot(seq) (4)
+_CORR = 20  # probabilistic-sequence correction (always 0 here)
+_QF = 21  # Debye end-charge factor
+_PARTNER = 22  # probabilistic-sequence partner (always -1 here)
+_PREV, _NXT, _GID = 23, 24, 25
+N_FIELDS = 26
+#: row layout of the "debye" kind: backbone site, charge factor, partners, id
+_DB_QF, _DB_PREV, _DB_NXT, _DB_GID = 3, 4, 5, 6
+N_FIELDS_DEBYE = 8
+_BIG = 1e9  # the global id of a padded row
+
+#: terms of each kind, in the order of the sums (and of the kernels' P_GT slots)
+KIND_TERMS = {
+    "full": ("UnbondedExcludedVolume", "HydrogenBonding", "CrossStacking", "CoaxialStacking", "Debye"),
+    "short": ("UnbondedExcludedVolume", "HydrogenBonding", "CrossStacking", "CoaxialStacking"),
+    "debye": ("Debye",),
+}
+_KIND_CODE = {"full": 0, "short": 1, "debye": 2}
+#: offset of each term's weight in the P_GT group
+_GT_SLOT = {nm: k for k, nm in enumerate(KIND_TERMS["full"])}
+
+ERR_PSEQ = "the tile path does not support probabilistic sequences"
+ERR_TERMS = "the tile kernels implement the oxDNA2 term set {}; got {}"
+
+
+@dc.dataclass(frozen=True)
+class TileSpec:
+    """Static shape of one table's tiles (the reference's TileSpec without
+    the TPU knobs: no row-block packing, grid steps, residency or lane
+    padding; an empty slot is skipped, so no pad block is needed; a banded
+    window's slots are block ids like any other, so no banded flag)."""
+
+    block_size: int
+    cap: int  # column-block slots per row block
+    n: int  # real particles
+    n_blocks: int
+    kind: str  # "full" | "short" | "debye"
+    geometry: tuple  # (back a1, back a2, base a1, stack a1) site offsets
+
+    @property
+    def n_pad(self) -> int:
+        return self.n_blocks * self.block_size
+
+    @property
+    def terms(self) -> tuple:
+        return KIND_TERMS[self.kind]
+
+    @property
+    def n_fields(self) -> int:
+        return N_FIELDS_DEBYE if self.kind == "debye" else N_FIELDS
+
+    @property
+    def n_force_fields(self) -> int:
+        return 3 if self.kind == "debye" else 12
+
+    @property
+    def n_grad_fields(self) -> int:
+        return 4 if self.kind == "debye" else 16
+
+    @property
+    def id_offsets(self) -> tuple[int, int, int]:
+        """(gid, prev, nxt) field offsets for the mask."""
+        return (_DB_GID, _DB_PREV, _DB_NXT) if self.kind == "debye" else (_GID, _PREV, _NXT)
+
+
+@dc.dataclass(frozen=True)
+class TileContext:
+    """Loop-invariant inputs of one table's tiles, prepared once per run."""
+
+    spec: TileSpec
+    params: torch.Tensor  # (P,) packed parameters (ops/stencil.py layout)
+    static_tail: torch.Tensor  # (n_pad, F - n_body) body-independent fields
+    unbonded: tuple  # ((composed index, term name), ...) in sum order
+    perm: torch.Tensor | None  # perm[slot] = original index
+
+
+def _geometry_of(composed) -> tuple:
+    g = composed.energy_fns[0].transform_fn.keywords
+    return (float(g["com_to_backbone_x"]), float(g["com_to_backbone_y"]), float(g["com_to_hb"]),
+            float(g["com_to_stacking"]))
+
+
+def pair_static_fields(composed, seq: torch.Tensor, perm: torch.Tensor | None):
+    """Static per-slot pair fields in slot order: (hw (n, 4), oh (n, 4),
+    qf (n,)). hw/oh are the left/right factors of the hb weight, hw =
+    one_hot(seq) @ eps_hb_weights (autograd reaches the weights through
+    it); qf the Debye end-charge factor. (The reference's probabilistic-
+    sequence fields corr/partner are constants here: pseq is refused.)"""
+    by_name = {type(fn).__name__: fn for fn in composed.energy_fns}
+    w = by_name["HydrogenBonding"].params.eps_hb_weights
+    oh = torch.nn.functional.one_hot(seq.long(), 4).to(w.dtype)
+    qf = by_name["Debye"].charge_factors(w)
+    return oh @ w, oh, qf if perm is None else qf[perm]
+
+
+def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind: str = "full", perm=None) -> TileContext:
+    """The TileContext of one (n_blocks, cap) table of a composed oxDNA2
+    energy (parameters bound); ``perm`` as the table was built with."""
+    names = tuple(type(fn).__name__ for fn in composed.energy_fns)
+    need = stencil.UNBONDED_ORDER + stencil.BONDED_ORDER
+    if sorted(names) != sorted(need):
+        raise ValueError(ERR_TERMS.format(need, names))
+    first = composed.energy_fns[0]
+    if np.asarray(first.topology.seq).ndim != 1:
+        raise ValueError(ERR_PSEQ)
+    fene = composed.energy_fns[names.index("Fene")]
+    dtype = fene.params.eps_backbone.dtype
+    params = stencil.pack_params(composed, dtype=dtype)
+    device = params.device
+    n = first.topology.n_nucleotides
+    nb, cap = sym_ids.shape
+    if nb != -(-n // block_size):
+        raise ValueError(f"table has {nb} row blocks; {n} particles in blocks of {block_size} need {-(-n // block_size)}")
+    spec = TileSpec(block_size=block_size, cap=cap, n=n, n_blocks=nb, kind=kind, geometry=_geometry_of(composed))
+    n_pad = spec.n_pad
+    perm_t = None if perm is None else torch.as_tensor(np.asarray(perm), device=device)
+    seq = torch.as_tensor(np.asarray(first.topology.seq), device=device)
+    bonded = np.asarray(first.topology.bonded_neighbors)
+    if perm is not None:
+        seq = seq[perm_t]
+        bonded = np.argsort(np.asarray(perm))[bonded]  # bonds in slot indices
+    prev, nxt = blocks.bonded_partner_table(n_pad, bonded)
+    idx = np.arange(n_pad)
+    ids = [torch.as_tensor(a, dtype=dtype, device=device) for a in (prev, nxt, np.where(idx < n, idx, _BIG))]
+
+    def pad(c, value=0.0):
+        return torch.nn.functional.pad(c.to(dtype), (0, n_pad - n), value=value)
+
+    hw, oh, qf = pair_static_fields(composed, seq, perm_t)
+    zeros = torch.zeros(n_pad, dtype=dtype, device=device)
+    if kind == "debye":
+        tail = [pad(qf), *ids, zeros]
+    else:
+        tail = [pad(hw[:, k]) for k in range(4)] + [pad(oh[:, k]) for k in range(4)]
+        tail += [zeros, pad(qf), torch.full_like(zeros, -1.0), *ids]
+    by_name = {nm: i for i, nm in enumerate(names)}
+    return TileContext(
+        spec=spec,
+        params=params,
+        static_tail=torch.stack(tail, dim=-1),
+        unbonded=tuple((by_name[nm], nm) for nm in spec.terms),
+        perm=perm_t,
+    )
+
+
+def prepare_contexts(composed, sym_ids, block_size: int, perm=None) -> tuple:
+    """TileContexts of one table ("full") or a (tight, wide) pair ("short" +
+    "debye"). Call once per run, outside any loop over steps or states."""
+    if isinstance(sym_ids, (tuple, list)):
+        return (
+            prepare_tile_context(composed, sym_ids[0], block_size, "short", perm),
+            prepare_tile_context(composed, sym_ids[1], block_size, "debye", perm),
+        )
+    return (prepare_tile_context(composed, sym_ids, block_size, "full", perm),)
+
+
+def _as_tables(sym_ids) -> tuple:
+    return tuple(sym_ids) if isinstance(sym_ids, (tuple, list)) else (sym_ids,)
+
+
+def pad_ids(spec: TileSpec, sym_ids: torch.Tensor) -> torch.Tensor:
+    """A table of fewer slots widened to the spec's ``cap`` with empty slots."""
+    cap = sym_ids.shape[1]
+    if cap == spec.cap:
+        return sym_ids
+    return torch.nn.functional.pad(sym_ids, (0, spec.cap - cap), value=spec.n_blocks)
+
+
+def dynamic_rows(ctx: TileContext, body: BodySoA) -> torch.Tensor:
+    """The (n_pad, F) rows of a body (original order): body fields in slot
+    order, then the static tail. Differentiable in the body."""
+    spec = ctx.spec
+    com, quat = body.center, body.orientation
+    if ctx.perm is not None:
+        com = Vec3(*(torch.index_select(c, 0, ctx.perm) for c in com))
+        quat = Quat(*(torch.index_select(c, 0, ctx.perm) for c in quat))
+    a1, a2, a3 = quat_frame_soa(quat)
+    if spec.kind == "debye":
+        bx, by = spec.geometry[0], spec.geometry[1]
+        dyn = list(com + bx * a1 + by * a2)
+    else:
+        dyn = [*com, *a1, *a2, *a3]
+    pad = spec.n_pad - spec.n
+    dyn = torch.stack([torch.nn.functional.pad(c, (0, pad)) for c in dyn], dim=-1)
+    return torch.cat([dyn.to(ctx.static_tail.dtype), ctx.static_tail], dim=1)
+
+
+# Tile evaluation in torch (plain versions and the parameter gradient) ------
+
+
+def _gather_cols(rows: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """(nb, cap*B, F) column panels; an empty slot's gid becomes _BIG so the
+    mask drops it."""
+    nb, cap = ids.shape
+    b_sz, f = spec.block_size, spec.n_fields
+    valid = ids < spec.n_blocks
+    safe = torch.where(valid, ids, 0).long()
+    cols = rows.reshape(spec.n_blocks, b_sz, f)[safe]  # (nb, cap, B, F)
+    g = spec.id_offsets[0]
+    gid = torch.where(valid[:, :, None], cols[..., g], _BIG)
+    cols = torch.cat([cols[..., :g], gid[..., None], cols[..., g + 1 :]], dim=-1)
+    return cols.reshape(nb, cap * b_sz, f)
+
+
+def _vec(x: torch.Tensor, off: int) -> Vec3:
+    return Vec3(x[..., off], x[..., off + 1], x[..., off + 2])
+
+
+def _tile_mask(ri: torch.Tensor, cj: torch.Tensor, spec: TileSpec, triangular: bool) -> torch.Tensor:
+    """(nb, B, M) validity: no self pair, no bonded partner, real rows and
+    columns; ``triangular`` keeps j > i (each unordered pair once)."""
+    g, p, x = spec.id_offsets
+    ig, jg = ri[..., g], cj[..., g]
+    keep = (jg > ig) if triangular else (jg != ig)
+    return keep & (ig < spec.n) & (jg < spec.n) & (jg != ri[..., p]) & (jg != ri[..., x])
+
+
+def _tile_terms(ri: torch.Tensor, cj: torch.Tensor, params: torch.Tensor, spec: TileSpec):
+    """Unweighted (nb, B, M) energies of every term of the kind, in sum
+    order, plus the weight-free hb product (None for the debye kind).
+    ``ri``: (nb, B, 1, F) rows, ``cj``: (nb, 1, M, F) columns."""
+    P = stencil.unpack_params(params)
+    bx, by, hbo, sto = spec.geometry
+    if spec.kind == "debye":
+        r = vnorm(_vec(cj, 0) - _vec(ri, 0))
+        return [t2.debye_of(P["DEBYE"], r) * ri[..., _DB_QF] * cj[..., _DB_QF]], None
+    com_i, a1_i, a2_i, a3_i = (_vec(ri, o) for o in (_COM, _A1, _A2, _A3))
+    com_j, a1_j, a2_j, a3_j = (_vec(cj, o) for o in (_COM, _A1, _A2, _A3))
+    back_i, back_j = com_i + bx * a1_i + by * a2_i, com_j + bx * a1_j + by * a2_j
+    base_i, base_j = com_i + hbo * a1_i, com_j + hbo * a1_j
+    r_bb = vnorm(back_j - back_i)
+    exc = t1.unbonded_exc(P["EXC"], vnorm(base_j - base_i), vnorm(base_j - back_i), vnorm(back_j - base_i), r_bb)
+    g = geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, a3_i, a3_j, arccos_poly)
+    hb_prod = t1.hb_product(P["HB"], g)
+    weight = sum(ri[..., _HW + k] * cj[..., _OH + k] for k in range(4))
+    gc = geom.coax_geometry_vec(com_i + sto * a1_i, com_j + sto * a1_j, a1_i, a1_j, a3_i, a3_j, arccos_poly)
+    out = [exc, hb_prod * weight, t1.cross_product(P["CROSS"], g), t2.coax_value(P["COAX"], gc)]
+    if spec.kind == "full":
+        out.append(t2.debye_of(P["DEBYE"], r_bb) * ri[..., _QF] * cj[..., _QF])
+    return out, hb_prod
+
+
+def _split(rows: torch.Tensor, cols: torch.Tensor, spec: TileSpec):
+    return rows.reshape(spec.n_blocks, spec.block_size, 1, spec.n_fields), cols[:, None]
+
+
+def _masked_sums(rows, cols, params, spec: TileSpec, triangular: bool) -> list:
+    ri, cj = _split(rows, cols, spec)
+    mask = _tile_mask(ri, cj, spec, triangular)
+    terms, _ = _tile_terms(ri, cj, params, spec)
+    return [torch.where(mask, e, torch.zeros_like(e)).sum() for e in terms]
+
+
+def term_weights(params: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """The kind's term weights, read from the parameter vector's P_GT group."""
+    gt0 = stencil.param_offsets()["GT"]
+    return params[[gt0 + _GT_SLOT[nm] for nm in spec.terms]]
+
+
+def _body_row_grads(rows, params, ids, gt, spec: TileSpec, width: int) -> torch.Tensor:
+    """d/d(rows[:, :width]) of sum_t gt_t x (symmetric-mask sum of term t),
+    row side only (columns and the other fields held constant)."""
+    rows = rows.detach()
+    with torch.enable_grad():
+        head = rows[:, :width].clone().requires_grad_(True)
+        r = torch.cat([head, rows[:, width:]], dim=1)
+        sums = _masked_sums(r, _gather_cols(rows, ids, spec), params.detach(), spec, triangular=False)
+        total = sum(w * s for w, s in zip(gt.detach(), sums, strict=True))
+        (g,) = torch.autograd.grad(total, head, allow_unused=True)
+    return torch.zeros_like(head) if g is None else g
+
+
+def tile_energies_plain(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """Plain version of K4: (T,) unweighted per-term sums, triangular mask."""
+    with torch.no_grad():
+        return torch.stack(_masked_sums(rows, _gather_cols(rows, ids, spec), params, spec, triangular=True))
+
+
+def tile_forces_plain(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """Plain version of K3: (n_pad, 12) dE/d(com, a1, a2, a3) -- or (n_pad,
+    3) dE/d(back) for the debye kind -- of the term-weighted energy, by
+    autograd of the full-mask sum on the row side."""
+    return _body_row_grads(rows, params, ids, term_weights(params, spec), spec, spec.n_force_fields)
+
+
+def tile_row_grads_plain(
+    rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, gt: torch.Tensor, spec: TileSpec
+) -> torch.Tensor:
+    """Plain version of K5: d(gt . K4's sums)/d(rows), (n_pad, 16) -- the
+    12 body fields under the full mask, the hb weight factor hw under the
+    triangular mask (it enters the forward on the row side only) -- or
+    (n_pad, 4) back site + charge factor for the debye kind."""
+    if spec.kind == "debye":
+        return _body_row_grads(rows, params, ids, gt, spec, 4)
+    body = _body_row_grads(rows, params, ids, gt, spec, 12)
+    rows = rows.detach()
+    with torch.enable_grad():
+        hw = rows[:, _HW : _HW + 4].clone().requires_grad_(True)
+        r = torch.cat([rows[:, :_HW], hw, rows[:, _HW + 4 :]], dim=1)
+        ri, cj = _split(r, _gather_cols(rows, ids, spec), spec)
+        mask = _tile_mask(ri, cj, spec, triangular=True)
+        terms, _ = _tile_terms(ri, cj, params.detach(), spec)
+        hb = terms[spec.terms.index("HydrogenBonding")]
+        (g_hw,) = torch.autograd.grad(gt[1].detach() * torch.where(mask, hb, torch.zeros_like(hb)).sum(), hw)
+    return torch.cat([body, g_hw], dim=1)
+
+
+def params_grad(
+    rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, gt: torch.Tensor, spec: TileSpec
+) -> torch.Tensor:
+    """d(gt . per-term sums)/d(params): the port of ``_params_grad_xla``,
+    autograd over the batched tile evaluation under the triangular mask
+    (each unordered pair once, so orientation-asymmetric parameter pairs
+    such as theta2/theta3 are not mixed). Runs only when the parameter
+    cotangent is asked for."""
+    rows = rows.detach()
+    with torch.enable_grad():
+        p = params.detach().clone().requires_grad_(True)
+        sums = _masked_sums(rows, _gather_cols(rows, ids, spec), p, spec, triangular=True)
+        (g,) = torch.autograd.grad(sum(w * s for w, s in zip(gt.detach(), sums, strict=True)), p)
+    return g
+
+
+# Kernel wrappers -------------------------------------------------------------
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _kernel_args(name: str, rows, params, ids, spec: TileSpec) -> tuple:
+    stencil._check_cuda(name, rows=rows, params=params, ids=ids)
+    if rows.dtype != torch.float32 or params.dtype != torch.float32 or rows.shape != (spec.n_pad, spec.n_fields):
+        raise ValueError(f"{name} takes ({spec.n_pad}, {spec.n_fields}) float32 rows, got {tuple(rows.shape)} {rows.dtype}")
+    if ids.dtype != torch.int32 or ids.shape != (spec.n_blocks, spec.cap):
+        raise ValueError(f"{name} takes a ({spec.n_blocks}, {spec.cap}) int32 table, got {tuple(ids.shape)} {ids.dtype}")
+    return (
+        _ptr(params), _ptr(rows), _ptr(ids), ctypes.c_int(spec.n), ctypes.c_int(spec.n_blocks),
+        ctypes.c_int(spec.block_size), ctypes.c_int(spec.cap), ctypes.c_int(_KIND_CODE[spec.kind]),
+    )
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def tile_forces(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """K3: (n_pad, 12) row forces dE/d(com, a1, a2, a3), or (n_pad, 3)
+    dE/d(back) for the debye kind. CPU tensors run :func:`tile_forces_plain`."""
+    if rows.device.type == "cpu":
+        return tile_forces_plain(rows, params, ids, spec)
+    from mythos_tpu_torch.ops import _build
+
+    args = _kernel_args("tile_forces", rows, params, ids, spec)
+    out = torch.empty((spec.n_pad, spec.n_force_fields), dtype=torch.float32, device=rows.device)
+    rc = _build.load_library().tile_forces(*args, ctypes.c_int(spec.n_pad), _ptr(out), _stream())
+    if rc != 0:
+        raise RuntimeError(f"tile_forces launch failed: CUDA error {rc}")
+    tile_forces.launches += 1
+    return out
+
+
+tile_forces.launches = 0
+
+
+def tile_energies(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """K4: (T,) unweighted per-term sums under the triangular mask. CPU
+    tensors run :func:`tile_energies_plain`."""
+    if rows.device.type == "cpu":
+        return tile_energies_plain(rows, params, ids, spec)
+    from mythos_tpu_torch.ops import _build
+
+    args = _kernel_args("tile_energies", rows, params, ids, spec)
+    partials = torch.empty((-(-spec.n // 64), 5), dtype=torch.float32, device=rows.device)
+    out = torch.empty(5, dtype=torch.float32, device=rows.device)
+    rc = _build.load_library().tile_energies(*args, _ptr(partials), _ptr(out), _stream())
+    if rc != 0:
+        raise RuntimeError(f"tile_energies launch failed: CUDA error {rc}")
+    tile_energies.launches += 1
+    return out[[_GT_SLOT[nm] for nm in spec.terms]]
+
+
+tile_energies.launches = 0
+
+
+def tile_row_grads(
+    rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, gt: torch.Tensor, spec: TileSpec
+) -> torch.Tensor:
+    """K5: (n_pad, 16) -- or (n_pad, 4) for the debye kind -- row
+    gradients of gt . K4's sums. CPU tensors run :func:`tile_row_grads_plain`."""
+    if rows.device.type == "cpu":
+        return tile_row_grads_plain(rows, params, ids, gt, spec)
+    from mythos_tpu_torch.ops import _build
+
+    # the kernel reads the cotangent where K3 reads the term weights
+    gt0 = stencil.param_offsets()["GT"]
+    slots = torch.tensor([gt0 + _GT_SLOT[nm] for nm in spec.terms], device=params.device)
+    p = params.detach().clone().index_copy_(0, slots, gt.detach().to(params.dtype))
+    args = _kernel_args("tile_row_grads", rows, p, ids, spec)
+    out = torch.empty((spec.n_pad, spec.n_grad_fields), dtype=torch.float32, device=rows.device)
+    rc = _build.load_library().tile_row_grads(*args, ctypes.c_int(spec.n_pad), _ptr(out), _stream())
+    if rc != 0:
+        raise RuntimeError(f"tile_row_grads launch failed: CUDA error {rc}")
+    tile_row_grads.launches += 1
+    return out
+
+
+tile_row_grads.launches = 0
+
+
+class UnbondedTileEnergies(torch.autograd.Function):
+    """Per-term unbonded sums over a symmetric table: K4 forward; backward
+    K5 when the rows need a gradient and :func:`params_grad` when the
+    parameters do (ref ``unbonded_tile_energies``, oxdna_tiles.py:1184-1212)."""
+
+    @staticmethod
+    def forward(fctx, rows, params, ids, spec):
+        fctx.save_for_backward(rows, params, ids)
+        fctx.spec = spec
+        return tile_energies(rows.detach(), params.detach(), ids, spec)
+
+    @staticmethod
+    def backward(fctx, gt):
+        rows, params, ids = fctx.saved_tensors
+        spec = fctx.spec
+        gt = gt.contiguous()
+        g_rows = g_params = None
+        if fctx.needs_input_grad[0]:
+            g = tile_row_grads(rows.detach(), params.detach(), ids, gt, spec)
+            g_rows = torch.nn.functional.pad(g, (0, spec.n_fields - g.shape[1]))
+        if fctx.needs_input_grad[1]:
+            g_params = params_grad(rows, params, ids, gt, spec)
+        return g_rows, g_params, None, None
+
+
+def unbonded_tile_energies(rows, params, ids, spec: TileSpec) -> torch.Tensor:
+    """(T,) per-term unbonded sums [exc, hb, cross, coax, (debye)] of one table."""
+    return UnbondedTileEnergies.apply(rows, params, ids, spec)
+
+
+# Composed energies and forces --------------------------------------------------
+
+
+def _nucleotides(composed, body: BodySoA) -> NucleotideSoA:
+    return NucleotideSoA.from_body_soa(body, **composed.energy_fns[0].transform_fn.keywords)
+
+
+def _bonded_energy(composed, unbonded_idx: set, body: BodySoA) -> torch.Tensor:
+    nuc = _nucleotides(composed, body)
+    weights = composed.term_weights()
+    return sum(
+        weights[i] * fn.compute_energy(nuc) for i, fn in enumerate(composed.energy_fns) if i not in unbonded_idx
+    )
+
+
+def fused_energy_ctx(composed, ctxs: tuple, body: BodySoA, sym_ids) -> torch.Tensor:
+    """Total energy of a body from prepared contexts: the unbonded terms
+    through :func:`unbonded_tile_energies` (K4, differentiable through
+    K5 and :func:`params_grad`), the bonded terms on their pair lists;
+    weighted like ``ComposedEnergyFunction.__call__``."""
+    weights = composed.term_weights()
+    total, unbonded = 0.0, set()
+    for ctx, ids in zip(ctxs, _as_tables(sym_ids), strict=True):
+        sums = unbonded_tile_energies(dynamic_rows(ctx, body), ctx.params, pad_ids(ctx.spec, ids), ctx.spec)
+        for k, (i, _) in enumerate(ctx.unbonded):
+            total = total + weights[i] * sums[k]
+            unbonded.add(i)
+    return total + _bonded_energy(composed, unbonded, body)
+
+
+def fused_grads_ctx(composed, ctxs: tuple, body: BodySoA, sym_ids) -> tuple[Vec3, Quat]:
+    """(dE/dcom, dE/dquat) of the total energy: K3 on each table, the
+    row-field packing transposed back to the body by autograd, plus the
+    bonded gradient by autograd (ref ``fused_grads_ctx``). No forward
+    energy kernel runs."""
+    leaves = [c.detach().requires_grad_(True) for c in (*body.center, *body.orientation)]
+    b = BodySoA(Vec3(*leaves[:3]), Quat(*leaves[3:]))
+    outs, cots, unbonded = [], [], set()
+    with torch.enable_grad():
+        for ctx, ids in zip(ctxs, _as_tables(sym_ids), strict=True):
+            rows = dynamic_rows(ctx, b)
+            g = tile_forces(rows.detach(), ctx.params.detach(), pad_ids(ctx.spec, ids), ctx.spec)
+            outs.append(rows)
+            cots.append(torch.nn.functional.pad(g, (0, ctx.spec.n_fields - g.shape[1])))
+            unbonded.update(i for i, _ in ctx.unbonded)
+        e = _bonded_energy(composed, unbonded, b)
+        outs.append(e)
+        cots.append(torch.ones_like(e))
+        g = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    g = [torch.zeros_like(x) if gi is None else gi for gi, x in zip(g, leaves, strict=True)]
+    return Vec3(*g[:3]), Quat(*g[3:])
+

@@ -8,11 +8,11 @@ NO_SQUISH free rotor and exact Ornstein-Uhlenbeck momenta,
     O: p <- c p + sqrt((1-c^2) m kT) xi,  c = exp(-gamma dt / m)   (same for L)
     A, then the force refresh and B.
 
-Random numbers come from an explicit ``torch.Generator``. The steps
-themselves run in whole chunks in the K1 kernel
-(ops.stencil.multistep_chunk) or its twin; this module holds the state
-container and the initial state. The reference's generic per-step form is
-not ported: the main path has no per-step fallback.
+Random numbers come from an explicit ``torch.Generator``. The stencil
+tier runs its steps in whole chunks in the K1 kernel
+(ops.stencil.multistep_chunk) and takes only the initial state from here;
+the block tier steps with :func:`nvt_langevin_soa`'s ``step_fn``, its force
+from an injected ``grad_fn`` (ops.tiles.fused_grads_ctx: K3).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from mythos_tpu_torch import soa
+from mythos_tpu_torch.ops.stencil import ou_constants
 
 
 class LangevinStateSoA(NamedTuple):
@@ -59,23 +60,28 @@ def state_from_numpy(state, device: torch.device | str = "cpu", dtype: torch.dty
     )
 
 
-def nvt_langevin_soa(grad_fn: Callable, kT: float) -> Callable:  # noqa: N803 - domain casing
-    """The state initialiser for scalar mass/inertia/friction:
-    ``init_fn(generator, body, mass, inertia)`` draws thermal momenta and
-    takes force and torque from ``grad_fn(body) -> (dE/dcom, dE/dquat)``.
-    The steps' OU constants are ops.stencil.ou_constants.
+def nvt_langevin_soa(
+    grad_fn: Callable, dt: float, kT: float, gamma_t: float = 0.0, gamma_r: float = 0.0  # noqa: N803
+) -> tuple[Callable, Callable]:
+    """Rigid-body BAOAB for scalar mass/inertia/friction: ``(init_fn, step_fn)``.
+
+    ``grad_fn(body, **kwargs) -> (dE/dcom Vec3, dE/dquat Quat)`` gives the
+    force and torque. ``init_fn(generator, body, mass, inertia, **kwargs)``
+    draws thermal momenta; ``step_fn(state, generator, **kwargs)`` is one
+    B-A-O-A-B step with the exact OU constants of ops.stencil.ou_constants
+    and six fresh standard normals per particle from ``generator``.
     """
 
-    def force_torque(body: soa.BodySoA):
-        g_com, g_quat = grad_fn(body)
+    def force_torque(body: soa.BodySoA, **kwargs):
+        g_com, g_quat = grad_fn(body, **kwargs)
         return -g_com, soa.quat_cotangent_to_torque_soa(body.orientation, g_quat)
 
-    def init_fn(generator: torch.Generator, body: soa.BodySoA, mass: float, inertia) -> LangevinStateSoA:
+    def init_fn(generator: torch.Generator, body: soa.BodySoA, mass: float, inertia, **kwargs) -> LangevinStateSoA:
         x = body.center.x
         xi = torch.randn((6, x.shape[0]), generator=generator, device=x.device, dtype=x.dtype)
         sm = float(np.sqrt(mass * kT))
         si = [float(np.sqrt(i * kT)) for i in inertia]
-        force, torque = force_torque(body)
+        force, torque = force_torque(body, **kwargs)
         return LangevinStateSoA(
             position=body,
             momentum=soa.Vec3(*(sm * xi[k] for k in range(3))),
@@ -86,4 +92,26 @@ def nvt_langevin_soa(grad_fn: Callable, kT: float) -> Callable:  # noqa: N803 - 
             inv_inertia=tuple(1.0 / float(i) for i in inertia),
         )
 
-    return init_fn
+    def step_fn(state: LangevinStateSoA, generator: torch.Generator, **kwargs) -> LangevinStateSoA:
+        ou = ou_constants(dt, kT, [1.0 / state.inv_mass], [[1.0 / i for i in state.inv_inertia]], [gamma_t], [gamma_r])
+        half, him = 0.5 * dt, 0.5 * dt * state.inv_mass
+        pos = state.position
+        # B, A
+        p = state.momentum + half * state.force
+        ell = state.angmom + half * state.torque
+        x = pos.center + him * p
+        q, ell = soa.free_rotor_soa(pos.orientation, ell, state.inv_inertia, half)
+        # O: exact Ornstein-Uhlenbeck
+        xi = torch.randn((6, x.x.shape[0]), generator=generator, device=x.x.device, dtype=x.x.dtype)
+        p = soa.Vec3(*(ou.c_t * pc + ou.s_t * xi[k] for k, pc in enumerate(p)))
+        ell = soa.Vec3(*(ou.c_r[k] * lc + ou.s_r[k] * xi[3 + k] for k, lc in enumerate(ell)))
+        # A, force refresh, B
+        x = x + him * p
+        q, ell = soa.free_rotor_soa(q, ell, state.inv_inertia, half)
+        new_pos = soa.BodySoA(x, q)
+        force, torque = force_torque(new_pos, **kwargs)
+        return state._replace(
+            position=new_pos, momentum=p + half * force, angmom=ell + half * torque, force=force, torque=torque
+        )
+
+    return init_fn, step_fn

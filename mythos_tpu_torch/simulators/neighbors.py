@@ -1,11 +1,19 @@
-"""Banded-stencil layout and band validity (site mode).
+"""Neighbor structures: the banded stencil (site mode) and block tables.
 
-Counterpart of the stencil half of mythos_tpu/simulators/neighbors.py:
-``strand_interleave_perm``, ``stencil_band_for_site_cutoffs`` (host numpy
-sizing, carried over as is) and ``StencilBand``'s site-mode checks
-(``_check_site``, ``far_check``) in torch, on whichever device the
-positions live. The legacy COM-mode band and the block tables are not
-ported yet.
+Counterpart of mythos_tpu/simulators/neighbors.py:
+
+* the stencil half: ``strand_interleave_perm``,
+  ``stencil_band_for_site_cutoffs`` (host numpy sizing, carried over as is)
+  and ``StencilBand``'s site-mode checks (``_check_site``, ``far_check``);
+* the block half: ``BlockNeighborList`` (symmetric or triangular tables,
+  the two-level tight/wide mode, ``perm``, banded windows, the
+  distance-prioritised compaction and the missed-interaction detector),
+  ``_max_span``, ``_snap_capacity`` and ``block_neighbor_list_for_topology``.
+
+All of it runs in torch on whichever device the positions live. The dense
+O(n_blocks^2) AABB pass is one plain torch pass (1.6M block pairs at 10k nt
+with B = 8). Not ported: the legacy COM-mode band and the hierarchical
+(super-block) rebuild, which measured slower than the dense pass on the TPU.
 """
 
 from __future__ import annotations
@@ -283,3 +291,212 @@ def stencil_band_for_site_cutoffs(
     ct = torch.as_tensor(init_centers)
     qt = torch.as_tensor(init_orientation)
     return dc.replace(band, did_overflow=band.check(Vec3(*ct.unbind(-1)), Quat(*qt.unbind(-1))))
+
+
+@dc.dataclass
+class BlockNeighborList:
+    """Block-level neighbor table of the block-sparse tile path.
+
+    Particles (in ``perm`` order when set) form index blocks of
+    ``block_size``; each row block keeps up to ``capacity`` column blocks
+    whose axis-aligned bounding boxes lie within ``r_cutoff +
+    dr_threshold`` (padded with n_blocks). ``symmetric`` lists every pair
+    from both sides, which the tile kernels need: their row-side gradient
+    under the full mask is the whole force (ops/tiles.py). With
+    ``r_cutoff_inner`` set, :meth:`build` returns a (tight, wide) pair of
+    tables from one AABB pass: the short-range terms run on the tight one,
+    Debye-Hueckel alone on the wide one. ``banded`` tables hold consecutive
+    block ids (a window covering every hit).
+    """
+
+    block_size: int
+    capacity: int
+    r_cutoff: float
+    dr_threshold: float
+    n: int
+    symmetric: bool = False
+    r_cutoff_inner: float | None = None
+    capacity_inner: int = 0
+    perm: np.ndarray | None = None
+    banded: bool = False
+    block_ids_: object = None  # (n_blocks, capacity) int32, or a (tight, wide) pair
+    did_overflow: torch.Tensor | None = None
+
+    @property
+    def idx(self):
+        return self.block_ids_
+
+    @property
+    def n_blocks(self) -> int:
+        return -(-self.n // self.block_size)
+
+    def replace(self, **kw) -> "BlockNeighborList":
+        return dc.replace(self, **kw)
+
+    def _ids_from_components(self, x, y, z, prev=None):
+        """AABB pass + compaction of (N,) slot-order components; ``prev`` (the
+        previous table(s)) arms the missed-interaction detector: overflow is
+        raised when a block pair is inside the bare cutoff now but was absent
+        from the previous table, the condition under which the last
+        interval's forces were wrong."""
+        nb, b_sz = self.n_blocks, self.block_size
+        n_pad = nb * b_sz
+        device = x.device
+        row_valid = (torch.arange(n_pad, device=device) < self.n).reshape(nb, b_sz)
+        big = torch.finfo(x.dtype).max
+        dist2 = torch.zeros((nb, nb), dtype=x.dtype, device=device)
+        for c in (x, y, z):
+            cb = torch.nn.functional.pad(c, (0, n_pad - c.shape[0])).reshape(nb, b_sz)
+            lo = torch.where(row_valid, cb, big).amin(dim=1)
+            hi = torch.where(row_valid, cb, -big).amax(dim=1)
+            gap = torch.clamp(torch.maximum(lo[:, None] - hi[None, :], lo[None, :] - hi[:, None]), min=0.0)
+            dist2 = dist2 + gap * gap
+        col = torch.arange(nb, device=device)
+
+        def tri(hit):
+            return hit if self.symmetric else hit & (col[None, :] >= col[:, None])
+
+        def compact(cut_bare: float, capacity: int):
+            cut = cut_bare + self.dr_threshold
+            hit = tri(dist2 < cut * cut)
+            hard = tri(dist2 < cut_bare * cut_bare)
+            if self.banded:
+                # window start: the first hit, clamped into range; any bare
+                # hit outside the window overflows
+                start = torch.where(hit, col[None, :], nb).amin(dim=1)
+                start = torch.clamp(start, 0, max(0, nb - capacity))
+                ids = start[:, None] + torch.arange(capacity, device=device)[None, :]
+                outside = (col[None, :] < start[:, None]) | (col[None, :] >= start[:, None] + capacity)
+                return ids.to(torch.int32), (hard & outside).any()
+            # distance-prioritised: when a row holds more hits than capacity
+            # the farthest (skin-zone) blocks go; overflow only when bare hits
+            # do not fit (skin drops are caught by the detector later)
+            # (a stable sort: ties keep the lower block first, as lax.top_k)
+            score = torch.where(hit, -dist2, -torch.inf)
+            k = min(capacity, nb)
+            vals, idxs = torch.sort(score, dim=1, descending=True, stable=True)
+            ids = torch.where(vals[:, :k] > -torch.inf, idxs[:, :k], nb)
+            ids = torch.sort(ids, dim=1).values
+            if k < capacity:
+                ids = torch.nn.functional.pad(ids, (0, capacity - k), value=nb)
+            return ids.to(torch.int32), (hard.sum(dim=1) > capacity).any()
+
+        def missed(prev_ids, cut_bare: float):
+            hit = tri(dist2 < cut_bare * cut_bare)
+            member = torch.zeros((nb, nb + 1), dtype=torch.bool, device=device)
+            member.scatter_(1, prev_ids.long(), True)
+            return (hit & ~member[:, :nb]).any()
+
+        ids, overflow = compact(self.r_cutoff, self.capacity)
+        if self.r_cutoff_inner is None:
+            if prev is not None:
+                overflow = overflow | missed(prev, self.r_cutoff)
+            return ids, overflow
+        ids_in, ovf_in = compact(self.r_cutoff_inner, self.capacity_inner)
+        overflow = overflow | ovf_in
+        if prev is not None:
+            prev_in, prev_wide = prev
+            overflow = overflow | missed(prev_in, self.r_cutoff_inner) | missed(prev_wide, self.r_cutoff)
+        return (ids_in, ids), overflow
+
+    def build(self, centers, prev=None):
+        """(table or (tight, wide) tables, 0-d bool overflow) of positions in
+        the original nucleotide order: an (N, 3) tensor or a Vec3."""
+        comps = tuple(centers) if isinstance(centers, Vec3) else tuple(centers.unbind(-1))
+        if self.perm is not None:
+            idx = torch.as_tensor(self.perm, device=comps[0].device)
+            comps = tuple(c[idx] for c in comps)
+        return self._ids_from_components(*comps, prev=prev)
+
+    def allocate(self, centers) -> "BlockNeighborList":
+        ids, overflow = self.build(centers)
+        return self.replace(block_ids_=ids, did_overflow=overflow)
+
+
+def _max_span(ids: np.ndarray, nblk: int) -> int:
+    """Largest contiguous block-index span covering a row's hits (the
+    banded window a row needs)."""
+    valid = ids < nblk
+    anyv = valid.any(axis=1)
+    first = np.where(valid, ids, nblk).min(axis=1)
+    last = np.where(valid, ids, -1).max(axis=1)
+    return int(np.max(np.where(anyv, last - first + 1, 0)))
+
+
+#: capacity over the observed per-row hits when no slot quantum fits
+CAPACITY_MULTIPLIER = 1.5
+
+
+def _snap_capacity(hits: int, block_size: int, symmetric: bool) -> int:
+    """Capacity from an observed per-row hit count: on the symmetric path
+    the smallest of the reference's slot quanta 128/(B*q) with a spare block
+    (so both packages size the same tables), else hits x CAPACITY_MULTIPLIER."""
+    if symmetric and 128 % block_size == 0:
+        quanta = sorted(128 // (block_size * q) for q in (1, 2, 4, 8, 16) if block_size * q <= 128)
+        for s in quanta:
+            if s >= hits + 1:
+                return s
+    return max(2, int(np.ceil(hits * CAPACITY_MULTIPLIER)))
+
+
+def block_neighbor_list_for_topology(
+    topology,
+    r_cutoff: float,
+    dr_threshold: float = 0.5,
+    block_size: int = 64,
+    capacity: int | None = None,
+    init_centers=None,
+    symmetric: bool = False,
+    r_cutoff_inner: float | None = None,
+    perm: np.ndarray | None = None,
+) -> BlockNeighborList:
+    """A BlockNeighborList sized from the initial positions (free space).
+
+    ``r_cutoff_inner`` switches on the two-level mode; ``perm`` reorders
+    the particles before blocking (strand_interleave_perm). A symmetric
+    table sized here is banded when the window costs no extra capacity (the
+    reference's ``banded=None``). ``init_centers``: (N, 3) tensor in the
+    original order; the table lives on its device.
+    """
+    n = topology.n_nucleotides
+    bn = np.asarray(topology.bonded_neighbors)
+    if bn.size and np.bincount(bn.ravel(), minlength=n).max() > 2:
+        raise ValueError("block neighbor lists support at most 2 bonded partners per particle")
+    nbl = BlockNeighborList(
+        block_size=block_size,
+        capacity=capacity or 0,
+        r_cutoff=float(r_cutoff),
+        dr_threshold=float(dr_threshold),
+        n=n,
+        symmetric=symmetric,
+        r_cutoff_inner=None if r_cutoff_inner is None else float(r_cutoff_inner),
+        capacity_inner=(capacity or 0) if r_cutoff_inner is not None else 0,
+        perm=None if perm is None else np.asarray(perm),
+    )
+    if capacity is None:
+        if init_centers is None:
+            raise ValueError("capacity or init_centers must be provided")
+        nblk = nbl.n_blocks
+        probe = nbl.replace(capacity=nblk, capacity_inner=nblk if r_cutoff_inner is not None else 0)
+        ids, _ = probe.build(init_centers)
+        ids_in = None
+        if r_cutoff_inner is not None:
+            ids_in, ids = ids
+        ids = ids.cpu().numpy()
+        hits = int(np.max(np.sum(ids < nblk, axis=1)))
+        cap = min(nblk, _snap_capacity(hits, block_size, symmetric))
+        cap_band = min(nblk, _snap_capacity(_max_span(ids, nblk), block_size, symmetric))
+        use_banded = symmetric and nblk > cap_band and cap_band <= cap
+        if use_banded:
+            cap = cap_band
+        cap_in = 0
+        if ids_in is not None:
+            ids_in = ids_in.cpu().numpy()
+            n_in = _max_span(ids_in, nblk) if use_banded else int(np.max(np.sum(ids_in < nblk, axis=1)))
+            cap_in = min(nblk, _snap_capacity(n_in, block_size, symmetric))
+            if cap_in >= cap:
+                # the tight table would be as wide as the wide one: one table
+                nbl = nbl.replace(r_cutoff_inner=None)
+                cap_in = 0
+        nbl = nbl.replace(capacity=cap, capacity_inner=cap_in, banded=use_banded)
+    return nbl.allocate(init_centers) if init_centers is not None else nbl

@@ -1,5 +1,5 @@
-"""PyTorch port (mythos_tpu_torch): the CUDA kernels K1 and K2 against
-their plain PyTorch twins, on the card.
+"""PyTorch port (mythos_tpu_torch): the CUDA kernels K1-K5 against their
+plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it also runs on
@@ -7,9 +7,11 @@ a machine without it; there, run it without the JAX-specific conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: K2 rtol 1e-4 with atol 1e-4 x max|twin| (f32 sums in another
-order, hand-written vs autograd derivatives); K1 over 4 steps rtol 2e-4,
-atol 5e-5 (as tests/test_multistep.py holds the Pallas kernel).
+Tolerances: K2, K3, K4 and K5 rtol 1e-4 with atol 1e-4 x max|twin| (f32
+sums in another order, hand-written vs autograd derivatives); K1 over 4
+steps rtol 2e-4, atol 5e-5 (as tests/test_multistep.py holds the Pallas
+kernel); K5's body fields against K3 rtol 1e-5, atol 5e-6 (as the
+reference's test_fused_grads_soa_matches_grad_of_energy).
 """
 
 import pytest
@@ -19,7 +21,9 @@ torch = pytest.importorskip("torch")
 from mythos_tpu_torch.entry import build_sim  # noqa: E402
 from mythos_tpu_torch.io.synthetic import synthetic_duplex  # noqa: E402
 from mythos_tpu_torch.ops import stencil as ts  # noqa: E402
+from mythos_tpu_torch.ops import tiles  # noqa: E402
 from mythos_tpu_torch.rigid_body import RigidBody  # noqa: E402
+from mythos_tpu_torch.soa import to_soa  # noqa: E402
 
 KT = 296.15 * 0.1 / 300.0
 
@@ -98,3 +102,77 @@ def test_simulator_on_card_matches_cpu_twins(card):
     torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
     assert not bool(gpu.metadata["neighbor_overflow"].any())
+
+
+@pytest.fixture(scope="module")
+def tile_inputs(card):
+    """Rows of a jittered 40-bp duplex for every kind on its block table."""
+    top, body = synthetic_duplex(40, dtype=torch.float32, device=card)
+    e, sim = build_sim(top, KT, mode="block", init_centers=body.center, device=card)
+    nbl = sim.neighbors
+    ids = nbl.idx if not isinstance(nbl.idx, tuple) else nbl.idx[1]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device="cuda")
+    c = body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device="cuda")
+    b = to_soa(RigidBody(c, q / q.norm(dim=-1, keepdim=True)))
+    out = []
+    for kind in ("full", "short", "debye"):
+        ctx = tiles.prepare_tile_context(e, ids, nbl.block_size, kind, nbl.perm)
+        out.append((ctx, ids, tiles.dynamic_rows(ctx, b).contiguous()))
+    return out
+
+
+def _close(got, ref):
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["full", "short", "debye"])
+def test_k3_kernel_matches_plain(tile_inputs, kind):
+    ctx, ids, rows = tile_inputs[kind]
+    before = tiles.tile_forces.launches
+    got = tiles.tile_forces(rows, ctx.params, ids, ctx.spec)
+    torch.cuda.synchronize()
+    assert tiles.tile_forces.launches == before + 1
+    _close(got, tiles.tile_forces_plain(rows, ctx.params, ids, ctx.spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["full", "short", "debye"])
+def test_k4_kernel_matches_plain(tile_inputs, kind):
+    ctx, ids, rows = tile_inputs[kind]
+    got = tiles.tile_energies(rows, ctx.params, ids, ctx.spec)
+    torch.cuda.synchronize()
+    _close(got, tiles.tile_energies_plain(rows, ctx.params, ids, ctx.spec))
+    # deterministic: a fixed reduction order, no atomics
+    assert torch.equal(got, tiles.tile_energies(rows, ctx.params, ids, ctx.spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["full", "short", "debye"])
+def test_k5_kernel_matches_plain_and_k3(tile_inputs, kind):
+    ctx, ids, rows = tile_inputs[kind]
+    sp = ctx.spec
+    gt = tiles.term_weights(ctx.params, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device="cuda")
+    got = tiles.tile_row_grads(rows, ctx.params, ids, gt, sp)
+    torch.cuda.synchronize()
+    _close(got, tiles.tile_row_grads_plain(rows, ctx.params, ids, gt, sp))
+    k5 = tiles.tile_row_grads(rows, ctx.params, ids, tiles.term_weights(ctx.params, sp), sp)
+    k3 = tiles.tile_forces(rows, ctx.params, ids, sp)
+    torch.testing.assert_close(k5[:, : sp.n_force_fields], k3, rtol=1e-5, atol=5e-6)
+
+
+@pytest.mark.cuda
+def test_block_run_on_card_matches_cpu(card):
+    """The block tier, 40 bp, 20 steps, thermostat off: K3 on the card
+    against the plain version on the CPU."""
+
+    def run(device):
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=device)
+        e, sim = build_sim(top, 0.0, mode="block", init_centers=b.center, neighbor_update_every=5, device=device)
+        out = sim.replace(save_every=10).run(e.opt_params(), b, 20, torch.Generator(device=device).manual_seed(0))
+        return out.observables[0]
+
+    gpu, cpu = run(card), run("cpu")
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)

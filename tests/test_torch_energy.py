@@ -73,8 +73,8 @@ def energies():
     e_j = jdna2.create_default_energy_fn(top_j)
     opt = _perturbed(e_j.opt_params())
     e_j = e_j.with_params(opt)
-    top_t, body_t = synthetic_duplex(12, dtype=torch.float64)
-    e_t = tdna2.create_default_energy_fn(top_t, dtype=torch.float64)
+    top_t, body_t = synthetic_duplex(12, dtype=torch.float64, device="cpu")
+    e_t = tdna2.create_default_energy_fn(top_t, dtype=torch.float64, device="cpu")
     e_t = e_t.with_params(params_from_numpy(opt, dtype=torch.float64))
     terms_j = np.asarray(jax.jit(e_j.compute_terms)(body_j))
     terms_t = e_t.compute_terms(body_t).numpy()
@@ -83,7 +83,7 @@ def energies():
 
 def test_synthetic_duplex_matches():
     top_j, body_j = jax_duplex(8)
-    top_t, body_t = synthetic_duplex(8)
+    top_t, body_t = synthetic_duplex(8, device="cpu")
     np.testing.assert_array_equal(np.asarray(body_j.center), body_t.center.numpy())
     np.testing.assert_array_equal(np.asarray(body_j.orientation), body_t.orientation.numpy())
     np.testing.assert_array_equal(top_j.bonded_neighbors, top_t.bonded_neighbors)

@@ -40,9 +40,9 @@ def _f32_mode():
 
 
 def _port(kT, u=U):  # noqa: N803
-    top, body = synthetic_duplex(N_BP, dtype=torch.float32)
+    top, body = synthetic_duplex(N_BP, dtype=torch.float32, device="cpu")
     e, sim = entry.build_sim(top, kT, init_centers=body.center, init_orientation=body.orientation,
-                             neighbor_update_every=u)
+                             neighbor_update_every=u, device="cpu")
     return e, sim.replace(save_every=u), body
 
 
@@ -149,9 +149,10 @@ def test_bonds_off_offset_two_raise():
 
 
 def test_build_sim_refuses_unported_modes():
-    top, body = synthetic_duplex(8)
+    top, body = synthetic_duplex(8, device="cpu")
     with pytest.raises(NotImplementedError):
-        entry.build_sim(top, KT, mode="block", init_centers=body.center, init_orientation=body.orientation)
+        entry.build_sim(top, KT, mode="dense", init_centers=body.center, init_orientation=body.orientation,
+                        device="cpu")
 
 
 def test_kernel_autograd_functions_backward_through_twins():

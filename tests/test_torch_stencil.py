@@ -58,8 +58,8 @@ def systems(_f32_mode):
     e = sim.energy_fn.with_params(sim.energy_fn.opt_params())
     nb = sim.neighbors
     sctx = st.prepare_stencil_context(e, nb.w_short, nb.w_wide, perm=nb.perm, w_terms=nb.w_terms, kernel=True)
-    ttop, tbody = synthetic_duplex(N_BP, dtype=torch.float32)
-    te, tsim = build_sim(ttop, KT, init_centers=tbody.center, init_orientation=tbody.orientation)
+    ttop, tbody = synthetic_duplex(N_BP, dtype=torch.float32, device="cpu")
+    te, tsim = build_sim(ttop, KT, init_centers=tbody.center, init_orientation=tbody.orientation, device="cpu")
     opt = params_from_numpy({k: np.asarray(v) for k, v in sim.energy_fn.opt_params().items()})
     ctx = ts.prepare_stencil_context(te.with_params(opt), tsim.band)
     return types.SimpleNamespace(
