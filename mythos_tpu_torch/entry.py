@@ -70,7 +70,6 @@ def build_sim(
             dna2.default_neighbor_cutoff(),
             block_size=block_size,
             init_centers=torch.as_tensor(init_centers, device=device),
-            symmetric=True,
             r_cutoff_inner=dna2.short_range_neighbor_cutoff(),
             perm=strand_interleave_perm(topology),
         )

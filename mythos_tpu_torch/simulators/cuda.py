@@ -167,8 +167,6 @@ class BlockSimulator:
         if u < 1 or self.save_every % u:
             raise ValueError(ERR_UPDATE_EVERY.format(u, self.save_every))
         nbl = self.neighbors
-        if not nbl.symmetric:
-            raise ValueError("the block tier needs a symmetric table (the tile kernels' row-side forces)")
         with torch.no_grad():
             energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
             ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)

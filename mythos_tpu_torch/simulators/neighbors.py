@@ -5,8 +5,8 @@ Counterpart of mythos_tpu/simulators/neighbors.py:
 * the stencil half: ``strand_interleave_perm``,
   ``stencil_band_for_site_cutoffs`` (host numpy sizing, carried over as is)
   and ``StencilBand``'s site-mode checks (``_check_site``, ``far_check``);
-* the block half: ``BlockNeighborList`` (symmetric or triangular tables,
-  the two-level tight/wide mode, ``perm``, banded windows, the
+* the block half: ``BlockNeighborList`` (symmetric tables, the two-level
+  tight/wide mode, ``perm``, banded windows, the
   distance-prioritised compaction and the missed-interaction detector),
   ``_max_span``, ``_snap_capacity`` and ``block_neighbor_list_for_topology``.
 
@@ -300,11 +300,11 @@ class BlockNeighborList:
     Particles (in ``perm`` order when set) form index blocks of
     ``block_size``; each row block keeps up to ``capacity`` column blocks
     whose axis-aligned bounding boxes lie within ``r_cutoff +
-    dr_threshold`` (padded with n_blocks). ``symmetric`` lists every pair
-    from both sides, which the tile kernels need: their row-side gradient
-    under the full mask is the whole force (ops/tiles.py). With
-    ``r_cutoff_inner`` set, :meth:`build` returns a (tight, wide) pair of
-    tables from one AABB pass: the short-range terms run on the tight one,
+    dr_threshold`` (padded with n_blocks). The table is symmetric: it
+    lists every pair from both sides, which the tile kernels need, as their
+    row-side gradient under the full mask is the whole force (ops/tiles.py).
+    With ``r_cutoff_inner`` set, :meth:`build` returns a (tight, wide) pair
+    of tables from one AABB pass: the short-range terms run on the tight one,
     Debye-Hueckel alone on the wide one. ``banded`` tables hold consecutive
     block ids (a window covering every hit).
     """
@@ -314,7 +314,6 @@ class BlockNeighborList:
     r_cutoff: float
     dr_threshold: float
     n: int
-    symmetric: bool = False
     r_cutoff_inner: float | None = None
     capacity_inner: int = 0
     perm: np.ndarray | None = None
@@ -353,13 +352,10 @@ class BlockNeighborList:
             dist2 = dist2 + gap * gap
         col = torch.arange(nb, device=device)
 
-        def tri(hit):
-            return hit if self.symmetric else hit & (col[None, :] >= col[:, None])
-
         def compact(cut_bare: float, capacity: int):
             cut = cut_bare + self.dr_threshold
-            hit = tri(dist2 < cut * cut)
-            hard = tri(dist2 < cut_bare * cut_bare)
+            hit = dist2 < cut * cut
+            hard = dist2 < cut_bare * cut_bare
             if self.banded:
                 # window start: the first hit, clamped into range; any bare
                 # hit outside the window overflows
@@ -382,7 +378,7 @@ class BlockNeighborList:
             return ids.to(torch.int32), (hard.sum(dim=1) > capacity).any()
 
         def missed(prev_ids, cut_bare: float):
-            hit = tri(dist2 < cut_bare * cut_bare)
+            hit = dist2 < cut_bare * cut_bare
             member = torch.zeros((nb, nb + 1), dtype=torch.bool, device=device)
             member.scatter_(1, prev_ids.long(), True)
             return (hit & ~member[:, :nb]).any()
@@ -427,11 +423,11 @@ def _max_span(ids: np.ndarray, nblk: int) -> int:
 CAPACITY_MULTIPLIER = 1.5
 
 
-def _snap_capacity(hits: int, block_size: int, symmetric: bool) -> int:
-    """Capacity from an observed per-row hit count: on the symmetric path
-    the smallest of the reference's slot quanta 128/(B*q) with a spare block
-    (so both packages size the same tables), else hits x CAPACITY_MULTIPLIER."""
-    if symmetric and 128 % block_size == 0:
+def _snap_capacity(hits: int, block_size: int) -> int:
+    """Capacity from an observed per-row hit count: the smallest of the
+    reference's symmetric-path slot quanta 128/(B*q) with a spare block (so
+    both packages size the same tables), else hits x CAPACITY_MULTIPLIER."""
+    if 128 % block_size == 0:
         quanta = sorted(128 // (block_size * q) for q in (1, 2, 4, 8, 16) if block_size * q <= 128)
         for s in quanta:
             if s >= hits + 1:
@@ -446,15 +442,14 @@ def block_neighbor_list_for_topology(
     block_size: int = 64,
     capacity: int | None = None,
     init_centers=None,
-    symmetric: bool = False,
     r_cutoff_inner: float | None = None,
     perm: np.ndarray | None = None,
 ) -> BlockNeighborList:
     """A BlockNeighborList sized from the initial positions (free space).
 
     ``r_cutoff_inner`` switches on the two-level mode; ``perm`` reorders
-    the particles before blocking (strand_interleave_perm). A symmetric
-    table sized here is banded when the window costs no extra capacity (the
+    the particles before blocking (strand_interleave_perm). A table sized
+    here is banded when the window costs no extra capacity (the
     reference's ``banded=None``). ``init_centers``: (N, 3) tensor in the
     original order; the table lives on its device.
     """
@@ -468,7 +463,6 @@ def block_neighbor_list_for_topology(
         r_cutoff=float(r_cutoff),
         dr_threshold=float(dr_threshold),
         n=n,
-        symmetric=symmetric,
         r_cutoff_inner=None if r_cutoff_inner is None else float(r_cutoff_inner),
         capacity_inner=(capacity or 0) if r_cutoff_inner is not None else 0,
         perm=None if perm is None else np.asarray(perm),
@@ -484,16 +478,16 @@ def block_neighbor_list_for_topology(
             ids_in, ids = ids
         ids = ids.cpu().numpy()
         hits = int(np.max(np.sum(ids < nblk, axis=1)))
-        cap = min(nblk, _snap_capacity(hits, block_size, symmetric))
-        cap_band = min(nblk, _snap_capacity(_max_span(ids, nblk), block_size, symmetric))
-        use_banded = symmetric and nblk > cap_band and cap_band <= cap
+        cap = min(nblk, _snap_capacity(hits, block_size))
+        cap_band = min(nblk, _snap_capacity(_max_span(ids, nblk), block_size))
+        use_banded = nblk > cap_band and cap_band <= cap
         if use_banded:
             cap = cap_band
         cap_in = 0
         if ids_in is not None:
             ids_in = ids_in.cpu().numpy()
             n_in = _max_span(ids_in, nblk) if use_banded else int(np.max(np.sum(ids_in < nblk, axis=1)))
-            cap_in = min(nblk, _snap_capacity(n_in, block_size, symmetric))
+            cap_in = min(nblk, _snap_capacity(n_in, block_size))
             if cap_in >= cap:
                 # the tight table would be as wide as the wide one: one table
                 nbl = nbl.replace(r_cutoff_inner=None)

@@ -53,7 +53,7 @@ def _states(n_states: int, seed: int = 0):
 
 def _map_nbl(top, centers, interleave: bool = True):
     return tnb.block_neighbor_list_for_topology(
-        top, tdna2.default_neighbor_cutoff(), block_size=8, init_centers=centers, symmetric=True,
+        top, tdna2.default_neighbor_cutoff(), block_size=8, init_centers=centers,
         r_cutoff_inner=tdna2.short_range_neighbor_cutoff(),
         perm=tnb.strand_interleave_perm(top) if interleave else None,
     )
@@ -82,7 +82,7 @@ def test_map_matches_jax_pair_map():
     got = e.replace(map_neighbors=_map_nbl(top, states.center[0])).map(states)
     np.testing.assert_allclose(got.numpy(), ref, rtol=3e-5)
     small = tnb.block_neighbor_list_for_topology(top, tdna2.default_neighbor_cutoff(), block_size=8, capacity=2,
-                                                 init_centers=states.center[0], symmetric=True)
+                                                 init_centers=states.center[0])
     assert torch.isnan(e.replace(map_neighbors=small).map(states)).all()
 
 

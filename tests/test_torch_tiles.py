@@ -74,9 +74,9 @@ def test_block_neighbor_list_matches_jax(shape, block_size):
     (the missed-interaction detector armed with the previous tables)."""
     top_j, body_j = jax_duplex(N_BP, bend=BENDS[shape])
     top_t, body_t = synthetic_duplex(N_BP, bend=BENDS[shape], device="cpu")
-    kw = dict(dr_threshold=0.5, block_size=block_size, symmetric=True)
+    kw = dict(dr_threshold=0.5, block_size=block_size)
     ref = jnb.block_neighbor_list_for_topology(
-        spaces.free()[0], top_j, jdna2.default_neighbor_cutoff(), init_centers=body_j.center,
+        spaces.free()[0], top_j, jdna2.default_neighbor_cutoff(), init_centers=body_j.center, symmetric=True,
         r_cutoff_inner=jdna2.short_range_neighbor_cutoff(), perm=jnb.strand_interleave_perm(top_j), **kw,
     )
     got = tnb.block_neighbor_list_for_topology(
@@ -98,21 +98,18 @@ def test_block_neighbor_list_matches_jax(shape, block_size):
 
 
 def test_scattered_table_and_capacity_overflow_match_jax():
-    """Non-banded symmetric and triangular tables with a capacity too small
-    for the rows' hits: the distance-prioritised compaction keeps the same
-    blocks and raises the same overflow flag."""
+    """A non-banded table with a capacity too small for the rows' hits: the
+    distance-prioritised compaction keeps the same blocks as the
+    reference's symmetric table and raises the same overflow flag."""
     top_j, body_j = jax_duplex(N_BP)
     top_t, body_t = synthetic_duplex(N_BP, device="cpu")
-    for symmetric in (True, False):
-        kw = dict(dr_threshold=0.5, block_size=8, symmetric=symmetric, capacity=3)
-        ref = jnb.block_neighbor_list_for_topology(
-            spaces.free()[0], top_j, jdna2.default_neighbor_cutoff(), init_centers=body_j.center, **kw
-        )
-        got = tnb.block_neighbor_list_for_topology(
-            top_t, tdna2.default_neighbor_cutoff(), init_centers=body_t.center, **kw
-        )
-        assert not got.banded and bool(got.did_overflow) == bool(ref.did_overflow) is True
-        np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
+    kw = dict(dr_threshold=0.5, block_size=8, capacity=3)
+    ref = jnb.block_neighbor_list_for_topology(
+        spaces.free()[0], top_j, jdna2.default_neighbor_cutoff(), init_centers=body_j.center, symmetric=True, **kw
+    )
+    got = tnb.block_neighbor_list_for_topology(top_t, tdna2.default_neighbor_cutoff(), init_centers=body_t.center, **kw)
+    assert not got.banded and bool(got.did_overflow) == bool(ref.did_overflow) is True
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
 
 
 def test_synthetic_bend_matches_jax():
@@ -158,7 +155,7 @@ def test_tile_energies_plain_match_jax_block_sums(f64_system, two_level):
     names = [type(fn).__name__ for fn in e_j.energy_fns]
     nbl = tnb.block_neighbor_list_for_topology(
         top_t, tdna2.default_neighbor_cutoff(), block_size=4 if two_level else 8, init_centers=tbody.center,
-        symmetric=True, r_cutoff_inner=tdna2.short_range_neighbor_cutoff() if two_level else None,
+        r_cutoff_inner=tdna2.short_range_neighbor_cutoff() if two_level else None,
         perm=tnb.strand_interleave_perm(top_t),
     )
     assert (nbl.r_cutoff_inner is not None) == two_level
@@ -177,7 +174,7 @@ def test_tile_forces_plain_match_jax_grad(f64_system):
     jbody, e_j, top_t, tbody, e_t = f64_system
     g = jax.jit(jax.grad(e_j.energy_soa))(jsoa.to_soa(jbody))
     nbl = tnb.block_neighbor_list_for_topology(
-        top_t, tdna2.default_neighbor_cutoff(), block_size=4, init_centers=tbody.center, symmetric=True,
+        top_t, tdna2.default_neighbor_cutoff(), block_size=4, init_centers=tbody.center,
         r_cutoff_inner=tdna2.short_range_neighbor_cutoff(), perm=tnb.strand_interleave_perm(top_t),
     )
     ctxs = tiles.prepare_contexts(e_t, nbl.idx, nbl.block_size, perm=nbl.perm)
@@ -190,26 +187,29 @@ def test_tile_forces_plain_match_jax_grad(f64_system):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6 * np.abs(b).max())
 
 
-@pytest.fixture
-def f32_tiles(f32):
-    """One symmetric table (no perm, B = 8) on both sides in float32: the
+@pytest.fixture(params=["no-perm", "interleave"])
+def f32_tiles(f32, request):
+    """One symmetric table (B = 8) on both sides in float32, in the original
+    order or over the strand interleave (the block tier's and the map's slot
+    order, where the triangular mask orients pairs by slot): the
     reference's full-kind context and rows, the port's."""
     top_j, body_j = jax_duplex(N_BP)
     c, q = _jittered((np.asarray(body_j.center), np.asarray(body_j.orientation)), 1)
     c, q = c.astype(np.float32), q.astype(np.float32)
+    perm = jnb.strand_interleave_perm(top_j) if request.param == "interleave" else None
     e_j = jdna2.create_default_energy_fn(top_j, block_unbonded=True, block_size=8)
     e_j = e_j.with_params(e_j.opt_params())
     sym = jnb.block_neighbor_list_for_topology(
         spaces.free()[0], top_j, jdna2.default_neighbor_cutoff(), dr_threshold=0.5, block_size=8,
-        init_centers=jnp.asarray(c), symmetric=True,
+        init_centers=jnp.asarray(c), symmetric=True, perm=perm,
     )
-    ctx_j = ot.prepare_tile_context(e_j, sym.idx, 8, "full")
+    ctx_j = ot.prepare_tile_context(e_j, sym.idx, 8, "full", perm=perm)
     rows_j = ot.dynamic_rows(ctx_j, jsoa.to_soa(JaxRigidBody(center=jnp.asarray(c), orientation=jnp.asarray(q))))
     top_t, _ = synthetic_duplex(N_BP, device="cpu")
     e_t = tdna2.create_default_energy_fn(top_t, device="cpu")
     e_t = e_t.with_params(params_from_numpy({k: np.asarray(v) for k, v in e_j.opt_params().items()}))
     ids_t = torch.as_tensor(np.array(sym.idx), dtype=torch.int32)
-    ctx_t = tiles.prepare_tile_context(e_t, ids_t, 8, "full")
+    ctx_t = tiles.prepare_tile_context(e_t, ids_t, 8, "full", perm)
     rows_t = tiles.dynamic_rows(ctx_t, to_soa(RigidBody(torch.as_tensor(c), torch.as_tensor(q))))
     return ctx_j, rows_j, sym.idx, ctx_t, rows_t, ids_t
 
@@ -241,7 +241,10 @@ def test_tile_row_grads_plain_hw_matches_jax(f32_tiles):
 def test_params_grad_matches_jax(f32_tiles):
     """The port of _params_grad_xla against the reference's, parameter by
     parameter, at float32 (tolerance 3e-3 max(1, |ref|) + 1e-4, as the
-    reference holds its fused map's gradients, test_pallas_tiles.py)."""
+    reference holds its fused map's gradients, test_pallas_tiles.py). With
+    the interleave it witnesses that the reference orients pairs by slot as
+    the port does, so both split the gradient between role-swapped
+    parameters (theta0_cross_2/_3) the same way."""
     ctx_j, rows_j, sym_ids, ctx_t, rows_t, ids_t = f32_tiles
     gt = jnp.array([1.0, 1.3, 0.7, 1.1, 0.9], jnp.float32)
     g_j = ot._params_grad_xla(rows_j, ctx_j.params_vec, ot.pad_ids(ctx_j.spec, sym_ids), gt, ctx_j.spec)
@@ -313,7 +316,7 @@ def test_tile_autograd_function_backward():
     e = tdna2.create_default_energy_fn(top, dtype=torch.float64, device="cpu")
     c, q = _jittered((body.center.numpy(), body.orientation.numpy()), 2)
     nbl = tnb.block_neighbor_list_for_topology(top, tdna2.default_neighbor_cutoff(), block_size=8,
-                                               init_centers=torch.as_tensor(c), symmetric=True)
+                                               init_centers=torch.as_tensor(c))
     ctx = tiles.prepare_tile_context(e, nbl.idx, 8, "full")
     rows0 = tiles.dynamic_rows(ctx, to_soa(RigidBody(torch.as_tensor(c), torch.as_tensor(q)))).detach()
     w = torch.tensor([1.0, 1.3, 0.7, 1.1, 0.9], dtype=torch.float64)
