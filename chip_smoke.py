@@ -28,7 +28,16 @@ Phases, one line each; any failure exits non-zero:
 8. one DiffTRe step at 10k nt (after a warm-up step): stencil MD (K1,
    K2), the tile map of 10 states (K4; backward K5), propeller-twist
    loss, gradients, one Adam step; and (8b) a 40-bp DiffTRe loss and its gradients on fixed states
-   agree between the card and the CPU plain versions.
+   agree between the card and the CPU plain versions;
+9. MARTINI: (9a) K6 forward and backward (position and box gradients)
+   against their plain versions on the 10,160-bead bilayer
+   ``lattice_bilayer(16, 16, water_layers=6)`` jittered by 0.03 nm (energy
+   rtol 2e-5; gradients rtol 2e-4 / atol 1e-4 max|plain|, else the float32
+   budget of phase 4 per column); (9b) 1000 NPT steps of that bilayer
+   through ``MartiniSimulator`` (barostat every 10, a state every 50)
+   after a warm-up run, with a torch.profiler window; (9c) 50 NPT steps of
+   the 104-bead bilayer with the same pre-drawn noise agree between the
+   card and the CPU plain versions.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -44,6 +53,7 @@ import subprocess
 import sys
 import time
 
+_LAPS = [time.perf_counter()]  # the script's start, then the end of each phase
 N_BP = 5000
 N_STEPS = 2000
 KT = 296.15 * 0.1 / 300.0
@@ -63,6 +73,14 @@ FP32_FLOP_S = 67e12
 FLOP_PAIR_GRAD, FLOP_PAIR_ENERGY, FLOP_PAIR_HB = 1500, 650, 220
 FLOP_DEBYE_GRAD, FLOP_DEBYE_ENERGY = 45, 35
 FLOP_BOND_GRAD, FLOP_BODY_STEP = 900, 250
+#: K6 (ops/csrc/lj.cu), per unordered pair: the minimum-image distance
+#: test; the LJ value, or its gradient on both beads and the box. The bound
+#: charges both only to the pairs inside the cutoff (the others need no
+#: work); the kernels' distance test of every masked pair is their own cost
+FLOP_LJ_TEST, FLOP_LJ_ENERGY, FLOP_LJ_GRAD = 22, 12, 30
+MARTINI_LATTICE = (16, 16, 6)  # phase 9: 512 lipids, 8,112 waters, 10,160 beads
+MARTINI_STEPS, MARTINI_SAVE, MARTINI_WARM = 1000, 50, 50
+MARTINI_BAROSTAT = {"pressure0": 1.0, "tau": 4.0, "every": 10}
 #: a row is "near the clamp" when one of its pairs inside the short-range
 #: reach has an angle cosine within this many float32 ulps of +-1
 #: (arccos_poly clamps 8 ulps inside; two float32 orderings of a cosine
@@ -83,6 +101,12 @@ def _events_ms(fn, reps: int) -> tuple[list[float], object]:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return times, out
+
+
+def _lap(phase: str) -> None:
+    """Print the wall seconds of the phase just ended and of the script so far."""
+    _LAPS.append(time.perf_counter())
+    print(f"[time] {phase}: {_LAPS[-1] - _LAPS[-2]:.1f} s (script so far {_LAPS[-1] - _LAPS[0]:.1f} s)")
 
 
 def _within(got, ref, rtol: float, atol: float) -> tuple[bool, float]:
@@ -264,6 +288,187 @@ def _shifted(body, i: int):
     return BodySoA(Vec3(*(c - c[i] for c in body.center)), body.orientation)
 
 
+def _k6_checked(got, plain, plain64) -> tuple[bool, str, float]:
+    """K6's gradient tolerance (rtol 2e-4, atol 1e-4 max|plain|); failing
+    that, the float32 budget of phase 4 per column (the three axes):
+    max|kernel - f32| <= 2 max|f32 - f64| + 5e-5 + 2e-4 max|f64|."""
+    ok, err = _within(got, plain, rtol=2e-4, atol=1e-4 * float(plain.abs().max()))
+    if ok:
+        return True, "rtol 2e-4", err
+    g, p, p64 = (x.double().reshape(-1, 3) for x in (got, plain, plain64))
+    err_k = (g - p).abs().amax(0)
+    limit = 2 * (p - p64).abs().amax(0) + 5e-5 + 2e-4 * p64.abs().amax(0)
+    print(f"    K6 per axis: max|kernel-f32| {err_k.tolist()} |f32-f64| {(p - p64).abs().amax(0).tolist()} "
+          f"limit {limit.tolist()}")
+    return bool((err_k <= limit).all()), "float64 budget", err
+
+
+def _lj_pair_counts(positions, pair_mask, box) -> tuple[int, int]:
+    """(masked unordered pairs, those inside the LJ cutoff) of one state."""
+    import torch
+
+    from mythos_tpu_torch.ops import lj
+
+    n, step = pair_mask.n, 1024
+    pairs = inside = 0
+    for i0 in range(0, n, step):
+        m = pair_mask.upper(i0, min(n, i0 + step))
+        dr = positions[i0 : i0 + step, None, :] - positions[None, :, :]
+        dr = dr - box * torch.round(dr / box)
+        r2 = (dr * dr).sum(-1) + 1e-18
+        pairs += int(m.sum())
+        inside += int((m & (r2 < lj.LJ_CUTOFF**2)).sum())
+    return pairs, inside
+
+
+def _martini(dev, smi: str) -> list[dict]:
+    """Phase 9: K6 against its plain versions at 10,160 beads, the NPT main
+    path of that bilayer, and a 104-bead run card vs CPU. The K6 records."""
+    import numpy as np
+    import torch
+
+    from mythos_tpu_torch.energy.martini.systems import default_bilayer_terms, lattice_bilayer
+    from mythos_tpu_torch.observables import AreaPerLipid, MembraneThickness
+    from mythos_tpu_torch.ops import lj
+    from mythos_tpu_torch.simulators.martini import MartiniSimulator
+
+    t9 = _LAPS[-1]
+    # 9a. K6 against its plain versions, on the bilayer jittered by 0.03 nm
+    n_x, n_y, w_l = MARTINI_LATTICE
+    top, pos, box, masses = lattice_bilayer(n_x, n_y, water_layers=w_l)
+    terms = default_bilayer_terms(top)
+    lj_term = terms[2]
+    jit = pos + np.random.default_rng(1).normal(scale=0.03, size=pos.shape)
+    x = torch.as_tensor(jit, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(box, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    mask = lj_term.pair_mask(dev)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    args = (x, lj_term.types(dev), mask, b, lj_term.tables(dev, torch.float32))
+    args64 = (x.double(), args[1], mask, b.double(), tuple(t.double() for t in args[4]))
+    e_ms, e_k = _events_ms(lambda: lj.lj_energy(*args), 20)
+    g_ms, (g_k, gb_k) = _events_ms(lambda: lj.lj_grads(*args), 20)
+    pe_ms, e_p = _events_ms(lambda: lj.lj_energy_plain(*args), 3)
+    pg_ms, (g_p, gb_p) = _events_ms(lambda: lj.lj_grads_plain(*args), 3)
+    e_64 = lj.lj_energy_plain(*args64)
+    g_64, gb_64 = lj.lj_grads_plain(*args64)
+    err_e = abs(float(e_k) - float(e_p))
+    ok_e = err_e <= 2e-5 * abs(float(e_p))
+    ok_g, rule_g, err_g = _k6_checked(g_k, g_p, g_64)
+    ok_b, rule_b, err_b = _k6_checked(gb_k, gb_p, gb_64)
+    det = torch.equal(e_k, lj.lj_energy(*args)) and torch.equal(gb_k, lj.lj_grads(*args)[1])
+    n, words, t = mask.n, mask.words, args[4][0].shape[0]
+    n_pairs, n_in = _lj_pair_counts(x, mask, b)
+    # bytes: the mask words the function depends on (the energy: those of
+    # the upper half, from the word of column i + 1), positions, types,
+    # tables, box, outputs; operations: the pairs inside the cutoff only
+    upper_words = sum(words - (i + 1) // 32 for i in range(n))
+    other_in = n * 3 * 4 + n * 4 + 2 * t * t * 4 + 3 * 4
+    fwd_bound = _bound(upper_words * 4 + other_in + 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_ENERGY))
+    bwd_bound = _bound(n * words * 4 + other_in + n * 3 * 4 + 3 * 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_GRAD))
+    dense_ms = (n_pairs * FLOP_LJ_TEST / FP32_FLOP_S * 1e3, 2 * n_pairs * FLOP_LJ_TEST / FP32_FLOP_S * 1e3)
+    print(f"[9a K6] {n} beads, box {box.round(3).tolist()}: mask built in {mask_s:.3f} s ({words} words a row); "
+          f"{n_pairs} masked pairs, {n_in} inside {lj.LJ_CUTOFF} nm; the kernels' own dense distance tests "
+          f"(not in the bound): {n_pairs} forward, {2 * n_pairs} backward, {dense_ms[0]:.5f} / {dense_ms[1]:.5f} ms at "
+          f"the fp32 peak; energy kernel {float(e_k):.6f} plain "
+          f"{float(e_p):.6f} f64 {float(e_64):.6f} (|diff| {err_e:.3e}, rtol 2e-5: {ok_e}); position gradient err "
+          f"{err_g:.3e} ({rule_g}); box gradient kernel {gb_k.tolist()} plain {gb_p.tolist()} f64 {gb_64.tolist()} "
+          f"err {err_b:.3e} ({rule_b}); deterministic {det}; lj_energy {statistics.median(e_ms):.4f} ms "
+          f"(plain {statistics.median(pe_ms):.2f}, bound {fwd_bound[0]:.6f} by {fwd_bound[1]}); lj_grads "
+          f"{statistics.median(g_ms):.4f} ms (plain {statistics.median(pg_ms):.2f}, bound {bwd_bound[0]:.6f} by "
+          f"{bwd_bound[1]}) on {smi}")
+    if not (ok_e and ok_g and ok_b and det):
+        raise SystemExit("K6 disagrees with its plain versions or is not deterministic")
+    _lap("9a K6")
+
+    # 9b. the NPT main path at 10,160 beads: warm-up run, then the counted, timed run
+    sim = MartiniSimulator(energy_fns=terms, box=box, masses=masses, save_every=MARTINI_SAVE,
+                           barostat=MARTINI_BAROSTAT, device=dev)
+    x0 = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    sim.run(None, x0, MARTINI_WARM, torch.Generator(device=dev).manual_seed(10))
+    lj.lj_energy.launches = lj.lj_grads.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.run(None, x0, MARTINI_STEPS, torch.Generator(device=dev).manual_seed(11))
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    launches = {"K6 fwd": lj.lj_energy.launches, "K6 bwd": lj.lj_grads.launches}
+    tr = out.observables[0]
+    heads = [i for i, nm in enumerate(top.atom_names) if nm == "PO4"]
+    apl = AreaPerLipid(head_indices=heads)(tr)
+    thick = MembraneThickness(thickness_indices=heads)(tr)
+    finite = bool(torch.isfinite(tr.center).all() and torch.isfinite(tr.box_size).all())
+    xy_equal = bool((tr.box_size[:, 0] == tr.box_size[:, 1]).all())
+    kin = tr.metadata["kinetic_kT"]
+    kt_late = float(kin[kin.shape[0] // 2 :].mean())
+    print(f"[9b MARTINI NPT] {MARTINI_STEPS} steps at {n} beads ({len(heads)} lipids), dt {sim.dt} ps, barostat every "
+          f"{MARTINI_BAROSTAT['every']}: {el:.3f} s = {MARTINI_STEPS / el * 60.0:.1f} steps/min on {smi}; launches "
+          f"{launches}; states {tuple(tr.center.shape)} finite={finite} box x == box y: {xy_equal}; box first "
+          f"{tr.box_size[0].tolist()} last {tr.box_size[-1].tolist()}; APL first {float(apl[0]):.4f} last "
+          f"{float(apl[-1]):.4f} nm^2; thickness last {float(thick[-1]):.4f} nm; mean kinetic kT of the last half "
+          f"{kt_late:.4f} (kT {sim.kT:.4f})")
+    if not (finite and xy_equal):
+        raise SystemExit("the MARTINI NPT run produced a bad trajectory")
+    if launches["K6 fwd"] < 1 or launches["K6 bwd"] < 1:
+        raise SystemExit(f"the MARTINI NPT run did not go through K6: {launches}")
+    # where an NPT step's time goes: one saved interval under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(None, x0, MARTINI_SAVE, torch.Generator(device=dev).manual_seed(12))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    on_dev = [e for e in ev if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernel_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    n_launch = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    top_dev = sorted(on_dev, key=dev_us, reverse=True)[:4]
+    top_host = sorted((e for e in ev if e not in on_dev), key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
+    print(f"[9b profile] {MARTINI_SAVE} steps under torch.profiler: wall {wall_ms:.1f} ms, device kernels "
+          f"{kernel_ms:.1f} ms (idle share {1 - kernel_ms / wall_ms:.0%}), {n_launch / MARTINI_SAVE:.0f} launches per "
+          f"step; device top: " + ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms" for e in top_dev)
+          + "; host top: " + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.0f} ms" for e in top_host))
+    _lap("9b MARTINI NPT (warm-up, 1000 steps, profile)")
+
+    # 9c. the 104-bead bilayer: card (K6) vs CPU plain versions, same noise
+    top_s, pos_s, box_s, masses_s = lattice_bilayer(3, 3, water_layers=1)
+    gen = torch.Generator().manual_seed(13)
+    mom = torch.randn(pos_s.shape, generator=gen) * (float(masses_s[0]) * sim.kT) ** 0.5
+    noise = torch.randn((50, *pos_s.shape), generator=gen)
+
+    def small_run(device):
+        s = MartiniSimulator(energy_fns=default_bilayer_terms(top_s), box=box_s, masses=masses_s, save_every=10,
+                             barostat=MARTINI_BAROSTAT, device=device)
+        return s.run(None, torch.as_tensor(pos_s, dtype=torch.float32), 50, init_momentum=mom,
+                     noise=noise).observables[0]
+
+    gpu, cpu = small_run(dev), small_run("cpu")
+    okc, errc = _within(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    okb, errb = _within(gpu.box_size.cpu(), cpu.box_size, rtol=1e-4, atol=1e-5)
+    print(f"[9c MARTINI small input] 104 beads, 50 steps, barostat every 10: card vs CPU center err {errc:.2e} "
+          f"box err {errb:.2e} (rtol 1e-4, atol 1e-5)")
+    if not (okc and okb):
+        raise SystemExit("the card's MARTINI trajectory disagrees with the CPU plain versions")
+    _lap("9c MARTINI card vs CPU")
+    print(f"[time] 9 MARTINI in all: {_LAPS[-1] - t9:.1f} s")
+
+    src = "mythos_tpu_torch/ops/csrc/lj.cu"
+    return [
+        {"name": "K6 lj_energy", "route": "cuda", "source": src, "replaces": "mythos_tpu/ops/lj.py:182",
+         "launches": launches["K6 fwd"], "max_abs_err": err_e, "ms": statistics.median(e_ms),
+         "plain_ms": statistics.median(pe_ms), "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
+        {"name": "K6 lj_grads", "route": "cuda", "source": src, "replaces": "mythos_tpu/ops/lj.py:205",
+         "launches": launches["K6 bwd"], "max_abs_err": max(err_g, err_b), "ms": statistics.median(g_ms),
+         "plain_ms": statistics.median(pg_ms), "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -306,6 +511,7 @@ def main() -> int:
             regs.append(f"{fn}: {ln.split(':', 1)[1].strip()}")
     print(f"[2 build] {lib_path.name}: nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s; "
           + " | ".join(regs))
+    _lap("1-2 device, build")
 
     # setup: the 10k-nt duplex, its band and stencil context
     topology, body = synthetic_duplex(N_BP, dtype=torch.float32, device=dev)
@@ -372,6 +578,7 @@ def main() -> int:
     print(f"[4 K1 small] 4 steps at 80 nt: max_abs_err={err1s:.3e} (rtol 2e-4, atol 5e-5) ok={ok1s}")
     if not ok1s:
         raise SystemExit("K1 disagrees with its twin at 80 nt")
+    _lap("3-4 K2, K1")
 
     # 5a. the main path at 10k nt: warm-up run, then the counted, timed run
     params = energy_fn.opt_params()
@@ -411,6 +618,7 @@ def main() -> int:
     print(f"[5 small input] 40 bp, 40 steps, kT=0: card vs CPU twins center err {errc:.2e} quat err {errq:.2e}")
     if not (okc and okq):
         raise SystemExit("the card's trajectory disagrees with the CPU twins")
+    _lap("5 main path")
 
     # 6. the tile kernels against their plain versions at 10k nt
     def table_sim(bend):
@@ -510,6 +718,7 @@ def main() -> int:
         u * (n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD + (n - 2) * FLOP_BOND_GRAD + n * FLOP_BODY_STEP),
     )
     print(f"[6 bounds] K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 {k2_bound[0]:.5f} ms ({k2_bound[1]})")
+    _lap("6 tiles")
 
     # 7. the block tier on the 270-degree arc: warm-up run, then the counted, timed run
     top_a, body_a, e_a, sim_a = table_sim(math.radians(270))
@@ -556,6 +765,7 @@ def main() -> int:
     print(f"[7 profile] {u_a} steps under torch.profiler: wall {wall_ms:.1f} ms, device kernels {kernel_ms:.1f} ms "
           f"(idle share {1 - kernel_ms / wall_ms:.0%}), {n_launch / u_a:.0f} launches per step; host top: "
           + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.0f} ms" for e in top))
+    _lap("7 block tier")
 
     # 8. one DiffTRe step at 10k nt: stencil MD -> tile map -> loss -> grads -> Adam
     map_nbl = block_neighbor_list_for_topology(
@@ -659,6 +869,10 @@ def main() -> int:
           f"K5 launches {tiles.tile_row_grads.launches - before5}")
     if not (ok_l and ok_g):
         raise SystemExit("the card's DiffTRe loss or gradients disagree with the CPU plain versions")
+    _lap("8 DiffTRe")
+
+    # 9. MARTINI: K6, the 10,160-bead NPT main path, and card vs CPU at 104 beads
+    k6_records = _martini(dev, smi)
 
     src = "mythos_tpu_torch/ops/csrc/"
     tile_launch = {"K3": k3_launches, "K4": d_launches["K4"], "K5": d_launches["K5"]}
@@ -681,7 +895,7 @@ def main() -> int:
          "launches": tile_launch[k], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
         for k, r in tile_rec.items()
-    ]
+    ] + k6_records
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

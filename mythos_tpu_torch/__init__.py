@@ -9,7 +9,9 @@ runs the kernel's plain PyTorch twin instead.
 
 Ported so far: the oxDNA2 banded-stencil Langevin main path
 (``entry.build_sim(mode="stencil", model="dna2")``, kernels K1/K2), the
-block tier (``build_sim(mode="block")``, kernel K3) and one DiffTRe
-fitting step (``optimization.difftre.difftre_step``, kernels K4/K5). Every
-entry point runs on the card unless the caller passes ``device="cpu"``.
+block tier (``build_sim(mode="block")``, kernel K3), one DiffTRe
+fitting step (``optimization.difftre.difftre_step``, kernels K4/K5) and
+MARTINI bilayer NPT MD (``simulators.martini.MartiniSimulator``, kernel
+K6). Every entry point runs on the card unless the caller passes
+``device="cpu"``.
 """

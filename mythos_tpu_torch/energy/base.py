@@ -101,15 +101,26 @@ class BaseConfiguration:
 
 
 def params_from_numpy(
-    opt_params: dict, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
-) -> dict[str, torch.Tensor]:
-    """Carry the JAX package's ``opt_params()`` across, leaf by leaf.
+    opt_params: dict,
+    device: torch.device | str = "cpu",
+    dtype: torch.dtype = torch.float32,
+    *,
+    configuration: type | None = None,
+    couplings: dict[str, list[str]] | None = None,
+):
+    """Carry the JAX package's parameters across, leaf by leaf.
 
-    Input: the dict with every leaf passed through ``np.asarray``. Output:
-    the same names as tensors of ``dtype`` on ``device``; feed it to the
-    port's ``with_params``, which re-derives the dependent parameters.
+    Input: a dict of floats, numpy scalars or arrays (an ``opt_params()``).
+    Output: the same names as tensors of ``dtype`` on ``device``; feed it to
+    the port's ``with_params``, which re-derives the dependent parameters.
+    With ``configuration`` (a MARTINI configuration class of the port), the
+    dict -- a JAX MARTINI configuration's ``opt_params``, coupled targets
+    under their proxy -- and its ``couplings`` become that configuration.
     """
-    return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device) for k, v in opt_params.items()}
+    params = {k: torch.as_tensor(np.array(v), dtype=dtype, device=device) for k, v in opt_params.items()}
+    if configuration is None:
+        return params
+    return configuration(couplings=couplings, **params)
 
 
 class BaseEnergyFunction:

@@ -42,6 +42,10 @@ SIGNATURES = {
     "tile_row_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # ... then partials, out, stream
     "tile_energies": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # positions, types, mask bits, n, words, box, sigmas, epsilons, t, then partials, out,
+    # stream (lj_energy) or grad, box rows, box grad, stream (lj_grads)
+    "lj_energy": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
+    "lj_grads": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P),
 }
 
 

@@ -1,0 +1,290 @@
+"""K6: the shifted 12-6 LJ pair energy of the MARTINI nonbonded terms.
+
+Counterpart of mythos_tpu/ops/lj.py. The energy sums, over the masked
+pairs under the minimum image, V(r) - V(cutoff) inside the cutoff (1.1 nm),
+with x6 = min((sigma^2 / r^2)^3, 1e15) as the TPU kernel forms it
+(:func:`_lj_terms`). Two kernels, hand-written in CUDA
+(``ops/csrc/lj.cu``), stand beside their plain PyTorch versions:
+
+* :func:`lj_energy` (replaces ``_lj_fwd_impl``): the energy over the upper
+  mask, summed in a fixed order;
+* :func:`lj_grads` (replaces ``_lj_vjp_bwd``): the position gradient over
+  the symmetric mask and the box gradient -- which the TPU kernel's VJP
+  leaves out, and without which a virial loses its image term.
+
+:class:`LJPairEnergy` ties them together for autograd; :func:`lj_pair_energy`
+is the entry. A wrapper runs its plain version for CPU tensors only; on a
+CUDA tensor it launches its kernel or raises. The sigma/epsilon tables get
+no gradient (the kernels give none): the Function refuses tables that
+require grad, and its backward is once-differentiable.
+
+The pair mask (:class:`PairMask`) is symmetric and bit-packed, 32 pairs a
+word: 13 MB at 10,160 beads, where a float32 (N, N) mask would be 413 MB.
+The forward reads its upper half (j > i, each pair once), the backward
+whole rows. It is built once per term and device, never per step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses as dc
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+LJ_CUTOFF = 1.1  # nm, the fixed MARTINI cutoff
+MAX_TYPES = 32  # the kernels keep the (t, t) tables in shared memory
+ROWS_PER_BLOCK = 8  # lj.cu's LJ_ROWS: the forward's partials, one per block
+
+ERR_BOX = "the minimum image needs every box side above twice the LJ cutoff ({}); got box {}"
+ERR_TABLE_GRAD = (
+    "LJPairEnergy gives no gradient for the sigma/epsilon tables (K6 computes position and box "
+    "gradients only); detach them"
+)
+
+
+def _to_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) as the int32 of the same bits."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def _pack(bits: torch.Tensor) -> torch.Tensor:
+    """(R, W * 32) bool -> (R, W) int32, bit c % 32 of word c // 32."""
+    r, m = bits.shape
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
+    return _to_int32((bits.reshape(r, m // 32, 32).to(torch.int64) << shifts).sum(-1))
+
+
+@dc.dataclass(frozen=True)
+class PairMask:
+    """The interacting pairs of n beads, symmetric and bit-packed: bit j % 32
+    of word j // 32 of row i, (n, ceil(n / 32)) int32 on one device."""
+
+    n: int
+    bits: torch.Tensor
+
+    @property
+    def words(self) -> int:
+        return self.bits.shape[1]
+
+    @classmethod
+    def build(cls, n: int, excluded, device) -> "PairMask":
+        """All pairs i != j of n beads minus the ``excluded`` (E, 2) pairs
+        (either order): m2.LJ's ``_pair_mask`` symmetrised. Packed 1024 rows
+        at a time (an (R, n) int64 temporary)."""
+        w = -(-n // 32)
+        j = torch.arange(w * 32, device=device)
+        bits = []
+        for i0 in range(0, n, 1024):
+            i = torch.arange(i0, min(n, i0 + 1024), device=device)[:, None]
+            bits.append(_pack((j[None] < n) & (j[None] != i)))
+        bits = torch.cat(bits)
+        ex = np.sort(np.asarray(excluded, dtype=np.int64).reshape(-1, 2), axis=1)
+        ex = np.unique(ex[ex[:, 0] != ex[:, 1]], axis=0)
+        _clear(bits, np.concatenate([ex[:, 0], ex[:, 1]]), np.concatenate([ex[:, 1], ex[:, 0]]), w)
+        return cls(n=n, bits=bits.contiguous())
+
+    def dense(self, rows: slice = slice(None)) -> torch.Tensor:
+        """The (rows, n) bool symmetric mask."""
+        bits = self.bits[rows]
+        j = torch.arange(self.n, device=bits.device)
+        return ((bits[:, j >> 5] >> (j & 31)) & 1).bool()
+
+    def upper(self, i0: int, i1: int) -> torch.Tensor:
+        """The (i1 - i0, n) bool mask of rows i0:i1 with j > i: each pair once."""
+        j = torch.arange(self.n, device=self.bits.device)
+        i = torch.arange(i0, i1, device=self.bits.device)[:, None]
+        return self.dense(slice(i0, i1)) & (j[None] > i)
+
+
+def _clear(bits: torch.Tensor, r: np.ndarray, c: np.ndarray, w: int) -> None:
+    """Clear bit (r, c) of each distinct pair, in place."""
+    if r.size == 0:
+        return
+    key = r * w + c // 32
+    uk, inv = np.unique(key, return_inverse=True)
+    val = np.zeros(len(uk), np.int64)
+    np.add.at(val, inv, np.left_shift(1, c % 32))  # distinct columns of a word: distinct bits
+    flat = bits.view(-1)
+    idx = torch.as_tensor(uk, device=bits.device)
+    flat[idx] = flat[idx] & _to_int32(torch.as_tensor((2**32 - 1) ^ val, device=bits.device))
+
+
+def check_box(box: torch.Tensor) -> None:
+    """Raise unless every box side exceeds twice the cutoff (reads the box
+    back to the host)."""
+    if not bool((box.detach() > 2 * LJ_CUTOFF).all()):
+        raise ValueError(ERR_BOX.format(2 * LJ_CUTOFF, box.detach().cpu().tolist()))
+
+
+def _lj_terms(r2: torch.Tensor, sigma: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """Shifted energy per pair given squared distances (ref ``_lj_terms``)."""
+    inv_r2 = sigma * sigma / r2
+    x6 = torch.clamp(inv_r2 * inv_r2 * inv_r2, max=1e15)
+    v = 4.0 * eps * (x6 * x6 - x6)
+    c6 = (sigma / LJ_CUTOFF) ** 6
+    v_c = 4.0 * eps * (c6 * c6 - c6)
+    return torch.where(r2 < LJ_CUTOFF * LJ_CUTOFF, v - v_c, torch.zeros_like(v))
+
+
+def _chunk_rows(n: int) -> int:
+    return max(1, 2**24 // max(n, 1))
+
+
+def _rows_energy(positions, types, mask_rows, box, tables, i0: int, i1: int) -> torch.Tensor:
+    """Energy of the pairs (i, j) of rows i0:i1 that ``mask_rows`` keeps
+    (dense, differentiable in positions and box)."""
+    sigmas, epsilons = tables
+    dr = positions[i0:i1, None, :] - positions[None, :, :]
+    dr = dr - box * torch.round(dr / box)
+    r2 = (dr * dr).sum(-1) + 1e-18
+    r2 = torch.where(mask_rows, r2, torch.ones_like(r2))  # masked pairs never reach r^-12
+    t = types.long()
+    energy = _lj_terms(r2, sigmas[t[i0:i1, None], t[None, :]], epsilons[t[i0:i1, None], t[None, :]])
+    return torch.where(mask_rows, energy, torch.zeros_like(energy)).sum()
+
+
+def lj_energy_plain(positions, types, pair_mask: PairMask, box, tables) -> torch.Tensor:
+    """Plain version of K6: the energy over the mask's upper half, dense by row
+    chunks as ``lj_energy_forces_reference`` is; autograd gives the position
+    and box gradients (and the tables', which the kernels do not)."""
+    check_box(box)
+    n = positions.shape[0]
+    step = _chunk_rows(n)
+    total = positions.new_zeros(())
+    for i0 in range(0, n, step):
+        i1 = min(n, i0 + step)
+        total = total + _rows_energy(positions, types, pair_mask.upper(i0, i1), box, tables, i0, i1)
+    return total
+
+
+def lj_grads_plain(positions, types, pair_mask: PairMask, box, tables):
+    """Plain version of K6's backward: (dU/dpositions (N, 3), dU/dbox (3,))
+    by autograd of :func:`lj_energy_plain`, one row chunk at a time."""
+    check_box(box)
+    n = positions.shape[0]
+    step = _chunk_rows(n)
+    pos = positions.detach().requires_grad_(True)
+    b = box.detach().requires_grad_(True)
+    tables = tuple(x.detach() for x in tables)
+    g_pos, g_box = torch.zeros_like(pos), torch.zeros_like(b)
+    with torch.enable_grad():
+        for i0 in range(0, n, step):
+            i1 = min(n, i0 + step)
+            e = _rows_energy(pos, types, pair_mask.upper(i0, i1), b, tables, i0, i1)
+            gp, gb = torch.autograd.grad(e, (pos, b))
+            g_pos += gp
+            g_box += gb
+    return g_pos, g_box
+
+
+# Kernel wrappers -------------------------------------------------------------
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _kernel_args(name: str, positions, types, pair_mask: PairMask, box, tables) -> tuple:
+    """The C arguments up to the outputs: positions, types, the mask bits,
+    n, words, box, tables, t."""
+    sigmas, epsilons = tables
+    named = {"positions": positions, "types": types, "mask": pair_mask.bits, "box": box, "sigmas": sigmas,
+             "epsilons": epsilons}
+    for k, v in named.items():
+        if v.device.type != "cuda":
+            raise ValueError(f"{name}: {k} is on {v.device}, not on the card")
+        if not v.is_contiguous():
+            raise ValueError(f"{name}: {k} is not contiguous")
+    n, t = positions.shape[0], sigmas.shape[0]
+    if positions.shape != (n, 3) or n != pair_mask.n or n < 1:
+        raise ValueError(f"{name} takes ({pair_mask.n}, 3) positions, got {tuple(positions.shape)}")
+    if any(x.dtype != torch.float32 for x in (positions, box, sigmas, epsilons)):
+        raise ValueError(f"{name} computes in float32; got {positions.dtype}, {box.dtype}, {sigmas.dtype}")
+    if types.dtype != torch.int32 or types.shape != (n,) or box.shape != (3,):
+        raise ValueError(f"{name} takes ({n},) int32 types and a (3,) box")
+    if not 1 <= t <= MAX_TYPES or sigmas.shape != (t, t) or epsilons.shape != (t, t):
+        raise ValueError(f"{name} takes square sigma/epsilon tables of at most {MAX_TYPES} types")
+    return (
+        _ptr(positions), _ptr(types), _ptr(pair_mask.bits), ctypes.c_int(n), ctypes.c_int(pair_mask.words),
+        _ptr(box), _ptr(sigmas), _ptr(epsilons), ctypes.c_int(t),
+    )
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def lj_energy(positions, types, pair_mask: PairMask, box, tables) -> torch.Tensor:
+    """K6 forward: the energy (a 0-d tensor) over the mask's pairs j > i. CPU
+    tensors run :func:`lj_energy_plain`."""
+    if positions.device.type == "cpu":
+        with torch.no_grad():
+            return lj_energy_plain(positions, types, pair_mask, box, tables)
+    from mythos_tpu_torch.ops import _build
+
+    args = _kernel_args("lj_energy", positions, types, pair_mask, box, tables)
+    partials = torch.empty(-(-pair_mask.n // ROWS_PER_BLOCK), dtype=torch.float32, device=positions.device)
+    out = torch.empty((), dtype=torch.float32, device=positions.device)
+    rc = _build.load_library().lj_energy(*args, _ptr(partials), _ptr(out), _stream())
+    if rc != 0:
+        raise RuntimeError(f"lj_energy launch failed: CUDA error {rc}")
+    lj_energy.launches += 1
+    return out
+
+
+lj_energy.launches = 0
+
+
+def lj_grads(positions, types, pair_mask: PairMask, box, tables):
+    """K6 backward: (dU/dpositions (N, 3) over the whole mask, dU/dbox
+    (3,) over each pair once). CPU tensors run :func:`lj_grads_plain`."""
+    if positions.device.type == "cpu":
+        return lj_grads_plain(positions, types, pair_mask, box, tables)
+    from mythos_tpu_torch.ops import _build
+
+    args = _kernel_args("lj_grads", positions, types, pair_mask, box, tables)
+    n = pair_mask.n
+    grad = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
+    box_rows = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
+    box_grad = torch.empty(3, dtype=torch.float32, device=positions.device)
+    rc = _build.load_library().lj_grads(*args, _ptr(grad), _ptr(box_rows), _ptr(box_grad), _stream())
+    if rc != 0:
+        raise RuntimeError(f"lj_grads launch failed: CUDA error {rc}")
+    lj_grads.launches += 1
+    return grad, box_grad
+
+
+lj_grads.launches = 0
+
+
+class LJPairEnergy(torch.autograd.Function):
+    """The LJ pair energy: :func:`lj_energy` forward, :func:`lj_grads`
+    backward, returning the position and box cotangents."""
+
+    @staticmethod
+    def forward(fctx, positions, box, types, pair_mask, sigmas, epsilons):
+        if fctx.needs_input_grad[4] or fctx.needs_input_grad[5]:
+            raise ValueError(ERR_TABLE_GRAD)
+        fctx.save_for_backward(positions, box, types, sigmas, epsilons)
+        fctx.pair_mask = pair_mask
+        return lj_energy(positions, types, pair_mask, box, (sigmas, epsilons))
+
+    @staticmethod
+    @once_differentiable
+    def backward(fctx, g):
+        positions, box, types, sigmas, epsilons = fctx.saved_tensors
+        grad, box_grad = lj_grads(positions, types, fctx.pair_mask, box, (sigmas, epsilons))
+        g_pos = g * grad if fctx.needs_input_grad[0] else None
+        g_box = g * box_grad if fctx.needs_input_grad[1] else None
+        return g_pos, g_box, None, None, None, None
+
+
+def lj_pair_energy(positions, types, pair_mask: PairMask, box, tables) -> torch.Tensor:
+    """Total shifted-LJ energy over the masked pairs (ref ``lj_pair_energy``):
+    differentiable in ``positions`` and ``box``. CPU tensors take the plain
+    versions; CUDA tensors the K6 kernels, or it raises."""
+    box = torch.as_tensor(box, dtype=positions.dtype, device=positions.device)
+    sigmas, epsilons = tables
+    return LJPairEnergy.apply(positions, box, types, pair_mask, sigmas, epsilons)

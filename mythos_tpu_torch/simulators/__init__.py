@@ -1,1 +1,3 @@
-"""Simulators (port of mythos_tpu.simulators): the CUDA stencil simulator."""
+"""Simulators (port of mythos_tpu.simulators): the CUDA stencil and block
+simulators (simulators.cuda) and the MARTINI point-particle simulator
+(simulators.martini)."""

@@ -1,8 +1,8 @@
 """The SimulatorTrajectory currency.
 
 Counterpart of mythos_tpu/simulators/io.py: a stacked (S, N, ...) rigid
-body with per-state temperature and metadata. File output and
-concatenation are not ported yet.
+body with optional per-state box size, temperature and metadata. File
+output and concatenation are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,10 +14,12 @@ import torch
 
 @dc.dataclass(frozen=True)
 class SimulatorTrajectory:
-    """States of a run: ``center`` (S, N, 3), ``orientation`` (S, N, 4)."""
+    """States of a run: ``center`` (S, N, 3), ``orientation`` (S, N, 4),
+    and, for periodic runs, ``box_size`` (S, 3)."""
 
     center: torch.Tensor
     orientation: torch.Tensor
+    box_size: torch.Tensor | None = None
     temperature: torch.Tensor | None = None
     metadata: dict[str, torch.Tensor] | None = None
 

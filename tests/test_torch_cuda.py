@@ -1,4 +1,4 @@
-"""PyTorch port (mythos_tpu_torch): the CUDA kernels K1-K5 against their
+"""PyTorch port (mythos_tpu_torch): the CUDA kernels K1-K6 against their
 plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
@@ -11,18 +11,24 @@ Tolerances: K2, K3, K4 and K5 rtol 1e-4 with atol 1e-4 x max|twin| (f32
 sums in another order, hand-written vs autograd derivatives); K1 over 4
 steps rtol 2e-4, atol 5e-5 (as tests/test_multistep.py holds the Pallas
 kernel); K5's body fields against K3 rtol 1e-5, atol 5e-6 (as the
-reference's test_fused_grads_soa_matches_grad_of_energy).
+reference's test_fused_grads_soa_matches_grad_of_energy); K6's energy
+rtol 2e-5 (as tests/test_ops.py holds the Pallas kernel), its position
+and box gradients rtol 2e-4 with atol 1e-4 x max|plain|; the MARTINI runs
+card vs CPU rtol 1e-4, atol 1e-5.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from mythos_tpu_torch.energy.martini.systems import default_bilayer_terms, lattice_bilayer  # noqa: E402
 from mythos_tpu_torch.entry import build_sim  # noqa: E402
 from mythos_tpu_torch.io.synthetic import synthetic_duplex  # noqa: E402
 from mythos_tpu_torch.ops import stencil as ts  # noqa: E402
-from mythos_tpu_torch.ops import tiles  # noqa: E402
+from mythos_tpu_torch.ops import lj, tiles  # noqa: E402
 from mythos_tpu_torch.rigid_body import RigidBody  # noqa: E402
+from mythos_tpu_torch.simulators.martini import MartiniSimulator  # noqa: E402
 from mythos_tpu_torch.soa import to_soa  # noqa: E402
 
 KT = 296.15 * 0.1 / 300.0
@@ -176,3 +182,57 @@ def test_block_run_on_card_matches_cpu(card):
     gpu, cpu = run(card), run("cpu")
     torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+
+
+def _bilayer_lj(device, n_xy: int, water_layers: int):
+    """K6's inputs for a lattice bilayer jittered by 0.03 nm (float32)."""
+    top, pos, box, _ = lattice_bilayer(n_xy, n_xy, water_layers=water_layers)
+    pos = pos + np.random.default_rng(1).normal(scale=0.03, size=pos.shape)
+    term = default_bilayer_terms(top)[2]
+    x = torch.as_tensor(pos, dtype=torch.float32, device=device)
+    b = torch.as_tensor(box, dtype=torch.float32, device=device)
+    return x, term.types(device), term.pair_mask(device), b, term.tables(device, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(3, 1), (8, 4)], ids=["104 beads", "1864 beads"])
+def test_k6_kernels_match_plain(card, size):
+    """K6 forward (deterministic) and backward (position and box gradients)
+    against the plain versions on the card."""
+    args = _bilayer_lj(card, *size)
+    before = (lj.lj_energy.launches, lj.lj_grads.launches)
+    e = lj.lj_energy(*args)
+    g, g_box = lj.lj_grads(*args)
+    torch.cuda.synchronize()
+    assert (lj.lj_energy.launches, lj.lj_grads.launches) == (before[0] + 1, before[1] + 1)
+    e_ref = lj.lj_energy_plain(*args)
+    g_ref, g_box_ref = lj.lj_grads_plain(*args)
+    torch.testing.assert_close(e, e_ref, rtol=2e-5, atol=0.0)
+    torch.testing.assert_close(g, g_ref, rtol=2e-4, atol=1e-4 * float(g_ref.abs().max()))
+    torch.testing.assert_close(g_box, g_box_ref, rtol=2e-4, atol=1e-4 * float(g_box_ref.abs().max()))
+    assert torch.equal(e, lj.lj_energy(*args))  # a fixed reduction order, no atomics
+    assert torch.equal(g_box, lj.lj_grads(*args)[1])
+
+
+@pytest.mark.cuda
+def test_martini_run_on_card_matches_cpu(card):
+    """The MARTINI NPT path, 104 beads, 20 steps with the barostat every 10
+    and the same pre-drawn noise: K6 on the card against the plain versions
+    on the CPU."""
+    top, pos, box, masses = lattice_bilayer(3, 3, water_layers=1)
+    gen = torch.Generator().manual_seed(0)
+    mom = torch.randn(pos.shape, generator=gen) * (72.0 * 0.0083144621 * 305.0) ** 0.5
+    noise = torch.randn((20, *pos.shape), generator=gen)
+
+    def run(device):
+        sim = MartiniSimulator(energy_fns=default_bilayer_terms(top), box=box, masses=masses, save_every=10,
+                               barostat={"pressure0": 1.0, "tau": 4.0, "every": 10}, device=device)
+        x0 = torch.as_tensor(pos, dtype=torch.float32)
+        return sim.run(None, x0, 20, init_momentum=mom, noise=noise).observables[0]
+
+    before = lj.lj_grads.launches
+    gpu = run(card)
+    assert lj.lj_grads.launches > before
+    cpu = run("cpu")
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.box_size.cpu(), cpu.box_size, rtol=1e-4, atol=1e-5)
