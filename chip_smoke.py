@@ -12,11 +12,13 @@ Phases, one line each; any failure exits non-zero:
 2. build the CUDA kernels from ``mythos_tpu_torch/ops/csrc`` (nvcc, sm_90a);
 3. K2 (band force) against its plain PyTorch twin on a 10k-nt duplex;
 4. K1 (40-step BAOAB chunk) against its twin, same bf16 noise, at 10k nt
-   (inside the float32 twin's error against a float64 twin) and at 80 nt
-   (rtol 2e-4, atol 5e-5);
+   (inside the float32 twin's error against a float64 twin; equal bits on
+   a second call; its kernel launches a chunk, counted by torch.profiler)
+   and at 80 nt (rtol 2e-4, atol 5e-5);
 5. the main path: ``entry.build_sim(mode="stencil", model="dna2")`` at
-   10k nt runs 2000 Langevin steps (50 chunks) through K1 and K2, and a
-   40-bp run on the card agrees with the same run on the CPU twins;
+   10k nt runs 2000 Langevin steps (50 chunks) through K1 and K2, then 10
+   chunks under torch.profiler (launches a step, K1's share), and a 40-bp
+   run on the card agrees with the same run on the CPU twins;
 6. the tile kernels K3 (forces), K4 (energies) and K5 (row gradients)
    against their plain versions at 10k nt, on the block tables of a
    0.01-jittered ideal duplex and of the 270-degree arc: K2's tolerance,
@@ -33,7 +35,13 @@ Phases, one line each; any failure exits non-zero:
    against their plain versions on the 10,160-bead bilayer
    ``lattice_bilayer(16, 16, water_layers=6)`` jittered by 0.03 nm (energy
    rtol 2e-5; gradients rtol 2e-4 / atol 1e-4 max|plain|, else the float32
-   budget of phase 4 per column); (9b) 1000 NPT steps of that bilayer
+   budget of phase 4 per column), the backward also with the beads
+   permuted and with the box and positions scaled by 0.98 / 0.98 / 1.02,
+   each case deterministic and the cells its gradients came from equal to
+   ``cell_list_plain``'s, with the candidate pairs tested a call, the
+   backward's launches and device time a call, and its bound beside one
+   counting only the mask words of the pairs inside the cutoff;
+   (9b) 1000 NPT steps of that bilayer
    through ``MartiniSimulator`` (barostat every 10, a state every 50)
    after a warm-up run, with a torch.profiler window; (9c) 50 NPT steps of
    the 104-bead bilayer with the same pre-drawn noise agree between the
@@ -103,6 +111,48 @@ def _events_ms(fn, reps: int) -> tuple[list[float], object]:
     return times, out
 
 
+def _dev_us(e) -> float:
+    """Device microseconds of a torch.profiler key average (the attribute
+    was renamed between torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _profiled(fn, reps: int = 1) -> dict:
+    """``reps`` calls of ``fn`` in one torch.profiler window ended by a
+    device synchronise, totals over the window: ``wall_ms`` (host clock,
+    the profiler's overhead included), ``device_ms`` (kernel time on the
+    device), ``launches`` (kernel launches), ``kernels`` {name: (device ms,
+    kernel events recorded)} -- the profiler may record fewer kernel events
+    than launches -- and ``host``, the five host ops of most self time as
+    (name, ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    on_dev = [str(getattr(e, "device_type", "")).endswith("CUDA") for e in ev]
+    host = sorted((e for e, d in zip(ev, on_dev) if not d), key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": sum(_dev_us(e) for e, d in zip(ev, on_dev) if d) / 1e3,
+        "launches": sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel")),
+        "kernels": {e.key: (_dev_us(e) / 1e3, e.count) for e, d in zip(ev, on_dev) if d and e.count},
+        "host": [(e.key, e.self_cpu_time_total / 1e3) for e in host[:5]],
+    }
+
+
+def _kernel_list(window: dict) -> str:
+    """"name: device ms a kernel event (events recorded)" of each kernel of a
+    :func:`_profiled` window."""
+    return ", ".join(f"{k.split('(')[0]}: {ms / c:.4f} ms ({c})" for k, (ms, c) in window["kernels"].items())
+
+
 def _lap(phase: str) -> None:
     """Print the wall seconds of the phase just ended and of the script so far."""
     _LAPS.append(time.perf_counter())
@@ -112,6 +162,11 @@ def _lap(phase: str) -> None:
 def _within(got, ref, rtol: float, atol: float) -> tuple[bool, float]:
     err = (got - ref).abs()
     return bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
+
+
+def _share(bound_ms: float, ms: float) -> str:
+    """The bound's share of a time, or "not measured" where the time is 0."""
+    return f"{bound_ms / ms:.2%}" if ms > 0 else "not measured"
 
 
 def _bound(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -303,22 +358,28 @@ def _k6_checked(got, plain, plain64) -> tuple[bool, str, float]:
     return bool((err_k <= limit).all()), "float64 budget", err
 
 
-def _lj_pair_counts(positions, pair_mask, box) -> tuple[int, int]:
-    """(masked unordered pairs, those inside the LJ cutoff) of one state."""
+def _lj_pair_counts(positions, pair_mask, box) -> tuple[int, int, int]:
+    """(masked unordered pairs, those inside the LJ cutoff, the distinct
+    mask words that hold the bits of those inside -- each pair's bit in row
+    min(i, j), the mask being symmetric) of one state."""
     import torch
 
     from mythos_tpu_torch.ops import lj
 
-    n, step = pair_mask.n, 1024
-    pairs = inside = 0
+    n, step, words = pair_mask.n, 1024, pair_mask.words
+    pairs = inside = words_in = 0
     for i0 in range(0, n, step):
         m = pair_mask.upper(i0, min(n, i0 + step))
         dr = positions[i0 : i0 + step, None, :] - positions[None, :, :]
         dr = dr - box * torch.round(dr / box)
         r2 = (dr * dr).sum(-1) + 1e-18
+        hit = m & (r2 < lj.LJ_CUTOFF**2)
         pairs += int(m.sum())
-        inside += int((m & (r2 < lj.LJ_CUTOFF**2)).sum())
-    return pairs, inside
+        inside += int(hit.sum())
+        padded = torch.zeros((hit.shape[0], words * 32), dtype=torch.bool, device=hit.device)
+        padded[:, :n] = hit
+        words_in += int(padded.reshape(hit.shape[0], words, 32).any(-1).sum())
+    return pairs, inside, words_in
 
 
 def _martini(dev, smi: str) -> list[dict]:
@@ -345,41 +406,82 @@ def _martini(dev, smi: str) -> list[dict]:
     mask = lj_term.pair_mask(dev)
     torch.cuda.synchronize()
     mask_s = time.perf_counter() - t0
-    args = (x, lj_term.types(dev), mask, b, lj_term.tables(dev, torch.float32))
-    args64 = (x.double(), args[1], mask, b.double(), tuple(t.double() for t in args[4]))
+    types, tables = lj_term.types(dev), lj_term.tables(dev, torch.float32)
+    args = (x, types, mask, b, tables)
+    args64 = (x.double(), types, mask, b.double(), tuple(t.double() for t in tables))
     e_ms, e_k = _events_ms(lambda: lj.lj_energy(*args), 20)
-    g_ms, (g_k, gb_k) = _events_ms(lambda: lj.lj_grads(*args), 20)
+    g_ms, _ = _events_ms(lambda: lj.lj_grads(*args), 20)
     pe_ms, e_p = _events_ms(lambda: lj.lj_energy_plain(*args), 3)
-    pg_ms, (g_p, gb_p) = _events_ms(lambda: lj.lj_grads_plain(*args), 3)
+    pg_ms, _ = _events_ms(lambda: lj.lj_grads_plain(*args), 3)
     e_64 = lj.lj_energy_plain(*args64)
-    g_64, gb_64 = lj.lj_grads_plain(*args64)
     err_e = abs(float(e_k) - float(e_p))
-    ok_e = err_e <= 2e-5 * abs(float(e_p))
-    ok_g, rule_g, err_g = _k6_checked(g_k, g_p, g_64)
-    ok_b, rule_b, err_b = _k6_checked(gb_k, gb_p, gb_64)
-    det = torch.equal(e_k, lj.lj_energy(*args)) and torch.equal(gb_k, lj.lj_grads(*args)[1])
-    n, words, t = mask.n, mask.words, args[4][0].shape[0]
-    n_pairs, n_in = _lj_pair_counts(x, mask, b)
+    ok_e = err_e <= 2e-5 * abs(float(e_p)) and torch.equal(e_k, lj.lj_energy(*args))
+    n, words, t = mask.n, mask.words, tables[0].shape[0]
+    n_pairs, n_in, words_in = _lj_pair_counts(x, mask, b)
+    bwd_win = _profiled(lambda: lj.lj_grads(*args), 10)
     # bytes: the mask words the function depends on (the energy: those of
-    # the upper half, from the word of column i + 1), positions, types,
-    # tables, box, outputs; operations: the pairs inside the cutoff only
+    # the upper half, from the word of column i + 1; the backward: whole
+    # rows), positions, types, tables, box, outputs; operations: the pairs
+    # inside the cutoff only. Beside the backward's bound, the same with
+    # only the mask words that hold the bits of the pairs inside the cutoff
     upper_words = sum(words - (i + 1) // 32 for i in range(n))
     other_in = n * 3 * 4 + n * 4 + 2 * t * t * 4 + 3 * 4
     fwd_bound = _bound(upper_words * 4 + other_in + 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_ENERGY))
     bwd_bound = _bound(n * words * 4 + other_in + n * 3 * 4 + 3 * 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_GRAD))
-    dense_ms = (n_pairs * FLOP_LJ_TEST / FP32_FLOP_S * 1e3, 2 * n_pairs * FLOP_LJ_TEST / FP32_FLOP_S * 1e3)
+    reach_bound = _bound(words_in * 4 + other_in + n * 3 * 4 + 3 * 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_GRAD))
+    # each of the backward's kernels launches once a call, so a call's device
+    # time is the sum of their mean times per kernel event recorded
+    g_med = statistics.median(g_ms)
+    g_dev = sum(ms / c for ms, c in bwd_win["kernels"].values())
     print(f"[9a K6] {n} beads, box {box.round(3).tolist()}: mask built in {mask_s:.3f} s ({words} words a row); "
-          f"{n_pairs} masked pairs, {n_in} inside {lj.LJ_CUTOFF} nm; the kernels' own dense distance tests "
-          f"(not in the bound): {n_pairs} forward, {2 * n_pairs} backward, {dense_ms[0]:.5f} / {dense_ms[1]:.5f} ms at "
-          f"the fp32 peak; energy kernel {float(e_k):.6f} plain "
-          f"{float(e_p):.6f} f64 {float(e_64):.6f} (|diff| {err_e:.3e}, rtol 2e-5: {ok_e}); position gradient err "
-          f"{err_g:.3e} ({rule_g}); box gradient kernel {gb_k.tolist()} plain {gb_p.tolist()} f64 {gb_64.tolist()} "
-          f"err {err_b:.3e} ({rule_b}); deterministic {det}; lj_energy {statistics.median(e_ms):.4f} ms "
-          f"(plain {statistics.median(pe_ms):.2f}, bound {fwd_bound[0]:.6f} by {fwd_bound[1]}); lj_grads "
-          f"{statistics.median(g_ms):.4f} ms (plain {statistics.median(pg_ms):.2f}, bound {bwd_bound[0]:.6f} by "
-          f"{bwd_bound[1]}) on {smi}")
-    if not (ok_e and ok_g and ok_b and det):
-        raise SystemExit("K6 disagrees with its plain versions or is not deterministic")
+          f"{n_pairs} masked pairs, {n_in} inside {lj.LJ_CUTOFF} nm; the forward's own dense distance tests "
+          f"(not in the bound): {n_pairs}, {n_pairs * FLOP_LJ_TEST / FP32_FLOP_S * 1e3:.5f} ms at the fp32 peak; "
+          f"energy kernel {float(e_k):.6f} plain {float(e_p):.6f} f64 {float(e_64):.6f} (|diff| {err_e:.3e}, rtol "
+          f"2e-5, deterministic: {ok_e}); lj_energy {statistics.median(e_ms):.4f} ms (plain "
+          f"{statistics.median(pe_ms):.2f}, bound {fwd_bound[0]:.6f} by {fwd_bound[1]}); lj_grads "
+          f"{g_med:.4f} ms (plain {statistics.median(pg_ms):.2f}, bound {bwd_bound[0]:.6f} by {bwd_bound[1]}: "
+          f"{_share(bwd_bound[0], g_med)} of the events' time, {_share(bwd_bound[0], g_dev)} of the {g_dev:.4f} ms "
+          f"of device time a call; {bwd_win['launches'] / 10:g} kernel launches a call; device time: "
+          f"{_kernel_list(bwd_win)}); with only the {words_in} mask words ({words_in * 4} B) that hold the bits of "
+          f"the pairs inside the cutoff, of {n * words}, the backward's bound is {reach_bound[0]:.6f} ms by "
+          f"{reach_bound[1]} ({_share(reach_bound[0], g_med)} of the events' time, "
+          f"{_share(reach_bound[0], g_dev)} of the device time) on {smi}")
+    if not ok_e:
+        raise SystemExit("K6's forward disagrees with its plain version or is not deterministic")
+
+    # K6's backward where the cells could go wrong: the same beads permuted
+    # (positions, types and mask alike), and the box and positions scaled,
+    # as the barostat scales them, so that the cells per side change on the
+    # device
+    perm = np.random.default_rng(2).permutation(n)
+    inv = np.argsort(perm)
+    ip = torch.as_tensor(perm, device=dev)
+    scale = torch.tensor([0.98, 0.98, 1.02], device=dev)
+    cases = {
+        "jittered": args,
+        "permuted": (x[ip].contiguous(), types[ip].contiguous(),
+                     lj.PairMask.build(n, inv[np.asarray(lj_term.bonded_neighbors)], dev), b, tables),
+        "scaled box": (x * scale, types, mask, b * scale, tables),
+    }
+    err_g = err_b = 0.0
+    for case, a in cases.items():
+        g_k, gb_k = lj.lj_grads(*a)
+        g_k2, gb_k2, cells = lj._lj_grads(*a)  # the cells this call's gradients came from
+        det = torch.equal(g_k, g_k2) and torch.equal(gb_k, gb_k2)
+        g_p, gb_p = lj.lj_grads_plain(*a)
+        g_64, gb_64 = lj.lj_grads_plain(a[0].double(), a[1], a[2], a[3].double(), tuple(v.double() for v in a[4]))
+        ok_g, rule_g, e_g = _k6_checked(g_k, g_p, g_64)
+        ok_b, rule_b, e_b = _k6_checked(gb_k, gb_p, gb_64)
+        cells_p = lj.cell_list_plain(a[0], a[3])
+        same = all(torch.equal(getattr(cells, f), getattr(cells_p, f)) for f in ("dims", "cell_of", "start", "order"))
+        tests = lj.candidate_tests(cells_p)
+        err_g, err_b = max(err_g, e_g), max(err_b, e_b)
+        print(f"  K6 backward, {case}: cells {cells.dims[:3].tolist()} equal to cell_list_plain's: {same}; "
+              f"{tests} candidate pairs tested a call ({tests / (2 * n_pairs):.2%} of the dense design's "
+              f"{2 * n_pairs}); position gradient err {e_g:.3e} ({rule_g}); box gradient kernel {gb_k.tolist()} "
+              f"plain {gb_p.tolist()} f64 {gb_64.tolist()} err {e_b:.3e} ({rule_b}); deterministic {det}")
+        if not (ok_g and ok_b and det and same):
+            raise SystemExit(f"K6's backward disagrees with its plain version, its cells or itself ({case})")
     _lap("9a K6")
 
     # 9b. the NPT main path at 10,160 beads: warm-up run, then the counted, timed run
@@ -410,30 +512,16 @@ def _martini(dev, smi: str) -> list[dict]:
           f"{kt_late:.4f} (kT {sim.kT:.4f})")
     if not (finite and xy_equal):
         raise SystemExit("the MARTINI NPT run produced a bad trajectory")
-    if launches["K6 fwd"] < 1 or launches["K6 bwd"] < 1:
+    if min(launches.values()) < 1:
         raise SystemExit(f"the MARTINI NPT run did not go through K6: {launches}")
     # where an NPT step's time goes: one saved interval under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run(None, x0, MARTINI_SAVE, torch.Generator(device=dev).manual_seed(12))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    on_dev = [e for e in ev if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    kernel_ms = sum(dev_us(e) for e in on_dev) / 1e3
-    n_launch = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    top_dev = sorted(on_dev, key=dev_us, reverse=True)[:4]
-    top_host = sorted((e for e in ev if e not in on_dev), key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
-    print(f"[9b profile] {MARTINI_SAVE} steps under torch.profiler: wall {wall_ms:.1f} ms, device kernels "
-          f"{kernel_ms:.1f} ms (idle share {1 - kernel_ms / wall_ms:.0%}), {n_launch / MARTINI_SAVE:.0f} launches per "
-          f"step; device top: " + ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms" for e in top_dev)
-          + "; host top: " + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.0f} ms" for e in top_host))
+    w = _profiled(lambda: sim.run(None, x0, MARTINI_SAVE, torch.Generator(device=dev).manual_seed(12)))
+    top_dev = sorted(w["kernels"].items(), key=lambda kv: kv[1][0], reverse=True)[:4]
+    print(f"[9b profile] {MARTINI_SAVE} steps under torch.profiler: wall {w['wall_ms']:.1f} ms, device kernels "
+          f"{w['device_ms']:.1f} ms (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}), "
+          f"{w['launches'] / MARTINI_SAVE:.0f} launches per step; device top: "
+          + ", ".join(f"{k[:40]} {ms:.1f} ms" for k, (ms, _) in top_dev)
+          + "; host top: " + ", ".join(f"{k} {ms:.0f} ms" for k, ms in w["host"]))
     _lap("9b MARTINI NPT (warm-up, 1000 steps, profile)")
 
     # 9c. the 104-bead bilayer: card (K6) vs CPU plain versions, same noise
@@ -503,12 +591,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, nvcc_s = _build.build()
     _build.load_library()
-    regs, fn = [], "?"
+    regs, fn, spill = [], "?", ""
     for ln in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in ln:
             fn = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.split(",", 1)[1].strip()
         elif "registers" in ln:
-            regs.append(f"{fn}: {ln.split(':', 1)[1].strip()}")
+            regs.append(f"{fn}: {ln.split(':', 1)[1].strip()}, {spill}")
     print(f"[2 build] {lib_path.name}: nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s; "
           + " | ".join(regs))
     _lap("1-2 device, build")
@@ -550,6 +640,9 @@ def main() -> int:
     noise = torch.randn((u, 6, n), generator=gen, device=dev).to(torch.bfloat16)
     ou = st.ou_constants(sim.dt, sim.kT, [sim.mass], [sim.inertia], [sim.gamma_t], [sim.gamma_r]).vector(dev)
     k1_ms, k1 = _events_ms(lambda: st.multistep_chunk(ctx, ou, noise, state), 5)
+    k1_det = torch.equal(k1, st.multistep_chunk(ctx, ou, noise, state))
+    k1_win = _profiled(lambda: st.multistep_chunk(ctx, ou, noise, state), 3)
+    k1_launches = k1_win["launches"] / 3
     tw1_ms, twin1 = _events_ms(lambda: st.multistep_chunk_plain(ctx, ou, noise, state), 2)
     twin64 = st.multistep_chunk_plain(ctx.astype(torch.float64), ou.double(), noise, state.double())
     err_k = (k1 - twin1).abs().amax(1).double()
@@ -559,10 +652,10 @@ def main() -> int:
     fixed_ok, _ = _within(k1, twin1, rtol=2e-4, atol=5e-5)
     rows = " ".join(f"{r}:{float(a):.1e}/{float(b):.1e}" for r, (a, b) in enumerate(zip(err_k, err_32)))
     print(f"[4 K1] {u} steps at {n} nt: max|K1-twin|={err1:.3e}; rtol 2e-4/atol 5e-5 met: {fixed_ok}; "
-          f"kernel {statistics.median(k1_ms):.3f} ms twin {statistics.median(tw1_ms):.3f} ms; "
-          f"row:|K1-f32|/|f32-f64| {rows}")
-    if not bool((err_k <= limit).all()):
-        raise SystemExit("K1 is outside the float32 error budget of its twin")
+          f"kernel {statistics.median(k1_ms):.3f} ms twin {statistics.median(tw1_ms):.3f} ms; {k1_launches:g} kernel "
+          f"launches a chunk ({_kernel_list(k1_win)}); two chunks equal: {k1_det}; row:|K1-f32|/|f32-f64| {rows}")
+    if not bool((err_k <= limit).all()) or not k1_det:
+        raise SystemExit("K1 is outside the float32 error budget of its twin, or not deterministic")
 
     # 4b. the same chunk at 40 bp over 4 steps, held to the fixed tolerance
     # the reference holds its Pallas kernel to (tests/test_multistep.py:112)
@@ -603,6 +696,13 @@ def main() -> int:
         raise SystemExit("main path produced a bad trajectory")
     if launches["K1"] != N_STEPS // u or launches["K2"] < 1:
         raise SystemExit(f"main path did not run through the kernels: {launches}")
+    # where a main-path step's time goes: 10 chunks under the profiler
+    w = _profiled(lambda: sim.run(params, body, 10 * u, torch.Generator(device=dev).manual_seed(3)))
+    wall_ms, kernel_ms, n_launch = w["wall_ms"], w["device_ms"], w["launches"]
+    k1_dev_ms = sum(ms for k, (ms, _) in w["kernels"].items() if k.startswith("k1_"))
+    print(f"[5 profile] {10 * u} steps under torch.profiler: wall {wall_ms:.1f} ms, device kernels {kernel_ms:.1f} ms "
+          f"(idle share {1 - kernel_ms / wall_ms:.0%}), K1's kernels {k1_dev_ms:.1f} ms "
+          f"({k1_dev_ms / wall_ms:.0%} of the wall), {n_launch / (10 * u):.2f} launches per step")
 
     # 5b. a small input on the card agrees with the CPU twins (thermostat off)
     def small_run(device):
@@ -745,26 +845,11 @@ def main() -> int:
         raise SystemExit(f"block tier did not run through K3: {k3_launches} launches")
     # where a block step's time goes: one rebuild interval under the profiler
     # (its host overhead makes the idle share an upper bound)
-    from torch.profiler import ProfilerActivity, profile
-
     u_a = sim_a.save_every
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim_a.run(e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(9))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    kernel_ms = sum(dev_us(e) for e in ev if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
-    n_launch = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    top = sorted((e for e in ev if not str(getattr(e, "device_type", "")).endswith("CUDA")),
-                 key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
-    print(f"[7 profile] {u_a} steps under torch.profiler: wall {wall_ms:.1f} ms, device kernels {kernel_ms:.1f} ms "
-          f"(idle share {1 - kernel_ms / wall_ms:.0%}), {n_launch / u_a:.0f} launches per step; host top: "
-          + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.0f} ms" for e in top))
+    w = _profiled(lambda: sim_a.run(e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(9)))
+    print(f"[7 profile] {u_a} steps under torch.profiler: wall {w['wall_ms']:.1f} ms, device kernels "
+          f"{w['device_ms']:.1f} ms (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}), "
+          f"{w['launches'] / u_a:.0f} launches per step; host top: " + ", ".join(f"{k} {ms:.0f} ms" for k, ms in w["host"]))
     _lap("7 block tier")
 
     # 8. one DiffTRe step at 10k nt: stencil MD -> tile map -> loss -> grads -> Adam

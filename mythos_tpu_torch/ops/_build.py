@@ -35,7 +35,7 @@ SIGNATURES = {
     "multistep_chunk": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,  # params, seq, partners, qf, n, w x4, w_wide
         _P, _P, _P, _I, _I,  # wstack, dirf, checks, n_checks, check_dm
-        _P, _P, _I, _P, _P,  # ou, noise, n_inner, state, stream
+        _P, _P, _I, _P, _P, _P,  # ou, noise, n_inner, state, alt, stream
     ),
     # params, rows, ids, n, n_blocks, block_size, cap, kind, then n_pad, out, stream
     "tile_forces": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
@@ -43,9 +43,10 @@ SIGNATURES = {
     # ... then partials, out, stream
     "tile_energies": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # positions, types, mask bits, n, words, box, sigmas, epsilons, t, then partials, out,
-    # stream (lj_energy) or grad, box rows, box grad, stream (lj_grads)
+    # stream (lj_energy) or the cells' arrays (dims, cell_of, start, order, tmp), grad, box
+    # rows, box grad, stream (lj_grads)
     "lj_energy": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
-    "lj_grads": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P),
+    "lj_grads": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

@@ -7,14 +7,15 @@
 //   lj_grads  <- _lj_vjp_bwd (_bwd_kernel): the position gradient over the
 //                symmetrised mask, plus the box gradient dU/dbox, which the
 //                TPU kernel's VJP does not return (the virial's image term).
-// Plain versions: ops/lj.py::lj_energy_plain, lj_grads_plain.
+// Plain versions: ops/lj.py::lj_energy_plain, lj_grads_plain, and
+// cell_list_plain for the spatial cells the backward visits.
 //
 // Inputs: positions (n, 3) float32; types (n,) int32 into the (t, t)
 // sigma/epsilon tables (t <= 32); the symmetric pair mask bit-packed as
 // (n, words) 32-bit words, bit j % 32 of word j / 32 of row i set where the
 // pair (i, j) interacts -- lj_energy reads its upper half (j > i, each pair
-// once), lj_grads whole rows; the box (3,) on the device (the barostat
-// moves it there, so it is never read back to the host).
+// once), lj_grads the words of the candidates it visits; the box (3,) on the
+// device (the barostat moves it there, so it is never read back to the host).
 //
 // Per pair (ops/lj.py::_lj_terms): d = dr - box * rint(dr / box), r2 =
 // |d|^2 + 1e-18; inside r2 < cutoff^2 (the fixed 1.1 nm): x6 =
@@ -22,34 +23,66 @@
 // 4 eps (-12 x6^2 + 6 x6) / (2 r2). dU/dx_i = sum_j 2 dV/dr2 d_ij; dU/dbox_a = -sum over unordered
 // pairs of 2 dV/dr2 d_a n_a, n = rint(dr / box).
 //
-// Design: one warp per row i (8 rows a block), lane l taking the columns
-// 32 k + l of mask word k, so 10,160 rows put 325k threads on the card;
-// the forward starts at the word of column i + 1.
-// The warp reads each mask word once (a broadcast); a pair is evaluated
-// only where its bit is set -- masked-out pairs are selected away, never
-// multiplied by zero -- and only pairs inside the cutoff reach the type
-// tables (in shared memory) and the LJ arithmetic. rint rounds ties to
-// even, as torch.round and jnp.round do; dr * (1 / box) may round a ratio
-// within an ulp of a half-integer the other way than dr / box, but such a
-// pair is half a box (> cutoff) apart along that axis with either image,
-// so it contributes nothing either way. The distance is formed without
-// fma contraction, as the plain version forms it. Every sum has a fixed
-// order: each lane adds its columns in order, the warp reduces by a fixed
-// butterfly, a block adds its rows in row order, and a one-warp tail adds
-// the block partials (energy) or the row partials (box gradient) in a
-// fixed order; each row of the position gradient is written by its own
-// warp. No atomics: two calls give the same bits. The minimum image holds
-// only while every box side exceeds twice the cutoff; on a smaller box
+// Both kernels evaluate a pair only where its mask bit is set -- masked-out
+// pairs are selected away, never multiplied by zero -- and only pairs inside
+// the cutoff reach the type tables (in shared memory) and the LJ arithmetic.
+// rint rounds ties to even, as torch.round and jnp.round do; dr * (1 / box)
+// may round a ratio within an ulp of a half-integer the other way than
+// dr / box, but such a pair is half a box (> cutoff) apart along that axis
+// with either image, so it contributes nothing either way. The distance is
+// formed without fma contraction, as the plain version forms it. No
+// atomics touch a sum: two calls give the same bits. The minimum image
+// holds only while every box side exceeds twice the cutoff; on a smaller box
 // both kernels write NaN (the host-side callers raise first).
 //
-// What bounds it on an H100: bytes. The function needs the mask (13 MB at
-// 10,160 beads, half of it for the energy) and 0.16 MB of positions and
-// types, ~4 us at 3.35 TB/s; only the ~2e5 pairs inside 1.1 nm need
-// arithmetic. The kernels do more than that: the distance test (~22
-// flops) on every masked pair, 5.2e7 in the forward and twice that in
-// lj_grads, which visits each pair from both rows (no scatter). A cell
-// list (skip whole column tiles beyond the cutoff), column tiles in shared
-// memory and a Newton-third-law scatter are later work.
+// Forward (lj_energy_kernel): one warp per row i (8 rows a block), lane l
+// taking the columns 32 k + l of mask word k from the word of column i + 1,
+// 325k threads at 10,160 rows. Sums in a fixed order: each lane its columns
+// in order, the warp by a fixed butterfly, a block its rows in row order, a
+// one-warp tail the block partials. It tests the distance of every masked
+// pair j > i (5.2e7 at 10,160 beads) and so scales with n^2; the cells below
+// are what a later redesign of it can reuse.
+//
+// Backward, redesigned for the H100: work bounded by the pairs in reach.
+//   1. lj_cells_kernel (one block) bins the beads into spatial cells built
+//      from the current positions and the box on the device, never from the
+//      bead index (after diffusion or a permuted topology neighbouring
+//      indices are not neighbours in space): floor(box / LJ_CELL) cells a
+//      side, LJ_CELL = the cutoff plus 1e-4 nm, so that a bead placed one
+//      cell off by float32 rounding at a border is still more than the
+//      cutoff from every bead two cells away. A bead's cell comes from its
+//      wrapped fraction f = x / box - floor(x / box), so positions outside
+//      [0, box) bin where their image lies. Counts by shared-memory atomics,
+//      an exclusive scan, placement at the arrival rank, then each bead's
+//      place in its cell is the number of the cell's beads of lower index:
+//      `order` lists the beads by (cell, index), whatever order the atomics
+//      took. Past LJ_MAX_CELLS cells (a box over ~35 nm a side at 32^3) the
+//      kernel flags dims[3] = 0 and builds nothing; the gradients are then
+//      NaN (ops/lj.py::check_box raises on the host first).
+//   2. lj_grads_kernel: one warp per row, rows taken in cell order so that
+//      a block's eight warps read the same neighbour cells from L1. Lanes
+//      0..26 look up the row's distinct neighbour cells (offsets -1, 0, +1 on
+//      an axis of 3 or more cells, 0, +1 on an axis of 2, where the two
+//      wrapped neighbours coincide, 0 on an axis of 1) and a warp scan lays
+//      their beads end to end; lane l then takes candidates l, l + 32, ...
+//      of that list (a binary search by shuffles finds each one's cell), so
+//      the ~250 candidates of a row at the main path's density fill the
+//      lanes. Each candidate still checks its bit in the pair mask. The
+//      fixed candidate order (cells in offset order, beads by index) and the
+//      fixed butterfly make each row's sum deterministic; each row of the
+//      position gradient is written by its own warp, the box gradient's
+//      rows (j > i: each unordered pair once) are added in row order by a
+//      one-warp tail.
+//   Three launches a call: the cell build, the rows, the tail.
+//
+// What bounds it on an H100: bytes. The function needs only the mask words
+// that hold the bits of the pairs inside the cutoff (chip_smoke.py 9a
+// counts them; the kernel record's bound charges whole rows, the 13 MB
+// mask at 10,160 beads, ~4 us at 3.35 TB/s) and 0.16 MB of positions and
+// types; only the ~2e5 pairs inside 1.1 nm need arithmetic. The kernel
+// reads the words of its candidates: it tests ~2.6e6 candidates (27 cells
+// of ~9 beads a row) where the dense design tested 1.03e8; the
+// single-block cell build is serial work on one SM and scales with n.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +90,9 @@
 #define LJ_MAX_TYPES 32
 #define LJ_CUTOFF 1.1f  // nm, the fixed MARTINI cutoff; ops/lj.py::LJ_CUTOFF
 #define LJ_CUT2 1.21f   // LJ_CUTOFF^2 as ops/lj.py compares it in float32
+#define LJ_CELL 1.1001f  // least cell side; ops/lj.py::LJ_CELL
+#define LJ_MAX_CELLS 32768  // ops/lj.py::MAX_CELLS: the build's shared histogram, 128 KB
+#define LJ_BUILD_THREADS 1024
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -149,46 +185,172 @@ __global__ void lj_sum_kernel(const float* __restrict__ x, int rows, int stride,
   if (lane == 0) out[c] = acc;
 }
 
+// Cells along a box side: floor(b / LJ_CELL), at least 1, at most the cap + 1.
+__device__ __forceinline__ int cells_along(float b) {
+  float c = floorf(__fdiv_rn(b, LJ_CELL));
+  if (!(c >= 1.f)) return 1;
+  return c > (float)LJ_MAX_CELLS ? LJ_MAX_CELLS + 1 : (int)c;
+}
+
+// The cell coordinate of x along a side of nc cells, from its wrapped fraction.
+__device__ __forceinline__ int cell_coord(float x, float b, int nc) {
+  float f = __fdiv_rn(x, b);
+  f = __fsub_rn(f, floorf(f));
+  int c = (int)__fmul_rn(f, (float)nc);
+  return c < 0 ? 0 : (c >= nc ? nc - 1 : c);
+}
+
+// The spatial cells of the beads (one block): dims = (cells along x, y, z,
+// 1 if their number is within LJ_MAX_CELLS); cell_of[i] = (cx * ny + cy) *
+// nz + cz; start[c] = the beads in cells below c (n from the last cell on,
+// up to start[LJ_MAX_CELLS]); order = the beads by (cell, index); tmp (n,)
+// scratch.
+__global__ void __launch_bounds__(LJ_BUILD_THREADS)
+    lj_cells_kernel(const float* __restrict__ pos, int n, const float* __restrict__ box, int* __restrict__ dims,
+                    int* __restrict__ cell_of, int* __restrict__ start, int* __restrict__ order,
+                    int* __restrict__ tmp) {
+  extern __shared__ int s_hist[];  // LJ_MAX_CELLS counts, then starts
+  __shared__ int s_warp[32];
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const float bx = box[0], by = box[1], bz = box[2];
+  const int ncx = cells_along(bx), ncy = cells_along(by), ncz = cells_along(bz);
+  const long long total = (long long)ncx * ncy * ncz;
+  const bool ok = total <= LJ_MAX_CELLS;
+  if (tid == 0) {
+    dims[0] = ncx;
+    dims[1] = ncy;
+    dims[2] = ncz;
+    dims[3] = ok ? 1 : 0;
+  }
+  if (!ok) return;  // the same for every thread
+  const int nc = (int)total;
+  for (int c = tid; c < nc; c += nt) s_hist[c] = 0;
+  __syncthreads();
+  // each bead's cell, and its arrival rank in it (kept in `order` until placed)
+  for (int i = tid; i < n; i += nt) {
+    const int c = (cell_coord(pos[3 * i], bx, ncx) * ncy + cell_coord(pos[3 * i + 1], by, ncy)) * ncz +
+                  cell_coord(pos[3 * i + 2], bz, ncz);
+    cell_of[i] = c;
+    order[i] = atomicAdd(&s_hist[c], 1);
+  }
+  __syncthreads();
+  // exclusive scan of the counts in place: thread tid takes a run of `per` cells
+  const int per = (nc + nt - 1) / nt;
+  const int c0 = min(tid * per, nc), c1 = min(c0 + per, nc);
+  int run = 0;
+  for (int c = c0; c < c1; ++c) run += s_hist[c];
+  int incl = run;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < (nt >> 5) ? s_warp[lane] : 0;
+    int w = v;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += u;
+    }
+    s_warp[lane] = w - v;
+  }
+  __syncthreads();
+  int acc = s_warp[warp] + incl - run;
+  for (int c = c0; c < c1; ++c) {
+    const int k = s_hist[c];
+    s_hist[c] = acc;
+    acc += k;
+  }
+  __syncthreads();
+  for (int c = tid; c <= LJ_MAX_CELLS; c += nt) start[c] = c < nc ? s_hist[c] : n;
+  // place each bead at its cell's start plus its arrival rank
+  for (int i = tid; i < n; i += nt) tmp[s_hist[cell_of[i]] + order[i]] = i;
+  __syncthreads();
+  // sort each cell by bead index: a bead's place is the count of its cell's beads below it
+  for (int i = tid; i < n; i += nt) {
+    const int c = cell_of[i];
+    const int s = s_hist[c], e = c + 1 < nc ? s_hist[c + 1] : n;
+    int r = 0;
+    for (int k = s; k < e; ++k) r += tmp[k] < i;
+    order[s + r] = i;
+  }
+}
+
 // K6 backward: grad[i] = sum_j 2 dV/dr2 d_ij over the symmetric mask;
-// box_rows[i] = -sum_{j > i} 2 dV/dr2 d_ij * n_ij (each unordered pair once).
+// box_rows[i] = -sum_{j > i} 2 dV/dr2 d_ij * n_ij (each unordered pair once);
+// the candidates j of row i are the beads of the cells next to i's.
 __global__ void __launch_bounds__(LJ_ROWS * 32)
     lj_grads_kernel(const float* __restrict__ pos, const int* __restrict__ types, const uint32_t* __restrict__ mask,
                     int n, int words, const float* __restrict__ box, const float* __restrict__ sig,
-                    const float* __restrict__ eps, int t, float* __restrict__ grad, float* __restrict__ box_rows) {
+                    const float* __restrict__ eps, int t, const int* __restrict__ dims,
+                    const int* __restrict__ cell_of, const int* __restrict__ start, const int* __restrict__ order,
+                    float* __restrict__ grad, float* __restrict__ box_rows) {
   __shared__ float s_sig[LJ_MAX_TYPES * LJ_MAX_TYPES], s_e4[LJ_MAX_TYPES * LJ_MAX_TYPES],
       s_vc[LJ_MAX_TYPES * LJ_MAX_TYPES];
   load_tables(sig, eps, t, s_sig, s_e4, s_vc);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * LJ_ROWS + warp;
-  if (i >= n) return;  // no barrier follows
+  const int w = blockIdx.x * LJ_ROWS + warp;
+  if (w >= n) return;  // no barrier follows
   const float bx = box[0], by = box[1], bz = box[2];
-  const float ix = 1.f / bx, iy = 1.f / by, iz = 1.f / bz;
-  const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
-  const int ti = types[i] * t;
-  const uint32_t* row = mask + (size_t)i * words;
+  const bool cells = dims[3] != 0;
+  const bool ok = cells && fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF;
+  const int i = cells ? order[w] : w;
   float gx = 0.f, gy = 0.f, gz = 0.f, hx = 0.f, hy = 0.f, hz = 0.f;
-  for (int k = 0; k < words; ++k) {
-    const uint32_t w = row[k];
-    if (!((w >> lane) & 1u)) continue;
-    const int j = (k << 5) + lane;
-    if (j >= n) continue;
-    float nx, ny, nz;
-    float dx = min_image(xi, pos[3 * j], bx, ix, nx);
-    float dy = min_image(yi, pos[3 * j + 1], by, iy, ny);
-    float dz = min_image(zi, pos[3 * j + 2], bz, iz, nz);
-    float r2 = dist2(dx, dy, dz);
-    if (r2 < LJ_CUT2) {
-      const int tt = ti + types[j];
-      float x6 = lj_x6(s_sig[tt], r2);
-      float c = 2.f * (s_e4[tt] * (-12.f * x6 * x6 + 6.f * x6) / (2.f * r2));
-      gx += c * dx;
-      gy += c * dy;
-      gz += c * dz;
-      if (j > i) {
-        hx -= c * dx * nx;
-        hy -= c * dy * ny;
-        hz -= c * dz * nz;
+  if (ok) {
+    const float ix = 1.f / bx, iy = 1.f / by, iz = 1.f / bz;
+    const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+    const int ti = types[i] * t;
+    const uint32_t* row = mask + (size_t)i * words;
+    const int ncx = dims[0], ncy = dims[1], ncz = dims[2];
+    const int ci = cell_of[i];
+    const int cz = ci % ncz, cy = (ci / ncz) % ncy, cx = ci / (ncz * ncy);
+    const int kx = min(ncx, 3), ky = min(ncy, 3), kz = min(ncz, 3);
+    // lane k < kx * ky * kz: the k-th distinct neighbour cell, its first bead and count
+    int s = 0, cnt = 0;
+    if (lane < kx * ky * kz) {
+      const int a = lane / (ky * kz), b = (lane / kz) % ky, c = lane % kz;
+      const int nx = (cx + (kx == 3 ? a - 1 : a) + ncx) % ncx;
+      const int ny = (cy + (ky == 3 ? b - 1 : b) + ncy) % ncy;
+      const int nz = (cz + (kz == 3 ? c - 1 : c) + ncz) % ncz;
+      const int cc = (nx * ncy + ny) * ncz + nz;
+      s = start[cc];
+      cnt = start[cc + 1] - s;
+    }
+    int incl = cnt;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const int excl = incl - cnt, total = __shfl_sync(0xffffffffu, incl, 31);
+    for (int base = 0; base < total; base += 32) {
+      const int m = base + lane;
+      int k = 0;  // the last neighbour cell whose first candidate is at or before m
+      for (int step = 16; step > 0; step >>= 1) {
+        if (__shfl_sync(0xffffffffu, excl, k + step) <= m) k += step;
+      }
+      const int sk = __shfl_sync(0xffffffffu, s, k), ek = __shfl_sync(0xffffffffu, excl, k);
+      if (m >= total) continue;
+      const int j = order[sk + m - ek];
+      if (!((row[j >> 5] >> (j & 31)) & 1u)) continue;
+      float nx, ny, nz;
+      float dx = min_image(xi, pos[3 * j], bx, ix, nx);
+      float dy = min_image(yi, pos[3 * j + 1], by, iy, ny);
+      float dz = min_image(zi, pos[3 * j + 2], bz, iz, nz);
+      float r2 = dist2(dx, dy, dz);
+      if (r2 < LJ_CUT2) {
+        const int tt = ti + types[j];
+        float x6 = lj_x6(s_sig[tt], r2);
+        float c = 2.f * (s_e4[tt] * (-12.f * x6 * x6 + 6.f * x6) / (2.f * r2));
+        gx += c * dx;
+        gy += c * dy;
+        gz += c * dz;
+        if (j > i) {
+          hx -= c * dx * nx;
+          hy -= c * dy * ny;
+          hz -= c * dz * nz;
+        }
       }
     }
   }
@@ -199,7 +361,6 @@ __global__ void __launch_bounds__(LJ_ROWS * 32)
   hy = warp_sum(hy);
   hz = warp_sum(hz);
   if (lane == 0) {
-    const bool ok = fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF;
     grad[3 * i] = ok ? gx : NAN_F;
     grad[3 * i + 1] = ok ? gy : NAN_F;
     grad[3 * i + 2] = ok ? gz : NAN_F;
@@ -223,14 +384,37 @@ extern "C" int lj_energy(const float* pos, const int* types, const uint32_t* mas
   return (int)cudaGetLastError();
 }
 
-// grad: (n, 3); box_rows: (n, 3) scratch; box_grad: (3,)
+// the cell build's 128 KB of dynamic shared memory, allowed once per device
+static int lj_cells_launch(const float* pos, int n, const float* box, int* dims, int* cell_of, int* start, int* order,
+                           int* tmp, cudaStream_t s) {
+  static bool allowed[64] = {};
+  const int smem = LJ_MAX_CELLS * (int)sizeof(int);
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    rc = (int)cudaFuncSetAttribute(lj_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != 0) return rc;
+    allowed[dev] = true;
+  }
+  lj_cells_kernel<<<1, LJ_BUILD_THREADS, smem, s>>>(pos, n, box, dims, cell_of, start, order, tmp);
+  return (int)cudaGetLastError();
+}
+
+// the cells as lj_cells_kernel fills them (dims: (4,); cell_of, order, tmp:
+// (n,); start: (LJ_MAX_CELLS + 1,)), then grad: (n, 3); box_rows: (n, 3)
+// scratch; box_grad: (3,)
 extern "C" int lj_grads(const float* pos, const int* types, const uint32_t* mask, int n, int words, const float* box,
-                        const float* sig, const float* eps, int t, float* grad, float* box_rows, float* box_grad,
-                        void* stream) {
+                        const float* sig, const float* eps, int t, int* dims, int* cell_of, int* start, int* order,
+                        int* tmp, float* grad, float* box_rows, float* box_grad, void* stream) {
   if (n < 1 || t < 1 || t > LJ_MAX_TYPES) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  lj_grads_kernel<<<lj_grid(n), LJ_ROWS * 32, 0, s>>>(pos, types, mask, n, words, box, sig, eps, t, grad, box_rows);
-  int rc = (int)cudaGetLastError();
+  int rc = lj_cells_launch(pos, n, box, dims, cell_of, start, order, tmp, s);
+  if (rc != 0) return rc;
+  lj_grads_kernel<<<lj_grid(n), LJ_ROWS * 32, 0, s>>>(pos, types, mask, n, words, box, sig, eps, t, dims, cell_of,
+                                                      start, order, grad, box_rows);
+  rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   lj_sum_kernel<<<1, 96, 0, s>>>(box_rows, n, 3, box_grad);
   return (int)cudaGetLastError();

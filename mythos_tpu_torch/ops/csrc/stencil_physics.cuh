@@ -2,12 +2,14 @@
 // kernels K3/K4/K5.
 //
 // The slot_* functions are written for ONE slot t and read the positions of
-// its band neighbours from global memory, so a stencil kernel is one thread
-// per slot; the pair functions (unbonded_pair, unbonded_pair_energy,
-// hb_prod) take two bodies, which the tile kernels read from their row
-// arrays. Functions are __host__ __device__ so that the same arithmetic can
-// be compiled for the CPU as well; the kernels live in stencil_grads.cu
-// (K2), multistep.cu (K1) and tiles.cu (K3-K5).
+// its band neighbours from global memory (K2 is one thread per slot); the
+// k1_* functions are the pieces of K1's block (one lane's pairs, the
+// fixed-order reduction, one slot's integrator update); the pair functions
+// (unbonded_pair, bonded_pair, unbonded_pair_energy, hb_prod) take two
+// bodies, which the tile kernels read from their row arrays. Functions are
+// __host__ __device__ so that the same arithmetic can be compiled for the
+// CPU as well; the kernels live in stencil_grads.cu (K2), multistep.cu (K1)
+// and tiles.cu (K3-K5).
 //
 // Derivatives are written by hand (the Pallas kernels differentiate their
 // scalar chains with jax.vjp in-kernel): every smoothed base function
@@ -588,14 +590,6 @@ HD Grad slot_unbonded_grad(int t, const float* P, const float* pos, const int* s
   return acc;
 }
 
-HD void slot_bonded_grad(int t, const float* P, const float* pos, const float* wstack, const float* dirf, int n,
-                         Grad& acc) {
-  Body bt = body_at(pos, n, t);
-  if (t + 2 < n && dirf[t] != 0.f) bonded_pair(P, bt, body_at(pos, n, t + 2), dirf[t], wstack[t], false, acc);
-  if (t >= 2 && dirf[t - 2] != 0.f)
-    bonded_pair(P, body_at(pos, n, t - 2), bt, dirf[t - 2], wstack[t - 2], true, acc);
-}
-
 // d/dquat of the frame cotangent (transpose of the quaternion -> frame map)
 HD void frame_vjp(const float* q, const Grad& g, float* gq) {
   float w = q[0], x = q[1], y = q[2], z = q[3];
@@ -657,19 +651,82 @@ HD float bf16_to_float(uint16_t b) {
 }
 
 // K1 state rows (stride n): com 0-2, quat 3-6, momentum 7-9, angmom 10-12,
-// force 13-15, torque 16-18, band-check violations 19.
+// force 13-15, torque 16-18, band-check violations 19. Positions (rows
+// 0-6) alternate between the state and a second (7, n) buffer from step to
+// step; the other rows stay in the state.
 // OU vector: half_dt, half_inv_m, c_t, s_t, c_r[3], s_r[3], inv_inertia[3].
+//
+// K1's force refresh (multistep.cu): a block of K1_WARPS warps takes
+// K1_SLOTS slots. Lane l of warp w holds slot t0 + l % 16: lanes 0-15 as
+// the i-side of the pairs (t, t + d), lanes 16-31 as the j-side of
+// (t - d, t), for d = w + 1, w + 1 + K1_WARPS, ... up to w_wide -- so the 32
+// lanes of a warp share one offset and take the same term branches (on the
+// main path, w_wide 16: warps 0 and 1 two short-range offsets each, warps
+// 2-7 one short-range and one Debye-only). The last warp also takes the
+// bond (t, t + 2) (i-side) or (t - 2, t) (j-side).
+#define K1_SLOTS 16
+#define K1_WARPS 8
+#define K1_RED (K1_WARPS * 32 + 16)  // stride of a component in the reduction buffer (no bank conflicts)
 
-// B, A, O, A of one BAOAB step for slot t (the force refresh + B follows)
-HD void slot_baoa(int t, int n, const float* ou, const uint16_t* noise_t, float* st) {
-  float half = ou[0], him = ou[1], c_t = ou[2], s_t = ou[3];
-  float p[3], L[3], q[4], x[3];
-  for (int k = 0; k < 3; ++k) {
-    p[k] = st[(7 + k) * n + t] + half * st[(13 + k) * n + t];
-    L[k] = st[(10 + k) * n + t] + half * st[(16 + k) * n + t];
-    x[k] = st[k * n + t] + him * p[k];
+// one lane's share of slot t's gradient (gather, as slot_unbonded_grad:
+// the lane keeps its slot's side of each pair it evaluates)
+HD Grad k1_lane_grad(int t, bool side_j, int warp, const float* P, const float* pos, const int* seq,
+                     const int* partners, const float* qf, const float* wstack, const float* dirf, int n, const int* w,
+                     int w_wide) {
+  Grad acc = zero_grad();
+  if (t >= n) return acc;
+  const float* W = P + P_HB + 39;
+  // both bodies of each pair are read anew (L1 hits): keeping slot t's body
+  // live across the loop and selecting the two sides costs registers
+  for (int d = warp + 1; d <= w_wide; d += K1_WARPS) {
+    int lo = side_j ? t - d : t, hi = lo + d;
+    if (lo >= 0 && hi < n && partners[lo] != hi && partners[n + lo] != hi) {
+      unbonded_pair(P, body_at(pos, n, lo), body_at(pos, n, hi), W[seq[lo] * 4 + seq[hi]], qf[lo] * qf[hi], d, w,
+                    w_wide, side_j, acc);
+    }
   }
-  for (int k = 0; k < 4; ++k) q[k] = st[(3 + k) * n + t];
+  if (warp == K1_WARPS - 1) {
+    int lo = side_j ? t - 2 : t, hi = lo + 2;
+    if (lo >= 0 && hi < n && dirf[lo] != 0.f) {
+      bonded_pair(P, body_at(pos, n, lo), body_at(pos, n, hi), dirf[lo], wstack[lo], side_j, acc);
+    }
+  }
+  return acc;
+}
+
+// lane `id` (of the block) writes its 12 gradient components for the reduction
+HD void k1_store(const Grad& g, int id, float* red) {
+  const V3 v[4] = {g.com, g.a1, g.a2, g.a3};
+  for (int k = 0; k < 4; ++k) {
+    red[(3 * k) * K1_RED + id] = v[k].x;
+    red[(3 * k + 1) * K1_RED + id] = v[k].y;
+    red[(3 * k + 2) * K1_RED + id] = v[k].z;
+  }
+}
+
+// component c of the block's slot s: its lanes' shares in a fixed order
+// (warp 0 .. K1_WARPS - 1, i-side then j-side)
+HD float k1_reduce(const float* red, int c, int s) {
+  float v = 0.f;
+  for (int w = 0; w < K1_WARPS; ++w) {
+    v += red[c * K1_RED + w * 32 + s];
+    v += red[c * K1_RED + w * 32 + 16 + s];
+  }
+  return v;
+}
+
+// B (with force f, torque tq), A, O, A of one BAOAB step for slot t:
+// positions from cur to nxt; p, L (momentum, angular momentum) into st
+HD void k1_baoa(int t, int n, const float* ou, const uint16_t* noise_t, float* p, float* L, const float* f,
+                const float* tq, const float* cur, float* nxt, float* st) {
+  float half = ou[0], him = ou[1], c_t = ou[2], s_t = ou[3];
+  float q[4], x[3];
+  for (int k = 0; k < 3; ++k) {
+    p[k] = p[k] + half * f[k];
+    L[k] = L[k] + half * tq[k];
+    x[k] = cur[k * n + t] + him * p[k];
+  }
+  for (int k = 0; k < 4; ++k) q[k] = cur[(3 + k) * n + t];
   free_rotor(q, L, ou + 10, half);
   for (int k = 0; k < 3; ++k) {
     p[k] = c_t * p[k] + s_t * bf16_to_float(noise_t[k * n + t]);
@@ -678,30 +735,55 @@ HD void slot_baoa(int t, int n, const float* ou, const uint16_t* noise_t, float*
   }
   free_rotor(q, L, ou + 10, half);
   for (int k = 0; k < 3; ++k) {
-    st[k * n + t] = x[k];
+    nxt[k * n + t] = x[k];
     st[(7 + k) * n + t] = p[k];
     st[(10 + k) * n + t] = L[k];
   }
-  for (int k = 0; k < 4; ++k) st[(3 + k) * n + t] = q[k];
+  for (int k = 0; k < 4; ++k) nxt[(3 + k) * n + t] = q[k];
 }
 
-// force/torque refresh at the new positions + the closing half kick
-HD void slot_force_b(int t, int n, const float* P, const float* ou, const int* seq, const int* partners,
-                     const float* qf, const float* wstack, const float* dirf, const int* w, int w_wide, float* st) {
-  Grad g = slot_unbonded_grad(t, P, st, seq, partners, qf, n, w, w_wide);
-  slot_bonded_grad(t, P, st, wstack, dirf, n, g);
+// the chunk's first B-A-O-A for slot t, with the force and torque the state
+// carries in: positions from st to nxt
+HD void k1_first_baoa(int t, int n, const float* ou, const uint16_t* noise_t, float* st, float* nxt) {
+  float p[3], L[3], f[3], tq[3];
+  for (int k = 0; k < 3; ++k) {
+    p[k] = st[(7 + k) * n + t];
+    L[k] = st[(10 + k) * n + t];
+    f[k] = st[(13 + k) * n + t];
+    tq[k] = st[(16 + k) * n + t];
+  }
+  k1_baoa(t, n, ou, noise_t, p, L, f, tq, st, nxt, st);
+}
+
+// slot t after the force refresh (g: its summed gradient at the positions
+// in cur): force, torque and the closing half kick into st; then, with
+// noise_next, the next step's B-A-O-A from cur to nxt, or else (the
+// chunk's last step) a copy of its positions from cur to nxt if nxt is set
+HD void k1_finish(int t, int n, const Grad& g, const float* ou, const uint16_t* noise_next, const float* cur,
+                  float* nxt, float* st) {
   float q[4], gq[4];
-  for (int k = 0; k < 4; ++k) q[k] = st[(3 + k) * n + t];
+  for (int k = 0; k < 4; ++k) q[k] = cur[(3 + k) * n + t];
   frame_vjp(q, g, gq);
   V3 tau = torque_of(q, gq);
   float f[3] = {-g.com.x, -g.com.y, -g.com.z}, tq[3] = {tau.x, tau.y, tau.z};
   float half = ou[0];
+  float p[3], L[3];
   for (int k = 0; k < 3; ++k) {
-    st[(7 + k) * n + t] += half * f[k];
-    st[(10 + k) * n + t] += half * tq[k];
+    p[k] = st[(7 + k) * n + t] + half * f[k];
+    L[k] = st[(10 + k) * n + t] + half * tq[k];
     st[(13 + k) * n + t] = f[k];
     st[(16 + k) * n + t] = tq[k];
   }
+  if (noise_next) {
+    k1_baoa(t, n, ou, noise_next, p, L, f, tq, cur, nxt, st);
+    return;
+  }
+  for (int k = 0; k < 3; ++k) {
+    st[(7 + k) * n + t] = p[k];
+    st[(10 + k) * n + t] = L[k];
+  }
+  if (nxt)
+    for (int k = 0; k < 7; ++k) nxt[k * n + t] = cur[k * n + t];
 }
 
 // exact in-band site checks at slot t's current positions: the number of

@@ -10,7 +10,10 @@ with x6 = min((sigma^2 / r^2)^3, 1e15) as the TPU kernel forms it
   mask, summed in a fixed order;
 * :func:`lj_grads` (replaces ``_lj_vjp_bwd``): the position gradient over
   the symmetric mask and the box gradient -- which the TPU kernel's VJP
-  leaves out, and without which a virial loses its image term.
+  leaves out, and without which a virial loses its image term. It visits
+  only the beads of the spatial cells next to each row's, built on the
+  card from the positions and the box on every call
+  (:func:`cell_list_plain` is the build's plain version).
 
 :class:`LJPairEnergy` ties them together for autograd; :func:`lj_pair_energy`
 is the entry. A wrapper runs its plain version for CPU tensors only; on a
@@ -36,8 +39,13 @@ from torch.autograd.function import once_differentiable
 LJ_CUTOFF = 1.1  # nm, the fixed MARTINI cutoff
 MAX_TYPES = 32  # the kernels keep the (t, t) tables in shared memory
 ROWS_PER_BLOCK = 8  # lj.cu's LJ_ROWS: the forward's partials, one per block
+#: least cell side (lj.cu's LJ_CELL): the cutoff plus a margin far above
+#: float32 rounding, so that beads two cells apart are beyond the cutoff
+LJ_CELL = 1.1001
+MAX_CELLS = 32768  # lj.cu's LJ_MAX_CELLS: the cell build's histogram
 
 ERR_BOX = "the minimum image needs every box side above twice the LJ cutoff ({}); got box {}"
+ERR_CELLS = "the LJ cell list holds at most {} cells of side {} nm; got {} for box {}"
 ERR_TABLE_GRAD = (
     "LJPairEnergy gives no gradient for the sigma/epsilon tables (K6 computes position and box "
     "gradients only); detach them"
@@ -111,11 +119,82 @@ def _clear(bits: torch.Tensor, r: np.ndarray, c: np.ndarray, w: int) -> None:
     flat[idx] = flat[idx] & _to_int32(torch.as_tensor((2**32 - 1) ^ val, device=bits.device))
 
 
+def _cells_along(box: torch.Tensor) -> torch.Tensor:
+    """(3,) float32 cells per side, floor(box / LJ_CELL) and at least 1, in
+    float32 as the kernel divides."""
+    b = box.detach().to(torch.float32)
+    return torch.floor(b / torch.full_like(b, LJ_CELL)).clamp(min=1.0)
+
+
 def check_box(box: torch.Tensor) -> None:
-    """Raise unless every box side exceeds twice the cutoff (reads the box
-    back to the host)."""
+    """Raise unless every box side exceeds twice the cutoff and the box
+    holds at most MAX_CELLS cells (reads the box back to the host)."""
     if not bool((box.detach() > 2 * LJ_CUTOFF).all()):
         raise ValueError(ERR_BOX.format(2 * LJ_CUTOFF, box.detach().cpu().tolist()))
+    cells = int(_cells_along(box).double().prod())
+    if cells > MAX_CELLS:
+        raise ValueError(ERR_CELLS.format(MAX_CELLS, LJ_CELL, cells, box.detach().cpu().tolist()))
+
+
+@dc.dataclass(frozen=True)
+class CellList:
+    """Spatial cells of n beads in a periodic box, as ``lj.cu``'s cell build
+    fills them (int32, on the beads' device): ``dims`` (4,) the cells along
+    x, y, z and 1 where their number is within MAX_CELLS; ``cell_of`` (n,)
+    the cell (cx * ny + cy) * nz + cz of each bead; ``start`` (MAX_CELLS + 1,)
+    the number of beads in the cells below each cell (n from the last cell
+    on); ``order`` (n,) the beads by (cell, index)."""
+
+    dims: torch.Tensor
+    cell_of: torch.Tensor
+    start: torch.Tensor
+    order: torch.Tensor
+
+
+def cell_list_plain(positions, box) -> CellList:
+    """Plain version of the cell build: floor(box / LJ_CELL) cells a side
+    (at least 1); a bead's cell coordinate is floor(f * cells) of its
+    wrapped fraction f = x / box - floor(x / box), clamped to the last cell,
+    all in float32 as the kernel computes it, so positions outside [0, box)
+    bin where their image lies. Raises past MAX_CELLS cells (where the
+    kernel flags ``dims[3] = 0``)."""
+    x = positions.detach().to(torch.float32)
+    b = box.detach().to(device=x.device, dtype=torch.float32)
+    nc = _cells_along(b)
+    ncx, ncy, ncz = (int(v) for v in nc.tolist())
+    total = ncx * ncy * ncz
+    if total > MAX_CELLS:
+        raise ValueError(ERR_CELLS.format(MAX_CELLS, LJ_CELL, total, b.cpu().tolist()))
+    f = x / b
+    f = f - torch.floor(f)
+    c = (f * nc).to(torch.int32).clamp(min=0)
+    c = torch.minimum(c, nc.to(torch.int32) - 1)
+    cell_of = (c[:, 0] * ncy + c[:, 1]) * ncz + c[:, 2]
+    n = x.shape[0]
+    order = torch.sort(cell_of.long() * n + torch.arange(n, device=x.device)).values % n
+    start = torch.full((MAX_CELLS + 1,), n, dtype=torch.int32, device=x.device)
+    start[0] = 0
+    start[1 : total + 1] = torch.cumsum(torch.bincount(cell_of, minlength=total), 0)
+    dims = torch.tensor([ncx, ncy, ncz, 1], dtype=torch.int32, device=x.device)
+    return CellList(dims=dims, cell_of=cell_of, start=start, order=order.to(torch.int32))
+
+
+def candidate_tests(cells: CellList) -> int:
+    """Ordered (row, candidate) pairs the backward tests for these cells:
+    each row visits every bead (itself included) of the cells one cell away
+    or less along every axis, periodically (every cell of an axis of 2 or 1
+    cells)."""
+    near = []
+    for nc in (int(v) for v in cells.dims[:3].tolist()):
+        k = torch.arange(nc)
+        delta = (k[:, None] - k[None, :]) % nc
+        near.append((delta <= 1) | (delta == nc - 1))
+    ax, ay, az = near
+    total = ax.shape[0] * ay.shape[0] * az.shape[0]
+    adjacent = (ax[:, None, None, :, None, None] & ay[None, :, None, None, :, None]
+                & az[None, None, :, None, None, :]).reshape(total, total)
+    counts = torch.diff(cells.start[: total + 1].long()).cpu().double()
+    return int(counts @ adjacent.double() @ counts)
 
 
 def _lj_terms(r2: torch.Tensor, sigma: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
@@ -237,22 +316,39 @@ def lj_energy(positions, types, pair_mask: PairMask, box, tables) -> torch.Tenso
 lj_energy.launches = 0
 
 
-def lj_grads(positions, types, pair_mask: PairMask, box, tables):
-    """K6 backward: (dU/dpositions (N, 3) over the whole mask, dU/dbox
-    (3,) over each pair once). CPU tensors run :func:`lj_grads_plain`."""
-    if positions.device.type == "cpu":
-        return lj_grads_plain(positions, types, pair_mask, box, tables)
+def _lj_grads(positions, types, pair_mask: PairMask, box, tables):
+    """:func:`lj_grads` on CUDA tensors, with the cells the same C call built
+    on the card and visited: (grad, box_grad, CellList)."""
     from mythos_tpu_torch.ops import _build
 
     args = _kernel_args("lj_grads", positions, types, pair_mask, box, tables)
     n = pair_mask.n
+    # one int32 allocation for the cell arrays: dims, cell_of, order, tmp (the
+    # build's scratch), start
+    cells = torch.empty(4 + 3 * n + MAX_CELLS + 1, dtype=torch.int32, device=positions.device)
+    dims, cell_of, order, tmp, start = cells.split([4, n, n, n, MAX_CELLS + 1])
     grad = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
     box_rows = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
     box_grad = torch.empty(3, dtype=torch.float32, device=positions.device)
-    rc = _build.load_library().lj_grads(*args, _ptr(grad), _ptr(box_rows), _ptr(box_grad), _stream())
+    rc = _build.load_library().lj_grads(
+        *args, _ptr(dims), _ptr(cell_of), _ptr(start), _ptr(order), _ptr(tmp), _ptr(grad), _ptr(box_rows),
+        _ptr(box_grad), _stream(),
+    )
     if rc != 0:
         raise RuntimeError(f"lj_grads launch failed: CUDA error {rc}")
     lj_grads.launches += 1
+    return grad, box_grad, CellList(dims=dims, cell_of=cell_of, start=start, order=order)
+
+
+def lj_grads(positions, types, pair_mask: PairMask, box, tables):
+    """K6 backward: (dU/dpositions (N, 3) over the whole mask, dU/dbox
+    (3,) over each pair once), visiting each row's neighbour cells, which
+    the same call builds first on the card from the positions and the box
+    as they are there (the box is not read back). CPU tensors run
+    :func:`lj_grads_plain`."""
+    if positions.device.type == "cpu":
+        return lj_grads_plain(positions, types, pair_mask, box, tables)
+    grad, box_grad, _ = _lj_grads(positions, types, pair_mask, box, tables)
     return grad, box_grad
 
 

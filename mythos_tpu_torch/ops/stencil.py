@@ -553,7 +553,8 @@ def multistep_chunk(ctx: StencilContext, ou: torch.Tensor, noise: torch.Tensor, 
 
     ``noise``: (n_inner, 6, n) bfloat16 standard normals. CPU tensors run
     :func:`multistep_chunk_plain`. On the card one call enqueues the
-    chunk's kernels on the current stream and never synchronises."""
+    chunk's ``n_inner + 1`` kernels on the current stream and never
+    synchronises."""
     if state.device.type == "cpu":
         return multistep_chunk_plain(ctx, ou, noise, state)
     from mythos_tpu_torch.ops import _build
@@ -567,18 +568,19 @@ def multistep_chunk(ctx: StencilContext, ou: torch.Tensor, noise: torch.Tensor, 
     if ou.dtype != torch.float32 or ou.shape != (13,):
         raise ValueError("multistep_chunk takes the (13,) float32 OU vector")
     lib = _build.load_library()
-    out = torch.empty((20, n), dtype=torch.float32, device=state.device)
+    out = torch.empty((27, n), dtype=torch.float32, device=state.device)
     out[:19].copy_(state)
+    state_out, alt = out[:20], out[20:]  # alt: the positions' second buffer
     rc = lib.multistep_chunk(
         *_ctx_args(ctx), _ptr(ctx.wstack), _ptr(ctx.dirf), _ptr(ctx.checks),
         ctypes.c_int(ctx.checks.shape[0]), ctypes.c_int(ctx.check_dm),
-        _ptr(ou), _ptr(noise), ctypes.c_int(noise.shape[0]), _ptr(out),
+        _ptr(ou), _ptr(noise), ctypes.c_int(noise.shape[0]), _ptr(state_out), _ptr(alt),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"multistep_chunk launch failed: CUDA error {rc}")
     multistep_chunk.launches += 1
-    return out
+    return state_out
 
 
 multistep_chunk.launches = 0

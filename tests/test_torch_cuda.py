@@ -13,7 +13,9 @@ steps rtol 2e-4, atol 5e-5 (as tests/test_multistep.py holds the Pallas
 kernel); K5's body fields against K3 rtol 1e-5, atol 5e-6 (as the
 reference's test_fused_grads_soa_matches_grad_of_energy); K6's energy
 rtol 2e-5 (as tests/test_ops.py holds the Pallas kernel), its position
-and box gradients rtol 2e-4 with atol 1e-4 x max|plain|; the MARTINI runs
+and box gradients rtol 2e-4 with atol 1e-4 x max|plain| (also with the
+beads permuted and with the box and positions scaled), its cells
+exactly; K1, K4 and K6 give equal bits on a second call; the MARTINI runs
 card vs CPU rtol 1e-4, atol 1e-5.
 """
 
@@ -76,6 +78,12 @@ def test_k1_kernel_matches_twin(system):
     ref = ts.multistep_chunk_plain(ctx, ou, noise, state)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=5e-5)
+    # deterministic: a fixed reduction order, no atomics
+    assert torch.equal(got, ts.multistep_chunk(ctx, ou, noise, state))
+    # an odd number of steps ends with the positions in the second buffer
+    odd = noise[:3].contiguous()
+    torch.testing.assert_close(ts.multistep_chunk(ctx, ou, odd, state), ts.multistep_chunk_plain(ctx, ou, odd, state),
+                               rtol=2e-4, atol=5e-5)
 
 
 @pytest.mark.cuda
@@ -184,22 +192,35 @@ def test_block_run_on_card_matches_cpu(card):
     torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
 
 
-def _bilayer_lj(device, n_xy: int, water_layers: int):
-    """K6's inputs for a lattice bilayer jittered by 0.03 nm (float32)."""
+def _bilayer_lj(device, n_xy: int, water_layers: int, case: str):
+    """K6's inputs for a lattice bilayer jittered by 0.03 nm (float32); for
+    "permuted" its beads permuted (positions, types and mask alike), for
+    "scaled box" its box and positions scaled by 0.98 in x and y and 1.02
+    in z, as the barostat scales them."""
     top, pos, box, _ = lattice_bilayer(n_xy, n_xy, water_layers=water_layers)
     pos = pos + np.random.default_rng(1).normal(scale=0.03, size=pos.shape)
     term = default_bilayer_terms(top)[2]
+    types, mask = term.types(device), term.pair_mask(device)
+    if case == "permuted":
+        perm = np.random.default_rng(2).permutation(len(pos))
+        pos, types = pos[perm], types[torch.as_tensor(perm, device=device)].contiguous()
+        mask = lj.PairMask.build(len(pos), np.argsort(perm)[np.asarray(term.bonded_neighbors)], device)
+    if case == "scaled box":
+        scale = np.array([0.98, 0.98, 1.02])
+        pos, box = pos * scale, box * scale
     x = torch.as_tensor(pos, dtype=torch.float32, device=device)
     b = torch.as_tensor(box, dtype=torch.float32, device=device)
-    return x, term.types(device), term.pair_mask(device), b, term.tables(device, torch.float32)
+    return x, types, mask, b, term.tables(device, torch.float32)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["jittered", "permuted", "scaled box"])
 @pytest.mark.parametrize("size", [(3, 1), (8, 4)], ids=["104 beads", "1864 beads"])
-def test_k6_kernels_match_plain(card, size):
-    """K6 forward (deterministic) and backward (position and box gradients)
-    against the plain versions on the card."""
-    args = _bilayer_lj(card, *size)
+def test_k6_kernels_match_plain(card, size, case):
+    """K6 forward (deterministic) and backward (position and box gradients,
+    deterministic) against the plain versions on the card; the backward's
+    cells equal cell_list_plain's."""
+    args = _bilayer_lj(card, *size, case)
     before = (lj.lj_energy.launches, lj.lj_grads.launches)
     e = lj.lj_energy(*args)
     g, g_box = lj.lj_grads(*args)
@@ -211,7 +232,11 @@ def test_k6_kernels_match_plain(card, size):
     torch.testing.assert_close(g, g_ref, rtol=2e-4, atol=1e-4 * float(g_ref.abs().max()))
     torch.testing.assert_close(g_box, g_box_ref, rtol=2e-4, atol=1e-4 * float(g_box_ref.abs().max()))
     assert torch.equal(e, lj.lj_energy(*args))  # a fixed reduction order, no atomics
-    assert torch.equal(g_box, lj.lj_grads(*args)[1])
+    g2, g_box2, cells = lj._lj_grads(*args)  # the cells this call's gradients came from
+    assert torch.equal(g, g2) and torch.equal(g_box, g_box2)
+    plain = lj.cell_list_plain(args[0], args[3])
+    for field in ("dims", "cell_of", "start", "order"):
+        assert torch.equal(getattr(cells, field), getattr(plain, field)), field
 
 
 @pytest.mark.cuda

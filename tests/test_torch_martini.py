@@ -18,7 +18,9 @@ CPU, both in float64:
     ``LJ.map`` over its states;
 (f) couplings, merge and ``opt_params`` carried across by
     ``params_from_numpy``;
-(g) ``LJPairEnergy`` refuses table gradients and a double backward.
+(g) ``LJPairEnergy`` refuses table gradients and a double backward;
+(h) the spatial cells K6's backward visits (``cell_list_plain``, the
+    kernel's plain version) cover every masked pair inside the cutoff.
 """
 
 import numpy as np
@@ -294,3 +296,57 @@ def test_martini_simulator_refuses_missing_card(bilayer):
     _, t_top, _, box, masses = bilayer
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MartiniSimulator(energy_fns=t_terms(t_top), box=box, masses=masses)
+
+
+def _cells_case(case):
+    """(positions, box, pair mask) of one cell-list case, float32."""
+    rng = np.random.default_rng(3)
+    if case in ("two cells a side", "scaled box"):
+        n_xy, layers = (3, 1) if case == "two cells a side" else (8, 4)
+        top, pos, box, _ = t_bilayer(n_xy, n_xy, water_layers=layers)
+        pos = pos + rng.normal(scale=0.03, size=pos.shape)
+        if case == "scaled box":
+            box = box * np.array([0.98, 0.98, 1.02])
+        mask = t_terms(top)[2].pair_mask("cpu")
+    else:
+        n = 500
+        box = np.array([3.7, 5.3, 4.6]) if case == "random box" else np.array([4.0, 3.3, 5.5])
+        lo, hi = (0.0, 1.0) if case == "random box" else (-2.0, 3.0)
+        pos = rng.uniform(lo, hi, size=(n, 3)) * box
+        mask = tlj.PairMask.build(n, rng.integers(0, n, size=(n, 2)), "cpu")
+    return torch.as_tensor(pos, dtype=torch.float32), torch.as_tensor(box, dtype=torch.float32), mask
+
+
+@pytest.mark.parametrize("case", ["random box", "two cells a side", "scaled box", "outside [0, box)"])
+def test_cell_list_covers_pairs_in_reach(case):
+    """(h) cell_list_plain: floor(box / LJ_CELL) cells a side, the beads
+    ordered by (cell, index) with consistent starts, and the candidates of
+    each row -- the beads of the cells at most one away along every axis,
+    periodically -- hold every masked pair inside the cutoff of the dense
+    minimum-image distances; candidate_tests counts those candidates."""
+    x, box, mask = _cells_case(case)
+    n = x.shape[0]
+    cells = tlj.cell_list_plain(x, box)
+    nc = [int(v) for v in cells.dims[:3]]
+    assert nc == [max(1, int(np.floor(np.float32(b) / np.float32(tlj.LJ_CELL)))) for b in box.tolist()]
+    assert int(cells.dims[3]) == 1
+    if case == "two cells a side":
+        assert nc[:2] == [2, 2]
+    order, cell_of = cells.order.long(), cells.cell_of.long()
+    assert sorted(order.tolist()) == list(range(n))
+    key = cell_of[order] * n + order
+    assert bool((key[1:] > key[:-1]).all())
+    total = nc[0] * nc[1] * nc[2]
+    counts = torch.bincount(cell_of, minlength=total)
+    np.testing.assert_array_equal(cells.start[1 : total + 1].numpy(), torch.cumsum(counts, 0).numpy())
+    assert int(cells.start[0]) == 0 and bool((cells.start[total:] == n).all())
+
+    coords = torch.stack([cell_of // (nc[1] * nc[2]), (cell_of // nc[2]) % nc[1], cell_of % nc[2]], 1)
+    delta = (coords[:, None, :] - coords[None, :, :]) % torch.tensor(nc)
+    cand = ((delta <= 1) | (delta == torch.tensor(nc) - 1)).all(-1)
+    dr = x.double()[:, None, :] - x.double()[None, :, :]
+    dr = dr - box.double() * torch.round(dr / box.double())
+    inside = mask.dense() & ((dr * dr).sum(-1) < tlj.LJ_CUTOFF**2)
+    assert int(inside.sum()) > 0
+    assert not bool((inside & ~cand).any())
+    assert tlj.candidate_tests(cells) == int(cand.sum())
