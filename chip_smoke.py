@@ -25,6 +25,9 @@ Phases, one line each; any failure exits non-zero:
    else the float32 budget of phase 4 against a float64 plain version,
    taken apart over the rows off and near the float32 arccos clamp (the
    worst element's pair is named and moved to show the gap follows it);
+   K3's plain gate against the reaches of ``dna2.per_term_site_cutoffs``,
+   K3's pair classes (short-range, Debye only, skipped) by its own tally
+   against the plain gate's, and equal bits on a second call;
 7. the block tier: ``build_sim(mode="block", block_size=8)`` on the
    10k-nt duplex bent into a 270-degree arc, 400 steps through K3;
 8. one DiffTRe step at 10k nt (after a warm-up step): stencil MD (K1,
@@ -35,15 +38,18 @@ Phases, one line each; any failure exits non-zero:
    against their plain versions on the 10,160-bead bilayer
    ``lattice_bilayer(16, 16, water_layers=6)`` jittered by 0.03 nm (energy
    rtol 2e-5; gradients rtol 2e-4 / atol 1e-4 max|plain|, else the float32
-   budget of phase 4 per column), the backward also with the beads
-   permuted and with the box and positions scaled by 0.98 / 0.98 / 1.02,
-   each case deterministic and the cells its gradients came from equal to
-   ``cell_list_plain``'s, with the candidate pairs tested a call, the
-   backward's launches and device time a call, and its bound beside one
-   counting only the mask words of the pairs inside the cutoff;
+   budget of phase 4 per column), also with the beads permuted and with
+   the box and positions scaled by 0.98 / 0.98 / 1.02, each case
+   deterministic, the cells each direction built equal to
+   ``cell_list_plain``'s, and under ``LJPairEnergy`` one cell build serving
+   both directions with the gradients of ``lj_grads`` bit for bit; the
+   candidate pairs a call, each direction's launches and device time a
+   call, and each bound (counting only the mask words that hold the bits
+   of the pairs inside the cutoff) beside the first design's;
    (9b) 1000 NPT steps of that bilayer
    through ``MartiniSimulator`` (barostat every 10, a state every 50)
-   after a warm-up run, with a torch.profiler window; (9c) 50 NPT steps of
+   after a warm-up run, one cell build a force evaluation, with a
+   torch.profiler window; (9c) 50 NPT steps of
    the 104-bead bilayer with the same pre-drawn noise agree between the
    card and the CPU plain versions.
 
@@ -56,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -84,7 +91,7 @@ FLOP_BOND_GRAD, FLOP_BODY_STEP = 900, 250
 #: K6 (ops/csrc/lj.cu), per unordered pair: the minimum-image distance
 #: test; the LJ value, or its gradient on both beads and the box. The bound
 #: charges both only to the pairs inside the cutoff (the others need no
-#: work); the kernels' distance test of every masked pair is their own cost
+#: work); the kernels' tests of their other candidates are their own cost
 FLOP_LJ_TEST, FLOP_LJ_ENERGY, FLOP_LJ_GRAD = 22, 12, 30
 MARTINI_LATTICE = (16, 16, 6)  # phase 9: 512 lipids, 8,112 waters, 10,160 beads
 MARTINI_STEPS, MARTINI_SAVE, MARTINI_WARM = 1000, 50, 50
@@ -414,45 +421,54 @@ def _martini(dev, smi: str) -> list[dict]:
     pe_ms, e_p = _events_ms(lambda: lj.lj_energy_plain(*args), 3)
     pg_ms, _ = _events_ms(lambda: lj.lj_grads_plain(*args), 3)
     e_64 = lj.lj_energy_plain(*args64)
-    err_e = abs(float(e_k) - float(e_p))
-    ok_e = err_e <= 2e-5 * abs(float(e_p)) and torch.equal(e_k, lj.lj_energy(*args))
     n, words, t = mask.n, mask.words, tables[0].shape[0]
     n_pairs, n_in, words_in = _lj_pair_counts(x, mask, b)
+
+    def force_eval(a):
+        """dU/d(positions, box) through LJPairEnergy, as the NPT path takes them."""
+        xg, bg = a[0].detach().requires_grad_(True), a[3].detach().requires_grad_(True)
+        return torch.autograd.grad(lj.lj_pair_energy(xg, a[1], a[2], bg, a[4]), (xg, bg))
+
+    fwd_win = _profiled(lambda: lj.lj_energy(*args), 10)
     bwd_win = _profiled(lambda: lj.lj_grads(*args), 10)
-    # bytes: the mask words the function depends on (the energy: those of
-    # the upper half, from the word of column i + 1; the backward: whole
-    # rows), positions, types, tables, box, outputs; operations: the pairs
-    # inside the cutoff only. Beside the backward's bound, the same with
-    # only the mask words that hold the bits of the pairs inside the cutoff
+    pair_win = _profiled(lambda: force_eval(args), 10)
+    # bytes: the mask words that hold the bits of the pairs inside the
+    # cutoff (each in row min(i, j)), positions, types, tables, box, outputs;
+    # operations: the pairs inside the cutoff only. These bounds go into the
+    # kernel records; beside them, printed only, the first designs' bounds
+    # that charge whole mask regions (the energy: the upper half, from the
+    # word of column i + 1; the backward: whole rows)
     upper_words = sum(words - (i + 1) // 32 for i in range(n))
     other_in = n * 3 * 4 + n * 4 + 2 * t * t * 4 + 3 * 4
     fwd_bound = _bound(upper_words * 4 + other_in + 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_ENERGY))
+    fwd_reach = _bound(words_in * 4 + other_in + 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_ENERGY))
     bwd_bound = _bound(n * words * 4 + other_in + n * 3 * 4 + 3 * 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_GRAD))
     reach_bound = _bound(words_in * 4 + other_in + n * 3 * 4 + 3 * 4, n_in * (FLOP_LJ_TEST + FLOP_LJ_GRAD))
-    # each of the backward's kernels launches once a call, so a call's device
-    # time is the sum of their mean times per kernel event recorded
-    g_med = statistics.median(g_ms)
+    # each kernel of a standalone call launches once a call, so a call's
+    # device time is the sum of its kernels' mean times per event recorded
+    e_med, g_med = statistics.median(e_ms), statistics.median(g_ms)
+    e_dev = sum(ms / c for ms, c in fwd_win["kernels"].values())
     g_dev = sum(ms / c for ms, c in bwd_win["kernels"].values())
     print(f"[9a K6] {n} beads, box {box.round(3).tolist()}: mask built in {mask_s:.3f} s ({words} words a row); "
-          f"{n_pairs} masked pairs, {n_in} inside {lj.LJ_CUTOFF} nm; the forward's own dense distance tests "
-          f"(not in the bound): {n_pairs}, {n_pairs * FLOP_LJ_TEST / FP32_FLOP_S * 1e3:.5f} ms at the fp32 peak; "
-          f"energy kernel {float(e_k):.6f} plain {float(e_p):.6f} f64 {float(e_64):.6f} (|diff| {err_e:.3e}, rtol "
-          f"2e-5, deterministic: {ok_e}); lj_energy {statistics.median(e_ms):.4f} ms (plain "
-          f"{statistics.median(pe_ms):.2f}, bound {fwd_bound[0]:.6f} by {fwd_bound[1]}); lj_grads "
-          f"{g_med:.4f} ms (plain {statistics.median(pg_ms):.2f}, bound {bwd_bound[0]:.6f} by {bwd_bound[1]}: "
-          f"{_share(bwd_bound[0], g_med)} of the events' time, {_share(bwd_bound[0], g_dev)} of the {g_dev:.4f} ms "
+          f"{n_pairs} masked pairs, {n_in} inside {lj.LJ_CUTOFF} nm, their bits in {words_in} mask words "
+          f"({words_in * 4} B); energy kernel {float(e_k):.6f} plain {float(e_p):.6f} f64 {float(e_64):.6f}; "
+          f"lj_energy {e_med:.4f} ms by events (plain {statistics.median(pe_ms):.2f}, bound {fwd_reach[0]:.6f} by "
+          f"{fwd_reach[1]}: {_share(fwd_reach[0], e_med)} of the events' time, {_share(fwd_reach[0], e_dev)} of the "
+          f"{e_dev:.4f} ms of device time a call; {fwd_win['launches'] / 10:g} kernel launches a call; device time: "
+          f"{_kernel_list(fwd_win)}; the first design's bound over the whole upper half {fwd_bound[0]:.6f} by "
+          f"{fwd_bound[1]}: {_share(fwd_bound[0], e_med)}, {_share(fwd_bound[0], e_dev)}); lj_grads {g_med:.4f} ms by "
+          f"events (plain {statistics.median(pg_ms):.2f}, bound {reach_bound[0]:.6f} by {reach_bound[1]}: "
+          f"{_share(reach_bound[0], g_med)} of the events' time, {_share(reach_bound[0], g_dev)} of the {g_dev:.4f} ms "
           f"of device time a call; {bwd_win['launches'] / 10:g} kernel launches a call; device time: "
-          f"{_kernel_list(bwd_win)}); with only the {words_in} mask words ({words_in * 4} B) that hold the bits of "
-          f"the pairs inside the cutoff, of {n * words}, the backward's bound is {reach_bound[0]:.6f} ms by "
-          f"{reach_bound[1]} ({_share(reach_bound[0], g_med)} of the events' time, "
-          f"{_share(reach_bound[0], g_dev)} of the device time) on {smi}")
-    if not ok_e:
-        raise SystemExit("K6's forward disagrees with its plain version or is not deterministic")
+          f"{_kernel_list(bwd_win)}; the first design's bound over whole rows ({n * words} words) {bwd_bound[0]:.6f} by "
+          f"{bwd_bound[1]}: {_share(bwd_bound[0], g_med)}, {_share(bwd_bound[0], g_dev)}); a force evaluation through "
+          f"LJPairEnergy (one cell build, the forward's cells reused by the backward): "
+          f"{pair_win['device_ms'] / 10:.4f} ms of device time, {pair_win['launches'] / 10:g} kernel launches a call; "
+          f"device time: {_kernel_list(pair_win)} on {smi}")
 
-    # K6's backward where the cells could go wrong: the same beads permuted
-    # (positions, types and mask alike), and the box and positions scaled,
-    # as the barostat scales them, so that the cells per side change on the
-    # device
+    # each direction where the cells could go wrong: the same beads permuted
+    # (positions, types and mask alike), and the box and positions scaled, as
+    # the barostat scales them, so that the cells per side change on the device
     perm = np.random.default_rng(2).permutation(n)
     inv = np.argsort(perm)
     ip = torch.as_tensor(perm, device=dev)
@@ -463,24 +479,41 @@ def _martini(dev, smi: str) -> list[dict]:
                      lj.PairMask.build(n, inv[np.asarray(lj_term.bonded_neighbors)], dev), b, tables),
         "scaled box": (x * scale, types, mask, b * scale, tables),
     }
-    err_g = err_b = 0.0
+    err_e = err_g = err_b = 0.0
     for case, a in cases.items():
+        cells_p = lj.cell_list_plain(a[0], a[3])
+
+        def same_cells(c):
+            return all(torch.equal(getattr(c, f), getattr(cells_p, f)) for f in ("dims", "cell_of", "start", "order"))
+
+        e_c, cells_e = lj._lj_energy(*a)  # the cells this call's energy came from
+        e_cp = lj.lj_energy_plain(*a)
+        err_c = abs(float(e_c) - float(e_cp))
+        ok_e = err_c <= 2e-5 * abs(float(e_cp)) and torch.equal(e_c, lj.lj_energy(*a))
         g_k, gb_k = lj.lj_grads(*a)
-        g_k2, gb_k2, cells = lj._lj_grads(*a)  # the cells this call's gradients came from
+        g_k2, gb_k2, cells_g = lj._lj_grads(*a)  # the cells this call's gradients came from
         det = torch.equal(g_k, g_k2) and torch.equal(gb_k, gb_k2)
+        builds = lj.lj_cells.launches
+        g_fn, gb_fn = force_eval(a)  # the backward on the forward's cells
+        one_build = lj.lj_cells.launches == builds + 1
+        same_fn = torch.equal(g_fn, g_k) and torch.equal(gb_fn, gb_k)
         g_p, gb_p = lj.lj_grads_plain(*a)
         g_64, gb_64 = lj.lj_grads_plain(a[0].double(), a[1], a[2], a[3].double(), tuple(v.double() for v in a[4]))
         ok_g, rule_g, e_g = _k6_checked(g_k, g_p, g_64)
         ok_b, rule_b, e_b = _k6_checked(gb_k, gb_p, gb_64)
-        cells_p = lj.cell_list_plain(a[0], a[3])
-        same = all(torch.equal(getattr(cells, f), getattr(cells_p, f)) for f in ("dims", "cell_of", "start", "order"))
         tests = lj.candidate_tests(cells_p)
-        err_g, err_b = max(err_g, e_g), max(err_b, e_b)
-        print(f"  K6 backward, {case}: cells {cells.dims[:3].tolist()} equal to cell_list_plain's: {same}; "
-              f"{tests} candidate pairs tested a call ({tests / (2 * n_pairs):.2%} of the dense design's "
-              f"{2 * n_pairs}); position gradient err {e_g:.3e} ({rule_g}); box gradient kernel {gb_k.tolist()} "
-              f"plain {gb_p.tolist()} f64 {gb_64.tolist()} err {e_b:.3e} ({rule_b}); deterministic {det}")
-        if not (ok_g and ok_b and det and same):
+        err_e, err_g, err_b = max(err_e, err_c), max(err_g, e_g), max(err_b, e_b)
+        print(f"  K6, {case}: cells {cells_e.dims[:3].tolist()}, the forward's and the backward's equal to "
+              f"cell_list_plain's: {same_cells(cells_e)}, {same_cells(cells_g)}; {tests} candidates loaded a call by "
+              f"each direction ({tests / (2 * n_pairs):.2%} of the dense backward's {2 * n_pairs}; the forward tests the "
+              f"{(tests - n) // 2} with j > i against the mask, where the dense forward tested {n_pairs}); energy kernel "
+              f"{float(e_c):.6f} plain {float(e_cp):.6f} (|diff| {err_c:.3e}, rtol 2e-5, deterministic: {ok_e}); "
+              f"position gradient err {e_g:.3e} ({rule_g}); box gradient kernel {gb_k.tolist()} plain {gb_p.tolist()} "
+              f"f64 {gb_64.tolist()} err {e_b:.3e} ({rule_b}); deterministic {det}; under LJPairEnergy one cell build: "
+              f"{one_build}, gradients equal to lj_grads' bits: {same_fn}")
+        if not (ok_e and same_cells(cells_e)):
+            raise SystemExit(f"K6's forward disagrees with its plain version, its cells or itself ({case})")
+        if not (ok_g and ok_b and det and same_cells(cells_g) and one_build and same_fn):
             raise SystemExit(f"K6's backward disagrees with its plain version, its cells or itself ({case})")
     _lap("9a K6")
 
@@ -489,13 +522,13 @@ def _martini(dev, smi: str) -> list[dict]:
                            barostat=MARTINI_BAROSTAT, device=dev)
     x0 = torch.as_tensor(pos, dtype=torch.float32, device=dev)
     sim.run(None, x0, MARTINI_WARM, torch.Generator(device=dev).manual_seed(10))
-    lj.lj_energy.launches = lj.lj_grads.launches = 0
+    lj.lj_energy.launches = lj.lj_grads.launches = lj.lj_cells.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sim.run(None, x0, MARTINI_STEPS, torch.Generator(device=dev).manual_seed(11))
     torch.cuda.synchronize()
     el = time.perf_counter() - t0
-    launches = {"K6 fwd": lj.lj_energy.launches, "K6 bwd": lj.lj_grads.launches}
+    launches = {"K6 fwd": lj.lj_energy.launches, "K6 bwd": lj.lj_grads.launches, "K6 cells": lj.lj_cells.launches}
     tr = out.observables[0]
     heads = [i for i, nm in enumerate(top.atom_names) if nm == "PO4"]
     apl = AreaPerLipid(head_indices=heads)(tr)
@@ -509,11 +542,14 @@ def _martini(dev, smi: str) -> list[dict]:
           f"{launches}; states {tuple(tr.center.shape)} finite={finite} box x == box y: {xy_equal}; box first "
           f"{tr.box_size[0].tolist()} last {tr.box_size[-1].tolist()}; APL first {float(apl[0]):.4f} last "
           f"{float(apl[-1]):.4f} nm^2; thickness last {float(thick[-1]):.4f} nm; mean kinetic kT of the last half "
-          f"{kt_late:.4f} (kT {sim.kT:.4f})")
+          f"{kt_late:.4f} (kT {sim.kT:.4f}); {launches['K6 cells'] / MARTINI_STEPS:g} cell builds a step, one a "
+          f"force evaluation: {launches['K6 cells'] == launches['K6 fwd']}")
     if not (finite and xy_equal):
         raise SystemExit("the MARTINI NPT run produced a bad trajectory")
     if min(launches.values()) < 1:
         raise SystemExit(f"the MARTINI NPT run did not go through K6: {launches}")
+    if launches["K6 cells"] != launches["K6 fwd"]:
+        raise SystemExit(f"the MARTINI NPT run built other than one set of cells a force evaluation: {launches}")
     # where an NPT step's time goes: one saved interval under the profiler
     w = _profiled(lambda: sim.run(None, x0, MARTINI_SAVE, torch.Generator(device=dev).manual_seed(12)))
     top_dev = sorted(w["kernels"].items(), key=lambda kv: kv[1][0], reverse=True)[:4]
@@ -549,11 +585,11 @@ def _martini(dev, smi: str) -> list[dict]:
     src = "mythos_tpu_torch/ops/csrc/lj.cu"
     return [
         {"name": "K6 lj_energy", "route": "cuda", "source": src, "replaces": "mythos_tpu/ops/lj.py:182",
-         "launches": launches["K6 fwd"], "max_abs_err": err_e, "ms": statistics.median(e_ms),
-         "plain_ms": statistics.median(pe_ms), "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
+         "launches": launches["K6 fwd"], "max_abs_err": err_e, "ms": e_med,
+         "plain_ms": statistics.median(pe_ms), "bound_ms": fwd_reach[0], "bound_by": fwd_reach[1], "library_ms": None},
         {"name": "K6 lj_grads", "route": "cuda", "source": src, "replaces": "mythos_tpu/ops/lj.py:205",
-         "launches": launches["K6 bwd"], "max_abs_err": max(err_g, err_b), "ms": statistics.median(g_ms),
-         "plain_ms": statistics.median(pg_ms), "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
+         "launches": launches["K6 bwd"], "max_abs_err": max(err_g, err_b), "ms": g_med,
+         "plain_ms": statistics.median(pg_ms), "bound_ms": reach_bound[0], "bound_by": reach_bound[1], "library_ms": None},
     ]
 
 
@@ -595,6 +631,8 @@ def main() -> int:
     for ln in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in ln:
             fn = ln.split("'")[1]
+            mangled = re.match(r"_Z(\d+)", fn)  # _Z<length><name><arguments>
+            fn = fn[mangled.end() : mangled.end() + int(mangled.group(1))] if mangled else fn
         elif "spill stores" in ln:
             spill = ln.split(",", 1)[1].strip()
         elif "registers" in ln:
@@ -751,10 +789,21 @@ def main() -> int:
             geo = near = None
             if sp.kind != "debye":
                 geo = _pair_geometry(tctx, ids, rows, site_cutoffs)
-                full, _, short, _, _, ulps, _ = geo
+                full, _, short, _, debye, ulps, _ = geo
                 near = ((ulps <= CLAMP_ULPS) & short & full).any(-1).reshape(-1)
+                # K3's gate (its plain version) against these reaches: the gate
+                # reads float32 cutoffs from P, the reaches float64 ones, so a
+                # pair within a float32 rounding of a cutoff may fall either side
+                gates = tiles.tile_gates_plain(rows64, P64, ids, sp)
+                g_short = torch.stack([gates[nm] for nm in sp.terms if nm != "Debye"]).any(0)
+                g_debye = gates["Debye"] & ~g_short if "Debye" in gates else torch.zeros_like(g_short)
+                n_full = int(full.sum())
+                gate_diff = int(((g_short ^ short) & full).sum()) + int(((g_debye ^ debye) & full).sum())
                 print(f"  {sp.kind}: {int(near.sum())} of {sp.n} rows have a pair inside the short reach with an "
-                      f"angle cosine within {CLAMP_ULPS} float32 ulps of +-1")
+                      f"angle cosine within {CLAMP_ULPS} float32 ulps of +-1; K3's plain gate and the per-term site "
+                      f"cutoffs class {gate_diff} of the {n_full} ordered pairs differently")
+                if gate_diff > 1e-5 * n_full:
+                    raise SystemExit("K3's gate and dna2.per_term_site_cutoffs disagree on the pairs in reach")
             runs = {
                 "K3": (lambda: tiles.tile_forces(rows, P, ids, sp), lambda: tiles.tile_forces_plain(rows, P, ids, sp),
                        lambda: tiles.tile_forces_plain(rows64, P64, ids, sp)),
@@ -792,9 +841,24 @@ def main() -> int:
             k3 = tiles.tile_forces(rows, P, ids, sp)
             k5 = tiles.tile_row_grads(rows, P, ids, tiles.term_weights(P, sp), sp)[:, : sp.n_force_fields]
             ok35, err35 = _within(k5, k3, rtol=1e-5, atol=5e-6)
-            print(f"  {sp.kind} cap {sp.cap}: " + "; ".join(line) + f"; K5 body vs K3 {err35:.1e}")
+            # K3's own tally of the ordered pairs it gated, against the plain
+            # gate's (float32 sites, ordered otherwise: a pair within an ulp
+            # of a cutoff may fall on either side, so 1e-4 of the pairs may differ)
+            k3_again, tally = tiles._tile_forces(rows, P, ids, sp, count=True)
+            det3 = torch.equal(k3, k3_again)
+            tally = dict(zip(("short", "debye", "skipped"), tally.tolist(), strict=True))
+            gate = tiles.tile_gate_counts(rows, P, ids, sp)
+            print(f"  {sp.kind} cap {sp.cap}: " + "; ".join(line) + f"; K5 body vs K3 {err35:.1e}; K3's ordered pairs "
+                  f"a call {tally} (plain gate {gate}); K3 equal bits on a second call: {det3}")
             if not ok35:
                 raise SystemExit("K5's body fields disagree with K3")
+            if not det3 or sum(abs(tally[k] - gate[k]) for k in gate) > 1e-4 * sum(gate.values()):
+                raise SystemExit("K3 is not deterministic, or its gate disagrees with the plain gate")
+            if ci == 0:  # the block tier's own table: K3's device time a call
+                k3_win = _profiled(lambda: tiles.tile_forces(rows, P, ids, sp), 10)
+                tile_rec["K3"][f"dev_ms {label}"] = sum(ms / c for ms, c in k3_win["kernels"].values())
+            if label == "ideal" and ci == 0:
+                tile_rec["K3"]["classes"] = tally
 
     # bounds from the work each unordered pair of the jittered ideal duplex
     # needs: all short-range terms inside their reach, Debye alone inside its
@@ -810,8 +874,12 @@ def main() -> int:
         in_bytes + sp0.n_pad * 16 * 4, n_short * FLOP_PAIR_GRAD + n_hb * FLOP_PAIR_HB + n_debye * FLOP_DEBYE_GRAD
     )
     print(f"[6 tiles] main-path table ({sp0.kind}, cap {sp0.cap}): {int(tri0.sum())} unordered pairs, {n_short} inside "
-          f"the short-range reach ({n_hb} of them the hb reach), {n_debye} Debye only; bounds "
-          + ", ".join(f"{k} {v['bound'][0]:.4f} ms ({v['bound'][1]})" for k, v in tile_rec.items()))
+          f"the short-range reach ({n_hb} of them the hb reach), {n_debye} Debye only; K3 gates the ordered pairs a call "
+          f"into {tile_rec['K3']['classes']}; K3's device time a call {tile_rec['K3']['dev_ms ideal']:.4f} ms (the arc's "
+          f"{tile_rec['K3']['dev_ms arc270']:.4f}); bounds "
+          + ", ".join(f"{k} {v['bound'][0]:.4f} ms ({v['bound'][1]})" for k, v in tile_rec.items())
+          + f"; K3 at {_share(tile_rec['K3']['bound'][0], tile_rec['K3']['ms'])} of its bound by events, "
+          f"{_share(tile_rec['K3']['bound'][0], tile_rec['K3']['dev_ms ideal'])} by device time")
     k2_bound = _bound(2 * 7 * n * 4, n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD)
     k1_bound = _bound(
         (19 + 20) * n * 4 + u * 6 * n * 2,

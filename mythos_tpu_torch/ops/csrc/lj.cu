@@ -8,14 +8,15 @@
 //                symmetrised mask, plus the box gradient dU/dbox, which the
 //                TPU kernel's VJP does not return (the virial's image term).
 // Plain versions: ops/lj.py::lj_energy_plain, lj_grads_plain, and
-// cell_list_plain for the spatial cells the backward visits.
+// cell_list_plain for the spatial cells both directions visit.
 //
 // Inputs: positions (n, 3) float32; types (n,) int32 into the (t, t)
 // sigma/epsilon tables (t <= 32); the symmetric pair mask bit-packed as
 // (n, words) 32-bit words, bit j % 32 of word j / 32 of row i set where the
-// pair (i, j) interacts -- lj_energy reads its upper half (j > i, each pair
-// once), lj_grads the words of the candidates it visits; the box (3,) on the
-// device (the barostat moves it there, so it is never read back to the host).
+// pair (i, j) interacts -- both directions read the words of the candidates
+// they visit (the forward only those with j > i, each pair once); the box
+// (3,) on the device (the barostat moves it there, so it is never read back
+// to the host).
 //
 // Per pair (ops/lj.py::_lj_terms): d = dr - box * rint(dr / box), r2 =
 // |d|^2 + 1e-18; inside r2 < cutoff^2 (the fixed 1.1 nm): x6 =
@@ -23,7 +24,7 @@
 // 4 eps (-12 x6^2 + 6 x6) / (2 r2). dU/dx_i = sum_j 2 dV/dr2 d_ij; dU/dbox_a = -sum over unordered
 // pairs of 2 dV/dr2 d_a n_a, n = rint(dr / box).
 //
-// Both kernels evaluate a pair only where its mask bit is set -- masked-out
+// Both directions evaluate a pair only where its mask bit is set -- masked-out
 // pairs are selected away, never multiplied by zero -- and only pairs inside
 // the cutoff reach the type tables (in shared memory) and the LJ arithmetic.
 // rint rounds ties to even, as torch.round and jnp.round do; dr * (1 / box)
@@ -33,17 +34,9 @@
 // formed without fma contraction, as the plain version forms it. No
 // atomics touch a sum: two calls give the same bits. The minimum image
 // holds only while every box side exceeds twice the cutoff; on a smaller box
-// both kernels write NaN (the host-side callers raise first).
+// both directions write NaN (the host-side callers raise first).
 //
-// Forward (lj_energy_kernel): one warp per row i (8 rows a block), lane l
-// taking the columns 32 k + l of mask word k from the word of column i + 1,
-// 325k threads at 10,160 rows. Sums in a fixed order: each lane its columns
-// in order, the warp by a fixed butterfly, a block its rows in row order, a
-// one-warp tail the block partials. It tests the distance of every masked
-// pair j > i (5.2e7 at 10,160 beads) and so scales with n^2; the cells below
-// are what a later redesign of it can reuse.
-//
-// Backward, redesigned for the H100: work bounded by the pairs in reach.
+// Both directions walk spatial cells, work bounded by the pairs in reach:
 //   1. lj_cells_kernel (one block) bins the beads into spatial cells built
 //      from the current positions and the box on the device, never from the
 //      bead index (after diffusion or a permuted topology neighbouring
@@ -57,32 +50,40 @@
 //      place in its cell is the number of the cell's beads of lower index:
 //      `order` lists the beads by (cell, index), whatever order the atomics
 //      took. Past LJ_MAX_CELLS cells (a box over ~35 nm a side at 32^3) the
-//      kernel flags dims[3] = 0 and builds nothing; the gradients are then
-//      NaN (ops/lj.py::check_box raises on the host first).
-//   2. lj_grads_kernel: one warp per row, rows taken in cell order so that
-//      a block's eight warps read the same neighbour cells from L1. Lanes
-//      0..26 look up the row's distinct neighbour cells (offsets -1, 0, +1 on
-//      an axis of 3 or more cells, 0, +1 on an axis of 2, where the two
-//      wrapped neighbours coincide, 0 on an axis of 1) and a warp scan lays
-//      their beads end to end; lane l then takes candidates l, l + 32, ...
-//      of that list (a binary search by shuffles finds each one's cell), so
-//      the ~250 candidates of a row at the main path's density fill the
-//      lanes. Each candidate still checks its bit in the pair mask. The
-//      fixed candidate order (cells in offset order, beads by index) and the
-//      fixed butterfly make each row's sum deterministic; each row of the
-//      position gradient is written by its own warp, the box gradient's
-//      rows (j > i: each unordered pair once) are added in row order by a
-//      one-warp tail.
-//   Three launches a call: the cell build, the rows, the tail.
+//      kernel flags dims[3] = 0 and builds nothing; the energy and the
+//      gradients are then NaN (ops/lj.py::check_box raises on the host first).
+//      One build serves a force evaluation: the forward builds the cells and
+//      ops/lj.py::LJPairEnergy hands them to the backward.
+//   2. lj_energy_kernel / lj_grads_kernel: one warp per row, rows taken in
+//      cell order so that a block's eight warps read the same neighbour
+//      cells from L1. Lanes 0..26 look up the row's distinct neighbour cells
+//      (offsets -1, 0, +1 on an axis of 3 or more cells, 0, +1 on an axis of
+//      2, where the two wrapped neighbours coincide, 0 on an axis of 1) and a
+//      warp scan lays their beads end to end; lane l then takes candidates
+//      l, l + 32, ... of that list (a binary search by shuffles finds each
+//      one's cell), so the ~250 candidates of a row at the main path's
+//      density fill the lanes. Each candidate still checks its bit in the
+//      pair mask; the forward keeps only j > i (each unordered pair once).
+//      The fixed candidate order (cells in offset order, beads by index) and
+//      the fixed butterfly make each row's sum deterministic. The forward's
+//      rows go into one partial per block in row order, the partials into
+//      the energy by a one-warp tail; each row of the position gradient is
+//      written by its own warp, the box gradient's rows (j > i: each
+//      unordered pair once) are added in row order by the same tail.
+//   A force evaluation launches five kernels: the cell build, the forward's
+//   rows and tail, the backward's rows and tail.
 //
 // What bounds it on an H100: bytes. The function needs only the mask words
 // that hold the bits of the pairs inside the cutoff (chip_smoke.py 9a
-// counts them; the kernel record's bound charges whole rows, the 13 MB
-// mask at 10,160 beads, ~4 us at 3.35 TB/s) and 0.16 MB of positions and
-// types; only the ~2e5 pairs inside 1.1 nm need arithmetic. The kernel
-// reads the words of its candidates: it tests ~2.6e6 candidates (27 cells
-// of ~9 beads a row) where the dense design tested 1.03e8; the
-// single-block cell build is serial work on one SM and scales with n.
+// counts them: ~68k words, 0.27 MB, at 10,160 beads; the kernel records'
+// bounds charge whole rows, or the upper half's, of the 13 MB mask) and
+// 0.16 MB of positions and types; only the ~2e5 pairs inside 1.1 nm need
+// arithmetic. Each direction loads ~2.7e6 candidates (27 cells of ~9 beads
+// a row) for the 201,832 unordered pairs in reach. What bounds the design
+// now: the single-block cell build, serial in n on one SM (~0.029 ms of a
+// force evaluation's ~0.076 ms of device time on an H100 at 10,160 beads,
+// chip_smoke.py 9a), and those candidate loads (the rows kernels ~0.022
+// ms forward, ~0.026 ms backward).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,52 +130,6 @@ __device__ __forceinline__ float lj_x6(float sig, float r2) {
 }
 
 #define NAN_F __int_as_float(0x7fc00000)
-
-// K6 forward, first pass: partials[b] = the energy of block b's rows' pairs j > i.
-__global__ void __launch_bounds__(LJ_ROWS * 32)
-    lj_energy_kernel(const float* __restrict__ pos, const int* __restrict__ types, const uint32_t* __restrict__ mask,
-                     int n, int words, const float* __restrict__ box, const float* __restrict__ sig,
-                     const float* __restrict__ eps, int t, float* __restrict__ partials) {
-  __shared__ float s_sig[LJ_MAX_TYPES * LJ_MAX_TYPES], s_e4[LJ_MAX_TYPES * LJ_MAX_TYPES],
-      s_vc[LJ_MAX_TYPES * LJ_MAX_TYPES];
-  __shared__ float s_rows[LJ_ROWS];
-  load_tables(sig, eps, t, s_sig, s_e4, s_vc);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * LJ_ROWS + warp;
-  const float bx = box[0], by = box[1], bz = box[2];
-  const float ix = 1.f / bx, iy = 1.f / by, iz = 1.f / bz;
-  float acc = 0.f;
-  if (i < n) {
-    const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
-    const int ti = types[i] * t;
-    const uint32_t* row = mask + (size_t)i * words;
-    for (int k = (i + 1) >> 5; k < words; ++k) {
-      const uint32_t w = row[k];
-      if (!((w >> lane) & 1u)) continue;
-      const int j = (k << 5) + lane;
-      if (j <= i || j >= n) continue;
-      float nx, ny, nz;
-      float dx = min_image(xi, pos[3 * j], bx, ix, nx);
-      float dy = min_image(yi, pos[3 * j + 1], by, iy, ny);
-      float dz = min_image(zi, pos[3 * j + 2], bz, iz, nz);
-      float r2 = dist2(dx, dy, dz);
-      if (r2 < LJ_CUT2) {
-        const int tt = ti + types[j];
-        float x6 = lj_x6(s_sig[tt], r2);
-        acc += s_e4[tt] * (x6 * x6 - x6) - s_vc[tt];
-      }
-    }
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) s_rows[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int r = 0; r < LJ_ROWS; ++r) s += s_rows[r];
-    partials[blockIdx.x] = fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF ? s : NAN_F;
-  }
-}
 
 // One warp: out[c] = the sum over rows of x[row * stride + c], in a fixed order.
 __global__ void lj_sum_kernel(const float* __restrict__ x, int rows, int stride, float* __restrict__ out) {
@@ -277,9 +232,97 @@ __global__ void __launch_bounds__(LJ_BUILD_THREADS)
   }
 }
 
+// Calls f(j) for each candidate j of row i -- the beads of the cells next to
+// bead i's, cells in offset order, beads by index -- lane l taking
+// candidates l, l + 32, ... Every lane of the warp must call it (shuffles).
+template <typename Fn>
+__device__ __forceinline__ void for_each_candidate(int lane, int i, const int* __restrict__ dims,
+                                                   const int* __restrict__ cell_of, const int* __restrict__ start,
+                                                   const int* __restrict__ order, Fn f) {
+  const int ncx = dims[0], ncy = dims[1], ncz = dims[2];
+  const int ci = cell_of[i];
+  const int cz = ci % ncz, cy = (ci / ncz) % ncy, cx = ci / (ncz * ncy);
+  const int kx = min(ncx, 3), ky = min(ncy, 3), kz = min(ncz, 3);
+  // lane k < kx * ky * kz: the k-th distinct neighbour cell, its first bead and count
+  int s = 0, cnt = 0;
+  if (lane < kx * ky * kz) {
+    const int a = lane / (ky * kz), b = (lane / kz) % ky, c = lane % kz;
+    const int nx = (cx + (kx == 3 ? a - 1 : a) + ncx) % ncx;
+    const int ny = (cy + (ky == 3 ? b - 1 : b) + ncy) % ncy;
+    const int nz = (cz + (kz == 3 ? c - 1 : c) + ncz) % ncz;
+    const int cc = (nx * ncy + ny) * ncz + nz;
+    s = start[cc];
+    cnt = start[cc + 1] - s;
+  }
+  int incl = cnt;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  const int excl = incl - cnt, total = __shfl_sync(0xffffffffu, incl, 31);
+  for (int base = 0; base < total; base += 32) {
+    const int m = base + lane;
+    int k = 0;  // the last neighbour cell whose first candidate is at or before m
+    for (int step = 16; step > 0; step >>= 1) {
+      if (__shfl_sync(0xffffffffu, excl, k + step) <= m) k += step;
+    }
+    const int sk = __shfl_sync(0xffffffffu, s, k), ek = __shfl_sync(0xffffffffu, excl, k);
+    if (m < total) f(order[sk + m - ek]);
+  }
+}
+
+__device__ __forceinline__ bool mask_bit(const uint32_t* row, int j) { return (row[j >> 5] >> (j & 31)) & 1u; }
+
+// K6 forward, first pass: partials[b] = the energy of the pairs j > i of
+// block b's rows (the beads order[8 b .. 8 b + 7]), rows added in order.
+__global__ void __launch_bounds__(LJ_ROWS * 32)
+    lj_energy_kernel(const float* __restrict__ pos, const int* __restrict__ types, const uint32_t* __restrict__ mask,
+                     int n, int words, const float* __restrict__ box, const float* __restrict__ sig,
+                     const float* __restrict__ eps, int t, const int* __restrict__ dims,
+                     const int* __restrict__ cell_of, const int* __restrict__ start, const int* __restrict__ order,
+                     float* __restrict__ partials) {
+  __shared__ float s_sig[LJ_MAX_TYPES * LJ_MAX_TYPES], s_e4[LJ_MAX_TYPES * LJ_MAX_TYPES],
+      s_vc[LJ_MAX_TYPES * LJ_MAX_TYPES];
+  __shared__ float s_rows[LJ_ROWS];
+  load_tables(sig, eps, t, s_sig, s_e4, s_vc);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = blockIdx.x * LJ_ROWS + warp;
+  const float bx = box[0], by = box[1], bz = box[2];
+  const bool ok = dims[3] != 0 && fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF;
+  float acc = 0.f;
+  if (ok && w < n) {  // uniform over the warp
+    const float ix = 1.f / bx, iy = 1.f / by, iz = 1.f / bz;
+    const int i = order[w];
+    const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+    const int ti = types[i] * t;
+    const uint32_t* row = mask + (size_t)i * words;
+    for_each_candidate(lane, i, dims, cell_of, start, order, [&](int j) {
+      if (j <= i || !mask_bit(row, j)) return;
+      float nx, ny, nz;
+      float dx = min_image(xi, pos[3 * j], bx, ix, nx);
+      float dy = min_image(yi, pos[3 * j + 1], by, iy, ny);
+      float dz = min_image(zi, pos[3 * j + 2], bz, iz, nz);
+      float r2 = dist2(dx, dy, dz);
+      if (r2 < LJ_CUT2) {
+        const int tt = ti + types[j];
+        float x6 = lj_x6(s_sig[tt], r2);
+        acc += s_e4[tt] * (x6 * x6 - x6) - s_vc[tt];
+      }
+    });
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) s_rows[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int r = 0; r < LJ_ROWS; ++r) s += s_rows[r];
+    partials[blockIdx.x] = ok ? s : NAN_F;
+  }
+}
+
 // K6 backward: grad[i] = sum_j 2 dV/dr2 d_ij over the symmetric mask;
-// box_rows[i] = -sum_{j > i} 2 dV/dr2 d_ij * n_ij (each unordered pair once);
-// the candidates j of row i are the beads of the cells next to i's.
+// box_rows[i] = -sum_{j > i} 2 dV/dr2 d_ij * n_ij (each unordered pair once).
 __global__ void __launch_bounds__(LJ_ROWS * 32)
     lj_grads_kernel(const float* __restrict__ pos, const int* __restrict__ types, const uint32_t* __restrict__ mask,
                     int n, int words, const float* __restrict__ box, const float* __restrict__ sig,
@@ -303,37 +346,8 @@ __global__ void __launch_bounds__(LJ_ROWS * 32)
     const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
     const int ti = types[i] * t;
     const uint32_t* row = mask + (size_t)i * words;
-    const int ncx = dims[0], ncy = dims[1], ncz = dims[2];
-    const int ci = cell_of[i];
-    const int cz = ci % ncz, cy = (ci / ncz) % ncy, cx = ci / (ncz * ncy);
-    const int kx = min(ncx, 3), ky = min(ncy, 3), kz = min(ncz, 3);
-    // lane k < kx * ky * kz: the k-th distinct neighbour cell, its first bead and count
-    int s = 0, cnt = 0;
-    if (lane < kx * ky * kz) {
-      const int a = lane / (ky * kz), b = (lane / kz) % ky, c = lane % kz;
-      const int nx = (cx + (kx == 3 ? a - 1 : a) + ncx) % ncx;
-      const int ny = (cy + (ky == 3 ? b - 1 : b) + ncy) % ncy;
-      const int nz = (cz + (kz == 3 ? c - 1 : c) + ncz) % ncz;
-      const int cc = (nx * ncy + ny) * ncz + nz;
-      s = start[cc];
-      cnt = start[cc + 1] - s;
-    }
-    int incl = cnt;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    const int excl = incl - cnt, total = __shfl_sync(0xffffffffu, incl, 31);
-    for (int base = 0; base < total; base += 32) {
-      const int m = base + lane;
-      int k = 0;  // the last neighbour cell whose first candidate is at or before m
-      for (int step = 16; step > 0; step >>= 1) {
-        if (__shfl_sync(0xffffffffu, excl, k + step) <= m) k += step;
-      }
-      const int sk = __shfl_sync(0xffffffffu, s, k), ek = __shfl_sync(0xffffffffu, excl, k);
-      if (m >= total) continue;
-      const int j = order[sk + m - ek];
-      if (!((row[j >> 5] >> (j & 31)) & 1u)) continue;
+    for_each_candidate(lane, i, dims, cell_of, start, order, [&](int j) {
+      if (!mask_bit(row, j)) return;
       float nx, ny, nz;
       float dx = min_image(xi, pos[3 * j], bx, ix, nx);
       float dy = min_image(yi, pos[3 * j + 1], by, iy, ny);
@@ -352,7 +366,7 @@ __global__ void __launch_bounds__(LJ_ROWS * 32)
           hz -= c * dz * nz;
         }
       }
-    }
+    });
   }
   gx = warp_sum(gx);
   gy = warp_sum(gy);
@@ -372,22 +386,13 @@ __global__ void __launch_bounds__(LJ_ROWS * 32)
 
 static int lj_grid(int n) { return (n + LJ_ROWS - 1) / LJ_ROWS; }
 
-// partials: (lj_grid(n),) scratch; out: the energy (a scalar)
-extern "C" int lj_energy(const float* pos, const int* types, const uint32_t* mask, int n, int words, const float* box,
-                         const float* sig, const float* eps, int t, float* partials, float* out, void* stream) {
-  if (n < 1 || t < 1 || t > LJ_MAX_TYPES) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  lj_energy_kernel<<<lj_grid(n), LJ_ROWS * 32, 0, s>>>(pos, types, mask, n, words, box, sig, eps, t, partials);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  lj_sum_kernel<<<1, 32, 0, s>>>(partials, lj_grid(n), 1, out);
-  return (int)cudaGetLastError();
-}
-
-// the cell build's 128 KB of dynamic shared memory, allowed once per device
-static int lj_cells_launch(const float* pos, int n, const float* box, int* dims, int* cell_of, int* start, int* order,
-                           int* tmp, cudaStream_t s) {
+// The cells (dims: (4,); cell_of, order, tmp: (n,), tmp scratch; start:
+// (LJ_MAX_CELLS + 1,)), as lj_cells_kernel fills them; its 128 KB of
+// dynamic shared memory allowed once per device.
+extern "C" int lj_cells(const float* pos, int n, const float* box, int* dims, int* cell_of, int* start, int* order,
+                        int* tmp, void* stream) {
   static bool allowed[64] = {};
+  if (n < 1) return (int)cudaErrorInvalidValue;
   const int smem = LJ_MAX_CELLS * (int)sizeof(int);
   int dev = 0;
   int rc = (int)cudaGetDevice(&dev);
@@ -398,23 +403,36 @@ static int lj_cells_launch(const float* pos, int n, const float* box, int* dims,
     if (rc != 0) return rc;
     allowed[dev] = true;
   }
-  lj_cells_kernel<<<1, LJ_BUILD_THREADS, smem, s>>>(pos, n, box, dims, cell_of, start, order, tmp);
+  lj_cells_kernel<<<1, LJ_BUILD_THREADS, smem, (cudaStream_t)stream>>>(pos, n, box, dims, cell_of, start, order, tmp);
   return (int)cudaGetLastError();
 }
 
-// the cells as lj_cells_kernel fills them (dims: (4,); cell_of, order, tmp:
-// (n,); start: (LJ_MAX_CELLS + 1,)), then grad: (n, 3); box_rows: (n, 3)
-// scratch; box_grad: (3,)
-extern "C" int lj_grads(const float* pos, const int* types, const uint32_t* mask, int n, int words, const float* box,
-                        const float* sig, const float* eps, int t, int* dims, int* cell_of, int* start, int* order,
-                        int* tmp, float* grad, float* box_rows, float* box_grad, void* stream) {
+// On cells lj_cells built from the same positions and box: partials
+// (lj_grid(n),) scratch; out: the energy (a scalar)
+extern "C" int lj_energy(const float* pos, const int* types, const uint32_t* mask, int n, int words, const float* box,
+                         const float* sig, const float* eps, int t, const int* dims, const int* cell_of,
+                         const int* start, const int* order, float* partials, float* out, void* stream) {
   if (n < 1 || t < 1 || t > LJ_MAX_TYPES) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int rc = lj_cells_launch(pos, n, box, dims, cell_of, start, order, tmp, s);
+  lj_energy_kernel<<<lj_grid(n), LJ_ROWS * 32, 0, s>>>(pos, types, mask, n, words, box, sig, eps, t, dims, cell_of,
+                                                       start, order, partials);
+  int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
+  lj_sum_kernel<<<1, 32, 0, s>>>(partials, lj_grid(n), 1, out);
+  return (int)cudaGetLastError();
+}
+
+// On cells lj_cells built from the same positions and box: grad (n, 3);
+// box_rows (n, 3) scratch; box_grad (3,)
+extern "C" int lj_grads(const float* pos, const int* types, const uint32_t* mask, int n, int words, const float* box,
+                        const float* sig, const float* eps, int t, const int* dims, const int* cell_of,
+                        const int* start, const int* order, float* grad, float* box_rows, float* box_grad,
+                        void* stream) {
+  if (n < 1 || t < 1 || t > LJ_MAX_TYPES) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   lj_grads_kernel<<<lj_grid(n), LJ_ROWS * 32, 0, s>>>(pos, types, mask, n, words, box, sig, eps, t, dims, cell_of,
                                                       start, order, grad, box_rows);
-  rc = (int)cudaGetLastError();
+  int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   lj_sum_kernel<<<1, 96, 0, s>>>(box_rows, n, 3, box_grad);
   return (int)cudaGetLastError();

@@ -5,8 +5,9 @@
 // its band neighbours from global memory (K2 is one thread per slot); the
 // k1_* functions are the pieces of K1's block (one lane's pairs, the
 // fixed-order reduction, one slot's integrator update); the pair functions
-// (unbonded_pair, bonded_pair, unbonded_pair_energy, hb_prod) take two
-// bodies, which the tile kernels read from their row arrays. Functions are
+// (unbonded_pair and its gated form with unbonded_reach, bonded_pair,
+// unbonded_pair_energy, hb_prod) take two bodies, which the tile kernels
+// read from their row arrays. Functions are
 // __host__ __device__ so that the same arithmetic can be compiled for the
 // CPU as well; the kernels live in stencil_grads.cu (K2), multistep.cu (K1)
 // and tiles.cu (K3-K5).
@@ -323,12 +324,48 @@ HD PairSites zero_sites() {
   return g;
 }
 
-// Unbonded pair (i, j = i + d): gradient of the weighted excluded volume,
-// HB, cross stacking, coax and Debye energies, each term only within its
-// reach (w[0..3] for exc, hb, cross, coax; Debye out to w_wide). Adds body
-// i's (side_j false) or body j's (side_j true) share to `acc`.
-HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int d,
-                      const int* w, int w_wide, bool side_j, Grad& acc) {
+// Reach of an unbonded pair: a bit per radial factor whose site distance is
+// inside the upper cutoff that factor reads from P -- exc_f3's r_c for each
+// of the four excluded-volume distances, f1's and f2's r_c_high for
+// hydrogen bonding, cross and coaxial stacking, Debye's r_cut. Past its
+// cutoff each of them returns exactly (0, 0), so a term left out where its
+// bit is clear drops only exact zeros.
+#define REACH_EXC_EE 1  // base-base
+#define REACH_EXC_EB 2  // base_j - back_i
+#define REACH_EXC_BE 4  // back_j - base_i
+#define REACH_EXC_BB 8  // back-back
+#define REACH_EXC 15
+#define REACH_HB 16
+#define REACH_CROSS 32
+#define REACH_COAX 64
+#define REACH_SHORT 127  // any short-range term
+#define REACH_DEBYE 128
+
+// The reach bits of unbonded pair (i, j), its site distances formed as
+// unbonded_pair forms them.
+HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
+  float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
+  V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
+  V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
+  V3 stack_i = bi.com + sto * bi.a1, stack_j = bj.com + sto * bj.a1;
+  float r_bb = norm(back_j - back_i), r_ee = norm(base_j - base_i);
+  float r_eb = norm(base_j - back_i), r_be = norm(back_j - base_i), r_ss = norm(stack_j - stack_i);
+  const float* E = P + P_EXC;
+  return (r_ee < E[1 + 3] ? REACH_EXC_EE : 0) | (r_eb < E[5 + 3] ? REACH_EXC_EB : 0) |
+         (r_be < E[9 + 3] ? REACH_EXC_BE : 0) | (r_bb < E[13 + 3] ? REACH_EXC_BB : 0) |
+         (r_ee < P[P_HB + 3] ? REACH_HB : 0) | (r_ee < P[P_CROSS + 3] ? REACH_CROSS : 0) |
+         (r_ss < P[P_COAX + 3] ? REACH_COAX : 0) | (r_bb < P[P_DEBYE + 3] ? REACH_DEBYE : 0);
+}
+
+// Unbonded pair: gradient of the weighted excluded volume, HB, cross
+// stacking, coax and Debye energies. kGated: each term (each excluded-volume
+// distance) only where its `reach` bit is set; else, for the band pair
+// (i, j = i + d), each term only within its offset reach (w[0..3] for exc,
+// hb, cross, coax; Debye out to w_wide). Adds body i's (side_j false) or
+// body j's (side_j true) share to `acc`.
+template <bool kGated>
+HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int d,
+                            const int* w, int w_wide, int reach, bool side_j, Grad& acc) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
   PairSites g = zero_sites();
   V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
@@ -336,20 +373,20 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
 
   V3 v_bb = back_j - back_i;
   float r_bb = norm(v_bb), g_rbb = 0.f;
-  if (d <= w[0]) {
+  if (kGated ? (reach & REACH_EXC) != 0 : d <= w[0]) {
     const float* E = P + P_EXC;
     float gt = P[P_GT + 0], eps = E[0];
     V3 v_ee = base_j - base_i, v_eb = base_j - back_i, v_be = back_j - base_i;
     float r_ee = norm(v_ee), r_eb = norm(v_eb), r_be = norm(v_be);
-    dist_grad(v_ee, r_ee, gt * exc_f3(r_ee, eps, E + 1).d, g.base_i, g.base_j);
-    dist_grad(v_eb, r_eb, gt * exc_f3(r_eb, eps, E + 5).d, g.back_i, g.base_j);
-    dist_grad(v_be, r_be, gt * exc_f3(r_be, eps, E + 9).d, g.base_i, g.back_j);
-    g_rbb += gt * exc_f3(r_bb, eps, E + 13).d;
+    if (!kGated || (reach & REACH_EXC_EE)) dist_grad(v_ee, r_ee, gt * exc_f3(r_ee, eps, E + 1).d, g.base_i, g.base_j);
+    if (!kGated || (reach & REACH_EXC_EB)) dist_grad(v_eb, r_eb, gt * exc_f3(r_eb, eps, E + 5).d, g.back_i, g.base_j);
+    if (!kGated || (reach & REACH_EXC_BE)) dist_grad(v_be, r_be, gt * exc_f3(r_be, eps, E + 9).d, g.base_i, g.back_j);
+    if (!kGated || (reach & REACH_EXC_BB)) g_rbb += gt * exc_f3(r_bb, eps, E + 13).d;
   }
-  if (d <= w_wide) g_rbb += P[P_GT + 4] * qq * debye(r_bb, P + P_DEBYE).d;
+  if (kGated ? (reach & REACH_DEBYE) != 0 : d <= w_wide) g_rbb += P[P_GT + 4] * qq * debye(r_bb, P + P_DEBYE).d;
   dist_grad(v_bb, r_bb, g_rbb, g.back_i, g.back_j);
 
-  if (d <= w[1] || d <= w[2]) {
+  if (kGated ? (reach & (REACH_HB | REACH_CROSS)) != 0 : (d <= w[1] || d <= w[2])) {
     V3 v = base_j - base_i;
     float r = norm(v);
     V3 u = v * (1.f / r);
@@ -363,7 +400,7 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
     bool rfloor = r < 1e-8f;
     float rr = rfloor ? 1e-8f : r;
     float F[7], dF[7], O[7];
-    if (d <= w[1]) {
+    if (kGated ? (reach & REACH_HB) != 0 : d <= w[1]) {
       VD fr = f1(rr, P + P_HB, 1.f);
       F[0] = fr.v;
       dF[0] = rfloor ? 0.f : fr.d;
@@ -377,7 +414,7 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
       g_r += s * dF[0] * O[0];
       for (int k = 0; k < 6; ++k) gc[k] += s * dF[k + 1] * O[k + 1];
     }
-    if (d <= w[2]) {
+    if (kGated ? (reach & REACH_CROSS) != 0 : d <= w[2]) {
       VD fr = f2(rr, P + P_CROSS);
       F[0] = fr.v;
       dF[0] = rfloor ? 0.f : fr.d;
@@ -401,7 +438,7 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
     g.base_i -= gv;
   }
 
-  if (d <= w[3]) {
+  if (kGated ? (reach & REACH_COAX) != 0 : d <= w[3]) {
     V3 stack_i = bi.com + sto * bi.a1, stack_j = bj.com + sto * bj.a1;
     V3 v = stack_j - stack_i;
     float r = norm(v);
@@ -432,6 +469,18 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
     g.stack_i -= gv;
   }
   add_side(P, g, side_j, acc);
+}
+
+// The band's pair (i, j = i + d), each term within its offset reach (K1, K2).
+HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int d, const int* w,
+                      int w_wide, bool side_j, Grad& acc) {
+  unbonded_pair_terms<false>(P, bi, bj, w_hb, qq, d, w, w_wide, 0, side_j, acc);
+}
+
+// Body i's share of pair (i, j), each term only where its `reach` bit is set (K3).
+HD void unbonded_pair_gated(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int reach,
+                            Grad& acc) {
+  unbonded_pair_terms<true>(P, bi, bj, w_hb, qq, 0, nullptr, 0, reach, false, acc);
 }
 
 // Weight-free hydrogen-bonding product f1(r) * prod f4 of pair (i, j) (the

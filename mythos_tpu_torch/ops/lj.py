@@ -3,19 +3,22 @@
 Counterpart of mythos_tpu/ops/lj.py. The energy sums, over the masked
 pairs under the minimum image, V(r) - V(cutoff) inside the cutoff (1.1 nm),
 with x6 = min((sigma^2 / r^2)^3, 1e15) as the TPU kernel forms it
-(:func:`_lj_terms`). Two kernels, hand-written in CUDA
-(``ops/csrc/lj.cu``), stand beside their plain PyTorch versions:
+(:func:`_lj_terms`). Kernels hand-written in CUDA (``ops/csrc/lj.cu``)
+stand beside their plain PyTorch versions:
 
-* :func:`lj_energy` (replaces ``_lj_fwd_impl``): the energy over the upper
-  mask, summed in a fixed order;
+* :func:`lj_cells`: the spatial cells of the beads, built on the card from
+  the positions and the box (:func:`cell_list_plain` is its plain version);
+* :func:`lj_energy` (replaces ``_lj_fwd_impl``): the energy over the mask's
+  pairs j > i, each row visiting only the beads of the cells next to its
+  own, summed in a fixed order;
 * :func:`lj_grads` (replaces ``_lj_vjp_bwd``): the position gradient over
   the symmetric mask and the box gradient -- which the TPU kernel's VJP
-  leaves out, and without which a virial loses its image term. It visits
-  only the beads of the spatial cells next to each row's, built on the
-  card from the positions and the box on every call
-  (:func:`cell_list_plain` is the build's plain version).
+  leaves out, and without which a virial loses its image term -- over the
+  same cells.
 
-:class:`LJPairEnergy` ties them together for autograd; :func:`lj_pair_energy`
+Called alone, :func:`lj_energy` and :func:`lj_grads` each build their own
+cells; :class:`LJPairEnergy` builds them once in the forward and hands them
+to the backward, so a force evaluation builds one set. :func:`lj_pair_energy`
 is the entry. A wrapper runs its plain version for CPU tensors only; on a
 CUDA tensor it launches its kernel or raises. The sigma/epsilon tables get
 no gradient (the kernels give none): the Function refuses tables that
@@ -23,8 +26,9 @@ require grad, and its backward is once-differentiable.
 
 The pair mask (:class:`PairMask`) is symmetric and bit-packed, 32 pairs a
 word: 13 MB at 10,160 beads, where a float32 (N, N) mask would be 413 MB.
-The forward reads its upper half (j > i, each pair once), the backward
-whole rows. It is built once per term and device, never per step.
+The kernels read the words of the candidates they visit, the plain forward
+the upper half (j > i, each pair once). It is built once per term and
+device, never per step.
 """
 
 from __future__ import annotations
@@ -179,22 +183,41 @@ def cell_list_plain(positions, box) -> CellList:
     return CellList(dims=dims, cell_of=cell_of, start=start, order=order.to(torch.int32))
 
 
+def _neighbour_cells(dims) -> torch.Tensor:
+    """(cells, k) the distinct cells next to each cell, in the kernels'
+    offset order: -1, 0, +1 along an axis of 3 or more cells, 0, +1 along
+    an axis of 2 (where the two wrapped neighbours coincide), 0 along an
+    axis of 1."""
+    axes = []
+    for nc in (int(v) for v in dims[:3].tolist()):
+        offs = torch.arange(-1, 2) if nc >= 3 else torch.arange(nc)
+        axes.append((torch.arange(nc)[:, None] + offs[None, :]) % nc)  # (nc, k_axis)
+    ax, ay, az = axes
+    ny, nz = ay.shape[0], az.shape[0]
+    near = (ax[:, None, None, :, None, None] * ny + ay[None, :, None, None, :, None]) * nz
+    return (near + az[None, None, :, None, None, :]).reshape(ax.shape[0] * ny * nz, -1)
+
+
+def cell_candidates(cells: CellList) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernels' candidate walk: the (row, candidate)
+    bead pairs, rows in cell order, each row's candidates the beads of its
+    distinct neighbour cells (:func:`_neighbour_cells`), cells in offset
+    order, beads by index; itself included. Two (pairs,) int64 tensors on
+    the CPU."""
+    start, order = cells.start.cpu().long(), cells.order.cpu().long()
+    seg = _neighbour_cells(cells.dims)[cells.cell_of.cpu().long()[order]]  # (n, k) each row's neighbour cells
+    first, count = start[seg].reshape(-1), (start[seg + 1] - start[seg]).reshape(-1)
+    row = torch.repeat_interleave(order, count.reshape(seg.shape).sum(1))
+    offset = torch.arange(int(count.sum())) - torch.repeat_interleave(torch.cumsum(count, 0) - count, count)
+    return row, order[torch.repeat_interleave(first, count) + offset]
+
+
 def candidate_tests(cells: CellList) -> int:
-    """Ordered (row, candidate) pairs the backward tests for these cells:
+    """Ordered (row, candidate) pairs each kernel loads for these cells:
     each row visits every bead (itself included) of the cells one cell away
     or less along every axis, periodically (every cell of an axis of 2 or 1
     cells)."""
-    near = []
-    for nc in (int(v) for v in cells.dims[:3].tolist()):
-        k = torch.arange(nc)
-        delta = (k[:, None] - k[None, :]) % nc
-        near.append((delta <= 1) | (delta == nc - 1))
-    ax, ay, az = near
-    total = ax.shape[0] * ay.shape[0] * az.shape[0]
-    adjacent = (ax[:, None, None, :, None, None] & ay[None, :, None, None, :, None]
-                & az[None, None, :, None, None, :]).reshape(total, total)
-    counts = torch.diff(cells.start[: total + 1].long()).cpu().double()
-    return int(counts @ adjacent.double() @ counts)
+    return int(cell_candidates(cells)[0].numel())
 
 
 def _lj_terms(r2: torch.Tensor, sigma: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
@@ -295,56 +318,101 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def lj_energy(positions, types, pair_mask: PairMask, box, tables) -> torch.Tensor:
-    """K6 forward: the energy (a 0-d tensor) over the mask's pairs j > i. CPU
-    tensors run :func:`lj_energy_plain`."""
+def lj_cells(positions, box) -> CellList:
+    """The spatial cells of the beads (:class:`CellList`), built on the card
+    by one block from the positions and the box as they are there (the box
+    is not read back). CPU tensors run :func:`cell_list_plain`."""
     if positions.device.type == "cpu":
-        with torch.no_grad():
-            return lj_energy_plain(positions, types, pair_mask, box, tables)
+        return cell_list_plain(positions, box)
+    from mythos_tpu_torch.ops import _build
+
+    for k, v in {"positions": positions, "box": box}.items():
+        if v.device.type != "cuda" or v.dtype != torch.float32 or not v.is_contiguous():
+            raise ValueError(f"lj_cells: {k} must be a contiguous float32 tensor on the card")
+    n = positions.shape[0]
+    if positions.shape != (n, 3) or box.shape != (3,) or n < 1:
+        raise ValueError(f"lj_cells takes (n, 3) positions and a (3,) box, got {tuple(positions.shape)}")
+    # one int32 allocation: dims, cell_of, order, tmp (the build's scratch), start
+    buf = torch.empty(4 + 3 * n + MAX_CELLS + 1, dtype=torch.int32, device=positions.device)
+    dims, cell_of, order, tmp, start = buf.split([4, n, n, n, MAX_CELLS + 1])
+    rc = _build.load_library().lj_cells(
+        _ptr(positions), ctypes.c_int(n), _ptr(box), _ptr(dims), _ptr(cell_of), _ptr(start), _ptr(order), _ptr(tmp),
+        _stream(),
+    )
+    if rc != 0:
+        raise RuntimeError(f"lj_cells launch failed: CUDA error {rc}")
+    lj_cells.launches += 1
+    return CellList(dims=dims, cell_of=cell_of, start=start, order=order)
+
+
+lj_cells.launches = 0
+
+
+def _cell_args(cells: CellList, positions) -> tuple:
+    n = positions.shape[0]
+    if cells.cell_of.shape != (n,) or cells.start.shape != (MAX_CELLS + 1,) or cells.order.device != positions.device:
+        raise ValueError(f"cells of {cells.cell_of.shape[0]} beads on {cells.order.device} for {n} positions on "
+                         f"{positions.device}")
+    return _ptr(cells.dims), _ptr(cells.cell_of), _ptr(cells.start), _ptr(cells.order)
+
+
+def _lj_energy(positions, types, pair_mask: PairMask, box, tables, cells: CellList | None = None):
+    """:func:`lj_energy` on CUDA tensors over ``cells`` (built from the same
+    positions and box), or over cells it builds first: (energy, CellList)."""
     from mythos_tpu_torch.ops import _build
 
     args = _kernel_args("lj_energy", positions, types, pair_mask, box, tables)
-    partials = torch.empty(-(-pair_mask.n // ROWS_PER_BLOCK), dtype=torch.float32, device=positions.device)
+    if cells is None:
+        cells = lj_cells(positions, box)
+    n = pair_mask.n
+    partials = torch.empty(-(-n // ROWS_PER_BLOCK), dtype=torch.float32, device=positions.device)
     out = torch.empty((), dtype=torch.float32, device=positions.device)
-    rc = _build.load_library().lj_energy(*args, _ptr(partials), _ptr(out), _stream())
+    rc = _build.load_library().lj_energy(*args, *_cell_args(cells, positions), _ptr(partials), _ptr(out), _stream())
     if rc != 0:
         raise RuntimeError(f"lj_energy launch failed: CUDA error {rc}")
     lj_energy.launches += 1
-    return out
+    return out, cells
+
+
+def lj_energy(positions, types, pair_mask: PairMask, box, tables) -> torch.Tensor:
+    """K6 forward: the energy (a 0-d tensor) over the mask's pairs j > i,
+    visiting each row's neighbour cells, which it builds first
+    (:func:`lj_cells`). CPU tensors run :func:`lj_energy_plain`."""
+    if positions.device.type == "cpu":
+        with torch.no_grad():
+            return lj_energy_plain(positions, types, pair_mask, box, tables)
+    return _lj_energy(positions, types, pair_mask, box, tables)[0]
 
 
 lj_energy.launches = 0
 
 
-def _lj_grads(positions, types, pair_mask: PairMask, box, tables):
-    """:func:`lj_grads` on CUDA tensors, with the cells the same C call built
-    on the card and visited: (grad, box_grad, CellList)."""
+def _lj_grads(positions, types, pair_mask: PairMask, box, tables, cells: CellList | None = None):
+    """:func:`lj_grads` on CUDA tensors over ``cells`` (built from the same
+    positions and box), or over cells it builds first: (grad, box_grad,
+    CellList)."""
     from mythos_tpu_torch.ops import _build
 
     args = _kernel_args("lj_grads", positions, types, pair_mask, box, tables)
+    if cells is None:
+        cells = lj_cells(positions, box)
     n = pair_mask.n
-    # one int32 allocation for the cell arrays: dims, cell_of, order, tmp (the
-    # build's scratch), start
-    cells = torch.empty(4 + 3 * n + MAX_CELLS + 1, dtype=torch.int32, device=positions.device)
-    dims, cell_of, order, tmp, start = cells.split([4, n, n, n, MAX_CELLS + 1])
     grad = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
     box_rows = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
     box_grad = torch.empty(3, dtype=torch.float32, device=positions.device)
     rc = _build.load_library().lj_grads(
-        *args, _ptr(dims), _ptr(cell_of), _ptr(start), _ptr(order), _ptr(tmp), _ptr(grad), _ptr(box_rows),
-        _ptr(box_grad), _stream(),
+        *args, *_cell_args(cells, positions), _ptr(grad), _ptr(box_rows), _ptr(box_grad), _stream(),
     )
     if rc != 0:
         raise RuntimeError(f"lj_grads launch failed: CUDA error {rc}")
     lj_grads.launches += 1
-    return grad, box_grad, CellList(dims=dims, cell_of=cell_of, start=start, order=order)
+    return grad, box_grad, cells
 
 
 def lj_grads(positions, types, pair_mask: PairMask, box, tables):
     """K6 backward: (dU/dpositions (N, 3) over the whole mask, dU/dbox
     (3,) over each pair once), visiting each row's neighbour cells, which
-    the same call builds first on the card from the positions and the box
-    as they are there (the box is not read back). CPU tensors run
+    it builds first (:func:`lj_cells`). CPU tensors run
     :func:`lj_grads_plain`."""
     if positions.device.type == "cpu":
         return lj_grads_plain(positions, types, pair_mask, box, tables)
@@ -357,7 +425,9 @@ lj_grads.launches = 0
 
 class LJPairEnergy(torch.autograd.Function):
     """The LJ pair energy: :func:`lj_energy` forward, :func:`lj_grads`
-    backward, returning the position and box cotangents."""
+    backward, returning the position and box cotangents. On the card the
+    backward visits the cells the forward built (the saved positions and
+    box are those they were built from): one build a force evaluation."""
 
     @staticmethod
     def forward(fctx, positions, box, types, pair_mask, sigmas, epsilons):
@@ -365,13 +435,20 @@ class LJPairEnergy(torch.autograd.Function):
             raise ValueError(ERR_TABLE_GRAD)
         fctx.save_for_backward(positions, box, types, sigmas, epsilons)
         fctx.pair_mask = pair_mask
-        return lj_energy(positions, types, pair_mask, box, (sigmas, epsilons))
+        if positions.device.type == "cpu":
+            fctx.cells = None
+            return lj_energy(positions, types, pair_mask, box, (sigmas, epsilons))
+        energy, fctx.cells = _lj_energy(positions, types, pair_mask, box, (sigmas, epsilons))
+        return energy
 
     @staticmethod
     @once_differentiable
     def backward(fctx, g):
         positions, box, types, sigmas, epsilons = fctx.saved_tensors
-        grad, box_grad = lj_grads(positions, types, fctx.pair_mask, box, (sigmas, epsilons))
+        if fctx.cells is None:
+            grad, box_grad = lj_grads(positions, types, fctx.pair_mask, box, (sigmas, epsilons))
+        else:
+            grad, box_grad, _ = _lj_grads(positions, types, fctx.pair_mask, box, (sigmas, epsilons), fctx.cells)
         g_pos = g * grad if fctx.needs_input_grad[0] else None
         g_box = g * box_grad if fctx.needs_input_grad[1] else None
         return g_pos, g_box, None, None, None, None

@@ -15,7 +15,9 @@ tables, beside their plain PyTorch versions (autograd over a gathered
 tensors only, and on a CUDA tensor launches its kernel or raises):
 
 * K3 :func:`tile_forces` -- row forces under the full mask (replaces
-  ``_bwd_rows_impl(forces_only=True)``): the block tier's force.
+  ``_bwd_rows_impl(forces_only=True)``): the block tier's force. It gates
+  each pair by reach first (:func:`tile_gates_plain` is the gate's plain
+  version) and runs each term's physics only inside its cutoff.
 * K4 :func:`tile_energies` -- per-term sums under the triangular mask
   (replaces ``_fwd_impl``): the DiffTRe re-evaluation.
 * K5 :func:`tile_row_grads` -- the row gradients of K4's sums for a
@@ -307,6 +309,61 @@ def term_weights(params: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     return params[[gt0 + _GT_SLOT[nm] for nm in spec.terms]]
 
 
+#: upper cutoff of each radial factor, as offsets into the parameter vector
+#: (stencil_physics.cuh): exc_f3's r_c of the base-base, base_j-back_i,
+#: back_j-base_i and back-back distances (P_EXC + 1/5/9/13, + 3); f1's and
+#: f2's r_c_high (+ 3); Debye's r_cut (+ 3)
+_EXC_CUTS = (4, 8, 12, 16)
+_R_C_HIGH = 3
+_R_CUT = 3
+
+
+def tile_gates_plain(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> dict:
+    """Plain version of K3's gate: {term: (nb, B, M) bool}, each term of
+    the kind where one of its site distances lies inside the upper cutoff
+    its radial factor reads from ``params`` (past it the factor, and so the
+    term and its gradient, is exactly zero). Excluded volume: any of its
+    four distances; hydrogen bonding and cross stacking: base-base; coaxial
+    stacking: stack-stack; Debye: backbone-backbone."""
+    off = stencil.param_offsets()
+    ri, cj = _split(rows, _gather_cols(rows, ids, spec), spec)
+    if spec.kind == "debye":
+        return {"Debye": vnorm(_vec(cj, 0) - _vec(ri, 0)) < params[off["DEBYE"] + _R_CUT]}
+    bx, by, hbo, sto = spec.geometry
+    com_i, a1_i, a2_i = (_vec(ri, o) for o in (_COM, _A1, _A2))
+    com_j, a1_j, a2_j = (_vec(cj, o) for o in (_COM, _A1, _A2))
+    back_i, back_j = com_i + bx * a1_i + by * a2_i, com_j + bx * a1_j + by * a2_j
+    base_i, base_j = com_i + hbo * a1_i, com_j + hbo * a1_j
+    r_bb, r_ee = vnorm(back_j - back_i), vnorm(base_j - base_i)
+    r_exc = (r_ee, vnorm(base_j - back_i), vnorm(back_j - base_i), r_bb)
+    r_ss = vnorm((com_j + sto * a1_j) - (com_i + sto * a1_i))
+    gates = {
+        "UnbondedExcludedVolume": torch.stack(
+            [r < params[off["EXC"] + k] for r, k in zip(r_exc, _EXC_CUTS, strict=True)]).any(0),
+        "HydrogenBonding": r_ee < params[off["HB"] + _R_C_HIGH],
+        "CrossStacking": r_ee < params[off["CROSS"] + _R_C_HIGH],
+        "CoaxialStacking": r_ss < params[off["COAX"] + _R_C_HIGH],
+        "Debye": r_bb < params[off["DEBYE"] + _R_CUT],
+    }
+    return {nm: gates[nm] for nm in spec.terms}
+
+
+def tile_gate_counts(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> dict:
+    """K3's classes of the ordered pairs under the full mask, by the plain
+    gate: ``short`` (a short-range term in reach), ``debye`` (Debye alone)
+    and ``skipped`` (nothing)."""
+    gates = tile_gates_plain(rows, params, ids, spec)
+    ri, cj = _split(rows, _gather_cols(rows, ids, spec), spec)
+    mask = _tile_mask(ri, cj, spec, triangular=False)
+    short = torch.zeros_like(mask)
+    for nm in spec.terms:
+        if nm != "Debye":
+            short |= gates[nm]
+    debye = gates["Debye"] & ~short if "Debye" in gates else torch.zeros_like(mask)
+    return {"short": int((mask & short).sum()), "debye": int((mask & debye).sum()),
+            "skipped": int((mask & ~short & ~debye).sum())}
+
+
 def _body_row_grads(rows, params, ids, gt, spec: TileSpec, width: int) -> torch.Tensor:
     """d/d(rows[:, :width]) of sum_t gt_t x (symmetric-mask sum of term t),
     row side only (columns and the other fields held constant)."""
@@ -394,20 +451,31 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _tile_forces(rows, params, ids, spec: TileSpec, count: bool = False):
+    """:func:`tile_forces` on CUDA tensors: (forces, counts), ``counts``
+    (with ``count``) the kernel's (3,) int32 tally of the ordered pairs
+    under the mask that needed the short-range terms, Debye alone, and
+    nothing (:func:`tile_gate_counts`), else None."""
+    from mythos_tpu_torch.ops import _build
+
+    args = _kernel_args("tile_forces", rows, params, ids, spec)
+    out = torch.empty((spec.n_pad, spec.n_force_fields), dtype=torch.float32, device=rows.device)
+    counts = torch.zeros(3, dtype=torch.int32, device=rows.device) if count else None
+    rc = _build.load_library().tile_forces(
+        *args, _ptr(out), ctypes.c_void_p(None if counts is None else counts.data_ptr()), _stream()
+    )
+    if rc != 0:
+        raise RuntimeError(f"tile_forces launch failed: CUDA error {rc}")
+    tile_forces.launches += 1
+    return out, counts
+
+
 def tile_forces(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """K3: (n_pad, 12) row forces dE/d(com, a1, a2, a3), or (n_pad, 3)
     dE/d(back) for the debye kind. CPU tensors run :func:`tile_forces_plain`."""
     if rows.device.type == "cpu":
         return tile_forces_plain(rows, params, ids, spec)
-    from mythos_tpu_torch.ops import _build
-
-    args = _kernel_args("tile_forces", rows, params, ids, spec)
-    out = torch.empty((spec.n_pad, spec.n_force_fields), dtype=torch.float32, device=rows.device)
-    rc = _build.load_library().tile_forces(*args, ctypes.c_int(spec.n_pad), _ptr(out), _stream())
-    if rc != 0:
-        raise RuntimeError(f"tile_forces launch failed: CUDA error {rc}")
-    tile_forces.launches += 1
-    return out
+    return _tile_forces(rows, params, ids, spec)[0]
 
 
 tile_forces.launches = 0
@@ -420,10 +488,11 @@ def tile_energies(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, s
         return tile_energies_plain(rows, params, ids, spec)
     from mythos_tpu_torch.ops import _build
 
+    lib = _build.load_library()
     args = _kernel_args("tile_energies", rows, params, ids, spec)
-    partials = torch.empty((-(-spec.n // 64), 5), dtype=torch.float32, device=rows.device)
+    partials = torch.empty((lib.tile_energies_partials(spec.n), 5), dtype=torch.float32, device=rows.device)
     out = torch.empty(5, dtype=torch.float32, device=rows.device)
-    rc = _build.load_library().tile_energies(*args, _ptr(partials), _ptr(out), _stream())
+    rc = lib.tile_energies(*args, _ptr(partials), _ptr(out), _stream())
     if rc != 0:
         raise RuntimeError(f"tile_energies launch failed: CUDA error {rc}")
     tile_energies.launches += 1

@@ -19,6 +19,8 @@ exactly; K1, K4 and K6 give equal bits on a second call; the MARTINI runs
 card vs CPU rtol 1e-4, atol 1e-5.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -120,19 +122,21 @@ def test_simulator_on_card_matches_cpu_twins(card):
 
 @pytest.fixture(scope="module")
 def tile_inputs(card):
-    """Rows of a jittered 40-bp duplex for every kind on its block table."""
-    top, body = synthetic_duplex(40, dtype=torch.float32, device=card)
-    e, sim = build_sim(top, KT, mode="block", init_centers=body.center, device=card)
-    nbl = sim.neighbors
-    ids = nbl.idx if not isinstance(nbl.idx, tuple) else nbl.idx[1]
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device="cuda")
-    c = body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device="cuda")
-    b = to_soa(RigidBody(c, q / q.norm(dim=-1, keepdim=True)))
-    out = []
-    for kind in ("full", "short", "debye"):
-        ctx = tiles.prepare_tile_context(e, ids, nbl.block_size, kind, nbl.perm)
-        out.append((ctx, ids, tiles.dynamic_rows(ctx, b).contiguous()))
+    """{(shape, kind): (context, table, rows)} of a jittered 40-bp duplex,
+    straight and bent 270 degrees, for every kind on its block table."""
+    out = {}
+    for shape, bend in (("straight", None), ("bent", math.radians(270))):
+        top, body = synthetic_duplex(40, bend=bend, dtype=torch.float32, device=card)
+        e, sim = build_sim(top, KT, mode="block", init_centers=body.center, device=card)
+        nbl = sim.neighbors
+        ids = nbl.idx if not isinstance(nbl.idx, tuple) else nbl.idx[1]
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device="cuda")
+        c = body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device="cuda")
+        b = to_soa(RigidBody(c, q / q.norm(dim=-1, keepdim=True)))
+        for kind in ("full", "short", "debye"):
+            ctx = tiles.prepare_tile_context(e, ids, nbl.block_size, kind, nbl.perm)
+            out[shape, kind] = (ctx, ids, tiles.dynamic_rows(ctx, b).contiguous())
     return out
 
 
@@ -141,20 +145,28 @@ def _close(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", [0, 1, 2], ids=["full", "short", "debye"])
-def test_k3_kernel_matches_plain(tile_inputs, kind):
-    ctx, ids, rows = tile_inputs[kind]
+@pytest.mark.parametrize("kind", ["full", "short", "debye"])
+@pytest.mark.parametrize("shape", ["straight", "bent"])
+def test_k3_kernel_matches_plain(tile_inputs, shape, kind):
+    """K3 against its plain version, its pair classes those of the plain
+    gate (tile_gate_counts), equal bits on a second call."""
+    ctx, ids, rows = tile_inputs[shape, kind]
+    sp = ctx.spec
     before = tiles.tile_forces.launches
-    got = tiles.tile_forces(rows, ctx.params, ids, ctx.spec)
+    got = tiles.tile_forces(rows, ctx.params, ids, sp)
     torch.cuda.synchronize()
     assert tiles.tile_forces.launches == before + 1
-    _close(got, tiles.tile_forces_plain(rows, ctx.params, ids, ctx.spec))
+    _close(got, tiles.tile_forces_plain(rows, ctx.params, ids, sp))
+    again, counts = tiles._tile_forces(rows, ctx.params, ids, sp, count=True)
+    assert torch.equal(got, again)  # a fixed order, no atomics
+    want = tiles.tile_gate_counts(rows, ctx.params, ids, sp)
+    assert counts.tolist() == [want["short"], want["debye"], want["skipped"]]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", [0, 1, 2], ids=["full", "short", "debye"])
+@pytest.mark.parametrize("kind", ["full", "short", "debye"])
 def test_k4_kernel_matches_plain(tile_inputs, kind):
-    ctx, ids, rows = tile_inputs[kind]
+    ctx, ids, rows = tile_inputs["straight", kind]
     got = tiles.tile_energies(rows, ctx.params, ids, ctx.spec)
     torch.cuda.synchronize()
     _close(got, tiles.tile_energies_plain(rows, ctx.params, ids, ctx.spec))
@@ -163,9 +175,9 @@ def test_k4_kernel_matches_plain(tile_inputs, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", [0, 1, 2], ids=["full", "short", "debye"])
+@pytest.mark.parametrize("kind", ["full", "short", "debye"])
 def test_k5_kernel_matches_plain_and_k3(tile_inputs, kind):
-    ctx, ids, rows = tile_inputs[kind]
+    ctx, ids, rows = tile_inputs["straight", kind]
     sp = ctx.spec
     gt = tiles.term_weights(ctx.params, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device="cuda")
     got = tiles.tile_row_grads(rows, ctx.params, ids, gt, sp)
@@ -218,25 +230,34 @@ def _bilayer_lj(device, n_xy: int, water_layers: int, case: str):
 @pytest.mark.parametrize("size", [(3, 1), (8, 4)], ids=["104 beads", "1864 beads"])
 def test_k6_kernels_match_plain(card, size, case):
     """K6 forward (deterministic) and backward (position and box gradients,
-    deterministic) against the plain versions on the card; the backward's
-    cells equal cell_list_plain's."""
+    deterministic) against the plain versions on the card; the cells each
+    built equal cell_list_plain's; under LJPairEnergy one cell build serves
+    the forward and the backward, whose gradients equal lj_grads' bits."""
     args = _bilayer_lj(card, *size, case)
-    before = (lj.lj_energy.launches, lj.lj_grads.launches)
+    before = (lj.lj_energy.launches, lj.lj_grads.launches, lj.lj_cells.launches)
     e = lj.lj_energy(*args)
     g, g_box = lj.lj_grads(*args)
     torch.cuda.synchronize()
-    assert (lj.lj_energy.launches, lj.lj_grads.launches) == (before[0] + 1, before[1] + 1)
+    assert (lj.lj_energy.launches, lj.lj_grads.launches, lj.lj_cells.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
     e_ref = lj.lj_energy_plain(*args)
     g_ref, g_box_ref = lj.lj_grads_plain(*args)
     torch.testing.assert_close(e, e_ref, rtol=2e-5, atol=0.0)
     torch.testing.assert_close(g, g_ref, rtol=2e-4, atol=1e-4 * float(g_ref.abs().max()))
     torch.testing.assert_close(g_box, g_box_ref, rtol=2e-4, atol=1e-4 * float(g_box_ref.abs().max()))
-    assert torch.equal(e, lj.lj_energy(*args))  # a fixed reduction order, no atomics
-    g2, g_box2, cells = lj._lj_grads(*args)  # the cells this call's gradients came from
-    assert torch.equal(g, g2) and torch.equal(g_box, g_box2)
     plain = lj.cell_list_plain(args[0], args[3])
-    for field in ("dims", "cell_of", "start", "order"):
-        assert torch.equal(getattr(cells, field), getattr(plain, field)), field
+    e2, cells_e = lj._lj_energy(*args)  # the cells this call's energy came from
+    assert torch.equal(e, e2)  # a fixed reduction order, no atomics
+    g2, g_box2, cells_g = lj._lj_grads(*args)
+    assert torch.equal(g, g2) and torch.equal(g_box, g_box2)
+    for cells in (cells_e, cells_g):
+        for field in ("dims", "cell_of", "start", "order"):
+            assert torch.equal(getattr(cells, field), getattr(plain, field)), field
+    x, box = args[0].clone().requires_grad_(True), args[3].clone().requires_grad_(True)
+    builds = lj.lj_cells.launches
+    g_fn, g_box_fn = torch.autograd.grad(lj.lj_pair_energy(x, args[1], args[2], box, args[4]), (x, box))
+    assert lj.lj_cells.launches == builds + 1
+    assert torch.equal(g_fn, g) and torch.equal(g_box_fn, g_box)
 
 
 @pytest.mark.cuda

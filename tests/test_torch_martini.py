@@ -19,8 +19,12 @@ CPU, both in float64:
 (f) couplings, merge and ``opt_params`` carried across by
     ``params_from_numpy``;
 (g) ``LJPairEnergy`` refuses table gradients and a double backward;
-(h) the spatial cells K6's backward visits (``cell_list_plain``, the
-    kernel's plain version) cover every masked pair inside the cutoff.
+(h) the spatial cells K6 visits (``cell_list_plain``, the kernel's plain
+    version) cover every masked pair inside the cutoff, on axes of 2 and 1
+    cells too;
+(i) the forward's candidates (``cell_candidates``, j > i, mask bit set)
+    hold each pair in reach exactly once, and their energy is the plain
+    version's and JAX's ``lj_energy_forces_reference``'s.
 """
 
 import numpy as np
@@ -310,14 +314,19 @@ def _cells_case(case):
         mask = t_terms(top)[2].pair_mask("cpu")
     else:
         n = 500
-        box = np.array([3.7, 5.3, 4.6]) if case == "random box" else np.array([4.0, 3.3, 5.5])
-        lo, hi = (0.0, 1.0) if case == "random box" else (-2.0, 3.0)
+        box = {"random box": [3.7, 5.3, 4.6], "outside [0, box)": [4.0, 3.3, 5.5],
+               "one cell along x": [2.2001, 3.4, 4.5]}[case]
+        box = np.array(box)
+        lo, hi = (-2.0, 3.0) if case == "outside [0, box)" else (0.0, 1.0)
         pos = rng.uniform(lo, hi, size=(n, 3)) * box
         mask = tlj.PairMask.build(n, rng.integers(0, n, size=(n, 2)), "cpu")
     return torch.as_tensor(pos, dtype=torch.float32), torch.as_tensor(box, dtype=torch.float32), mask
 
 
-@pytest.mark.parametrize("case", ["random box", "two cells a side", "scaled box", "outside [0, box)"])
+CELL_CASES = ["random box", "two cells a side", "scaled box", "outside [0, box)", "one cell along x"]
+
+
+@pytest.mark.parametrize("case", CELL_CASES)
 def test_cell_list_covers_pairs_in_reach(case):
     """(h) cell_list_plain: floor(box / LJ_CELL) cells a side, the beads
     ordered by (cell, index) with consistent starts, and the candidates of
@@ -332,6 +341,8 @@ def test_cell_list_covers_pairs_in_reach(case):
     assert int(cells.dims[3]) == 1
     if case == "two cells a side":
         assert nc[:2] == [2, 2]
+    if case == "one cell along x":
+        assert nc[0] == 1
     order, cell_of = cells.order.long(), cells.cell_of.long()
     assert sorted(order.tolist()) == list(range(n))
     key = cell_of[order] * n + order
@@ -350,3 +361,56 @@ def test_cell_list_covers_pairs_in_reach(case):
     assert int(inside.sum()) > 0
     assert not bool((inside & ~cand).any())
     assert tlj.candidate_tests(cells) == int(cand.sum())
+
+
+def _cells_energy_inputs(case, n):
+    """(types, float64 tables, the JAX term or None) for a cell-list case:
+    the bilayer's own for the bilayer cases, random types over the
+    104-bead bilayer's tables otherwise."""
+    if case in ("two cells a side", "scaled box"):
+        n_xy, layers = (3, 1) if case == "two cells a side" else (8, 4)
+        term = t_terms(t_bilayer(n_xy, n_xy, water_layers=layers)[0])[2]
+        return term.types("cpu"), term.tables("cpu", torch.float64), j_terms(j_bilayer(n_xy, n_xy, water_layers=layers)[0])[2]
+    term = t_terms(t_bilayer(3, 3, water_layers=1)[0])[2]
+    tables = term.tables("cpu", torch.float64)
+    types = np.random.default_rng(4).integers(0, tables[0].shape[0], size=n)
+    return torch.as_tensor(types, dtype=torch.int32), tables, None
+
+
+@pytest.mark.parametrize("case", CELL_CASES)
+def test_cell_candidates_hold_each_pair_once(case):
+    """The candidates K6's forward keeps -- (i, j > i) over each row's
+    distinct neighbour cells (cell_candidates on cell_list_plain's cells),
+    with the mask bit set -- hold every masked pair inside the cutoff
+    exactly once, on axes of 2 and 1 cells too; their float64 energy equals
+    lj_energy_plain's (rtol 1e-12) and, on the bilayers, that of JAX's
+    lj_energy_forces_reference."""
+    x, box, mask = _cells_case(case)
+    n = x.shape[0]
+    i, j = tlj.cell_candidates(tlj.cell_list_plain(x, box))
+    dense = mask.dense()
+    keep = (j > i) & dense[i, j]
+    i, j = i[keep], j[keep]
+    key = i * n + j
+    assert key.unique().numel() == key.numel()
+    x64, b64 = x.double(), box.double()
+    dr = x64[i] - x64[j]
+    dr = dr - b64 * torch.round(dr / b64)
+    r2 = (dr * dr).sum(-1) + 1e-18
+    inside = r2 < tlj.LJ_CUTOFF**2
+    drd = x64[:, None, :] - x64[None, :, :]
+    drd = drd - b64 * torch.round(drd / b64)
+    want = torch.nonzero(torch.triu(dense & ((drd * drd).sum(-1) < tlj.LJ_CUTOFF**2), diagonal=1))
+    assert len(want) > 0
+    np.testing.assert_array_equal(torch.sort(key[inside]).values.numpy(), (want[:, 0] * n + want[:, 1]).numpy())
+
+    types, tables, j_term = _cells_energy_inputs(case, n)
+    t = types.long()
+    energy = tlj._lj_terms(r2[inside], tables[0][t[i[inside]], t[j[inside]]], tables[1][t[i[inside]], t[j[inside]]]).sum()
+    e_plain = tlj.lj_energy_plain(x64, types, mask, b64, tables)
+    np.testing.assert_allclose(float(energy), float(e_plain), rtol=1e-12)
+    if j_term is not None:
+        tables_j = (j_term.params.sigmas, j_term.params.epsilons)
+        e_ref, _ = jax.jit(lambda p: lj_energy_forces_reference(p, j_term._atom_type_map, j_term._pair_mask(),
+                                                                jnp.asarray(b64.numpy()), tables_j))(jnp.asarray(x64.numpy()))
+        np.testing.assert_allclose(float(energy), float(e_ref), rtol=1e-12)

@@ -341,3 +341,115 @@ def test_tile_autograd_function_backward():
     body = tiles.tile_row_grads_plain(rows0, ctx.params, nbl.idx, w, ctx.spec)[:, :12]
     torch.testing.assert_close(via[0][:, :12], body)
     torch.testing.assert_close(via[0][:, 16:], torch.zeros_like(via[0][:, 16:]))
+
+
+def _gated_sums(rows, ids, params, spec, triangular, gates):
+    """Per-term sums of the plain tile formulas over the mask, each term
+    kept only where its gate is set (all terms where ``gates`` is None)."""
+    ri, cj = tiles._split(rows, tiles._gather_cols(rows.detach(), ids, spec), spec)
+    mask = tiles._tile_mask(ri, cj, spec, triangular)
+    terms, _ = tiles._tile_terms(ri, cj, params, spec)
+    return [torch.where(mask & gates[nm], e, torch.zeros_like(e)).sum() for nm, e in zip(spec.terms, terms, strict=True)]
+
+
+@pytest.mark.parametrize("kind", ["full", "short", "debye"])
+@pytest.mark.parametrize("shape", sorted(BENDS))
+def test_tile_gates_drop_only_zeros(shape, kind):
+    """K3's gate (tile_gates_plain, reading each term's upper cutoff from
+    the parameter vector): on the jittered 40-bp duplex, straight and bent
+    270 degrees, in float64, the plain tile energies (triangular mask) and
+    K3's plain row forces (full mask) with each term kept only inside its
+    gate equal the ungated ones exactly; and the per-class counts of the
+    ordered pairs (short-range, Debye only, skipped) are those of the site
+    distances against the cutoffs named in the parameter groups."""
+    top, body = synthetic_duplex(N_BP, bend=BENDS[shape], dtype=torch.float64, device="cpu")
+    e = tdna2.create_default_energy_fn(top, dtype=torch.float64, device="cpu")
+    c, q = _jittered((body.center.numpy(), body.orientation.numpy()), 4)
+    nbl = tnb.block_neighbor_list_for_topology(top, tdna2.default_neighbor_cutoff(), block_size=8,
+                                               init_centers=torch.as_tensor(c), perm=tnb.strand_interleave_perm(top))
+    ids = _tables(nbl)[0]
+    ctx = tiles.prepare_tile_context(e, ids, 8, kind, nbl.perm)
+    sp, params = ctx.spec, ctx.params
+    rows = tiles.dynamic_rows(ctx, to_soa(RigidBody(torch.as_tensor(c), torch.as_tensor(q)))).detach()
+    gates = tiles.tile_gates_plain(rows, params, ids, sp)
+    assert tuple(gates) == sp.terms
+
+    energies = torch.stack(_gated_sums(rows, ids, params, sp, True, gates))
+    assert torch.equal(energies, tiles.tile_energies_plain(rows, params, ids, sp))
+    width = sp.n_force_fields
+    head = rows[:, :width].clone().requires_grad_(True)
+    sums = _gated_sums(torch.cat([head, rows[:, width:]], dim=1), ids, params, sp, False, gates)
+    total = sum(w * s for w, s in zip(tiles.term_weights(params, sp), sums, strict=True))
+    (forces,) = torch.autograd.grad(total, head)
+    assert torch.equal(forces, tiles.tile_forces_plain(rows, params, ids, sp))
+
+    # each term's gate and the classes from the site distances, cutoffs by parameter name
+    named = ts.unpack_params(params)
+    x = tiles._gather_cols(rows, ids, sp).numpy()[:, None]  # (nb, 1, M, F)
+    r = rows.numpy().reshape(sp.n_blocks, 8, 1, -1)
+    ri_, cj_ = tiles._split(rows, tiles._gather_cols(rows, ids, sp), sp)
+    mask = tiles._tile_mask(ri_, cj_, sp, triangular=False).numpy()
+    r_cut = float(named["DEBYE"].r_cut)
+    if kind == "debye":
+        want_gates = {"Debye": np.linalg.norm(x[..., :3] - r[..., :3], axis=-1) < r_cut}
+    else:
+        bx, by, hbo, sto = sp.geometry
+
+        def dist(fi, fj):
+            def site(a, f):
+                return a[..., 0:3] + f[0] * a[..., 3:6] + f[1] * a[..., 6:9]
+
+            return np.linalg.norm(site(x, fj) - site(r, fi), axis=-1)
+
+        back, base, stack = (bx, by), (hbo, 0.0), (sto, 0.0)
+        exc = named["EXC"]
+        want_gates = {
+            "UnbondedExcludedVolume": (dist(base, base) < float(exc.dr_c_base))
+            | (dist(back, base) < float(exc.dr_c_back_base)) | (dist(base, back) < float(exc.dr_c_base_back))
+            | (dist(back, back) < float(exc.dr_c_backbone)),
+            "HydrogenBonding": dist(base, base) < float(named["HB"].dr_c_high_hb),
+            "CrossStacking": dist(base, base) < float(named["CROSS"].dr_c_high_cross),
+            "CoaxialStacking": dist(stack, stack) < float(named["COAX"].dr_c_high_coax),
+            "Debye": dist(back, back) < r_cut,
+        }
+    for nm in sp.terms:
+        np.testing.assert_array_equal(gates[nm].numpy() & mask, want_gates[nm] & mask, err_msg=nm)
+    # the offsets the gates read are the named cutoffs (each of the four
+    # excluded-volume distances has its own, which the kernel gates apart)
+    off = ts.param_offsets()
+    exc_names = ("dr_c_base", "dr_c_back_base", "dr_c_base_back", "dr_c_backbone")
+    for k, nm in zip(tiles._EXC_CUTS, exc_names, strict=True):
+        assert float(params[off["EXC"] + k]) == float(getattr(named["EXC"], nm)), nm
+    assert float(params[off["HB"] + tiles._R_C_HIGH]) == float(named["HB"].dr_c_high_hb)
+    assert float(params[off["CROSS"] + tiles._R_C_HIGH]) == float(named["CROSS"].dr_c_high_cross)
+    assert float(params[off["COAX"] + tiles._R_C_HIGH]) == float(named["COAX"].dr_c_high_coax)
+    assert float(params[off["DEBYE"] + tiles._R_CUT]) == r_cut
+    short = np.zeros_like(mask)
+    for nm in sp.terms:
+        if nm != "Debye":
+            short |= want_gates[nm]
+    debye = want_gates["Debye"] & ~short if "Debye" in sp.terms else np.zeros_like(mask)
+    want = {"short": int((mask & short).sum()), "debye": int((mask & debye).sum()),
+            "skipped": int((mask & ~short & ~debye).sum())}
+    assert tiles.tile_gate_counts(rows, params, ids, sp) == want
+    # the same classes from the physics package's own per-term site cutoffs
+    site_cuts = tdna2.per_term_site_cutoffs()
+    if kind == "debye":
+        ((_, _, cut),) = site_cuts["terms"]["Debye"]
+        reach_short = np.zeros_like(mask)
+        reach_debye = np.linalg.norm(x[..., :3] - r[..., :3], axis=-1) < cut
+    else:
+
+        def reach(pairs):
+            hit = np.zeros_like(mask)
+            for fa, fb, cut in pairs:
+                sa, sb = site_cuts["sites"][fa], site_cuts["sites"][fb]
+                hit |= dist(sa, sb) < cut
+                hit |= dist(sb, sa) < cut
+            return hit
+
+        reach_short = reach([pr for nm in tiles.KIND_TERMS["short"] for pr in site_cuts["terms"][nm]])
+        reach_debye = reach(site_cuts["terms"]["Debye"]) & ~reach_short if kind == "full" else np.zeros_like(mask)
+    np.testing.assert_array_equal(short & mask, reach_short & mask)
+    np.testing.assert_array_equal(debye & mask, reach_debye & mask)
+    assert want["skipped"] > 0 and (want["short"] > 0 or kind == "debye") and (want["debye"] > 0 or kind == "short")
