@@ -26,8 +26,10 @@ Phases, one line each; any failure exits non-zero:
    taken apart over the rows off and near the float32 arccos clamp (the
    worst element's pair is named and moved to show the gap follows it);
    K3's plain gate against the reaches of ``dna2.per_term_site_cutoffs``,
-   K3's pair classes (short-range, Debye only, skipped) by its own tally
-   against the plain gate's, and equal bits on a second call;
+   each kernel's pair classes (short-range, Debye only, skipped) by its own
+   tally against the plain gate's (K4's under the triangular mask), equal
+   bits on a second call, and each kernel's device time a call
+   (torch.profiler) beside its time by CUDA events;
 7. the block tier: ``build_sim(mode="block", block_size=8)`` on the
    10k-nt duplex bent into a 270-degree arc, 400 steps through K3;
 8. one DiffTRe step at 10k nt (after a warm-up step): stencil MD (K1,
@@ -39,7 +41,9 @@ Phases, one line each; any failure exits non-zero:
    ``lattice_bilayer(16, 16, water_layers=6)`` jittered by 0.03 nm (energy
    rtol 2e-5; gradients rtol 2e-4 / atol 1e-4 max|plain|, else the float32
    budget of phase 4 per column), also with the beads permuted and with
-   the box and positions scaled by 0.98 / 0.98 / 1.02, each case
+   the box and positions scaled by 0.98 / 0.98 / 1.02, and with the beads
+   moved across the faces of a 70 x 70 x 10.84 nm box (more cells of side
+   ``LJ_CELL`` than the cell build holds, so coarser ones), each case
    deterministic, the cells each direction built equal to
    ``cell_list_plain``'s, and under ``LJPairEnergy`` one cell build serving
    both directions with the gradients of ``lj_grads`` bit for bit; the
@@ -96,6 +100,7 @@ FLOP_LJ_TEST, FLOP_LJ_ENERGY, FLOP_LJ_GRAD = 22, 12, 30
 MARTINI_LATTICE = (16, 16, 6)  # phase 9: 512 lipids, 8,112 waters, 10,160 beads
 MARTINI_STEPS, MARTINI_SAVE, MARTINI_WARM = 1000, 50, 50
 MARTINI_BAROSTAT = {"pressure0": 1.0, "tau": 4.0, "every": 10}
+WIDE_BOX = (70.0, 70.0, 10.84)  # phase 9a: floor(box / LJ_CELL) gives 63 x 63 x 9 > MAX_CELLS cells
 #: a row is "near the clamp" when one of its pairs inside the short-range
 #: reach has an angle cosine within this many float32 ulps of +-1
 #: (arccos_poly clamps 8 ulps inside; two float32 orderings of a cosine
@@ -174,6 +179,11 @@ def _within(got, ref, rtol: float, atol: float) -> tuple[bool, float]:
 def _share(bound_ms: float, ms: float) -> str:
     """The bound's share of a time, or "not measured" where the time is 0."""
     return f"{bound_ms / ms:.2%}" if ms > 0 else "not measured"
+
+
+def _dev(ms: float) -> str:
+    """A device time, or "not measured" where the profiler recorded no kernel."""
+    return f"{ms:.4f} ms" if ms > 0 else "not measured"
 
 
 def _bound(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -478,6 +488,10 @@ def _martini(dev, smi: str) -> list[dict]:
         "permuted": (x[ip].contiguous(), types[ip].contiguous(),
                      lj.PairMask.build(n, inv[np.asarray(lj_term.bonded_neighbors)], dev), b, tables),
         "scaled box": (x * scale, types, mask, b * scale, tables),
+        # across the x and y faces of a box with more cells of side LJ_CELL
+        # than the build holds (63 x 63 x 9): coarser cells
+        "wide box": (x - torch.stack([b[0] / 2, b[1] / 2, torch.zeros_like(b[0])]), types, mask,
+                     torch.tensor(WIDE_BOX, device=dev), tables),
     }
     err_e = err_g = err_b = 0.0
     for case, a in cases.items():
@@ -814,9 +828,10 @@ def main() -> int:
                        lambda: tiles.tile_row_grads_plain(rows, P, ids, gt, sp),
                        lambda: tiles.tile_row_grads_plain(rows64, P64, ids, gt.double(), sp)),
             }
-            line = []
+            line, outs = [], {}
             for key, (kern, plain, plain64) in runs.items():
                 k_ms, got = _events_ms(kern, 20)
+                outs[key] = got
                 p_ms, ref = _events_ms(plain, 3)
                 ok, rule, err = _checked(key, got, ref, plain64(), near)
                 line.append(f"{key} err {err:.2e} ({rule}) {statistics.median(k_ms):.4f}/{statistics.median(p_ms):.2f} ms")
@@ -841,24 +856,38 @@ def main() -> int:
             k3 = tiles.tile_forces(rows, P, ids, sp)
             k5 = tiles.tile_row_grads(rows, P, ids, tiles.term_weights(P, sp), sp)[:, : sp.n_force_fields]
             ok35, err35 = _within(k5, k3, rtol=1e-5, atol=5e-6)
-            # K3's own tally of the ordered pairs it gated, against the plain
-            # gate's (float32 sites, ordered otherwise: a pair within an ulp
-            # of a cutoff may fall on either side, so 1e-4 of the pairs may differ)
-            k3_again, tally = tiles._tile_forces(rows, P, ids, sp, count=True)
-            det3 = torch.equal(k3, k3_again)
-            tally = dict(zip(("short", "debye", "skipped"), tally.tolist(), strict=True))
-            gate = tiles.tile_gate_counts(rows, P, ids, sp)
-            print(f"  {sp.kind} cap {sp.cap}: " + "; ".join(line) + f"; K5 body vs K3 {err35:.1e}; K3's ordered pairs "
-                  f"a call {tally} (plain gate {gate}); K3 equal bits on a second call: {det3}")
+            # each kernel's own tally of the pairs it gated (K3 and K5 the
+            # ordered pairs of the full mask, K4 the triangular mask's),
+            # against the plain gate's (float32 sites, ordered otherwise: a
+            # pair within an ulp of a cutoff may fall on either side, so 1e-4
+            # of the pairs may differ), and its bits on a second call
+            again = {"K3": tiles._tile_forces(rows, P, ids, sp, count=True),
+                     "K4": tiles._tile_energies(rows, P, ids, sp, count=True),
+                     "K5": tiles._tile_row_grads(rows, P, ids, gt, sp, count=True)}
+            tallies, bad = [], []
+            for key, (out2, counts) in again.items():
+                tally = dict(zip(("short", "debye", "skipped"), counts.tolist(), strict=True))
+                gate = tiles.tile_gate_counts(rows, P, ids, sp, triangular=key == "K4")
+                same = torch.equal(outs[key], out2)
+                tallies.append(f"{key} {tally} (plain gate {gate}), equal bits on a second call: {same}")
+                if not same or sum(abs(tally[k] - gate[k]) for k in gate) > 1e-4 * sum(gate.values()):
+                    bad.append(key)
+                if label == "ideal" and ci == 0:
+                    tile_rec[key]["classes"] = tally
+            print(f"  {sp.kind} cap {sp.cap}: " + "; ".join(line) + f"; K5 body vs K3 {err35:.1e}; the pairs a call: "
+                  + "; ".join(tallies))
             if not ok35:
                 raise SystemExit("K5's body fields disagree with K3")
-            if not det3 or sum(abs(tally[k] - gate[k]) for k in gate) > 1e-4 * sum(gate.values()):
-                raise SystemExit("K3 is not deterministic, or its gate disagrees with the plain gate")
-            if ci == 0:  # the block tier's own table: K3's device time a call
-                k3_win = _profiled(lambda: tiles.tile_forces(rows, P, ids, sp), 10)
-                tile_rec["K3"][f"dev_ms {label}"] = sum(ms / c for ms, c in k3_win["kernels"].values())
-            if label == "ideal" and ci == 0:
-                tile_rec["K3"]["classes"] = tally
+            if bad:
+                raise SystemExit(f"{bad} not deterministic, or their gate disagrees with the plain gate")
+            if ci == 0:  # the run's own table: each kernel's device time a call
+                for key, (kern, _, _) in runs.items():
+                    win = _profiled(kern, 10)
+                    # the tile kernels only (K5's wrapper also copies the cotangent into the
+                    # parameters); 0 (printed "not measured") where the profiler recorded none
+                    tile_rec[key][f"dev_ms {label}"] = sum(ms / c for k, (ms, c) in win["kernels"].items()
+                                                           if k.startswith("tile_"))
+                    tile_rec[key][f"kernels {label}"] = _kernel_list(win)
 
     # bounds from the work each unordered pair of the jittered ideal duplex
     # needs: all short-range terms inside their reach, Debye alone inside its
@@ -874,12 +903,12 @@ def main() -> int:
         in_bytes + sp0.n_pad * 16 * 4, n_short * FLOP_PAIR_GRAD + n_hb * FLOP_PAIR_HB + n_debye * FLOP_DEBYE_GRAD
     )
     print(f"[6 tiles] main-path table ({sp0.kind}, cap {sp0.cap}): {int(tri0.sum())} unordered pairs, {n_short} inside "
-          f"the short-range reach ({n_hb} of them the hb reach), {n_debye} Debye only; K3 gates the ordered pairs a call "
-          f"into {tile_rec['K3']['classes']}; K3's device time a call {tile_rec['K3']['dev_ms ideal']:.4f} ms (the arc's "
-          f"{tile_rec['K3']['dev_ms arc270']:.4f}); bounds "
-          + ", ".join(f"{k} {v['bound'][0]:.4f} ms ({v['bound'][1]})" for k, v in tile_rec.items())
-          + f"; K3 at {_share(tile_rec['K3']['bound'][0], tile_rec['K3']['ms'])} of its bound by events, "
-          f"{_share(tile_rec['K3']['bound'][0], tile_rec['K3']['dev_ms ideal'])} by device time")
+          f"the short-range reach ({n_hb} of them the hb reach), {n_debye} Debye only; the kernels gate the pairs a call "
+          f"into K3 {tile_rec['K3']['classes']}, K4 {tile_rec['K4']['classes']}, K5 {tile_rec['K5']['classes']}; "
+          + "; ".join(f"{k}: {v['ms']:.4f} ms by events, {_dev(v['dev_ms ideal'])} of device time a call (the arc's "
+                      f"{_dev(v['dev_ms arc270'])}; kernels {v['kernels ideal']}), bound {v['bound'][0]:.5f} ms "
+                      f"({v['bound'][1]}): {_share(v['bound'][0], v['ms'])} by events, "
+                      f"{_share(v['bound'][0], v['dev_ms ideal'])} by device time" for k, v in tile_rec.items()))
     k2_bound = _bound(2 * 7 * n * 4, n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD)
     k1_bound = _bound(
         (19 + 20) * n * 4 + u * 6 * n * 2,

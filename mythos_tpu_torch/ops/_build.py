@@ -38,13 +38,12 @@ SIGNATURES = {
         _P, _P, _I, _P, _P, _P,  # ou, noise, n_inner, state, alt, stream
     ),
     # params, rows, ids, n, n_blocks, block_size, cap, kind, then out, counts, stream
-    # (tile_forces) or n_pad, out, stream (tile_row_grads)
     "tile_forces": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "tile_row_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
-    # ... then partials, out, stream
-    "tile_energies": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    # n: the rows of tile_energies' partials scratch
-    "tile_energies_partials": (_I,),
+    "tile_row_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # ... then partials, out, counts, stream
+    "tile_energies": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # n_blocks, block_size: the rows of tile_energies' partials scratch
+    "tile_energies_partials": (_I, _I),
     # positions, n, box, then the cells' arrays (dims, cell_of, start, order, tmp), stream
     "lj_cells": (_P, _I, _P, _P, _P, _P, _P, _P, _P),
     # positions, types, mask bits, n, words, box, sigmas, epsilons, t, the cells (dims, cell_of,

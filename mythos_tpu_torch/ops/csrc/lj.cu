@@ -43,15 +43,18 @@
 //      indices are not neighbours in space): floor(box / LJ_CELL) cells a
 //      side, LJ_CELL = the cutoff plus 1e-4 nm, so that a bead placed one
 //      cell off by float32 rounding at a border is still more than the
-//      cutoff from every bead two cells away. A bead's cell comes from its
+//      cutoff from every bead two cells away. Where that makes more than
+//      LJ_MAX_CELLS cells (the build's shared histogram), the largest count
+//      loses one cell at a time (x before y before z on ties) until they
+//      fit: coarser cells, never thinner than LJ_CELL, so any box computes
+//      and only the candidates per row grow (cell_dims; ops/lj.py::cell_dims
+//      takes the same integers). A bead's cell comes from its
 //      wrapped fraction f = x / box - floor(x / box), so positions outside
 //      [0, box) bin where their image lies. Counts by shared-memory atomics,
 //      an exclusive scan, placement at the arrival rank, then each bead's
 //      place in its cell is the number of the cell's beads of lower index:
 //      `order` lists the beads by (cell, index), whatever order the atomics
-//      took. Past LJ_MAX_CELLS cells (a box over ~35 nm a side at 32^3) the
-//      kernel flags dims[3] = 0 and builds nothing; the energy and the
-//      gradients are then NaN (ops/lj.py::check_box raises on the host first).
+//      took.
 //      One build serves a force evaluation: the forward builds the cells and
 //      ops/lj.py::LJPairEnergy hands them to the backward.
 //   2. lj_energy_kernel / lj_grads_kernel: one warp per row, rows taken in
@@ -76,7 +79,7 @@
 // What bounds it on an H100: bytes. The function needs only the mask words
 // that hold the bits of the pairs inside the cutoff (chip_smoke.py 9a
 // counts them: ~68k words, 0.27 MB, at 10,160 beads; the kernel records'
-// bounds charge whole rows, or the upper half's, of the 13 MB mask) and
+// bounds charge those words, not the 13 MB mask's whole rows) and
 // 0.16 MB of positions and types; only the ~2e5 pairs inside 1.1 nm need
 // arithmetic. Each direction loads ~2.7e6 candidates (27 cells of ~9 beads
 // a row) for the 201,832 unordered pairs in reach. What bounds the design
@@ -140,11 +143,28 @@ __global__ void lj_sum_kernel(const float* __restrict__ x, int rows, int stride,
   if (lane == 0) out[c] = acc;
 }
 
-// Cells along a box side: floor(b / LJ_CELL), at least 1, at most the cap + 1.
+// Cells along a box side: floor(b / LJ_CELL), at least 1, at most LJ_MAX_CELLS.
 __device__ __forceinline__ int cells_along(float b) {
   float c = floorf(__fdiv_rn(b, LJ_CELL));
   if (!(c >= 1.f)) return 1;
-  return c > (float)LJ_MAX_CELLS ? LJ_MAX_CELLS + 1 : (int)c;
+  return c > (float)LJ_MAX_CELLS ? LJ_MAX_CELLS : (int)c;
+}
+
+// The cells along x, y, z of a box: cells_along each side, then, while
+// their product exceeds LJ_MAX_CELLS, the largest count loses one (x before
+// y before z on ties). Every thread computes the same integers.
+__device__ __forceinline__ void cell_dims(const float* box, int& ncx, int& ncy, int& ncz) {
+  ncx = cells_along(box[0]);
+  ncy = cells_along(box[1]);
+  ncz = cells_along(box[2]);
+  while ((long long)ncx * ncy * ncz > LJ_MAX_CELLS) {
+    if (ncx >= ncy && ncx >= ncz)
+      --ncx;
+    else if (ncy >= ncz)
+      --ncy;
+    else
+      --ncz;
+  }
 }
 
 // The cell coordinate of x along a side of nc cells, from its wrapped fraction.
@@ -155,11 +175,10 @@ __device__ __forceinline__ int cell_coord(float x, float b, int nc) {
   return c < 0 ? 0 : (c >= nc ? nc - 1 : c);
 }
 
-// The spatial cells of the beads (one block): dims = (cells along x, y, z,
-// 1 if their number is within LJ_MAX_CELLS); cell_of[i] = (cx * ny + cy) *
-// nz + cz; start[c] = the beads in cells below c (n from the last cell on,
-// up to start[LJ_MAX_CELLS]); order = the beads by (cell, index); tmp (n,)
-// scratch.
+// The spatial cells of the beads (one block): dims = the cells along x, y,
+// z (cell_dims); cell_of[i] = (cx * ny + cy) * nz + cz; start[c] = the beads
+// in cells below c (n from the last cell on, up to start[LJ_MAX_CELLS]);
+// order = the beads by (cell, index); tmp (n,) scratch.
 __global__ void __launch_bounds__(LJ_BUILD_THREADS)
     lj_cells_kernel(const float* __restrict__ pos, int n, const float* __restrict__ box, int* __restrict__ dims,
                     int* __restrict__ cell_of, int* __restrict__ start, int* __restrict__ order,
@@ -168,17 +187,14 @@ __global__ void __launch_bounds__(LJ_BUILD_THREADS)
   __shared__ int s_warp[32];
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const float bx = box[0], by = box[1], bz = box[2];
-  const int ncx = cells_along(bx), ncy = cells_along(by), ncz = cells_along(bz);
-  const long long total = (long long)ncx * ncy * ncz;
-  const bool ok = total <= LJ_MAX_CELLS;
+  int ncx, ncy, ncz;
+  cell_dims(box, ncx, ncy, ncz);
   if (tid == 0) {
     dims[0] = ncx;
     dims[1] = ncy;
     dims[2] = ncz;
-    dims[3] = ok ? 1 : 0;
   }
-  if (!ok) return;  // the same for every thread
-  const int nc = (int)total;
+  const int nc = ncx * ncy * ncz;
   for (int c = tid; c < nc; c += nt) s_hist[c] = 0;
   __syncthreads();
   // each bead's cell, and its arrival rank in it (kept in `order` until placed)
@@ -289,7 +305,7 @@ __global__ void __launch_bounds__(LJ_ROWS * 32)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = blockIdx.x * LJ_ROWS + warp;
   const float bx = box[0], by = box[1], bz = box[2];
-  const bool ok = dims[3] != 0 && fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF;
+  const bool ok = fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF;
   float acc = 0.f;
   if (ok && w < n) {  // uniform over the warp
     const float ix = 1.f / bx, iy = 1.f / by, iz = 1.f / bz;
@@ -337,9 +353,8 @@ __global__ void __launch_bounds__(LJ_ROWS * 32)
   const int w = blockIdx.x * LJ_ROWS + warp;
   if (w >= n) return;  // no barrier follows
   const float bx = box[0], by = box[1], bz = box[2];
-  const bool cells = dims[3] != 0;
-  const bool ok = cells && fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF;
-  const int i = cells ? order[w] : w;
+  const bool ok = fminf(bx, fminf(by, bz)) > 2.f * LJ_CUTOFF;
+  const int i = order[w];
   float gx = 0.f, gy = 0.f, gz = 0.f, hx = 0.f, hy = 0.f, hz = 0.f;
   if (ok) {
     const float ix = 1.f / bx, iy = 1.f / by, iz = 1.f / bz;
@@ -386,7 +401,7 @@ __global__ void __launch_bounds__(LJ_ROWS * 32)
 
 static int lj_grid(int n) { return (n + LJ_ROWS - 1) / LJ_ROWS; }
 
-// The cells (dims: (4,); cell_of, order, tmp: (n,), tmp scratch; start:
+// The cells (dims: (3,); cell_of, order, tmp: (n,), tmp scratch; start:
 // (LJ_MAX_CELLS + 1,)), as lj_cells_kernel fills them; its 128 KB of
 // dynamic shared memory allowed once per device.
 extern "C" int lj_cells(const float* pos, int n, const float* box, int* dims, int* cell_of, int* start, int* order,

@@ -5,9 +5,9 @@
 // its band neighbours from global memory (K2 is one thread per slot); the
 // k1_* functions are the pieces of K1's block (one lane's pairs, the
 // fixed-order reduction, one slot's integrator update); the pair functions
-// (unbonded_pair and its gated form with unbonded_reach, bonded_pair,
-// unbonded_pair_energy, hb_prod) take two bodies, which the tile kernels
-// read from their row arrays. Functions are
+// (unbonded_pair and its gated forms with unbonded_reach, bonded_pair,
+// unbonded_pair_energy_gated) take two bodies, which the tile kernels read
+// from their row arrays. Functions are
 // __host__ __device__ so that the same arithmetic can be compiled for the
 // CPU as well; the kernels live in stencil_grads.cu (K2), multistep.cu (K1)
 // and tiles.cu (K3-K5).
@@ -362,10 +362,11 @@ HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
 // distance) only where its `reach` bit is set; else, for the band pair
 // (i, j = i + d), each term only within its offset reach (w[0..3] for exc,
 // hb, cross, coax; Debye out to w_wide). Adds body i's (side_j false) or
-// body j's (side_j true) share to `acc`.
+// body j's (side_j true) share to `acc`; where `hb` is given and the HB term
+// ran, sets *hb to its weight-free product f1(r) * prod f4.
 template <bool kGated>
 HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int d,
-                            const int* w, int w_wide, int reach, bool side_j, Grad& acc) {
+                            const int* w, int w_wide, int reach, bool side_j, Grad& acc, float* hb = nullptr) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
   PairSites g = zero_sites();
   V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
@@ -410,6 +411,11 @@ HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, floa
         dF[k + 1] = f.d * th[k].d;
       }
       prod_others<7>(F, O);
+      if (hb) {
+        float h = F[0];
+        for (int k = 1; k < 7; ++k) h *= F[k];
+        *hb = h;
+      }
       float s = P[P_GT + 1] * w_hb;
       g_r += s * dF[0] * O[0];
       for (int k = 0; k < 6; ++k) gc[k] += s * dF[k + 1] * O[k + 1];
@@ -477,58 +483,54 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
   unbonded_pair_terms<false>(P, bi, bj, w_hb, qq, d, w, w_wide, 0, side_j, acc);
 }
 
-// Body i's share of pair (i, j), each term only where its `reach` bit is set (K3).
+// Body i's share of pair (i, j), each term only where its `reach` bit is set
+// (K3, K5); with `hb`, the weight-free HB product where REACH_HB is set (K5's
+// hb-weight gradient; the caller zeroes it).
 HD void unbonded_pair_gated(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int reach,
-                            Grad& acc) {
-  unbonded_pair_terms<true>(P, bi, bj, w_hb, qq, 0, nullptr, 0, reach, false, acc);
+                            Grad& acc, float* hb = nullptr) {
+  unbonded_pair_terms<true>(P, bi, bj, w_hb, qq, 0, nullptr, 0, reach, false, acc, hb);
 }
 
-// Weight-free hydrogen-bonding product f1(r) * prod f4 of pair (i, j) (the
-// tile kernels' triangular hb-weight gradient, ops/oxdna_tiles.py:705-714)
-HD float hb_prod(const float* P, const Body& bi, const Body& bj) {
-  float hbo = P[P_GEOM + 2];
-  V3 v = (bj.com + hbo * bj.a1) - (bi.com + hbo * bi.a1);
-  float r = norm(v);
-  V3 u = v * (1.f / r);
-  float c[6] = {-dot(bi.a1, bj.a1), -dot(bj.a1, u), dot(bi.a1, u), dot(bi.a3, bj.a3), -dot(bj.a3, u), dot(bi.a3, u)};
-  float h = f1(r < 1e-8f ? 1e-8f : r, P + P_HB, 1.f).v;
-  for (int k = 0; k < 6; ++k) {
-    float th = acos_poly(c[k]).v;
-    h *= f4(k == 5 ? PI_F - th : th, P + P_HB + 9 + 5 * k).v;
-  }
-  return h;
-}
-
-// Unweighted energies of unbonded pair (i, j): e[0..4] = excluded volume,
-// hydrogen bonding (times w_hb), cross stacking, coax (the short-range
-// terms, when `short_terms`) and Debye-Hueckel (times qq, when
-// `debye_term`). The values of the functions unbonded_pair differentiates.
-HD void unbonded_pair_energy(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, bool short_terms,
-                             bool debye_term, float* e) {
+// Unweighted energies of unbonded pair (i, j), each term (each
+// excluded-volume distance) only where its `reach` bit is set (K4): e[0..4]
+// = excluded volume, hydrogen bonding (times w_hb), cross stacking, coax and
+// Debye-Hueckel (times qq). The values of the functions unbonded_pair_terms
+// differentiates. Past its cutoff each radial factor's value is exactly 0,
+// and the angular factors are finite, so a clear bit drops only zeros.
+HD void unbonded_pair_energy_gated(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int reach,
+                                   float* e) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
   V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
   V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
   float r_bb = norm(back_j - back_i);
   for (int k = 0; k < 5; ++k) e[k] = 0.f;
-  if (short_terms) {
+  if (reach & REACH_EXC) {
     const float* E = P + P_EXC;
     float eps = E[0];
-    e[0] = exc_f3(norm(base_j - base_i), eps, E + 1).v + exc_f3(norm(base_j - back_i), eps, E + 5).v +
-           exc_f3(norm(back_j - base_i), eps, E + 9).v + exc_f3(r_bb, eps, E + 13).v;
+    float ee = (reach & REACH_EXC_EE) ? exc_f3(norm(base_j - base_i), eps, E + 1).v : 0.f;
+    float eb = (reach & REACH_EXC_EB) ? exc_f3(norm(base_j - back_i), eps, E + 5).v : 0.f;
+    float be = (reach & REACH_EXC_BE) ? exc_f3(norm(back_j - base_i), eps, E + 9).v : 0.f;
+    float bb = (reach & REACH_EXC_BB) ? exc_f3(r_bb, eps, E + 13).v : 0.f;
+    e[0] = ee + eb + be + bb;
+  }
+  if (reach & (REACH_HB | REACH_CROSS)) {
+    const bool with_hb = (reach & REACH_HB) != 0, with_cross = (reach & REACH_CROSS) != 0;
     V3 v = base_j - base_i;
     float r = norm(v);
     V3 u = v * (1.f / r);
     float c[6] = {-dot(bi.a1, bj.a1), -dot(bj.a1, u), dot(bi.a1, u), dot(bi.a3, bj.a3), -dot(bj.a3, u), dot(bi.a3, u)};
     float rr = r < 1e-8f ? 1e-8f : r;
-    float hb = f1(rr, P + P_HB, 1.f).v, cr = f2(rr, P + P_CROSS).v;
+    float hb = with_hb ? f1(rr, P + P_HB, 1.f).v : 0.f, cr = with_cross ? f2(rr, P + P_CROSS).v : 0.f;
     for (int k = 0; k < 6; ++k) {
       float th = acos_poly(c[k]).v;
       if (k == 5) th = PI_F - th;
-      hb *= f4(th, P + P_HB + 9 + 5 * k).v;
-      cr *= k < 3 ? f4(th, P + P_CROSS + 9 + 5 * k).v : f4_sym(th, P + P_CROSS + 9 + 5 * k).v;
+      if (with_hb) hb *= f4(th, P + P_HB + 9 + 5 * k).v;
+      if (with_cross) cr *= k < 3 ? f4(th, P + P_CROSS + 9 + 5 * k).v : f4_sym(th, P + P_CROSS + 9 + 5 * k).v;
     }
     e[1] = hb * w_hb;
     e[2] = cr;
+  }
+  if (reach & REACH_COAX) {
     V3 vs = (bj.com + sto * bj.a1) - (bi.com + sto * bi.a1);
     float rs = norm(vs);
     V3 us = vs * (1.f / rs);
@@ -538,7 +540,7 @@ HD void unbonded_pair_energy(const float* P, const Body& bi, const Body& bj, flo
     e[3] = f2(rs < 1e-8f ? 1e-8f : rs, C).v * f4(t4, C + 9).v * (f4(t1, C + 14).v + f6(t1, C[29], C[30]).v) *
            f4_sym(t5, C + 19).v * f4_sym(t6, C + 24).v;
   }
-  if (debye_term) e[4] = debye(r_bb, P + P_DEBYE).v * qq;
+  if (reach & REACH_DEBYE) e[4] = debye(r_bb, P + P_DEBYE).v * qq;
 }
 
 // Bonded pair (i, j = i + 2) with direction flag dirf (+1: i is the

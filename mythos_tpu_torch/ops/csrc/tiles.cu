@@ -10,7 +10,7 @@
 //   K5 tile_row_grads  <- _bwd_rows_impl (_bwd_kernel_body): the row
 //                         gradients of K4's sums for a cotangent gt.
 // Plain versions: ops/tiles.py::tile_forces_plain, tile_energies_plain,
-// tile_row_grads_plain; tile_gates_plain for K3's gate.
+// tile_row_grads_plain; tile_gates_plain for their gate.
 //
 // Inputs: rows (n_pad, F) row-major per-particle fields (ops/tiles.py
 // layout: F = 26 for the "full"/"short" kinds -- com, a1, a2, a3, hb
@@ -24,45 +24,51 @@
 // whole force (oxdna_tiles.py:25-32), so each row is written once: no
 // atomics touch a sum, and two calls give the same bits.
 //
-// K3, redesigned for the H100: a block of K3_THREADS takes up to K3_ROWS
-// rows of one row block (all B of them at B = 8: 1,250 blocks at 10k nt)
-// and walks their cap x B columns a panel of K3_PANEL column rows at a time:
+// One design for all three, a shared kernel body (tile_block) templated on
+// what it writes (K3 and K5 run the same walk over the full mask, K4 over
+// the triangular one): a block of TILE_THREADS takes up to TILE_ROWS rows of
+// one row block (all B of them at B = 8: 1,250 blocks at 10k nt) and walks
+// their cap x B columns a panel of TILE_PANEL column rows at a time:
 //   1. the block's rows, the panel's columns and the parameters go to shared
 //      memory with coalesced loads, each read once;
-//   2. every (row, column) slot of the panel is masked and gated: its five
-//      site distances (backbone-backbone, base-base, the two mixed ones,
-//      stack-stack) against the upper cutoff each term's radial factor
-//      reads from the parameters (unbonded_reach; past it the factor is
-//      exactly (0, 0), so the gate drops only exact zeros);
+//   2. every (row, column) slot of the panel is masked (K4 also keeps only
+//      j > i) and gated: its five site distances (backbone-backbone,
+//      base-base, the two mixed ones, stack-stack) against the upper cutoff
+//      each term's radial factor reads from the parameters (unbonded_reach;
+//      past it the factor and its value are exactly (0, 0), so the gate drops
+//      only exact zeros, of the energies as of the gradients);
 //   3. warp ballots and prefix counts compact the kept slots, in slot
 //      order, into shared lists: those needing a short-range term and those
 //      needing Debye alone;
 //   4. the block's threads take the short-range pairs first, then the
 //      Debye-only ones, so the full physics runs on converged lanes, each
-//      term only where its reach bit is set (unbonded_pair_gated); each
-//      pair's row-side gradient goes to a shared slot at its list place;
+//      term (each excluded-volume distance) only where its reach bit is set
+//      (unbonded_pair_gated, unbonded_pair_energy_gated); each pair's
+//      results go to a shared slot at its list place: K3's 12 row-side
+//      gradient fields; K5's 16, the same 12 plus, for j > i with the HB bit
+//      set, gt_hb x the weight-free HB product (taken from the same gated
+//      evaluation) x oh_j; K4's 5 unweighted energies;
 //   5. one thread per (row, field) adds its row's slots in list order,
-//      which is column order, as the first design added them.
-// The short kind never evaluates Debye; the debye kind has only the
-// backbone-site term.
+//      which is column order (K3's sums are the first design's bit for
+//      bit); K4 then adds its block's rows in row order into one partial
+//      per block, and a one-block tail adds the partials in block order.
+// No atomics touch a sum: a state's energies and gradients do not depend
+// on scheduling, and two calls give the same bits. The short kind never
+// evaluates Debye; the debye kind has only the backbone-site term (K5 adds
+// its charge-factor field gt x debye(r) x qf_j). An optional tally counts
+// the ordered pairs under each kernel's mask by class.
 //
-// What bounds it on an H100: arithmetic, on the few pairs in reach. On
+// What bounds them on an H100: arithmetic, on the few pairs in reach. On
 // the jittered 10k-nt duplex's table (chip_smoke.py phase 6) the full mask
 // holds 610,004 ordered pairs a call: 31,126 need the short-range terms
-// (~1.5k flops each, 8 polynomial arccos among them), 118,794 Debye alone
-// (~45 flops), and 460,084 (75 %) are skipped after ~60 flops of
-// distances. The short-range pairs, ~25 a block, leave most lanes idle
-// while they run: the latency of one pair's dependent chain bounds a
-// block. A column row (104 B) is read once per block, not once per row.
-// Built for sm_90a: 80 registers, 12 B of spill stores (an 8-byte stack
-// frame), 28.9 KB of static shared memory.
-//
-// K4 and K5 keep the first design: one thread per row particle i walking
-// its row block's cap column blocks x B columns with every term on
-// (unbonded_pair / unbonded_pair_energy with d = 1 within all reaches). K4
-// reduces each block's thread sums in shared memory in a fixed tree order
-// and a one-block tail sums the block partials in block order, so a
-// state's energy does not depend on scheduling.
+// (~1.5k flops each with the gradient, ~650 for the energies alone, 8
+// polynomial arccos among them), 118,794 Debye alone (~45 flops), and
+// 460,084 (75 %) are skipped after ~60 flops of distances; the triangular
+// mask holds about half of each. The short-range pairs, ~25 a block for
+// K3/K5 and ~12 for K4, leave most lanes idle while they run: the latency
+// of one pair's dependent chain bounds a block. A column row (104 B) is
+// read once per block, not once per row. Registers, spills and shared
+// memory of each kernel: chip_smoke.py phase 2 (nvcc -Xptxas -v).
 #include <cuda_runtime.h>
 
 #include "stencil_physics.cuh"
@@ -84,13 +90,16 @@
 #define D_PREV 4
 #define D_NXT 5
 
-#define TILE_BLOCK 64  // K4/K5 rows (threads) a block
+#define TILE_ROWS 8
+#define TILE_THREADS 128
+#define TILE_WARPS (TILE_THREADS / 32)
+#define TILE_PANEL 128
+#define TILE_SLOTS (TILE_ROWS * TILE_PANEL)
 
-#define K3_ROWS 8
-#define K3_THREADS 128
-#define K3_WARPS (K3_THREADS / 32)
-#define K3_PANEL 128
-#define K3_SLOTS (K3_ROWS * K3_PANEL)
+// what tile_block writes
+#define OUT_FORCES 0     // K3: (n_pad, 12) row forces, or (n_pad, 3)
+#define OUT_ROW_GRADS 1  // K5: (n_pad, 16) row gradients, or (n_pad, 4)
+#define OUT_ENERGIES 2   // K4: (blocks, 5) per-term partial sums
 
 __device__ __forceinline__ Body row_body(const float* r) {
   Body b;
@@ -100,23 +109,6 @@ __device__ __forceinline__ Body row_body(const float* r) {
   b.a3 = v3(r[9], r[10], r[11]);
   b.q[0] = b.q[1] = b.q[2] = b.q[3] = 0.f;
   return b;
-}
-
-// Calls f(j) for every column j of row i that the mask keeps: j != i
-// (full mask) or j > i (triangular), j < n, and j not a bonded partner.
-template <typename Fn>
-__device__ __forceinline__ void for_each_pair(int i, const int* ids, int cap, int n_blocks, int bsz, int n, int prev,
-                                              int nxt, bool triangular, Fn f) {
-  const int* row_ids = ids + (size_t)(i / bsz) * cap;
-  for (int k = 0; k < cap; ++k) {
-    int c = row_ids[k];
-    if (c < 0 || c >= n_blocks) continue;
-    for (int jj = 0; jj < bsz; ++jj) {
-      int j = c * bsz + jj;
-      if (j >= n || j == i || j == prev || j == nxt || (triangular && j < i)) continue;
-      f(j);
-    }
-  }
 }
 
 __device__ __forceinline__ float hb_weight(const float* ri, const float* rj) {
@@ -129,59 +121,6 @@ __device__ __forceinline__ V3 debye_back_grad(const float* P, const float* ri, c
   float r = norm(v);
   float g_r = gt * ri[D_QF] * rj[D_QF] * debye(r, P + P_DEBYE).d;
   return v * (-g_r / r);
-}
-
-// K5: row i's gradients of the weighted symmetric-mask sum and the
-// triangular hb-weight gradient, or for the debye kind the back-site and
-// charge-factor gradients
-__device__ __forceinline__ void row_grads(int i, const float* P, const float* rows, const int* ids, int n, int n_blocks,
-                                          int bsz, int cap, int kind, float* out, int width) {
-  if (kind == KIND_DEBYE) {
-    V3 g = zero3();
-    float g_qf = 0.f;
-    if (i < n) {
-      const float* ri = rows + (size_t)i * F_DB;
-      float gt = P[P_GT + 4];
-      for_each_pair(i, ids, cap, n_blocks, bsz, n, (int)ri[D_PREV], (int)ri[D_NXT], false, [&](int j) {
-        const float* rj = rows + (size_t)j * F_DB;
-        g += debye_back_grad(P, ri, rj, gt);
-        float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
-        g_qf += gt * debye(r, P + P_DEBYE).v * rj[D_QF];
-      });
-    }
-    float* o = out + (size_t)i * width;
-    o[0] = g.x;
-    o[1] = g.y;
-    o[2] = g.z;
-    o[3] = g_qf;
-    return;
-  }
-  Grad acc = zero_grad();
-  float g_hw[4] = {0.f, 0.f, 0.f, 0.f};
-  if (i < n) {
-    const float* ri = rows + (size_t)i * F_ROW;
-    Body bi = row_body(ri);
-    const int w_on[4] = {1, 1, 1, 1};
-    int w_wide = kind == KIND_FULL ? 1 : 0;
-    float gt_hb = P[P_GT + 1];
-    for_each_pair(i, ids, cap, n_blocks, bsz, n, (int)ri[R_PREV], (int)ri[R_NXT], false, [&](int j) {
-      const float* rj = rows + (size_t)j * F_ROW;
-      Body bj = row_body(rj);
-      unbonded_pair(P, bi, bj, hb_weight(ri, rj), ri[R_QF] * rj[R_QF], 1, w_on, w_wide, false, acc);
-      if (j > i) {
-        float h = gt_hb * hb_prod(P, bi, bj);
-        for (int k = 0; k < 4; ++k) g_hw[k] += h * rj[R_OH + k];
-      }
-    });
-  }
-  float* o = out + (size_t)i * width;
-  V3 parts[4] = {acc.com, acc.a1, acc.a2, acc.a3};
-  for (int k = 0; k < 4; ++k) {
-    o[3 * k] = parts[k].x;
-    o[3 * k + 1] = parts[k].y;
-    o[3 * k + 2] = parts[k].z;
-  }
-  for (int k = 0; k < 4; ++k) o[12 + k] = g_hw[k];
 }
 
 // The first of list[0..len) at or after place p (list ascending)
@@ -197,44 +136,99 @@ __device__ __forceinline__ int lower_bound(const short* list, int len, int p) {
   return lo;
 }
 
-// K3: (n_pad, 12) dE/d(com, a1, a2, a3), or (n_pad, 3) dE/d(back) for the
-// debye kind, weighted by the term weights at P_GT. counts, if set, gains
-// the ordered pairs under the mask that needed the short-range terms, Debye
-// alone, and nothing.
-__global__ void __launch_bounds__(K3_THREADS)
-    tile_forces_kernel(const float* __restrict__ P_in, const float* __restrict__ rows, const int* __restrict__ ids,
-                       int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
-                       int* __restrict__ counts) {
+// Fields a pair writes: K3 12 (3 for the debye kind), K5 16 (4), K4 5.
+__host__ __device__ constexpr int out_fields(int out, bool debye_kind) {
+  return out == OUT_ENERGIES ? 5 : (out == OUT_ROW_GRADS ? (debye_kind ? 4 : 16) : (debye_kind ? 3 : 12));
+}
+
+// One pair's results into res (out_fields(kOut, debye_kind) floats): row i (ri) and
+// column j (rj), its reach bits. P_GT holds K3's term weights or K5's
+// cotangent; K4 ignores it.
+template <int kOut>
+__device__ __forceinline__ void pair_results(const float* P, const float* ri, const float* rj, int i, int j,
+                                             int reach, bool debye_kind, float* res) {
+  if (debye_kind) {
+    if (kOut == OUT_ENERGIES) {
+      const float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
+      res[0] = res[1] = res[2] = res[3] = 0.f;
+      res[4] = debye(r, P + P_DEBYE).v * ri[D_QF] * rj[D_QF];
+      return;
+    }
+    const float gt = P[P_GT + 4];
+    V3 g = debye_back_grad(P, ri, rj, gt);
+    res[0] = g.x;
+    res[1] = g.y;
+    res[2] = g.z;
+    if (kOut == OUT_ROW_GRADS) {
+      const float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
+      res[3] = gt * debye(r, P + P_DEBYE).v * rj[D_QF];
+    }
+    return;
+  }
+  if (kOut == OUT_ENERGIES) {
+    unbonded_pair_energy_gated(P, row_body(ri), row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], reach, res);
+    return;
+  }
+  Grad g = zero_grad();
+  float hb = 0.f;
+  unbonded_pair_gated(P, row_body(ri), row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], reach, g,
+                      kOut == OUT_ROW_GRADS ? &hb : nullptr);
+  const V3 parts[4] = {g.com, g.a1, g.a2, g.a3};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    res[3 * k] = parts[k].x;
+    res[3 * k + 1] = parts[k].y;
+    res[3 * k + 2] = parts[k].z;
+  }
+  if (kOut == OUT_ROW_GRADS) {
+    // the triangular hb-weight gradient: past HB's r_c_high the product is
+    // exactly 0, so pairs without the bit add nothing
+    const float h = (j > i && (reach & REACH_HB)) ? P[P_GT + 1] * hb : 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) res[12 + k] = h * rj[R_OH + k];
+  }
+}
+
+// The shared body of K3, K4 and K5: one block's rows (see the header). out:
+// K3/K5 (n_pad, nf) row results, K4 (blocks, 5) partials; counts, if set,
+// gains the ordered pairs under the mask that needed the short-range terms,
+// Debye alone, and nothing.
+template <int kOut>
+__device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const float* __restrict__ rows,
+                                           const int* __restrict__ ids, int n, int n_blocks, int bsz, int cap,
+                                           int kind, float* __restrict__ out, int* __restrict__ counts) {
+  constexpr int NF = out_fields(kOut, false);
+  constexpr bool triangular = kOut == OUT_ENERGIES;
   __shared__ float P[P_TOTAL];
-  __shared__ float s_row[K3_ROWS * F_ROW];
-  __shared__ float s_col[K3_PANEL * F_ROW];
-  __shared__ int s_cid[K3_PANEL];              // each panel column's particle, or -1
-  __shared__ short s_kept[K3_SLOTS];           // the kept slots, in slot order
-  __shared__ unsigned char s_reach[K3_SLOTS];  // their reach bits
-  __shared__ short s_short[K3_SLOTS];          // places in s_kept of the short-range pairs,
-  __shared__ short s_debye[K3_SLOTS];          // ... and of the Debye-only ones
-  __shared__ short s_first[K3_ROWS + 1];       // each row's first place in s_kept
-  __shared__ float s_res[K3_THREADS * 12];     // a batch's row-side gradients, by place
-  __shared__ int s_warp[K3_WARPS][4];
+  __shared__ float s_row[TILE_ROWS * F_ROW];
+  __shared__ float s_col[TILE_PANEL * F_ROW];
+  __shared__ int s_cid[TILE_PANEL];              // each panel column's particle, or -1
+  __shared__ short s_kept[TILE_SLOTS];           // the kept slots, in slot order
+  __shared__ unsigned char s_reach[TILE_SLOTS];  // their reach bits
+  __shared__ short s_short[TILE_SLOTS];          // places in s_kept of the short-range pairs,
+  __shared__ short s_debye[TILE_SLOTS];          // ... and of the Debye-only ones
+  __shared__ short s_first[TILE_ROWS + 1];       // each row's first place in s_kept
+  __shared__ float s_res[TILE_THREADS * NF];     // a batch's pair results, by place
+  __shared__ int s_warp[TILE_WARPS][4];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int groups = (bsz + K3_ROWS - 1) / K3_ROWS;
-  const int rb = blockIdx.x / groups, r_lo = (blockIdx.x - rb * groups) * K3_ROWS;
-  const int nr = min(K3_ROWS, bsz - r_lo), i0 = rb * bsz + r_lo;
+  const int groups = (bsz + TILE_ROWS - 1) / TILE_ROWS;
+  const int rb = blockIdx.x / groups, r_lo = (blockIdx.x - rb * groups) * TILE_ROWS;
+  const int nr = min(TILE_ROWS, bsz - r_lo), i0 = rb * bsz + r_lo;
   const bool debye_kind = kind == KIND_DEBYE;
-  const int F = debye_kind ? F_DB : F_ROW, nf = debye_kind ? 3 : 12;
+  const int F = debye_kind ? F_DB : F_ROW, nf = out_fields(kOut, debye_kind);
   const int prev = debye_kind ? D_PREV : R_PREV, nxt = debye_kind ? D_NXT : R_NXT;
   const int* row_ids = ids + (size_t)rb * cap;
-  for (int k = tid; k < P_TOTAL; k += K3_THREADS) P[k] = P_in[k];
-  for (int k = tid; k < nr * F; k += K3_THREADS) s_row[k] = rows[(size_t)i0 * F + k];
+  for (int k = tid; k < P_TOTAL; k += TILE_THREADS) P[k] = P_in[k];
+  for (int k = tid; k < nr * F; k += TILE_THREADS) s_row[k] = rows[(size_t)i0 * F + k];
   const unsigned below = (1u << lane) - 1u;
   const int sum_r = tid / nf, sum_f = tid - sum_r * nf;  // the row and field this thread adds up
   float acc = 0.f;
   int n_short_all = 0, n_debye_all = 0, n_skipped = 0;  // the tally of the ordered pairs
   const int n_cols = cap * bsz;
-  for (int c0 = 0; c0 < n_cols; c0 += K3_PANEL) {
-    const int nc = min(K3_PANEL, n_cols - c0);
+  for (int c0 = 0; c0 < n_cols; c0 += TILE_PANEL) {
+    const int nc = min(TILE_PANEL, n_cols - c0);
     __syncthreads();  // the rows are in, the previous panel is done with
-    for (int k = tid; k < nc * F; k += K3_THREADS) {
+    for (int k = tid; k < nc * F; k += TILE_THREADS) {
       const int c = k / F, f = k - c * F, col = c0 + c, blk = row_ids[col / bsz];
       const bool real = blk >= 0 && blk < n_blocks;
       const int j = real ? blk * bsz + col % bsz : -1;
@@ -245,13 +239,13 @@ __global__ void __launch_bounds__(K3_THREADS)
     // mask, gate and compact the panel's slots s = r * nc + c
     const int n_slots = nr * nc;
     int n_kept = 0, n_short = 0, n_debye = 0;
-    for (int s0 = 0; s0 < n_slots; s0 += K3_THREADS) {
+    for (int s0 = 0; s0 < n_slots; s0 += TILE_THREADS) {
       const int s = s0 + tid;
       int cls = 0, reach = 0;  // 0 masked out, 1 short-range, 2 Debye only, 3 skipped
       if (s < n_slots) {
         const int r = s / nc, c = s - r * nc, i = i0 + r, j = s_cid[c];
         const float* ri = s_row + r * F;
-        if (i < n && j >= 0 && j != i && j != (int)ri[prev] && j != (int)ri[nxt]) {
+        if (i < n && j >= 0 && (triangular ? j > i : j != i) && j != (int)ri[prev] && j != (int)ri[nxt]) {
           const float* rj = s_col + c * F;
           if (debye_kind) {
             reach = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2])) < P[P_DEBYE + 3] ? REACH_DEBYE : 0;
@@ -288,7 +282,7 @@ __global__ void __launch_bounds__(K3_THREADS)
           s_debye[dO + __popc(db & below)] = (short)place;
       }
       if (s < n_slots && s % nc == 0) s_first[s / nc] = (short)place;
-      for (int w = 0; w < K3_WARPS; ++w) {
+      for (int w = 0; w < TILE_WARPS; ++w) {
         n_kept += s_warp[w][0];
         n_short += s_warp[w][1];
         n_debye += s_warp[w][2];
@@ -300,34 +294,16 @@ __global__ void __launch_bounds__(K3_THREADS)
     n_short_all += n_short;
     n_debye_all += n_debye;
     __syncthreads();
-    // the kept pairs in batches of K3_THREADS places, the short-range ones on the first threads
-    for (int b0 = 0; b0 < n_kept; b0 += K3_THREADS) {
-      const int b1 = min(b0 + K3_THREADS, n_kept);
+    // the kept pairs in batches of TILE_THREADS places, the short-range ones on the first threads
+    for (int b0 = 0; b0 < n_kept; b0 += TILE_THREADS) {
+      const int b1 = min(b0 + TILE_THREADS, n_kept);
       const int sl = lower_bound(s_short, n_short, b0), sh = lower_bound(s_short, n_short, b1);
       const int dl = lower_bound(s_debye, n_debye, b0);
       const int place = tid < sh - sl ? s_short[sl + tid] : (tid < b1 - b0 ? s_debye[dl + tid - (sh - sl)] : -1);
       if (place >= 0) {
         const int s = s_kept[place], r = s / nc, c = s - r * nc;
-        const float* ri = s_row + r * F;
-        const float* rj = s_col + c * F;
-        float* res = s_res + (place - b0) * nf;
-        if (debye_kind) {
-          V3 g = debye_back_grad(P, ri, rj, P[P_GT + 4]);
-          res[0] = g.x;
-          res[1] = g.y;
-          res[2] = g.z;
-        } else {
-          Grad g = zero_grad();
-          unbonded_pair_gated(P, row_body(ri), row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], s_reach[place],
-                              g);
-          const V3 parts[4] = {g.com, g.a1, g.a2, g.a3};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            res[3 * k] = parts[k].x;
-            res[3 * k + 1] = parts[k].y;
-            res[3 * k + 2] = parts[k].z;
-          }
-        }
+        pair_results<kOut>(P, s_row + r * F, s_col + c * F, i0 + r, s_cid[c], s_reach[place], debye_kind,
+                           s_res + (place - b0) * nf);
       }
       __syncthreads();
       if (sum_r < nr) {
@@ -337,7 +313,18 @@ __global__ void __launch_bounds__(K3_THREADS)
       __syncthreads();  // before s_res is written again
     }
   }
-  if (sum_r < nr) out[(size_t)i0 * nf + tid] = acc;
+  if (kOut == OUT_ENERGIES) {
+    // the block's rows in row order: one partial per term
+    if (sum_r < nr) s_res[tid] = acc;
+    __syncthreads();
+    if (tid < 5) {
+      float e = 0.f;
+      for (int r = 0; r < nr; ++r) e += s_res[r * 5 + tid];
+      out[(size_t)blockIdx.x * 5 + tid] = e;
+    }
+  } else if (sum_r < nr) {
+    out[(size_t)i0 * nf + tid] = acc;
+  }
   if (counts && tid == 0) {
     atomicAdd(counts, n_short_all);
     atomicAdd(counts + 1, n_debye_all);
@@ -345,93 +332,95 @@ __global__ void __launch_bounds__(K3_THREADS)
   }
 }
 
+// K3: (n_pad, 12) dE/d(com, a1, a2, a3), or (n_pad, 3) dE/d(back) for the
+// debye kind, weighted by the term weights at P_GT.
+__global__ void __launch_bounds__(TILE_THREADS)
+    tile_forces_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
+                       int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
+                       int* __restrict__ counts) {
+  tile_block<OUT_FORCES>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+}
+
 // K5: (n_pad, 16) = K3's 12 fields + the triangular hb-weight gradient, or
 // (n_pad, 4) = back site + charge factor for the debye kind; the cotangent
-// sits at P_GT (the wrapper writes it there)
-__global__ void tile_row_grads_kernel(const float* __restrict__ P, const float* __restrict__ rows,
-                                      const int* __restrict__ ids, int n, int n_blocks, int bsz, int cap, int kind,
-                                      int n_pad, float* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pad) return;
-  row_grads(i, P, rows, ids, n, n_blocks, bsz, cap, kind, out, kind == KIND_DEBYE ? 4 : 16);
+// sits at P_GT (the wrapper writes it there).
+__global__ void __launch_bounds__(TILE_THREADS)
+    tile_row_grads_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
+                          int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
+                          int* __restrict__ counts) {
+  tile_block<OUT_ROW_GRADS>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
 }
 
-// K4, first pass: each block's per-term sums over its rows' pairs j > i
-__global__ void tile_energies_kernel(const float* __restrict__ P, const float* __restrict__ rows,
-                                     const int* __restrict__ ids, int n, int n_blocks, int bsz, int cap, int kind,
-                                     float* __restrict__ partials) {
-  __shared__ float s[5][TILE_BLOCK];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float e[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (i < n) {
-    if (kind == KIND_DEBYE) {
-      const float* ri = rows + (size_t)i * F_DB;
-      for_each_pair(i, ids, cap, n_blocks, bsz, n, (int)ri[D_PREV], (int)ri[D_NXT], true, [&](int j) {
-        const float* rj = rows + (size_t)j * F_DB;
-        float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
-        e[4] += debye(r, P + P_DEBYE).v * ri[D_QF] * rj[D_QF];
-      });
-    } else {
-      const float* ri = rows + (size_t)i * F_ROW;
-      Body bi = row_body(ri);
-      bool with_debye = kind == KIND_FULL;
-      for_each_pair(i, ids, cap, n_blocks, bsz, n, (int)ri[R_PREV], (int)ri[R_NXT], true, [&](int j) {
-        const float* rj = rows + (size_t)j * F_ROW;
-        float ep[5];
-        unbonded_pair_energy(P, bi, row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], true, with_debye, ep);
-        for (int t = 0; t < 5; ++t) e[t] += ep[t];
-      });
+// K4, first pass: (blocks, 5) partials, each block's per-term sums over its
+// rows' pairs j > i.
+__global__ void __launch_bounds__(TILE_THREADS)
+    tile_energies_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
+                         int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ partials,
+                         int* __restrict__ counts) {
+  tile_block<OUT_ENERGIES>(P, rows, ids, n, n_blocks, bsz, cap, kind, partials, counts);
+}
+
+// K4, second pass: out[t] = sum of the block partials, in block order. The
+// block stages TAIL_CHUNK partials at a time in shared memory, so that the
+// five adding threads read them without a device-memory latency per add
+// (read straight from device memory, 1,250 partials took 0.066 ms on an
+// H100, chip_smoke.py phase 6).
+#define TAIL_THREADS 256
+#define TAIL_CHUNK 1024
+__global__ void __launch_bounds__(TAIL_THREADS)
+    tile_energies_sum_kernel(const float* __restrict__ partials, int n_parts, float* __restrict__ out) {
+  __shared__ float s[TAIL_CHUNK * 5];
+  const int t = threadIdx.x;
+  float acc = 0.f;
+  for (int b0 = 0; b0 < n_parts; b0 += TAIL_CHUNK) {
+    const int nb = min(TAIL_CHUNK, n_parts - b0);
+    __syncthreads();  // the previous chunk is added
+    for (int k = t; k < nb * 5; k += TAIL_THREADS) s[k] = partials[(size_t)b0 * 5 + k];
+    __syncthreads();
+    if (t < 5) {
+#pragma unroll 8
+      for (int b = 0; b < nb; ++b) acc += s[b * 5 + t];
     }
   }
-  for (int t = 0; t < 5; ++t) s[t][threadIdx.x] = e[t];
-  __syncthreads();
-  for (int half = TILE_BLOCK / 2; half > 0; half >>= 1) {
-    if ((int)threadIdx.x < half)
-      for (int t = 0; t < 5; ++t) s[t][threadIdx.x] += s[t][threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x < 5) partials[blockIdx.x * 5 + threadIdx.x] = s[threadIdx.x][0];
+  if (t < 5) out[t] = acc;
 }
 
-// K4, second pass: out[t] = sum of the block partials, in block order
-__global__ void tile_energies_sum_kernel(const float* __restrict__ partials, int n_parts, float* __restrict__ out) {
-  int t = threadIdx.x;
-  if (t >= 5) return;
-  float acc = 0.f;
-  for (int b = 0; b < n_parts; ++b) acc += partials[b * 5 + t];
-  out[t] = acc;
-}
+// blocks of TILE_THREADS for a table of n_blocks row blocks of bsz rows
+static int tile_grid(int n_blocks, int bsz) { return n_blocks * ((bsz + TILE_ROWS - 1) / TILE_ROWS); }
 
-static int tile_grid(int rows) { return (rows + TILE_BLOCK - 1) / TILE_BLOCK; }
+static bool tile_args_ok(int n_blocks, int bsz, int cap) { return bsz >= 1 && cap >= 1 && n_blocks >= 1; }
 
 // out: (n_pad, 12), or (n_pad, 3) for the debye kind; counts: (3,) or null
 extern "C" int tile_forces(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                            int cap, int kind, float* out, int* counts, void* stream) {
-  if (bsz < 1 || cap < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  const int groups = (bsz + K3_ROWS - 1) / K3_ROWS;
-  tile_forces_kernel<<<n_blocks * groups, K3_THREADS, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks, bsz,
-                                                                                 cap, kind, out, counts);
+  if (!tile_args_ok(n_blocks, bsz, cap)) return (int)cudaErrorInvalidValue;
+  tile_forces_kernel<<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
+      params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
   return (int)cudaGetLastError();
 }
 
+// out: (n_pad, 16), or (n_pad, 4) for the debye kind; counts: (3,) or null
 extern "C" int tile_row_grads(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
-                              int cap, int kind, int n_pad, float* out, void* stream) {
-  tile_row_grads_kernel<<<tile_grid(n_pad), TILE_BLOCK, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks,
-                                                                                    bsz, cap, kind, n_pad, out);
+                              int cap, int kind, float* out, int* counts, void* stream) {
+  if (!tile_args_ok(n_blocks, bsz, cap)) return (int)cudaErrorInvalidValue;
+  tile_row_grads_kernel<<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
+      params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
   return (int)cudaGetLastError();
 }
 
-// rows of the (rows, 5) partials scratch that tile_energies needs for n rows
-extern "C" int tile_energies_partials(int n) { return tile_grid(n); }
+// rows of the (rows, 5) partials scratch that tile_energies needs: one per block
+extern "C" int tile_energies_partials(int n_blocks, int bsz) { return tile_grid(n_blocks, bsz); }
 
-// partials: (tile_energies_partials(n), 5) scratch; out: (5,) per-term sums
+// partials: (tile_energies_partials(n_blocks, bsz), 5) scratch; out: (5,)
+// per-term sums; counts: (3,) or null (the triangular mask's pairs)
 extern "C" int tile_energies(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
-                             int cap, int kind, float* partials, float* out, void* stream) {
-  int grid = tile_grid(n);
-  tile_energies_kernel<<<grid, TILE_BLOCK, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks, bsz, cap, kind,
-                                                                      partials);
+                             int cap, int kind, float* partials, float* out, int* counts, void* stream) {
+  if (!tile_args_ok(n_blocks, bsz, cap)) return (int)cudaErrorInvalidValue;
+  const int grid = tile_grid(n_blocks, bsz);
+  tile_energies_kernel<<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks, bsz, cap,
+                                                                       kind, partials, counts);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  tile_energies_sum_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(partials, grid, out);
+  tile_energies_sum_kernel<<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>(partials, grid, out);
   return (int)cudaGetLastError();
 }

@@ -49,7 +49,6 @@ LJ_CELL = 1.1001
 MAX_CELLS = 32768  # lj.cu's LJ_MAX_CELLS: the cell build's histogram
 
 ERR_BOX = "the minimum image needs every box side above twice the LJ cutoff ({}); got box {}"
-ERR_CELLS = "the LJ cell list holds at most {} cells of side {} nm; got {} for box {}"
 ERR_TABLE_GRAD = (
     "LJPairEnergy gives no gradient for the sigma/epsilon tables (K6 computes position and box "
     "gradients only); detach them"
@@ -123,28 +122,32 @@ def _clear(bits: torch.Tensor, r: np.ndarray, c: np.ndarray, w: int) -> None:
     flat[idx] = flat[idx] & _to_int32(torch.as_tensor((2**32 - 1) ^ val, device=bits.device))
 
 
-def _cells_along(box: torch.Tensor) -> torch.Tensor:
-    """(3,) float32 cells per side, floor(box / LJ_CELL) and at least 1, in
-    float32 as the kernel divides."""
+def cell_dims(box: torch.Tensor) -> tuple[int, int, int]:
+    """The cells along x, y, z, as ``lj.cu``'s ``cell_dims`` takes them:
+    floor(box / LJ_CELL) a side in float32 as the kernel divides, at least
+    1 and at most MAX_CELLS; then, while their product exceeds MAX_CELLS,
+    the largest count loses one (x before y before z on ties). Cells never
+    get thinner than LJ_CELL, so any box computes; a coarser cell only
+    gives each row more candidates (reads the box back to the host)."""
     b = box.detach().to(torch.float32)
-    return torch.floor(b / torch.full_like(b, LJ_CELL)).clamp(min=1.0)
+    nc = [int(v) for v in torch.floor(b / torch.full_like(b, LJ_CELL)).clamp(1.0, MAX_CELLS).tolist()]
+    while nc[0] * nc[1] * nc[2] > MAX_CELLS:
+        nc[max(range(3), key=lambda a: nc[a])] -= 1  # max() takes the first of equal counts
+    return nc[0], nc[1], nc[2]
 
 
 def check_box(box: torch.Tensor) -> None:
-    """Raise unless every box side exceeds twice the cutoff and the box
-    holds at most MAX_CELLS cells (reads the box back to the host)."""
+    """Raise unless every box side exceeds twice the cutoff, which the
+    minimum image needs (reads the box back to the host)."""
     if not bool((box.detach() > 2 * LJ_CUTOFF).all()):
         raise ValueError(ERR_BOX.format(2 * LJ_CUTOFF, box.detach().cpu().tolist()))
-    cells = int(_cells_along(box).double().prod())
-    if cells > MAX_CELLS:
-        raise ValueError(ERR_CELLS.format(MAX_CELLS, LJ_CELL, cells, box.detach().cpu().tolist()))
 
 
 @dc.dataclass(frozen=True)
 class CellList:
     """Spatial cells of n beads in a periodic box, as ``lj.cu``'s cell build
-    fills them (int32, on the beads' device): ``dims`` (4,) the cells along
-    x, y, z and 1 where their number is within MAX_CELLS; ``cell_of`` (n,)
+    fills them (int32, on the beads' device): ``dims`` (3,) the cells along
+    x, y, z (:func:`cell_dims`); ``cell_of`` (n,)
     the cell (cx * ny + cy) * nz + cz of each bead; ``start`` (MAX_CELLS + 1,)
     the number of beads in the cells below each cell (n from the last cell
     on); ``order`` (n,) the beads by (cell, index)."""
@@ -156,19 +159,16 @@ class CellList:
 
 
 def cell_list_plain(positions, box) -> CellList:
-    """Plain version of the cell build: floor(box / LJ_CELL) cells a side
-    (at least 1); a bead's cell coordinate is floor(f * cells) of its
-    wrapped fraction f = x / box - floor(x / box), clamped to the last cell,
-    all in float32 as the kernel computes it, so positions outside [0, box)
-    bin where their image lies. Raises past MAX_CELLS cells (where the
-    kernel flags ``dims[3] = 0``)."""
+    """Plain version of the cell build: :func:`cell_dims` cells a side; a
+    bead's cell coordinate is floor(f * cells) of its wrapped fraction f =
+    x / box - floor(x / box), clamped to the last cell, all in float32 as
+    the kernel computes it, so positions outside [0, box) bin where their
+    image lies."""
     x = positions.detach().to(torch.float32)
     b = box.detach().to(device=x.device, dtype=torch.float32)
-    nc = _cells_along(b)
-    ncx, ncy, ncz = (int(v) for v in nc.tolist())
+    ncx, ncy, ncz = cell_dims(b)
+    nc = torch.tensor([ncx, ncy, ncz], dtype=torch.float32, device=x.device)
     total = ncx * ncy * ncz
-    if total > MAX_CELLS:
-        raise ValueError(ERR_CELLS.format(MAX_CELLS, LJ_CELL, total, b.cpu().tolist()))
     f = x / b
     f = f - torch.floor(f)
     c = (f * nc).to(torch.int32).clamp(min=0)
@@ -179,7 +179,7 @@ def cell_list_plain(positions, box) -> CellList:
     start = torch.full((MAX_CELLS + 1,), n, dtype=torch.int32, device=x.device)
     start[0] = 0
     start[1 : total + 1] = torch.cumsum(torch.bincount(cell_of, minlength=total), 0)
-    dims = torch.tensor([ncx, ncy, ncz, 1], dtype=torch.int32, device=x.device)
+    dims = torch.tensor([ncx, ncy, ncz], dtype=torch.int32, device=x.device)
     return CellList(dims=dims, cell_of=cell_of, start=start, order=order.to(torch.int32))
 
 
@@ -189,7 +189,7 @@ def _neighbour_cells(dims) -> torch.Tensor:
     an axis of 2 (where the two wrapped neighbours coincide), 0 along an
     axis of 1."""
     axes = []
-    for nc in (int(v) for v in dims[:3].tolist()):
+    for nc in (int(v) for v in dims.tolist()):
         offs = torch.arange(-1, 2) if nc >= 3 else torch.arange(nc)
         axes.append((torch.arange(nc)[:, None] + offs[None, :]) % nc)  # (nc, k_axis)
     ax, ay, az = axes
@@ -333,8 +333,8 @@ def lj_cells(positions, box) -> CellList:
     if positions.shape != (n, 3) or box.shape != (3,) or n < 1:
         raise ValueError(f"lj_cells takes (n, 3) positions and a (3,) box, got {tuple(positions.shape)}")
     # one int32 allocation: dims, cell_of, order, tmp (the build's scratch), start
-    buf = torch.empty(4 + 3 * n + MAX_CELLS + 1, dtype=torch.int32, device=positions.device)
-    dims, cell_of, order, tmp, start = buf.split([4, n, n, n, MAX_CELLS + 1])
+    buf = torch.empty(3 + 3 * n + MAX_CELLS + 1, dtype=torch.int32, device=positions.device)
+    dims, cell_of, order, tmp, start = buf.split([3, n, n, n, MAX_CELLS + 1])
     rc = _build.load_library().lj_cells(
         _ptr(positions), ctypes.c_int(n), _ptr(box), _ptr(dims), _ptr(cell_of), _ptr(start), _ptr(order), _ptr(tmp),
         _stream(),

@@ -15,13 +15,16 @@ tables, beside their plain PyTorch versions (autograd over a gathered
 tensors only, and on a CUDA tensor launches its kernel or raises):
 
 * K3 :func:`tile_forces` -- row forces under the full mask (replaces
-  ``_bwd_rows_impl(forces_only=True)``): the block tier's force. It gates
-  each pair by reach first (:func:`tile_gates_plain` is the gate's plain
-  version) and runs each term's physics only inside its cutoff.
+  ``_bwd_rows_impl(forces_only=True)``): the block tier's force.
 * K4 :func:`tile_energies` -- per-term sums under the triangular mask
   (replaces ``_fwd_impl``): the DiffTRe re-evaluation.
 * K5 :func:`tile_row_grads` -- the row gradients of K4's sums for a
   cotangent (replaces ``_bwd_rows_impl``): K4's backward.
+
+All three share one kernel body: each gates every pair by reach first
+(:func:`tile_gates_plain` is the gate's plain version) and runs each
+term's physics only inside its cutoff; each can tally the pairs of its
+mask by class (:func:`tile_gate_counts`).
 
 :class:`UnbondedTileEnergies` ties K4 to K5, and its parameter gradient
 to :func:`params_grad` (the port of ``_params_grad_xla``: autograd over
@@ -303,10 +306,21 @@ def _masked_sums(rows, cols, params, spec: TileSpec, triangular: bool) -> list:
     return [torch.where(mask, e, torch.zeros_like(e)).sum() for e in terms]
 
 
+def _term_slots(spec: TileSpec) -> slice:
+    """The kind's terms as a slice of the five sums (and of the P_GT weights)."""
+    slots = [_GT_SLOT[nm] for nm in spec.terms]
+    return slice(slots[0], slots[-1] + 1)
+
+
+def _gt_slots(spec: TileSpec) -> slice:
+    """The kind's term weights as a slice of the parameter vector."""
+    gt0, slots = stencil.param_offsets()["GT"], _term_slots(spec)
+    return slice(gt0 + slots.start, gt0 + slots.stop)
+
+
 def term_weights(params: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """The kind's term weights, read from the parameter vector's P_GT group."""
-    gt0 = stencil.param_offsets()["GT"]
-    return params[[gt0 + _GT_SLOT[nm] for nm in spec.terms]]
+    return params[_gt_slots(spec)]
 
 
 #: upper cutoff of each radial factor, as offsets into the parameter vector
@@ -348,13 +362,15 @@ def tile_gates_plain(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor
     return {nm: gates[nm] for nm in spec.terms}
 
 
-def tile_gate_counts(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> dict:
-    """K3's classes of the ordered pairs under the full mask, by the plain
-    gate: ``short`` (a short-range term in reach), ``debye`` (Debye alone)
-    and ``skipped`` (nothing)."""
+def tile_gate_counts(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec,
+                     triangular: bool = False) -> dict:
+    """The kernels' classes of the pairs under the full mask (K3, K5) or,
+    with ``triangular``, under the triangular one (K4), by the plain gate:
+    ``short`` (a short-range term in reach), ``debye`` (Debye alone) and
+    ``skipped`` (nothing)."""
     gates = tile_gates_plain(rows, params, ids, spec)
     ri, cj = _split(rows, _gather_cols(rows, ids, spec), spec)
-    mask = _tile_mask(ri, cj, spec, triangular=False)
+    mask = _tile_mask(ri, cj, spec, triangular=triangular)
     short = torch.zeros_like(mask)
     for nm in spec.terms:
         if nm != "Debye":
@@ -451,21 +467,28 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _launch(name: str, rows, params, ids, spec: TileSpec, outs: tuple, count: bool):
+    """Call C entry ``name`` with the table arguments, the ``outs`` and a
+    (3,) int32 tally when ``count`` (else a null pointer); the tally or None."""
+    from mythos_tpu_torch.ops import _build
+
+    args = _kernel_args(name, rows, params, ids, spec)
+    counts = torch.zeros(3, dtype=torch.int32, device=rows.device) if count else None
+    rc = getattr(_build.load_library(), name)(
+        *args, *(_ptr(o) for o in outs), ctypes.c_void_p(None if counts is None else counts.data_ptr()), _stream()
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return counts
+
+
 def _tile_forces(rows, params, ids, spec: TileSpec, count: bool = False):
     """:func:`tile_forces` on CUDA tensors: (forces, counts), ``counts``
     (with ``count``) the kernel's (3,) int32 tally of the ordered pairs
-    under the mask that needed the short-range terms, Debye alone, and
-    nothing (:func:`tile_gate_counts`), else None."""
-    from mythos_tpu_torch.ops import _build
-
-    args = _kernel_args("tile_forces", rows, params, ids, spec)
+    under the full mask that needed the short-range terms, Debye alone,
+    and nothing (:func:`tile_gate_counts`), else None."""
     out = torch.empty((spec.n_pad, spec.n_force_fields), dtype=torch.float32, device=rows.device)
-    counts = torch.zeros(3, dtype=torch.int32, device=rows.device) if count else None
-    rc = _build.load_library().tile_forces(
-        *args, _ptr(out), ctypes.c_void_p(None if counts is None else counts.data_ptr()), _stream()
-    )
-    if rc != 0:
-        raise RuntimeError(f"tile_forces launch failed: CUDA error {rc}")
+    counts = _launch("tile_forces", rows, params, ids, spec, (out,), count)
     tile_forces.launches += 1
     return out, counts
 
@@ -481,25 +504,40 @@ def tile_forces(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spe
 tile_forces.launches = 0
 
 
+def _tile_energies(rows, params, ids, spec: TileSpec, count: bool = False):
+    """:func:`tile_energies` on CUDA tensors: (sums, counts), ``counts``
+    as :func:`_tile_forces` gives them but under the triangular mask
+    (:func:`tile_gate_counts` with ``triangular``)."""
+    from mythos_tpu_torch.ops import _build
+
+    parts = _build.load_library().tile_energies_partials(spec.n_blocks, spec.block_size)
+    buf = torch.empty(parts * 5 + 5, dtype=torch.float32, device=rows.device)
+    counts = _launch("tile_energies", rows, params, ids, spec, (buf[: parts * 5], buf[parts * 5 :]), count)
+    tile_energies.launches += 1
+    return buf[parts * 5 :][_term_slots(spec)], counts
+
+
 def tile_energies(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """K4: (T,) unweighted per-term sums under the triangular mask. CPU
     tensors run :func:`tile_energies_plain`."""
     if rows.device.type == "cpu":
         return tile_energies_plain(rows, params, ids, spec)
-    from mythos_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    args = _kernel_args("tile_energies", rows, params, ids, spec)
-    partials = torch.empty((lib.tile_energies_partials(spec.n), 5), dtype=torch.float32, device=rows.device)
-    out = torch.empty(5, dtype=torch.float32, device=rows.device)
-    rc = lib.tile_energies(*args, _ptr(partials), _ptr(out), _stream())
-    if rc != 0:
-        raise RuntimeError(f"tile_energies launch failed: CUDA error {rc}")
-    tile_energies.launches += 1
-    return out[[_GT_SLOT[nm] for nm in spec.terms]]
+    return _tile_energies(rows, params, ids, spec)[0]
 
 
 tile_energies.launches = 0
+
+
+def _tile_row_grads(rows, params, ids, gt, spec: TileSpec, count: bool = False):
+    """:func:`tile_row_grads` on CUDA tensors: (row gradients, counts),
+    ``counts`` as :func:`_tile_forces` gives them (the same gate and mask)."""
+    # the kernel reads the cotangent where K3 reads the term weights
+    p = params.detach().clone()
+    p[_gt_slots(spec)] = gt.detach().to(p.dtype)
+    out = torch.empty((spec.n_pad, spec.n_grad_fields), dtype=torch.float32, device=rows.device)
+    counts = _launch("tile_row_grads", rows, p, ids, spec, (out,), count)
+    tile_row_grads.launches += 1
+    return out, counts
 
 
 def tile_row_grads(
@@ -509,19 +547,7 @@ def tile_row_grads(
     gradients of gt . K4's sums. CPU tensors run :func:`tile_row_grads_plain`."""
     if rows.device.type == "cpu":
         return tile_row_grads_plain(rows, params, ids, gt, spec)
-    from mythos_tpu_torch.ops import _build
-
-    # the kernel reads the cotangent where K3 reads the term weights
-    gt0 = stencil.param_offsets()["GT"]
-    slots = torch.tensor([gt0 + _GT_SLOT[nm] for nm in spec.terms], device=params.device)
-    p = params.detach().clone().index_copy_(0, slots, gt.detach().to(params.dtype))
-    args = _kernel_args("tile_row_grads", rows, p, ids, spec)
-    out = torch.empty((spec.n_pad, spec.n_grad_fields), dtype=torch.float32, device=rows.device)
-    rc = _build.load_library().tile_row_grads(*args, ctypes.c_int(spec.n_pad), _ptr(out), _stream())
-    if rc != 0:
-        raise RuntimeError(f"tile_row_grads launch failed: CUDA error {rc}")
-    tile_row_grads.launches += 1
-    return out
+    return _tile_row_grads(rows, params, ids, gt, spec)[0]
 
 
 tile_row_grads.launches = 0

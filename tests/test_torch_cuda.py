@@ -11,12 +11,14 @@ Tolerances: K2, K3, K4 and K5 rtol 1e-4 with atol 1e-4 x max|twin| (f32
 sums in another order, hand-written vs autograd derivatives); K1 over 4
 steps rtol 2e-4, atol 5e-5 (as tests/test_multistep.py holds the Pallas
 kernel); K5's body fields against K3 rtol 1e-5, atol 5e-6 (as the
-reference's test_fused_grads_soa_matches_grad_of_energy); K6's energy
-rtol 2e-5 (as tests/test_ops.py holds the Pallas kernel), its position
-and box gradients rtol 2e-4 with atol 1e-4 x max|plain| (also with the
-beads permuted and with the box and positions scaled), its cells
-exactly; K1, K4 and K6 give equal bits on a second call; the MARTINI runs
-card vs CPU rtol 1e-4, atol 1e-5.
+reference's test_fused_grads_soa_matches_grad_of_energy); K3, K4 and K5's
+tallies of their pairs equal the plain gate's (tile_gate_counts, the
+triangular mask for K4); K6's energy rtol 2e-5 (as tests/test_ops.py
+holds the Pallas kernel), its position and box gradients rtol 2e-4 with
+atol 1e-4 x max|plain| (also with the beads permuted, with the box and
+positions scaled, and in a box too wide for floor(box / LJ_CELL) cells a
+side), its cells exactly; K1, K3, K4, K5 and K6 give equal bits on a
+second call; the MARTINI runs card vs CPU rtol 1e-4, atol 1e-5.
 """
 
 import math
@@ -159,30 +161,49 @@ def test_k3_kernel_matches_plain(tile_inputs, shape, kind):
     _close(got, tiles.tile_forces_plain(rows, ctx.params, ids, sp))
     again, counts = tiles._tile_forces(rows, ctx.params, ids, sp, count=True)
     assert torch.equal(got, again)  # a fixed order, no atomics
-    want = tiles.tile_gate_counts(rows, ctx.params, ids, sp)
-    assert counts.tolist() == [want["short"], want["debye"], want["skipped"]]
+    assert _tally(counts) == tiles.tile_gate_counts(rows, ctx.params, ids, sp)
+
+
+def _tally(counts) -> dict:
+    return dict(zip(("short", "debye", "skipped"), counts.tolist(), strict=True))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["full", "short", "debye"])
-def test_k4_kernel_matches_plain(tile_inputs, kind):
-    ctx, ids, rows = tile_inputs["straight", kind]
-    got = tiles.tile_energies(rows, ctx.params, ids, ctx.spec)
+@pytest.mark.parametrize("shape", ["straight", "bent"])
+def test_k4_kernel_matches_plain(tile_inputs, shape, kind):
+    """K4 against its plain version, its pair classes those of the plain
+    gate under the triangular mask, equal bits on a second call."""
+    ctx, ids, rows = tile_inputs[shape, kind]
+    sp = ctx.spec
+    before = tiles.tile_energies.launches
+    got = tiles.tile_energies(rows, ctx.params, ids, sp)
     torch.cuda.synchronize()
-    _close(got, tiles.tile_energies_plain(rows, ctx.params, ids, ctx.spec))
-    # deterministic: a fixed reduction order, no atomics
-    assert torch.equal(got, tiles.tile_energies(rows, ctx.params, ids, ctx.spec))
+    assert tiles.tile_energies.launches == before + 1
+    _close(got, tiles.tile_energies_plain(rows, ctx.params, ids, sp))
+    again, counts = tiles._tile_energies(rows, ctx.params, ids, sp, count=True)
+    assert torch.equal(got, again)  # a fixed reduction order, no atomics
+    assert _tally(counts) == tiles.tile_gate_counts(rows, ctx.params, ids, sp, triangular=True)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["full", "short", "debye"])
-def test_k5_kernel_matches_plain_and_k3(tile_inputs, kind):
-    ctx, ids, rows = tile_inputs["straight", kind]
+@pytest.mark.parametrize("shape", ["straight", "bent"])
+def test_k5_kernel_matches_plain_and_k3(tile_inputs, shape, kind):
+    """K5 against its plain version, its body fields for the term weights
+    against K3, its pair classes those of the plain gate, equal bits on a
+    second call."""
+    ctx, ids, rows = tile_inputs[shape, kind]
     sp = ctx.spec
     gt = tiles.term_weights(ctx.params, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device="cuda")
+    before = tiles.tile_row_grads.launches
     got = tiles.tile_row_grads(rows, ctx.params, ids, gt, sp)
     torch.cuda.synchronize()
+    assert tiles.tile_row_grads.launches == before + 1
     _close(got, tiles.tile_row_grads_plain(rows, ctx.params, ids, gt, sp))
+    again, counts = tiles._tile_row_grads(rows, ctx.params, ids, gt, sp, count=True)
+    assert torch.equal(got, again)  # a fixed order, no atomics
+    assert _tally(counts) == tiles.tile_gate_counts(rows, ctx.params, ids, sp)
     k5 = tiles.tile_row_grads(rows, ctx.params, ids, tiles.term_weights(ctx.params, sp), sp)
     k3 = tiles.tile_forces(rows, ctx.params, ids, sp)
     torch.testing.assert_close(k5[:, : sp.n_force_fields], k3, rtol=1e-5, atol=5e-6)
@@ -208,7 +229,9 @@ def _bilayer_lj(device, n_xy: int, water_layers: int, case: str):
     """K6's inputs for a lattice bilayer jittered by 0.03 nm (float32); for
     "permuted" its beads permuted (positions, types and mask alike), for
     "scaled box" its box and positions scaled by 0.98 in x and y and 1.02
-    in z, as the barostat scales them."""
+    in z, as the barostat scales them; for "wide box" its beads moved across
+    the x and y faces (by half its box) of a 70 x 70 x 10 nm box, whose
+    floor(box / LJ_CELL) cells a side (63 x 63 x 9) exceed MAX_CELLS."""
     top, pos, box, _ = lattice_bilayer(n_xy, n_xy, water_layers=water_layers)
     pos = pos + np.random.default_rng(1).normal(scale=0.03, size=pos.shape)
     term = default_bilayer_terms(top)[2]
@@ -220,13 +243,15 @@ def _bilayer_lj(device, n_xy: int, water_layers: int, case: str):
     if case == "scaled box":
         scale = np.array([0.98, 0.98, 1.02])
         pos, box = pos * scale, box * scale
+    if case == "wide box":
+        pos, box = pos - np.array([box[0] / 2, box[1] / 2, 0.0]), np.array([70.0, 70.0, 10.0])
     x = torch.as_tensor(pos, dtype=torch.float32, device=device)
     b = torch.as_tensor(box, dtype=torch.float32, device=device)
     return x, types, mask, b, term.tables(device, torch.float32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["jittered", "permuted", "scaled box"])
+@pytest.mark.parametrize("case", ["jittered", "permuted", "scaled box", "wide box"])
 @pytest.mark.parametrize("size", [(3, 1), (8, 4)], ids=["104 beads", "1864 beads"])
 def test_k6_kernels_match_plain(card, size, case):
     """K6 forward (deterministic) and backward (position and box gradients,

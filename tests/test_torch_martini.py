@@ -21,7 +21,8 @@ CPU, both in float64:
 (g) ``LJPairEnergy`` refuses table gradients and a double backward;
 (h) the spatial cells K6 visits (``cell_list_plain``, the kernel's plain
     version) cover every masked pair inside the cutoff, on axes of 2 and 1
-    cells too;
+    cells too, and in a box too wide for floor(box / LJ_CELL) cells a side
+    (coarser cells);
 (i) the forward's candidates (``cell_candidates``, j > i, mask bit set)
     hold each pair in reach exactly once, and their energy is the plain
     version's and JAX's ``lj_energy_forces_reference``'s.
@@ -302,15 +303,26 @@ def test_martini_simulator_refuses_missing_card(bilayer):
         MartiniSimulator(energy_fns=t_terms(t_top), box=box, masses=masses)
 
 
+#: the bilayer cases: (lipids a side, water layers)
+BILAYER_CASES = {"two cells a side": (3, 1), "scaled box": (8, 4), "wide box": (5, 2)}
+#: a box past MAX_CELLS at floor(box / LJ_CELL) cells a side: 63 x 63 x 9
+WIDE_BOX = (70.0, 70.0, 10.0)
+
+
 def _cells_case(case):
-    """(positions, box, pair mask) of one cell-list case, float32."""
+    """(positions, box, pair mask) of one cell-list case, float32. The
+    "wide box" holds the 456-bead bilayer, jittered, straddling the box's
+    x and y faces (shifted by half its own box), in a 70 x 70 x 10 nm box."""
     rng = np.random.default_rng(3)
-    if case in ("two cells a side", "scaled box"):
-        n_xy, layers = (3, 1) if case == "two cells a side" else (8, 4)
+    if case in BILAYER_CASES:
+        n_xy, layers = BILAYER_CASES[case]
         top, pos, box, _ = t_bilayer(n_xy, n_xy, water_layers=layers)
         pos = pos + rng.normal(scale=0.03, size=pos.shape)
         if case == "scaled box":
             box = box * np.array([0.98, 0.98, 1.02])
+        if case == "wide box":
+            pos = pos - np.array([box[0] / 2, box[1] / 2, 0.0])
+            box = np.array(WIDE_BOX)
         mask = t_terms(top)[2].pair_mask("cpu")
     else:
         n = 500
@@ -323,22 +335,30 @@ def _cells_case(case):
     return torch.as_tensor(pos, dtype=torch.float32), torch.as_tensor(box, dtype=torch.float32), mask
 
 
-CELL_CASES = ["random box", "two cells a side", "scaled box", "outside [0, box)", "one cell along x"]
+CELL_CASES = ["random box", "two cells a side", "scaled box", "outside [0, box)", "one cell along x", "wide box"]
 
 
 @pytest.mark.parametrize("case", CELL_CASES)
 def test_cell_list_covers_pairs_in_reach(case):
-    """(h) cell_list_plain: floor(box / LJ_CELL) cells a side, the beads
-    ordered by (cell, index) with consistent starts, and the candidates of
-    each row -- the beads of the cells at most one away along every axis,
-    periodically -- hold every masked pair inside the cutoff of the dense
-    minimum-image distances; candidate_tests counts those candidates."""
+    """(h) cell_list_plain: floor(box / LJ_CELL) cells a side, the largest
+    count lowered by one at a time (x first on ties) while there are more
+    than MAX_CELLS, the beads ordered by (cell, index) with consistent
+    starts, and the candidates of each row -- the beads of the cells at most
+    one away along every axis, periodically -- hold every masked pair
+    inside the cutoff of the dense minimum-image distances; candidate_tests
+    counts those candidates."""
     x, box, mask = _cells_case(case)
     n = x.shape[0]
     cells = tlj.cell_list_plain(x, box)
-    nc = [int(v) for v in cells.dims[:3]]
-    assert nc == [max(1, int(np.floor(np.float32(b) / np.float32(tlj.LJ_CELL)))) for b in box.tolist()]
-    assert int(cells.dims[3]) == 1
+    nc = [int(v) for v in cells.dims]
+    want = [max(1, int(np.floor(np.float32(b) / np.float32(tlj.LJ_CELL)))) for b in box.tolist()]
+    if case == "wide box":
+        assert want == [63, 63, 9] and np.prod(want) > tlj.MAX_CELLS
+    while np.prod(want) > tlj.MAX_CELLS:
+        want[int(np.argmax(want))] -= 1
+    assert nc == want and tuple(nc) == tlj.cell_dims(box)
+    if case == "wide box":
+        assert nc == [60, 60, 9]
     if case == "two cells a side":
         assert nc[:2] == [2, 2]
     if case == "one cell along x":
@@ -367,8 +387,8 @@ def _cells_energy_inputs(case, n):
     """(types, float64 tables, the JAX term or None) for a cell-list case:
     the bilayer's own for the bilayer cases, random types over the
     104-bead bilayer's tables otherwise."""
-    if case in ("two cells a side", "scaled box"):
-        n_xy, layers = (3, 1) if case == "two cells a side" else (8, 4)
+    if case in BILAYER_CASES:
+        n_xy, layers = BILAYER_CASES[case]
         term = t_terms(t_bilayer(n_xy, n_xy, water_layers=layers)[0])[2]
         return term.types("cpu"), term.tables("cpu", torch.float64), j_terms(j_bilayer(n_xy, n_xy, water_layers=layers)[0])[2]
     term = t_terms(t_bilayer(3, 3, water_layers=1)[0])[2]

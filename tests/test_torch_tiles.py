@@ -30,6 +30,7 @@ from mythos_tpu.ops import oxdna_tiles as ot  # noqa: E402
 from mythos_tpu.rigid_body import RigidBody as JaxRigidBody  # noqa: E402
 from mythos_tpu.simulators import StaticSimulatorParams, TpuSimulator  # noqa: E402
 from mythos_tpu.simulators import neighbors as jnb  # noqa: E402
+import mythos_tpu_torch.energy.dna1.terms as t1  # noqa: E402
 from mythos_tpu_torch.energy import blocks  # noqa: E402
 from mythos_tpu_torch.energy.base import params_from_numpy  # noqa: E402
 from mythos_tpu_torch.entry import build_sim  # noqa: E402
@@ -38,7 +39,7 @@ from mythos_tpu_torch.ops import stencil as ts  # noqa: E402
 from mythos_tpu_torch.ops import tiles  # noqa: E402
 from mythos_tpu_torch.rigid_body import RigidBody  # noqa: E402
 from mythos_tpu_torch.simulators import neighbors as tnb  # noqa: E402
-from mythos_tpu_torch.soa import to_soa  # noqa: E402
+from mythos_tpu_torch.soa import to_soa, vnorm  # noqa: E402
 
 N_BP = 40
 KT = 296.15 * 0.1 / 300.0
@@ -352,16 +353,30 @@ def _gated_sums(rows, ids, params, spec, triangular, gates):
     return [torch.where(mask & gates[nm], e, torch.zeros_like(e)).sum() for nm, e in zip(spec.terms, terms, strict=True)]
 
 
+def _gated_row_grads(rows, ids, params, spec, gt, width, gates):
+    """d/d(rows[:, :width]) of sum_t gt_t x (gated full-mask sum of term t),
+    row side only: K3's forces (gt the term weights) or K5's body fields."""
+    head = rows[:, :width].clone().requires_grad_(True)
+    sums = _gated_sums(torch.cat([head, rows[:, width:]], dim=1), ids, params, spec, False, gates)
+    (g,) = torch.autograd.grad(sum(w * s for w, s in zip(gt, sums, strict=True)), head)
+    return g
+
+
 @pytest.mark.parametrize("kind", ["full", "short", "debye"])
 @pytest.mark.parametrize("shape", sorted(BENDS))
 def test_tile_gates_drop_only_zeros(shape, kind):
-    """K3's gate (tile_gates_plain, reading each term's upper cutoff from
-    the parameter vector): on the jittered 40-bp duplex, straight and bent
-    270 degrees, in float64, the plain tile energies (triangular mask) and
-    K3's plain row forces (full mask) with each term kept only inside its
-    gate equal the ungated ones exactly; and the per-class counts of the
-    ordered pairs (short-range, Debye only, skipped) are those of the site
-    distances against the cutoffs named in the parameter groups."""
+    """The kernels' gate (tile_gates_plain, reading each term's upper
+    cutoff from the parameter vector): on the jittered 40-bp duplex,
+    straight and bent 270 degrees, in float64, every term's value -- each
+    of the four excluded-volume distances' apart, and the weight-free HB
+    product -- is exactly 0 under the mask where its gate is clear, so the
+    plain tile energies (K4, triangular mask), K3's plain row forces and
+    K5's plain row gradients (full mask; the hb-weight fields triangular,
+    the debye kind's charge-factor field) with each term kept only inside
+    its gate equal the ungated ones exactly; and the per-class counts of
+    the pairs (short-range, Debye only, skipped) under the full and the
+    triangular mask are those of the site distances against the cutoffs
+    named in the parameter groups and in dna2.per_term_site_cutoffs."""
     top, body = synthetic_duplex(N_BP, bend=BENDS[shape], dtype=torch.float64, device="cpu")
     e = tdna2.create_default_energy_fn(top, dtype=torch.float64, device="cpu")
     c, q = _jittered((body.center.numpy(), body.orientation.numpy()), 4)
@@ -374,21 +389,57 @@ def test_tile_gates_drop_only_zeros(shape, kind):
     gates = tiles.tile_gates_plain(rows, params, ids, sp)
     assert tuple(gates) == sp.terms
 
+    # each term's value (K4 sums values, not only derivatives) is exactly 0
+    # where its gate is clear; for the excluded volume, each distance's own
+    # value where that distance is past its own cutoff (the kernel gates
+    # them apart; exc_f3 floors r at 1e-2, below every cutoff)
+    ri_, cj_ = tiles._split(rows, tiles._gather_cols(rows, ids, sp), sp)
+    full_mask = tiles._tile_mask(ri_, cj_, sp, triangular=False)
+    terms, hb_prod = tiles._tile_terms(ri_, cj_, params, sp)
+    for nm, e in zip(sp.terms, terms, strict=True):
+        assert bool((e[full_mask & ~gates[nm]] == 0).all()), nm
+    if kind != "debye":
+        off_e = ts.param_offsets()["EXC"]
+        assert bool((hb_prod[full_mask & ~gates["HydrogenBonding"]] == 0).all())
+        bx, by, hbo, _ = sp.geometry
+
+        def site(a, f):
+            return tiles._vec(a, 0) + f[0] * tiles._vec(a, 3) + f[1] * tiles._vec(a, 6)
+
+        back, base = (bx, by), (hbo, 0.0)
+        named_exc = ts.unpack_params(params)["EXC"]
+        gated_exc = 0.0
+        for (fi, fj), fam, k in zip(((base, base), (back, base), (base, back), (back, back)),
+                                    ("base", "back_base", "base_back", "backbone"), tiles._EXC_CUTS, strict=True):
+            r = vnorm(site(cj_, fj) - site(ri_, fi))
+            v = t1.exc_family(named_exc, fam, r)
+            inside = r < params[off_e + k]
+            assert float(params[off_e + k]) > 1e-2 and bool((v[full_mask & ~inside] == 0).all()), fam
+            gated_exc = gated_exc + torch.where(inside, v, torch.zeros_like(v))
+        assert torch.equal(gated_exc[full_mask], terms[0][full_mask])
+
     energies = torch.stack(_gated_sums(rows, ids, params, sp, True, gates))
     assert torch.equal(energies, tiles.tile_energies_plain(rows, params, ids, sp))
-    width = sp.n_force_fields
-    head = rows[:, :width].clone().requires_grad_(True)
-    sums = _gated_sums(torch.cat([head, rows[:, width:]], dim=1), ids, params, sp, False, gates)
-    total = sum(w * s for w, s in zip(tiles.term_weights(params, sp), sums, strict=True))
-    (forces,) = torch.autograd.grad(total, head)
+    weights = tiles.term_weights(params, sp)
+    forces = _gated_row_grads(rows, ids, params, sp, weights, sp.n_force_fields, gates)
     assert torch.equal(forces, tiles.tile_forces_plain(rows, params, ids, sp))
+    # K5: the body fields for another cotangent, the debye kind's charge
+    # factor, and the triangular hb-weight gradient, each gated
+    gt = weights * torch.linspace(0.5, 1.5, len(sp.terms), dtype=weights.dtype)
+    k5 = _gated_row_grads(rows, ids, params, sp, gt, 4 if kind == "debye" else 12, gates)
+    if kind != "debye":
+        hw = rows[:, tiles._HW : tiles._HW + 4].clone().requires_grad_(True)
+        r_hw = torch.cat([rows[:, : tiles._HW], hw, rows[:, tiles._HW + 4 :]], dim=1)
+        hb = _gated_sums(r_hw, ids, params, sp, True, gates)[sp.terms.index("HydrogenBonding")]
+        (g_hw,) = torch.autograd.grad(gt[1] * hb, hw)
+        k5 = torch.cat([k5, g_hw], dim=1)
+    assert torch.equal(k5, tiles.tile_row_grads_plain(rows, params, ids, gt, sp))
 
     # each term's gate and the classes from the site distances, cutoffs by parameter name
     named = ts.unpack_params(params)
     x = tiles._gather_cols(rows, ids, sp).numpy()[:, None]  # (nb, 1, M, F)
     r = rows.numpy().reshape(sp.n_blocks, 8, 1, -1)
-    ri_, cj_ = tiles._split(rows, tiles._gather_cols(rows, ids, sp), sp)
-    mask = tiles._tile_mask(ri_, cj_, sp, triangular=False).numpy()
+    mask, tri = full_mask.numpy(), tiles._tile_mask(ri_, cj_, sp, triangular=True).numpy()
     r_cut = float(named["DEBYE"].r_cut)
     if kind == "debye":
         want_gates = {"Debye": np.linalg.norm(x[..., :3] - r[..., :3], axis=-1) < r_cut}
@@ -452,4 +503,9 @@ def test_tile_gates_drop_only_zeros(shape, kind):
         reach_debye = reach(site_cuts["terms"]["Debye"]) & ~reach_short if kind == "full" else np.zeros_like(mask)
     np.testing.assert_array_equal(short & mask, reach_short & mask)
     np.testing.assert_array_equal(debye & mask, reach_debye & mask)
+    # K4's classes: the same gate under the triangular mask
+    want_tri = {"short": int((tri & reach_short).sum()), "debye": int((tri & reach_debye).sum()),
+                "skipped": int((tri & ~reach_short & ~reach_debye).sum())}
+    assert tiles.tile_gate_counts(rows, params, ids, sp, triangular=True) == want_tri
+    assert sum(want_tri.values()) < sum(want.values())
     assert want["skipped"] > 0 and (want["short"] > 0 or kind == "debye") and (want["debye"] > 0 or kind == "short")
