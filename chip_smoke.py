@@ -55,7 +55,25 @@ Phases, one line each; any failure exits non-zero:
    after a warm-up run, one cell build a force evaluation, with a
    torch.profiler window; (9c) 50 NPT steps of
    the 104-bead bilayer with the same pre-drawn noise agree between the
-   card and the CPU plain versions.
+   card and the CPU plain versions;
+10. the oxRNA2 main path on the 10k-nt A-form duplex
+   (``synthetic_duplex(5000, form="A")``, the A-form band slacks, site
+   margin 2): (10a) K2's rna2 instance against its plain version on a
+   jittered state (K2's tolerance; as phase 6, the slots with a pair at
+   the float32 arccos clamp, else all, may take the float32 budget of
+   phase 4; equal bits on a second call), and at 80 nt on three
+   coaxially stacked pairs (coaxial stacking alone);
+   (10b) K1's rna2 instance, one 40-step chunk against its plain version
+   with the same bf16 noise, at 10k nt inside the float32 budget of phase
+   4 and at 80 nt to rtol 2e-4 / atol 5e-5 (else that budget), equal bits
+   on a second call; (10c) ``build_sim(mode="stencil", model="rna2")``
+   runs 2000 steps (50 chunks) after a warm-up run, with a torch.profiler
+   window, and a 40-bp run on the card agrees with the CPU; (10d) the
+   same run from the B-form helix, its overflow flag printed.
+
+With ``--against DIR`` (a checkout of another commit, e.g. the parent),
+phases 3 and 4 also build DIR's kernels and say whether its K2 and K1
+give this checkout's bits on their inputs.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -64,6 +82,7 @@ a CUDA device. Imports torch, numpy and mythos_tpu_torch only.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -78,6 +97,7 @@ N_STEPS = 2000
 KT = 296.15 * 0.1 / 300.0
 BLOCK_STEPS = 400  # phase 7
 DIFFTRE_STEPS, DIFFTRE_SAVE = 400, 40  # phase 8: 10 states
+RNA2_COAX_PAIRS = ((10, 11), (30, 33), (50, 57))  # phase 10a: slot pairs placed coaxially stacked (80 nt)
 
 #: the H100 SXM's published peaks (data sheet, 700 W): HBM bytes/s, fp32
 #: (non-tensor) FLOP/s -- the bound of a kernel is the larger of its bytes
@@ -92,6 +112,10 @@ FP32_FLOP_S = 67e12
 FLOP_PAIR_GRAD, FLOP_PAIR_ENERGY, FLOP_PAIR_HB = 1500, 650, 220
 FLOP_DEBYE_GRAD, FLOP_DEBYE_ENERGY = 45, 35
 FLOP_BOND_GRAD, FLOP_BODY_STEP = 900, 250
+#: oxRNA2's bonded pair: a fourth arccos, the p3/p5 axes and the stacking
+#: sites on (a1, a2) (bonded_pair_rna2); its unbonded pair is charged as
+#: oxDNA2's (no theta4 in cross stacking, the phi cosines in coax)
+FLOP_BOND_GRAD_RNA2 = 1100
 #: K6 (ops/csrc/lj.cu), per unordered pair: the minimum-image distance
 #: test; the LJ value, or its gradient on both beads and the box. The bound
 #: charges both only to the pairs inside the cutoff (the others need no
@@ -163,6 +187,18 @@ def _kernel_list(window: dict) -> str:
     """"name: device ms a kernel event (events recorded)" of each kernel of a
     :func:`_profiled` window."""
     return ", ".join(f"{k.split('(')[0]}: {ms / c:.4f} ms ({c})" for k, (ms, c) in window["kernels"].items())
+
+
+def _per_call(window: dict, launches: dict) -> float:
+    """Device ms a call from a :func:`_profiled` window: each kernel's mean
+    time a recorded event (the profiler may record fewer events than
+    launches) times its launches a call, ``{name fragment: launches}``; 0
+    where it recorded none."""
+    total = 0.0
+    for frag, k in launches.items():
+        hits = [(ms, c) for key, (ms, c) in window["kernels"].items() if frag in key]
+        total += sum(ms for ms, _ in hits) / max(1, sum(c for _, c in hits)) * k
+    return total
 
 
 def _lap(phase: str) -> None:
@@ -607,9 +643,283 @@ def _martini(dev, smi: str) -> list[dict]:
     ]
 
 
-def main() -> int:
+def _band_pair_geometry(ctx, dyn, site_cutoffs):
+    """Per offset d of the band, for its unbonded pairs (i, i + d) of the
+    (7, n) slot-order state (the sites of the context's family, float64):
+    (d, inside a short-range term's site cutoff, inside Debye's alone, the
+    distance of the pair's nearest-aligned angle cosine to +-1 in float32
+    ulps -- the 6 of hb/cross stacking and coax's 2, as phase 6)."""
     import torch
 
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.soa import Quat, Vec3, vdot
+
+    P = st.unpack_params(ctx.params.double())
+    sites = vars(st._sites(P, Vec3(*dyn[:3].double()), Quat(*dyn[3:].double()), ctx.family))
+    n, terms = ctx.n, site_cutoffs["terms"]
+    idx = torch.arange(n, device=dyn.device)
+    eps = torch.finfo(torch.float32).eps
+    for d in range(1, min(ctx.w_wide, n - 1) + 1):
+        m = n - d
+        valid = (ctx.partners[0, :m] != idx[:m] + d) & (ctx.partners[1, :m] != idx[:m] + d)
+
+        def lo(v):
+            return Vec3(*(c[:m] for c in v))
+
+        def hi(v):
+            return Vec3(*(c[d:] for c in v))
+
+        def reach(pairs):
+            hit = torch.zeros(m, dtype=torch.bool, device=dyn.device)
+            for fa, fb, cut in pairs:
+                for a, b in {(fa, fb), (fb, fa)}:
+                    hit |= vdot(hi(sites[b]) - lo(sites[a]), hi(sites[b]) - lo(sites[a])) < cut * cut
+            return hit & valid
+
+        short = reach([pr for nm, prs in terms.items() if nm != "Debye" for pr in prs])
+        debye = reach(terms["Debye"]) & ~short
+
+        def unit(v):
+            return v * (1.0 / vdot(v, v).sqrt())
+
+        u, us = unit(hi(sites["base"]) - lo(sites["base"])), unit(hi(sites["stack"]) - lo(sites["stack"]))
+        a1i, a1j, a3i, a3j = lo(sites["a1"]), hi(sites["a1"]), lo(sites["a3"]), hi(sites["a3"])
+        cos = torch.stack([-vdot(a1i, a1j), -vdot(a1j, u), vdot(a1i, u), vdot(a3i, a3j), -vdot(a3j, u), vdot(a3i, u),
+                           vdot(a3i, us), -vdot(a3j, us)])
+        yield d, short, debye, ((1.0 - cos.abs()) / eps).amin(0)
+
+
+def _rna2(dev, smi: str) -> list[dict]:
+    """Phase 10: the oxRNA2 stencil main path at 10k nt -- K2's and K1's
+    rna2 instances against their plain versions, the main path through
+    them, a 40-bp run card vs CPU. The K1 and K2 rna2 records."""
+    import torch
+
+    import mythos_tpu_torch.energy.rna2 as rna2
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.io.synthetic import coax_engaged, synthetic_duplex
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.rigid_body import RigidBody
+
+    topology, body = synthetic_duplex(N_BP, form="A", dtype=torch.float32, device=dev)
+    energy_fn, sim = build_sim(topology, KT, model="rna2", init_centers=body.center,
+                               init_orientation=body.orientation, device=dev)
+    ctx = st.prepare_stencil_context(energy_fn, sim.band, device=dev)
+    n, u = ctx.n, sim.neighbor_update_every
+    band = sim.band
+    print(f"[10 rna2] {n} nt A-form: family {ctx.family}, w_terms={ctx.w_terms} w_wide={ctx.w_wide} "
+          f"check_dm={ctx.check_dm} {ctx.checks.shape[0]} exact checks, overflow at init={bool(band.did_overflow)}")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def jittered(b):
+        q = b.orientation + 0.01 * torch.randn(b.orientation.shape, generator=gen, device=dev)
+        c = b.center + 0.01 * torch.randn(b.center.shape, generator=gen, device=dev)
+        return RigidBody(c, q / q.norm(dim=-1, keepdim=True))
+
+    # 10a. K2 (rna2) against its plain version on a jittered state
+    jb = jittered(body)
+    dyn = torch.cat([ctx.to_slots(jb.center.T), ctx.to_slots(jb.orientation.T)]).contiguous()
+    k2_ms, k2 = _events_ms(lambda: st.field_grads(ctx, dyn), 20)
+    k2_det = torch.equal(k2, st.field_grads(ctx, dyn))
+    k2_win = _profiled(lambda: st.field_grads(ctx, dyn), 10)
+    k2_dev = _per_call(k2_win, {"stencil_field_grads": 1})
+    p2_ms, plain = _events_ms(lambda: st.field_grads_plain(ctx, dyn), 3)
+    plain64 = st.field_grads_plain(ctx.astype(torch.float64), dyn.double())
+    # the slots with a pair inside the short-range reach at the float32
+    # arccos clamp, and the pairs the bound charges (those in reach)
+    near = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_short = n_debye = 0
+    for d, short, debye, ulps in _band_pair_geometry(ctx, dyn, rna2.per_term_site_cutoffs()):
+        at = short & (ulps <= CLAMP_ULPS)
+        near[: n - d] |= at
+        near[d:] |= at
+        n_short, n_debye = n_short + int(short.sum()), n_debye + int(debye.sum())
+    print(f"[10a K2 rna2] {int(near.sum())} of {n} slots have a pair inside the short-range reach with an angle "
+          f"cosine within {CLAMP_ULPS} float32 ulps of +-1")
+    ok2, rule2, err2 = _checked("K2 rna2", k2.T, plain.T, plain64.T, near)
+    print(f"[10a K2 rna2] max_abs_err={err2:.3e} ({rule2}) ok={ok2}; kernel {statistics.median(k2_ms):.4f} ms by "
+          f"events, {_dev(k2_dev)} of device time a call; plain {statistics.median(p2_ms):.2f} ms; equal bits on a "
+          f"second call: {k2_det}")
+    if rule2 != "K2 tolerance":
+        # where the gap lies: the worst element, and the same with the origin
+        # moved to its nucleotide (float32 far from the origin: ROADMAP queue 3)
+        r, t = divmod(int((k2 - plain).abs().argmax()), n)
+        i = int(ctx.perm[t]) if ctx.perm is not None else t
+        z = float(dyn[2, t])
+        sh = dyn.clone()
+        sh[:3] -= dyn[:3, t : t + 1]
+        vals = [float(x[r, t]) for x in (k2, plain, plain64, st.field_grads(ctx, sh), st.field_grads_plain(ctx, sh))]
+        print(f"    K2 rna2 worst element: row {r}, slot {t} (nucleotide {i}, z {z:.1f}): kernel {vals[0]:.5f} f32 "
+              f"{vals[1]:.5f} f64 {vals[2]:.5f}; with the origin at that nucleotide: kernel {vals[3]:.5f} f32 "
+              f"{vals[4]:.5f}")
+    if not (ok2 and k2_det):
+        raise SystemExit("K2's rna2 instance disagrees with its plain version, or is not deterministic")
+    # the same at 80 nt on three coaxially stacked pairs, coaxial stacking alone
+    top_s, body_s = synthetic_duplex(40, form="A", dtype=torch.float32, device=dev)
+    _, sim_s = build_sim(top_s, KT, model="rna2", init_centers=body_s.center, init_orientation=body_s.orientation,
+                         device=dev)
+    ctx_s = st.prepare_stencil_context(sim_s.energy_fn, sim_s.band, device=dev)
+    com, quat = (ctx_s.to_slots(x.T.double()).T.cpu().numpy() for x in (body_s.center, body_s.orientation))
+    com, quat = coax_engaged(com, quat, RNA2_COAX_PAIRS, seed=3)
+    dyn_c = torch.cat([torch.as_tensor(com.T), torch.as_tensor(quat.T)]).float().to(dev).contiguous()
+    p_c = ctx_s.params.clone()
+    off = st.param_offsets()["GT"]
+    p_c[off : off + 8] = torch.tensor([0, 0, 0, 1, 0, 0, 0, 0], dtype=torch.float32)
+    ctx_c = dataclasses.replace(ctx_s, params=p_c)
+    got_c, plain_c = st.field_grads(ctx_c, dyn_c), st.field_grads_plain(ctx_c, dyn_c)
+    ok_c, err_c = _within(got_c, plain_c, rtol=1e-4, atol=1e-4 * float(plain_c.abs().max()))
+    print(f"[10a K2 rna2 coax] 80 nt, pairs {RNA2_COAX_PAIRS} coaxially stacked, coax alone: max_abs_err={err_c:.3e} "
+          f"of max|plain| {float(plain_c.abs().max()):.3e} ok={ok_c}")
+    if not ok_c or float(plain_c.abs().max()) < 1.0:
+        raise SystemExit("K2's rna2 coaxial stacking disagrees with its plain version")
+
+    # 10b. K1 (rna2): one 40-step chunk, the same bf16 noise; 10k nt inside
+    # the float32 budget of phase 4, 80 nt to the fixed tolerance (else that budget)
+    ou = st.ou_constants(sim.dt, sim.kT, [sim.mass], [sim.inertia], [sim.gamma_t], [sim.gamma_r]).vector(dev)
+
+    def chunk_case(c, s_, b, label):
+        state = s_.initial_state(c, jittered(b), gen)
+        noise = torch.randn((u, 6, c.n), generator=gen, device=dev).to(torch.bfloat16)
+        k_ms, got = _events_ms(lambda: st.multistep_chunk(c, ou, noise, state), 5)
+        det = torch.equal(got, st.multistep_chunk(c, ou, noise, state))
+        p_ms, plain = _events_ms(lambda: st.multistep_chunk_plain(c, ou, noise, state), 1)
+        plain64 = st.multistep_chunk_plain(c.astype(torch.float64), ou.double(), noise, state.double())
+        err_k = (got - plain).abs().amax(1).double()
+        err_32 = (plain.double() - plain64).abs().amax(1)
+        budget = bool((err_k <= 2 * err_32 + 5e-5 + 2e-4 * plain64.abs().amax(1)).all())
+        fixed, err = _within(got, plain, rtol=2e-4, atol=5e-5)
+        rows = " ".join(f"{r}:{float(a):.1e}/{float(b_):.1e}" for r, (a, b_) in enumerate(zip(err_k, err_32)))
+        print(f"[10b K1 rna2 {label}] {u} steps at {c.n} nt: max|K1-plain|={err:.3e}; rtol 2e-4/atol 5e-5 met: "
+              f"{fixed}; float32 budget met: {budget}; kernel {statistics.median(k_ms):.3f} ms plain "
+              f"{statistics.median(p_ms):.1f} ms; two chunks equal: {det}; row:|K1-f32|/|f32-f64| {rows}")
+        return fixed, budget, det, err, k_ms, p_ms, state, noise
+
+    fixed, budget, det, err1, k1_ms, p1_ms, state, noise = chunk_case(ctx, sim, body, "10k")
+    if not (budget and det):
+        raise SystemExit("K1's rna2 instance is outside the float32 budget of its plain version, or not deterministic")
+    k1_win = _profiled(lambda: st.multistep_chunk(ctx, ou, noise, state), 3)
+    k1_dev = _per_call(k1_win, {"k1_step": u, "k1_entry": 1})
+    print(f"[10b K1 rna2] device time {_dev(k1_dev)} a chunk ({_kernel_list(k1_win)})")
+    fixed_s, budget_s, det_s, *_ = chunk_case(ctx_s, sim_s, body_s, "80 nt")
+    if not ((fixed_s or budget_s) and det_s):
+        raise SystemExit("K1's rna2 instance disagrees with its plain version at 80 nt")
+    _lap("10a-b K2, K1 rna2")
+
+    # 10c. the main path: warm-up run, then the counted, timed run
+    params = energy_fn.opt_params()
+    sim.run(params, body, N_STEPS, torch.Generator(device=dev).manual_seed(12))
+    st.field_grads.launches = st.multistep_chunk.launches = 0
+    st.field_grads.by_family = dict.fromkeys(st.FAMILIES, 0)
+    st.multistep_chunk.by_family = dict.fromkeys(st.FAMILIES, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.run(params, body, N_STEPS, torch.Generator(device=dev).manual_seed(13))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"K1": st.multistep_chunk.by_family["rna2"], "K2": st.field_grads.by_family["rna2"]}
+    traj = out.observables[0]
+    finite = bool(torch.isfinite(traj.center).all() and torch.isfinite(traj.orientation).all())
+    qdev = float((traj.orientation.norm(dim=-1) - 1.0).abs().max())
+    overflow = bool(traj.metadata["neighbor_overflow"].any())
+    print(f"[10c rna2 main path] {N_STEPS} steps at {n} nt: {elapsed:.3f} s = {N_STEPS / elapsed * 60.0:.1f} "
+          f"steps/min on {smi}; states {tuple(traj.center.shape)} finite={finite} max||q|-1|={qdev:.2e} "
+          f"overflow={overflow} launches={launches} (all families: K1 {st.multistep_chunk.launches}, "
+          f"K2 {st.field_grads.launches})")
+    if not finite or qdev > 1e-5 or overflow:
+        raise SystemExit("the rna2 main path produced a bad trajectory")
+    if launches["K1"] != N_STEPS // u or launches["K2"] < 1:
+        raise SystemExit(f"the rna2 main path did not run through the rna2 kernels: {launches}")
+    w = _profiled(lambda: sim.run(params, body, 10 * u, torch.Generator(device=dev).manual_seed(13)))
+    k1_chunk = _per_call(w, {"k1_step": u, "k1_entry": 1})
+    print(f"[10c profile] {10 * u} steps under torch.profiler: wall {w['wall_ms']:.1f} ms, device kernels "
+          f"{w['device_ms']:.1f} ms (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}), K1's kernels "
+          f"{_dev(k1_chunk)} a chunk ({10 * k1_chunk / w['wall_ms']:.0%} of the wall), "
+          f"{w['launches'] / (10 * u):.2f} launches per step; host top: "
+          + ", ".join(f"{k} {ms:.0f} ms" for k, ms in w["host"]))
+
+    def small_run(device):
+        top, b = synthetic_duplex(40, form="A", dtype=torch.float32, device=device)
+        e, s_ = build_sim(top, 0.0, model="rna2", init_centers=b.center, init_orientation=b.orientation,
+                          neighbor_update_every=10, device=device)
+        o = s_.replace(save_every=10).run(e.opt_params(), b, 40, torch.Generator(device=device).manual_seed(0))
+        return o.observables[0]
+
+    gpu, cpu = small_run(dev), small_run("cpu")
+    okc, errc = _within(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    okq, errq = _within(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    print(f"[10c small input] 40 bp A-form, 40 steps, kT=0: card vs CPU center err {errc:.2e} quat err {errq:.2e}")
+    if not (okc and okq):
+        raise SystemExit("the card's rna2 trajectory disagrees with the CPU")
+
+    # 10d. a B-form init under rna2 relaxes out of the band sized from it:
+    # K1's row 19 and the far sweep must raise the overflow flag
+    top_b, body_b = synthetic_duplex(N_BP, form="B", dtype=torch.float32, device=dev)
+    e_b, sim_b = build_sim(top_b, KT, model="rna2", init_centers=body_b.center, init_orientation=body_b.orientation,
+                           device=dev)
+    out_b = sim_b.run(e_b.opt_params(), body_b, N_STEPS, torch.Generator(device=dev).manual_seed(14))
+    ovf_b = bool(out_b.observables[0].metadata["neighbor_overflow"].any())
+    print(f"[10d rna2 from B-form] {N_STEPS} steps at {n} nt from the B-form helix (band w_terms="
+          f"{sim_b.band.w_terms} w_wide={sim_b.band.w_wide}, overflow at init={bool(sim_b.band.did_overflow)}): "
+          f"overflow={ovf_b}")
+
+    # bounds from the pairs of the jittered state the kernels met in 10a
+    n_bonds = int((ctx.dirf != 0).sum())
+    k2_bound = _bound(2 * 7 * n * 4, n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD)
+    k1_bound = _bound(
+        (19 + 20) * n * 4 + u * 6 * n * 2,
+        u * (n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD + n_bonds * FLOP_BOND_GRAD_RNA2
+             + n * FLOP_BODY_STEP),
+    )
+    print(f"[10 bounds] {n_short} band pairs inside a short-range site cutoff, {n_debye} inside Debye's alone, "
+          f"{n_bonds} bonds: K1 rna2 {k1_bound[0]:.4f} ms ({k1_bound[1]}; {_share(k1_bound[0], k1_dev)} of its device "
+          f"time), K2 rna2 {k2_bound[0]:.5f} ms ({k2_bound[1]}; {_share(k2_bound[0], k2_dev)})")
+    _lap("10 rna2")
+    src = "mythos_tpu_torch/ops/csrc/"
+    return [
+        {"name": "K1 multistep_chunk (rna2)", "route": "cuda", "source": src + "multistep.cu",
+         "replaces": "mythos_tpu/ops/stencil.py:2236", "launches": launches["K1"], "max_abs_err": err1,
+         "ms": statistics.median(k1_ms), "plain_ms": statistics.median(p1_ms), "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "K2 field_grads (rna2)", "route": "cuda", "source": src + "stencil_grads.cu",
+         "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": launches["K2"], "max_abs_err": err2,
+         "ms": statistics.median(k2_ms), "plain_ms": statistics.median(p2_ms), "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+    ]
+
+
+def _against(root: str, ctx, dyn, ou, noise, state, k2, k1) -> None:
+    """Build the kernels of the checkout at ``root`` and run its K2 and K1
+    (oxDNA2) on phases 3 and 4's inputs, through this checkout's wrappers
+    with that library loaded: are the bits this checkout's?"""
+    import importlib.util
+    from pathlib import Path
+
+    from mythos_tpu_torch.ops import _build
+    from mythos_tpu_torch.ops import stencil as st
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("other_build", Path(root) / "mythos_tpu_torch/ops/_build.py")
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    lib, own = other.load_library(), _build.load_library
+    _build.load_library = lambda: lib
+    try:
+        same2 = torch.equal(st.field_grads(ctx, dyn), k2)
+        same1 = torch.equal(st.multistep_chunk(ctx, ou, noise, state), k1)
+    finally:
+        _build.load_library = own
+    print(f"[3-4 against {root}] its K2 gives this checkout's bits: {same2}; its K1: {same1}")
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", metavar="DIR", help="a checkout whose K1 and K2 bits phases 3-4 compare")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -645,8 +955,11 @@ def main() -> int:
     for ln in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in ln:
             fn = ln.split("'")[1]
-            mangled = re.match(r"_Z(\d+)", fn)  # _Z<length><name><arguments>
-            fn = fn[mangled.end() : mangled.end() + int(mangled.group(1))] if mangled else fn
+            mangled = re.match(r"_Z(\d+)", fn)  # _Z<length><name>[I<template arguments>E]<arguments>
+            if mangled:
+                end = mangled.end() + int(mangled.group(1))
+                targs = re.match(r"ILi(\d+)E", fn[end:])
+                fn = fn[mangled.end() : end] + (f"<{targs.group(1)}>" if targs else "")
         elif "spill stores" in ln:
             spill = ln.split(",", 1)[1].strip()
         elif "registers" in ln:
@@ -666,12 +979,13 @@ def main() -> int:
 
     # 3. K2 vs twin
     k2_ms, k2 = _events_ms(lambda: st.field_grads(ctx, dyn), 20)
+    k2_dev = _per_call(_profiled(lambda: st.field_grads(ctx, dyn), 10), {"stencil_field_grads": 1})
     tw_ms, twin = _events_ms(lambda: st.field_grads_plain(ctx, dyn), 20)
     scale = float(twin.abs().max())
     ok2, err2 = _within(k2, twin, rtol=1e-4, atol=1e-4 * scale)
     print(f"[3 K2] n={n} w_terms={ctx.w_terms} w_wide={ctx.w_wide} max_abs_err={err2:.3e} "
-          f"(atol {1e-4 * scale:.3e}, rtol 1e-4) kernel {statistics.median(k2_ms):.4f} ms "
-          f"twin {statistics.median(tw_ms):.4f} ms")
+          f"(atol {1e-4 * scale:.3e}, rtol 1e-4) kernel {statistics.median(k2_ms):.4f} ms by events, "
+          f"{_dev(k2_dev)} of device time a call; twin {statistics.median(tw_ms):.4f} ms")
     if not ok2:
         raise SystemExit("K2 disagrees with its twin")
 
@@ -695,6 +1009,7 @@ def main() -> int:
     k1_det = torch.equal(k1, st.multistep_chunk(ctx, ou, noise, state))
     k1_win = _profiled(lambda: st.multistep_chunk(ctx, ou, noise, state), 3)
     k1_launches = k1_win["launches"] / 3
+    k1_dev = _per_call(k1_win, {"k1_step": u, "k1_entry": 1})
     tw1_ms, twin1 = _events_ms(lambda: st.multistep_chunk_plain(ctx, ou, noise, state), 2)
     twin64 = st.multistep_chunk_plain(ctx.astype(torch.float64), ou.double(), noise, state.double())
     err_k = (k1 - twin1).abs().amax(1).double()
@@ -704,7 +1019,8 @@ def main() -> int:
     fixed_ok, _ = _within(k1, twin1, rtol=2e-4, atol=5e-5)
     rows = " ".join(f"{r}:{float(a):.1e}/{float(b):.1e}" for r, (a, b) in enumerate(zip(err_k, err_32)))
     print(f"[4 K1] {u} steps at {n} nt: max|K1-twin|={err1:.3e}; rtol 2e-4/atol 5e-5 met: {fixed_ok}; "
-          f"kernel {statistics.median(k1_ms):.3f} ms twin {statistics.median(tw1_ms):.3f} ms; {k1_launches:g} kernel "
+          f"kernel {statistics.median(k1_ms):.3f} ms by events, {_dev(k1_dev)} of device time; twin "
+          f"{statistics.median(tw1_ms):.3f} ms; {k1_launches:g} kernel "
           f"launches a chunk ({_kernel_list(k1_win)}); two chunks equal: {k1_det}; row:|K1-f32|/|f32-f64| {rows}")
     if not bool((err_k <= limit).all()) or not k1_det:
         raise SystemExit("K1 is outside the float32 error budget of its twin, or not deterministic")
@@ -723,6 +1039,8 @@ def main() -> int:
     print(f"[4 K1 small] 4 steps at 80 nt: max_abs_err={err1s:.3e} (rtol 2e-4, atol 5e-5) ok={ok1s}")
     if not ok1s:
         raise SystemExit("K1 disagrees with its twin at 80 nt")
+    if args.against:
+        _against(args.against, ctx, dyn, ou, noise, state, k2, k1)
     _lap("3-4 K2, K1")
 
     # 5a. the main path at 10k nt: warm-up run, then the counted, timed run
@@ -751,7 +1069,7 @@ def main() -> int:
     # where a main-path step's time goes: 10 chunks under the profiler
     w = _profiled(lambda: sim.run(params, body, 10 * u, torch.Generator(device=dev).manual_seed(3)))
     wall_ms, kernel_ms, n_launch = w["wall_ms"], w["device_ms"], w["launches"]
-    k1_dev_ms = sum(ms for k, (ms, _) in w["kernels"].items() if k.startswith("k1_"))
+    k1_dev_ms = sum(ms for k, (ms, _) in w["kernels"].items() if "k1_" in k)
     print(f"[5 profile] {10 * u} steps under torch.profiler: wall {wall_ms:.1f} ms, device kernels {kernel_ms:.1f} ms "
           f"(idle share {1 - kernel_ms / wall_ms:.0%}), K1's kernels {k1_dev_ms:.1f} ms "
           f"({k1_dev_ms / wall_ms:.0%} of the wall), {n_launch / (10 * u):.2f} launches per step")
@@ -1056,6 +1374,9 @@ def main() -> int:
     # 9. MARTINI: K6, the 10,160-bead NPT main path, and card vs CPU at 104 beads
     k6_records = _martini(dev, smi)
 
+    # 10. the oxRNA2 main path: K2 and K1's rna2 instances, 2000 steps at 10k nt
+    rna2_records = _rna2(dev, smi)
+
     src = "mythos_tpu_torch/ops/csrc/"
     tile_launch = {"K3": k3_launches, "K4": d_launches["K4"], "K5": d_launches["K5"]}
     tile_meta = {
@@ -1072,7 +1393,7 @@ def main() -> int:
          "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": launches["K2"], "max_abs_err": err2,
          "ms": statistics.median(k2_ms), "plain_ms": statistics.median(tw_ms), "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
-    ] + [
+    ] + rna2_records + [
         {"name": f"{k} {tile_meta[k][0]}", "route": "cuda", "source": src + "tiles.cu", "replaces": tile_meta[k][1],
          "launches": tile_launch[k], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}

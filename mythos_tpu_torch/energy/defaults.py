@@ -17,6 +17,9 @@ _ENERGY_DIR = Path(__file__).resolve().parents[2] / "mythos_tpu" / "energy"
 
 
 def default_configs_for(model: str) -> tuple[dict, dict]:
-    """(simulation_config, energy_config) parsed from the model's defaults."""
+    """(simulation_config, energy_config) parsed from the model's defaults;
+    the simulation config is empty where the model ships none (rna2)."""
     config_dir = _ENERGY_DIR / model / "defaults"
-    return toml.parse_toml(config_dir / "simulation.toml"), toml.parse_toml(config_dir / "energy.toml")
+    sim_path = config_dir / "simulation.toml"
+    sim = toml.parse_toml(sim_path) if sim_path.exists() else {}
+    return sim, toml.parse_toml(config_dir / "energy.toml")

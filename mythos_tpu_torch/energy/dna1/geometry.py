@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from mythos_tpu_torch.soa import Vec3, vdot, vnorm
+from mythos_tpu_torch.soa import Vec3, vcross, vdot, vnorm
 from mythos_tpu_torch.utils.math import safe_arccos
 
 
@@ -35,13 +35,16 @@ class UnbondedGeometry(NamedTuple):
 
 
 class CoaxGeometry(NamedTuple):
-    """Angle set of oxDNA2 coaxial stacking (no phi modulations)."""
+    """Angle set of coaxial stacking; the phi cosines only where the
+    backbone sites were given (oxDNA1's coax reads them, oxDNA2's not)."""
 
     r_stack: torch.Tensor
     theta1: torch.Tensor
     theta4: torch.Tensor
     theta5: torch.Tensor
     theta6: torch.Tensor
+    cosphi3: torch.Tensor | None = None
+    cosphi4: torch.Tensor | None = None
 
 
 class BondedGeometry(NamedTuple):
@@ -70,16 +73,23 @@ def unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, n_i, n_j, arccos=safe_arcc
     )
 
 
-def coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos):
+def coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos, back_i=None, back_j=None):
     dr = stack_j - stack_i
     r = vnorm(dr)
     u = dr * (1.0 / r)
+    cosphi3 = cosphi4 = None
+    if back_i is not None:
+        db = back_j - back_i
+        ub = db * (1.0 / vnorm(db))
+        cosphi3, cosphi4 = vdot(u, vcross(ub, a1_j)), vdot(u, vcross(ub, a1_i))
     return CoaxGeometry(
         r_stack=r,
         theta1=arccos(-vdot(a1_i, a1_j)),
         theta4=arccos(vdot(n_i, n_j)),
         theta5=arccos(vdot(n_i, u)),
         theta6=arccos(-vdot(n_j, u)),
+        cosphi3=cosphi3,
+        cosphi4=cosphi4,
     )
 
 

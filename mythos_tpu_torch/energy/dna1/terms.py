@@ -1,5 +1,6 @@
-"""oxDNA1 terms that oxDNA2 shares: FENE, excluded volumes, stacking
-configuration, hydrogen bonding and cross stacking.
+"""oxDNA1 terms that oxDNA2 and oxRNA2 share: FENE, excluded volumes,
+stacking configuration, hydrogen bonding, cross stacking and (oxRNA2's)
+coaxial stacking.
 
 Counterpart of the matching classes of mythos_tpu/energy/dna1/terms.py.
 Each term's pair physics is a module-level product function of its
@@ -360,3 +361,78 @@ class CrossStacking(_UnbondedPairs):
             geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
         )
         return cross_product(self.params, g).sum()
+
+
+# Coaxial stacking ------------------------------------------------------------------
+
+_COAX_ANGLES = (4, 1, 5, 6)
+
+
+class CoaxialStackingConfiguration(BaseConfiguration):
+    """oxDNA1 coax: f2 x f4 modulations x f5(cos phi3) x f5(cos phi4)."""
+
+    required_params = (
+        "dr_low_coax", "dr_high_coax", "k_coax", "dr0_coax", "dr_c_coax",
+        *(f"{pre}_coax_{k}" for k in _COAX_ANGLES for pre in ("theta0", "delta_theta_star", "a")),
+        "cos_phi3_star_coax", "a_coax_3p", "cos_phi4_star_coax", "a_coax_4p",
+    )
+    dependent_params = (
+        "b_low_coax", "dr_c_low_coax", "b_high_coax", "dr_c_high_coax",
+        *(f for k in _COAX_ANGLES for f in (f"b_coax_{k}", f"delta_theta_coax_{k}_c")),
+        "b_cos_phi3_coax", "cos_phi3_c_coax", "b_cos_phi4_coax", "cos_phi4_c_coax",
+    )
+
+    def derive(self) -> dict:
+        b_low, dr_c_low, b_high, dr_c_high = sm.get_f2_smoothing_params(
+            self.dr0_coax, self.dr_c_coax, self.dr_low_coax, self.dr_high_coax
+        )
+        out = {
+            "b_low_coax": b_low, "dr_c_low_coax": dr_c_low,
+            "b_high_coax": b_high, "dr_c_high_coax": dr_c_high,
+        }
+        for k in _COAX_ANGLES:
+            b, dth_c = sm.get_f4_smoothing_params(
+                getattr(self, f"a_coax_{k}"), getattr(self, f"theta0_coax_{k}"),
+                getattr(self, f"delta_theta_star_coax_{k}"),
+            )
+            out[f"b_coax_{k}"], out[f"delta_theta_coax_{k}_c"] = b, dth_c
+        for k in (3, 4):
+            b, c = sm.get_f5_smoothing_params(getattr(self, f"a_coax_{k}p"), getattr(self, f"cos_phi{k}_star_coax"))
+            out[f"b_cos_phi{k}_coax"], out[f"cos_phi{k}_c_coax"] = b, c
+        return out
+
+
+def coax_product(p, g: geom.CoaxGeometry):
+    """oxDNA1 coaxial stacking of one pair (``g`` with its phi cosines)."""
+    f2_r = bf.f2(
+        torch.clamp(g.r_stack, min=1e-8), r_low=p.dr_low_coax, r_high=p.dr_high_coax,
+        r_c_low=p.dr_c_low_coax, r_c_high=p.dr_c_high_coax, k=p.k_coax,
+        r0=p.dr0_coax, r_c=p.dr_c_coax, b_low=p.b_low_coax, b_high=p.b_high_coax,
+    )
+
+    def sym(k, t, period=math.pi):
+        return f4_of(p, "coax", k, t) + f4_of(p, "coax", k, period - t)
+
+    return (
+        f2_r
+        * f4_of(p, "coax", 4, g.theta4)
+        * sym(1, g.theta1, 2.0 * math.pi)
+        * sym(5, g.theta5)
+        * sym(6, g.theta6)
+        * bf.f5(g.cosphi3, p.cos_phi3_star_coax, p.cos_phi3_c_coax, p.a_coax_3p, p.b_cos_phi3_coax)
+        * bf.f5(g.cosphi4, p.cos_phi4_star_coax, p.cos_phi4_c_coax, p.a_coax_4p, p.b_cos_phi4_coax)
+    )
+
+
+class CoaxialStacking(_UnbondedPairs):
+    """oxDNA1 coaxial stacking over unbonded pairs (oxRNA2 composes it)."""
+
+    def compute_energy(self, nuc) -> torch.Tensor:
+        i, j = self.pairs()
+        g = geom.coax_geometry_vec(
+            geom.gather(nuc.stack, i), geom.gather(nuc.stack, j),
+            geom.gather(nuc.a1, i), geom.gather(nuc.a1, j),
+            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
+            back_i=geom.gather(nuc.back, i), back_j=geom.gather(nuc.back, j),
+        )
+        return coax_product(self.params, g).sum()

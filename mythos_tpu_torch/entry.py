@@ -1,18 +1,20 @@
 """User entry point: build the simulator of a ported tier.
 
-Counterpart of ``__graft_entry__._build_sim`` for ``model="dna2"``, rigid-
-body BAOAB with dt 5e-3, mass 1, inertia 1 and friction gamma = (kT/2.5,
-kT/7.5):
+Counterpart of ``__graft_entry__._build_sim`` for ``model="dna2"`` and
+``model="rna2"``, rigid-body BAOAB with dt 5e-3, mass 1, inertia 1 and
+friction gamma = (kT/2.5, kT/7.5):
 
 * ``mode="stencil"`` -- the configuration ``bench.py`` runs by default: the
   banded stencil over the strand-interleave slot order, a site-mode band
-  sized from the initial conformation (kernels K1, K2);
-* ``mode="block"`` -- the block tier for general conformations: a
-  symmetric two-level (tight, wide) block-neighbor table over the same
+  sized from the initial conformation (kernels K1, K2). Under rna2 the
+  band takes the A-form slacks and far slack, and ``site_margin`` 2;
+* ``mode="block"`` -- the block tier for general conformations (dna2 only):
+  a symmetric two-level (tight, wide) block-neighbor table over the same
   slot order, rebuilt every ``neighbor_update_every`` steps (kernel K3).
 
-Other modes and models are not ported yet and raise. Everything runs on
-the card unless ``device="cpu"`` asks for the plain versions.
+Other modes and models, and the rna2 block tier, are not ported yet and
+raise. Everything runs on the card unless ``device="cpu"`` asks for the
+plain versions.
 
 Example (one H100)::
 
@@ -21,6 +23,11 @@ Example (one H100)::
                                init_orientation=body.orientation)
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = sim.run(energy_fn.opt_params(), body, 2000, gen)
+
+    # oxRNA2 starts from the A-form helix
+    topology, body = synthetic_duplex(5000, form="A", dtype=torch.float32)
+    energy_fn, sim = build_sim(topology, kT, model="rna2", init_centers=body.center,
+                               init_orientation=body.orientation)
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from __future__ import annotations
 import torch
 
 import mythos_tpu_torch.energy.dna2 as dna2
+import mythos_tpu_torch.energy.rna2 as rna2
 from mythos_tpu_torch.simulators.cuda import BlockSimulator, CudaSimulator
 from mythos_tpu_torch.simulators.neighbors import (
     block_neighbor_list_for_topology,
@@ -45,7 +53,7 @@ def build_sim(
     neighbor_update_every: int = 40,
     init_centers=None,
     init_orientation=None,
-    site_margin: int = 1,
+    site_margin: int | None = None,
     block_size: int = 8,
     device: torch.device | str = "cuda",
 ):
@@ -53,11 +61,15 @@ def build_sim(
     the reference's ``_build_sim`` arguments less ``checkpoint_every`` and
     ``dr_threshold`` (the block tables' skin is the reference's default
     0.5; the site-mode stencil band reads none), plus ``device``.
-    ``block_size`` sizes the block tier's tables."""
-    if mode not in ("stencil", "block") or model != "dna2":
-        raise NotImplementedError(f"mode={mode!r}, model={model!r} is not ported yet (stencil or block, dna2)")
+    ``block_size`` sizes the block tier's tables; ``site_margin`` defaults
+    to 2 under rna2, else 1."""
+    if (mode, model) not in (("stencil", "dna2"), ("block", "dna2"), ("stencil", "rna2")):
+        raise NotImplementedError(
+            f"mode={mode!r}, model={model!r} is not ported yet (stencil dna2 or rna2, block dna2)"
+        )
     device = devices.resolve(device)
-    energy_fn = dna2.create_default_energy_fn(topology, dtype=torch.float32, device=device)
+    pkg = rna2 if model == "rna2" else dna2
+    energy_fn = pkg.create_default_energy_fn(topology, dtype=torch.float32, device=device)
     dynamics = dict(
         dt=5e-3, kT=float(kT), mass=1.0, inertia=(1.0, 1.0, 1.0), gamma_t=float(kT) / 2.5, gamma_r=float(kT) / 7.5,
         save_every=neighbor_update_every, neighbor_update_every=neighbor_update_every,
@@ -76,12 +88,15 @@ def build_sim(
         return energy_fn, BlockSimulator(energy_fn=energy_fn, neighbors=neighbors, **dynamics)
     if init_centers is None or init_orientation is None:
         raise ValueError("the site-mode stencil band is sized from init_centers and init_orientation")
+    aform = model == "rna2"
     band = stencil_band_for_site_cutoffs(
         topology,
-        dna2.per_term_site_cutoffs(),
+        pkg.per_term_site_cutoffs(),
         init_centers=init_centers,
         init_orientation=init_orientation,
         perm=strand_interleave_perm(topology),
-        site_margin=site_margin,
+        site_margin=site_margin if site_margin is not None else (2 if aform else 1),
+        fam_slack_overrides=rna2.aform_site_slacks() if aform else None,
+        far_slack=rna2.aform_far_slack() if aform else None,
     )
     return energy_fn, CudaSimulator(energy_fn=energy_fn, band=band, **dynamics)

@@ -2,7 +2,9 @@
 
 Counterpart of mythos_tpu/io/synthetic.py: the same ideal B-/A-form duplex,
 optionally bent along a circular arc, built in numpy (float64) and returned
-as a torch ``RigidBody``.
+as a torch ``RigidBody``; and ``coax_engaged``, which places pairs of a
+state coaxially stacked (an oxRNA2 term that is zero in a duplex) for the
+checks of that term.
 """
 
 from __future__ import annotations
@@ -104,3 +106,49 @@ def synthetic_duplex(
         orientation=torch.as_tensor(quats, dtype=dtype, device=device),
     )
     return topology, body
+
+
+def coax_engaged(com: np.ndarray, quat: np.ndarray, pairs, seed: int, tries: int = 2000):
+    """Copies of (N, 3) centers and (N, 4) quaternions (float64) with body j
+    of each pair (i, j) moved so that oxRNA2's (oxDNA1's) coaxial stacking
+    of the pair engages -- zero in an ideal duplex, whose stacked bases are
+    bonded neighbours. j's frame is i's turned 0.4-0.7 rad about a tilted
+    a3 (theta1 near theta0_coax_1, theta4 small), its stacking site
+    0.46-0.54 from i's at 0.5-0.9 rad (or its supplement) from a3_i; of
+    ``tries`` such random placements (numpy Generator ``seed``) the one of
+    the most negative pair energy is kept. Other terms of j are not
+    minded: it may clash with its neighbours."""
+    import mythos_tpu_torch.energy.rna2 as rna2
+    from mythos_tpu_torch.energy.dna1 import geometry as geom
+    from mythos_tpu_torch.energy.dna1.terms import coax_product
+    from mythos_tpu_torch.simulators.neighbors import _np_frames
+
+    rng = np.random.default_rng(seed)
+    p = rna2.default_energy_configs(dtype=torch.float64)[6].init_params()
+    sto = rna2.geometry()["com_to_stacking"]
+    transform = rna2.default_transform_soa_fn()
+    com, quat = np.array(com, np.float64), np.array(quat, np.float64)
+    m = tries
+    for i, j in pairs:
+        a1i, _, a3i = (a[0] for a in _np_frames(quat[i : i + 1]))
+        ang = rng.uniform(0.4, 0.7, m)
+        axis = a3i + 0.15 * rng.standard_normal((m, 3))
+        axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+        w1, x1, y1, z1 = np.cos(ang / 2), *(np.sin(ang / 2)[:, None] * axis).T
+        w2, x2, y2, z2 = quat[i]
+        qj = np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2, w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                       w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2, w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], 1)
+        th = rng.uniform(0.5, 0.9, m) * rng.choice([1.0, -1.0], m)
+        perp = np.cross(a3i, rng.standard_normal((m, 3)))
+        perp /= np.linalg.norm(perp, axis=1, keepdims=True)
+        u = (np.cos(np.abs(th)) * np.sign(th))[:, None] * a3i + np.sin(np.abs(th))[:, None] * perp
+        a1j, _, _ = _np_frames(qj)
+        cj = com[i] + sto * a1i + rng.uniform(0.46, 0.54, m)[:, None] * u - sto * a1j
+        t = torch.as_tensor
+        ni = transform(RigidBody(t(np.repeat(com[i][None], m, 0)), t(np.repeat(quat[i][None], m, 0))))
+        nj = transform(RigidBody(t(cj), t(qj)))
+        v = coax_product(p, geom.coax_geometry_vec(ni.stack, nj.stack, ni.a1, nj.a1, ni.a3, nj.a3,
+                                                   back_i=ni.back, back_j=nj.back))
+        k = int(torch.argmin(v))
+        com[j], quat[j] = cj[k], qj[k]
+    return com, quat

@@ -52,6 +52,9 @@ SIGNATURES = {
     "lj_energy": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
     "lj_grads": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
 }
+# the oxRNA2 instances of K2 and K1 take the same arguments
+SIGNATURES["stencil_field_grads_rna2"] = SIGNATURES["stencil_field_grads"]
+SIGNATURES["multistep_chunk_rna2"] = SIGNATURES["multistep_chunk"]
 
 
 def _sources() -> list[Path]:

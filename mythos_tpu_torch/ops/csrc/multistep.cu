@@ -1,6 +1,8 @@
-// K1: one chunk of n_inner rigid-body BAOAB Langevin steps of the oxDNA2
-// stencil (unbonded band + bonded terms at slot offset 2), plus the exact
-// in-band site checks at the chunk's entry positions.
+// K1: one chunk of n_inner rigid-body BAOAB Langevin steps of the oxDNA2 or
+// oxRNA2 stencil (unbonded band + bonded terms at slot offset 2), plus the
+// exact in-band site checks at the chunk's entry positions. One instance per
+// model family (template parameter kFam; multistep_chunk and
+// multistep_chunk_rna2): the oxDNA2 instance compiles none of oxRNA2's code.
 //
 // Replaces mythos_tpu/ops/stencil.py::_multistep_chunk_l (Pallas body
 // _make_multistep_kernel). Plain twin: ops/stencil.py::multistep_chunk_plain.
@@ -36,6 +38,11 @@
 //     same launch writes step s + 1's. The first launch runs the entry site
 //     checks (one thread per slot) and step 0's B-A-O-A. So n_inner + 1
 //     launches per chunk; the host never synchronises inside a chunk.
+//   * The oxRNA2 instance (kFam = FAM_RNA2) has the same layout; its band is
+//     wider (w_terms (21, 17, 17, 15), w_wide 25 at 10k nt), so warp 0 takes
+//     offsets 1, 9, 17 and 25 and the other warps three, most of them full
+//     physics, and its bond is bonded_pair_rna2. 128 registers, 780 B of
+//     spill stores (the oxDNA2 instance: 772 B).
 //   * Registers: __launch_bounds__(256, 2) keeps two blocks (16 warps) on an
 //     SM, which caps a thread at 128 registers; each lane reads both bodies
 //     of a pair anew (L1 hits) rather than keep its own slot's body live.
@@ -52,18 +59,20 @@
 
 // site checks at the entry positions into row 19, then step 0's B-A-O-A
 // (noise0 null when the chunk has no steps)
+template <int kFam>
 __global__ void k1_entry_kernel(const float* __restrict__ P, const int* __restrict__ partners,
                                 const float* __restrict__ checks, int n_checks, int check_dm,
                                 const float* __restrict__ ou, const uint16_t* __restrict__ noise0, int n,
                                 float* __restrict__ st, float* __restrict__ alt) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  st[19 * n + t] = slot_violations(t, n, P, st, partners, checks, n_checks, check_dm);
+  st[19 * n + t] = slot_violations<kFam>(t, n, P, st, partners, checks, n_checks, check_dm);
   if (noise0) k1_first_baoa(t, n, ou, noise0, st, alt);
 }
 
 // one step: the force refresh at the positions in cur, the closing half
 // kick, and the next step's B-A-O-A into nxt (k1_finish)
+template <int kFam>
 __global__ void __launch_bounds__(K1_WARPS * 32, 2)
     k1_step_kernel(const float* __restrict__ P, const float* __restrict__ ou, const int* __restrict__ seq,
                    const int* __restrict__ partners, const float* __restrict__ qf, const float* __restrict__ wstack,
@@ -78,7 +87,8 @@ __global__ void __launch_bounds__(K1_WARPS * 32, 2)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t0 = blockIdx.x * K1_SLOTS;
   const int w[4] = {w0, w1, w2, w3};
-  Grad g = k1_lane_grad(t0 + (lane & 15), lane >= 16, warp, s_P, cur, seq, partners, qf, wstack, dirf, n, w, w_wide);
+  Grad g = k1_lane_grad<kFam>(t0 + (lane & 15), lane >= 16, warp, s_P, cur, seq, partners, qf, wstack, dirf, n, w,
+                              w_wide);
   k1_store(g, threadIdx.x, s_red);
   __syncthreads();
   if (threadIdx.x < 12 * K1_SLOTS) {
@@ -97,14 +107,15 @@ __global__ void __launch_bounds__(K1_WARPS * 32, 2)
 }
 
 // state: (20, n), rows 0-18 in, all 20 out; alt: (7, n) scratch
-extern "C" int multistep_chunk(const float* params, const int* seq, const int* partners, const float* qf, int n,
-                               int w0, int w1, int w2, int w3, int w_wide, const float* wstack, const float* dirf,
-                               const float* checks, int n_checks, int check_dm, const float* ou,
-                               const uint16_t* noise, int n_inner, float* state, float* alt, void* stream) {
+template <int kFam>
+static int launch_chunk(const float* params, const int* seq, const int* partners, const float* qf, int n, int w0,
+                        int w1, int w2, int w3, int w_wide, const float* wstack, const float* dirf, const float* checks,
+                        int n_checks, int check_dm, const float* ou, const uint16_t* noise, int n_inner, float* state,
+                        float* alt, void* stream) {
   if (n < 1 || n_inner < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  k1_entry_kernel<<<(n + 127) / 128, 128, 0, s>>>(params, partners, checks, n_checks, check_dm, ou,
-                                                   n_inner > 0 ? noise : nullptr, n, state, alt);
+  k1_entry_kernel<kFam><<<(n + 127) / 128, 128, 0, s>>>(params, partners, checks, n_checks, check_dm, ou,
+                                                         n_inner > 0 ? noise : nullptr, n, state, alt);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const int grid = (n + K1_SLOTS - 1) / K1_SLOTS;
@@ -115,10 +126,26 @@ extern "C" int multistep_chunk(const float* params, const int* seq, const int* p
     const bool last = step + 1 == n_inner;
     const uint16_t* noise_next = last ? nullptr : noise + (size_t)(step + 1) * 6 * n;
     float* nxt = last ? (cur == state ? nullptr : state) : other;
-    k1_step_kernel<<<grid, K1_WARPS * 32, 0, s>>>(params, ou, seq, partners, qf, wstack, dirf, n, w0, w1, w2, w3,
-                                                  w_wide, noise_next, cur, nxt, state);
+    k1_step_kernel<kFam><<<grid, K1_WARPS * 32, 0, s>>>(params, ou, seq, partners, qf, wstack, dirf, n, w0, w1, w2,
+                                                        w3, w_wide, noise_next, cur, nxt, state);
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
   return 0;
+}
+
+extern "C" int multistep_chunk(const float* params, const int* seq, const int* partners, const float* qf, int n,
+                               int w0, int w1, int w2, int w3, int w_wide, const float* wstack, const float* dirf,
+                               const float* checks, int n_checks, int check_dm, const float* ou,
+                               const uint16_t* noise, int n_inner, float* state, float* alt, void* stream) {
+  return launch_chunk<FAM_DNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, wstack, dirf, checks, n_checks,
+                                check_dm, ou, noise, n_inner, state, alt, stream);
+}
+
+extern "C" int multistep_chunk_rna2(const float* params, const int* seq, const int* partners, const float* qf, int n,
+                                    int w0, int w1, int w2, int w3, int w_wide, const float* wstack, const float* dirf,
+                                    const float* checks, int n_checks, int check_dm, const float* ou,
+                                    const uint16_t* noise, int n_inner, float* state, float* alt, void* stream) {
+  return launch_chunk<FAM_RNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, wstack, dirf, checks, n_checks,
+                                check_dm, ou, noise, n_inner, state, alt, stream);
 }

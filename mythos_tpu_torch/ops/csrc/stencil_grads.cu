@@ -1,5 +1,7 @@
-// K2: one unbonded band evaluation of the oxDNA2 stencil -- (7, n) com +
-// quaternion in, (7, n) dE/dcom + dE/dquat out.
+// K2: one unbonded band evaluation of the oxDNA2 or oxRNA2 stencil -- (7, n)
+// com + quaternion in, (7, n) dE/dcom + dE/dquat out. One instance per model
+// family (template parameter kFam; stencil_field_grads and
+// stencil_field_grads_rna2).
 //
 // Replaces mythos_tpu/ops/stencil.py::_kernel_field_grads (Pallas body
 // _make_stencil_kernel). Plain twin: ops/stencil.py::field_grads_plain.
@@ -35,6 +37,7 @@
 
 #include "stencil_physics.cuh"
 
+template <int kFam>
 __global__ void stencil_field_grads_kernel(const float* __restrict__ P, const int* __restrict__ seq,
                                            const int* __restrict__ partners, const float* __restrict__ qf, int n,
                                            int w0, int w1, int w2, int w3, int w_wide,
@@ -42,7 +45,7 @@ __global__ void stencil_field_grads_kernel(const float* __restrict__ P, const in
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
   const int w[4] = {w0, w1, w2, w3};
-  Grad g = slot_unbonded_grad(t, P, dyn, seq, partners, qf, n, w, w_wide);
+  Grad g = slot_unbonded_grad<kFam>(t, P, dyn, seq, partners, qf, n, w, w_wide);
   float q[4] = {dyn[3 * n + t], dyn[4 * n + t], dyn[5 * n + t], dyn[6 * n + t]};
   float gq[4];
   frame_vjp(q, g, gq);
@@ -52,12 +55,24 @@ __global__ void stencil_field_grads_kernel(const float* __restrict__ P, const in
   for (int k = 0; k < 4; ++k) out[(3 + k) * n + t] = gq[k];
 }
 
+template <int kFam>
+static int launch_field_grads(const float* params, const int* seq, const int* partners, const float* qf, int n,
+                              int w0, int w1, int w2, int w3, int w_wide, const float* dyn, float* out, void* stream) {
+  const int block = 64;
+  int grid = (n + block - 1) / block;
+  stencil_field_grads_kernel<kFam><<<grid, block, 0, (cudaStream_t)stream>>>(params, seq, partners, qf, n, w0, w1,
+                                                                             w2, w3, w_wide, dyn, out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int stencil_field_grads(const float* params, const int* seq, const int* partners, const float* qf,
                                    int n, int w0, int w1, int w2, int w3, int w_wide, const float* dyn, float* out,
                                    void* stream) {
-  const int block = 64;
-  int grid = (n + block - 1) / block;
-  stencil_field_grads_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(params, seq, partners, qf, n, w0, w1, w2, w3,
-                                                                       w_wide, dyn, out);
-  return (int)cudaGetLastError();
+  return launch_field_grads<FAM_DNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, stream);
+}
+
+extern "C" int stencil_field_grads_rna2(const float* params, const int* seq, const int* partners, const float* qf,
+                                        int n, int w0, int w1, int w2, int w3, int w_wide, const float* dyn,
+                                        float* out, void* stream) {
+  return launch_field_grads<FAM_RNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, stream);
 }

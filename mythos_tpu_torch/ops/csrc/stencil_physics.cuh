@@ -1,5 +1,5 @@
-// oxDNA2 pair physics shared by the stencil kernels K1/K2 and the tile
-// kernels K3/K4/K5.
+// oxDNA2 and oxRNA2 pair physics shared by the stencil kernels K1/K2 and
+// the tile kernels K3/K4/K5 (oxDNA2 only).
 //
 // The slot_* functions are written for ONE slot t and read the positions of
 // its band neighbours from global memory (K2 is one thread per slot); the
@@ -19,6 +19,16 @@
 // to (com, a1, a2, a3), and the frame cotangent to d/dquat (frame_vjp) and
 // to the body torque (torque_of). The plain PyTorch twins in ops/stencil.py
 // get the same gradients from torch.autograd, an independent check.
+//
+// Model family: the stencil functions take it as a template parameter
+// kFam (FAM_DNA2, FAM_RNA2), so each kernel compiles one instance per
+// family and the oxDNA2 instance carries none of oxRNA2's code. oxRNA2's
+// backbone site spans (a1, a3) (GEOM's second offset is its a3
+// coefficient), its cross stacking has no theta4, its coaxial stacking is
+// oxDNA1's (f4(theta1) + f4(2 pi - theta1), and f5 of cos phi3 and cos
+// phi4 on the backbone sites), and its bonded stacking runs from the
+// 3'-side's stack5 site to the 5'-side's stack3 site, with theta9/theta10
+// on the p3/p5 axes (bonded_pair_rna2).
 //
 // Positions: `pos` holds the rows com.x, com.y, com.z, q.w, q.x, q.y, q.z
 // of n slots each (row stride n), as the (7, n) K2 input or the first 7
@@ -50,9 +60,15 @@
 #define P_FENE 147   // eps, r0, delta, fmax, finf
 #define P_BEXC 152   // eps_exc; f3 x3: base, back_base, base_back
 #define P_STACK 165  // f1; f4 x3: angles 4, 5, 6; f5 cosphi1 at +24, cosphi2 at +28
-#define P_GEOM 197   // back a1, back a2, base a1, stack a1, dna1 back a1 offsets
+#define P_GEOM 197   // back a1, back a2 (rna2: a3), base a1, stack a1, dna1 back a1 offsets
 #define P_GT 202     // term weights: exc, hb, cross, coax, debye, fene, bexc, stack
-#define P_TOTAL 210
+#define P_COAXPHI 210  // oxRNA2 (dna1 coax): f5 x2: cos phi3, cos phi4
+#define P_STACKR 218   // oxRNA2 stacking: f4 x2: angles 9, 10
+#define P_RSITES 228   // oxRNA2: stack3 (a1, a2), stack5 (a1, a2), p3 (a1, a2, a3), p5 (a1, a2, a3)
+#define P_TOTAL 238
+
+#define FAM_DNA2 0
+#define FAM_RNA2 1
 
 #define PI_F 3.14159265358979323846f
 
@@ -78,6 +94,7 @@ HD float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 HD float norm(V3 a) { return sqrtf(dot(a, a) + 1e-18f); }
 HD V3 zero3() { return v3(0.f, 0.f, 0.f); }
 HD V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
+HD V3 cross(V3 a, V3 b) { return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x); }
 
 // value and derivative of a scalar function
 struct VD {
@@ -107,6 +124,13 @@ HD Grad zero_grad() {
   return g;
 }
 
+HD void operator+=(Grad& a, const Grad& b) {
+  a.com += b.com;
+  a.a1 += b.a1;
+  a.a2 += b.a2;
+  a.a3 += b.a3;
+}
+
 HD Body body_at(const float* pos, int n, int i) {
   Body b;
   b.com = v3(pos[i], pos[n + i], pos[2 * n + i]);
@@ -121,6 +145,13 @@ HD Body body_at(const float* pos, int n, int i) {
   b.a2 = v3(2.f * (q12 - q03), q00 - q11 + q22 - q33, 2.f * (q23 + q01));
   b.a3 = v3(2.f * (q13 + q02), 2.f * (q23 - q01), q00 - q11 - q22 + q33);
   return b;
+}
+
+// the backbone site of the family: com + bx a1 + by a2 (dna2) or + by a3 (rna2)
+template <int kFam>
+HD V3 back_site(float bx, float by, const Body& b) {
+  if constexpr (kFam == FAM_RNA2) return b.com + bx * b.a1 + by * b.a3;
+  return b.com + bx * b.a1 + by * b.a2;
 }
 
 // Abramowitz & Stegun 4.4.45 polynomial arccos, clamped 8 ulps inside
@@ -305,6 +336,7 @@ struct PairSites {
   V3 a1_i, a1_j, a2_i, a2_j, a3_i, a3_j;
 };
 
+template <int kFam>
 HD void add_side(const float* P, const PairSites& g, bool side_j, Grad& acc) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3], bd1 = P[P_GEOM + 4];
   V3 back = side_j ? g.back_j : g.back_i;
@@ -313,8 +345,13 @@ HD void add_side(const float* P, const PairSites& g, bool side_j, Grad& acc) {
   V3 dna1 = side_j ? g.dna1_j : g.dna1_i;
   acc.com += back + base + stack + dna1;
   acc.a1 += bx * back + hbo * base + sto * stack + bd1 * dna1 + (side_j ? g.a1_j : g.a1_i);
-  acc.a2 += by * back + (side_j ? g.a2_j : g.a2_i);
-  acc.a3 += side_j ? g.a3_j : g.a3_i;
+  if constexpr (kFam == FAM_RNA2) {
+    acc.a2 += side_j ? g.a2_j : g.a2_i;
+    acc.a3 += by * back + (side_j ? g.a3_j : g.a3_i);
+  } else {
+    acc.a2 += by * back + (side_j ? g.a2_j : g.a2_i);
+    acc.a3 += side_j ? g.a3_j : g.a3_i;
+  }
 }
 
 HD PairSites zero_sites() {
@@ -358,18 +395,19 @@ HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
 }
 
 // Unbonded pair: gradient of the weighted excluded volume, HB, cross
-// stacking, coax and Debye energies. kGated: each term (each excluded-volume
-// distance) only where its `reach` bit is set; else, for the band pair
-// (i, j = i + d), each term only within its offset reach (w[0..3] for exc,
-// hb, cross, coax; Debye out to w_wide). Adds body i's (side_j false) or
-// body j's (side_j true) share to `acc`; where `hb` is given and the HB term
-// ran, sets *hb to its weight-free product f1(r) * prod f4.
-template <bool kGated>
+// stacking, coax and Debye energies of family kFam. kGated (oxDNA2 only):
+// each term (each excluded-volume distance) only where its `reach` bit is
+// set; else, for the band pair (i, j = i + d), each term only within its
+// offset reach (w[0..3] for exc, hb, cross, coax; Debye out to w_wide). Adds
+// body i's (side_j false) or body j's (side_j true) share to `acc`; where
+// `hb` is given and the HB term ran, sets *hb to its weight-free product
+// f1(r) * prod f4.
+template <bool kGated, int kFam = FAM_DNA2>
 HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int d,
                             const int* w, int w_wide, int reach, bool side_j, Grad& acc, float* hb = nullptr) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
   PairSites g = zero_sites();
-  V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
+  V3 back_i = back_site<kFam>(bx, by, bi), back_j = back_site<kFam>(bx, by, bj);
   V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
 
   V3 v_bb = back_j - back_i;
@@ -426,6 +464,9 @@ HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, floa
       dF[0] = rfloor ? 0.f : fr.d;
       for (int k = 0; k < 6; ++k) {
         VD f = k < 3 ? f4(th[k].v, P + P_CROSS + 9 + 5 * k) : f4_sym(th[k].v, P + P_CROSS + 9 + 5 * k);
+        if constexpr (kFam == FAM_RNA2) {
+          if (k == 3) f = vd(1.f, 0.f);  // no theta4
+        }
         F[k + 1] = f.v;
         dF[k + 1] = f.d * th[k].d;
       }
@@ -456,31 +497,62 @@ HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, floa
     bool rfloor = r < 1e-8f;
     VD fr = f2(rfloor ? 1e-8f : r, C);
     VD m4 = f4(t4.v, C + 9);
-    VD m1 = f4(t1.v, C + 14), m6 = f6(t1.v, C[29], C[30]);
-    VD m5 = f4_sym(t5.v, C + 19), m6s = f4_sym(t6.v, C + 24);
-    float F[5] = {fr.v, m4.v, m1.v + m6.v, m5.v, m6s.v}, O[5];
-    prod_others<5>(F, O);
-    float s = P[P_GT + 3];
-    float g_r = rfloor ? 0.f : s * fr.d * O[0];
-    float g4 = s * m4.d * t4.d * O[1];
-    float g1 = s * (m1.d + m6.d) * t1.d * O[2];
-    float g5 = s * m5.d * t5.d * O[3];
-    float g6 = s * m6s.d * t6.d * O[4];
-    g.a1_i += -g1 * bj.a1;
-    g.a1_j += -g1 * bi.a1;
-    g.a3_i += g4 * bj.a3 + g5 * u;
-    g.a3_j += g4 * bi.a3 - g6 * u;
-    V3 gv = unit_vjp(g5 * bi.a3 - g6 * bj.a3, u, r) + g_r * u;
-    g.stack_j += gv;
-    g.stack_i -= gv;
+    if constexpr (kFam == FAM_RNA2) {
+      // oxDNA1: f4(theta1) + f4(2 pi - theta1), and f5 of cos phi3 = u . (ub x a1_j)
+      // and cos phi4 = u . (ub x a1_i), ub the unit backbone separation
+      VD m1a = f4(t1.v, C + 14), m1b = f4(2.f * PI_F - t1.v, C + 14);
+      VD m5 = f4_sym(t5.v, C + 19), m6s = f4_sym(t6.v, C + 24);
+      V3 ub = v_bb * (1.f / r_bb);
+      V3 w3 = cross(ub, bj.a1), w4 = cross(ub, bi.a1);
+      VD q3 = f5(dot(u, w3), P + P_COAXPHI), q4 = f5(dot(u, w4), P + P_COAXPHI + 4);
+      float F[7] = {fr.v, m4.v, m1a.v + m1b.v, m5.v, m6s.v, q3.v, q4.v}, O[7];
+      prod_others<7>(F, O);
+      float s = P[P_GT + 3];
+      float g_r = rfloor ? 0.f : s * fr.d * O[0];
+      float g4 = s * m4.d * t4.d * O[1];
+      float g1 = s * (m1a.d - m1b.d) * t1.d * O[2];
+      float g5 = s * m5.d * t5.d * O[3];
+      float g6 = s * m6s.d * t6.d * O[4];
+      float gq3 = s * q3.d * O[5], gq4 = s * q4.d * O[6];
+      V3 uxb = cross(u, ub);  // d cos phi3 / d a1_j = d cos phi4 / d a1_i
+      g.a1_i += -g1 * bj.a1 + gq4 * uxb;
+      g.a1_j += -g1 * bi.a1 + gq3 * uxb;
+      g.a3_i += g4 * bj.a3 + g5 * u;
+      g.a3_j += g4 * bi.a3 - g6 * u;
+      V3 gv = unit_vjp(g5 * bi.a3 - g6 * bj.a3 + gq3 * w3 + gq4 * w4, u, r) + g_r * u;
+      g.stack_j += gv;
+      g.stack_i -= gv;
+      V3 gb = unit_vjp(gq3 * cross(bj.a1, u) + gq4 * cross(bi.a1, u), ub, r_bb);
+      g.back_j += gb;
+      g.back_i -= gb;
+    } else {
+      VD m1 = f4(t1.v, C + 14), m6 = f6(t1.v, C[29], C[30]);
+      VD m5 = f4_sym(t5.v, C + 19), m6s = f4_sym(t6.v, C + 24);
+      float F[5] = {fr.v, m4.v, m1.v + m6.v, m5.v, m6s.v}, O[5];
+      prod_others<5>(F, O);
+      float s = P[P_GT + 3];
+      float g_r = rfloor ? 0.f : s * fr.d * O[0];
+      float g4 = s * m4.d * t4.d * O[1];
+      float g1 = s * (m1.d + m6.d) * t1.d * O[2];
+      float g5 = s * m5.d * t5.d * O[3];
+      float g6 = s * m6s.d * t6.d * O[4];
+      g.a1_i += -g1 * bj.a1;
+      g.a1_j += -g1 * bi.a1;
+      g.a3_i += g4 * bj.a3 + g5 * u;
+      g.a3_j += g4 * bi.a3 - g6 * u;
+      V3 gv = unit_vjp(g5 * bi.a3 - g6 * bj.a3, u, r) + g_r * u;
+      g.stack_j += gv;
+      g.stack_i -= gv;
+    }
   }
-  add_side(P, g, side_j, acc);
+  add_side<kFam>(P, g, side_j, acc);
 }
 
 // The band's pair (i, j = i + d), each term within its offset reach (K1, K2).
+template <int kFam>
 HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int d, const int* w,
                       int w_wide, bool side_j, Grad& acc) {
-  unbonded_pair_terms<false>(P, bi, bj, w_hb, qq, d, w, w_wide, 0, side_j, acc);
+  unbonded_pair_terms<false, kFam>(P, bi, bj, w_hb, qq, d, w, w_wide, 0, side_j, acc);
 }
 
 // Body i's share of pair (i, j), each term only where its `reach` bit is set
@@ -615,12 +687,89 @@ HD void bonded_pair(const float* P, const Body& bi, const Body& bj, float dirf, 
     g.a2_j += ga2_3;
     g.a2_i += ga2_5;
   }
-  add_side(P, g, side_j, acc);
+  add_side<FAM_DNA2>(P, g, side_j, acc);
+}
+
+// oxRNA2 bonded pair (i, j = i + 2), dirf as bonded_pair: FENE and bonded
+// excluded volume on the (a1, a3) backbone site, and oxRNA2 stacking
+// (ops/stencil.py::bonded_energy): f1 of the distance from the 3'-side's
+// stack5 site to the 5'-side's stack3 site, theta5/theta6 of the 5'/3'
+// base normals against it, theta9/theta10 of the 5'-side's p3 and the
+// 3'-side's p5 axis against the unit backbone separation ub (3'-side minus
+// 5'-side), and f5 of each side's a2 . ub. Adds one body's share to `acc`.
+HD void bonded_pair_rna2(const float* P, const Body& bi, const Body& bj, float dirf, float wstack, bool side_j,
+                         Grad& acc) {
+  float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2];
+  const float* R = P + P_RSITES;
+  bool pos = dirf > 0.f;
+  PairSites g = zero_sites();
+  V3 back_i = back_site<FAM_RNA2>(bx, by, bi), back_j = back_site<FAM_RNA2>(bx, by, bj);
+  V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
+
+  // FENE
+  V3 v = back_j - back_i;
+  float r = norm(v);
+  dist_grad(v, r, P[P_GT + 5] * fene_dr(r, P + P_FENE), g.back_i, g.back_j);
+
+  // bonded excluded volume: base-base, back(3')-base(5'), base(3')-back(5')
+  const float* B = P + P_BEXC;
+  float gx = P[P_GT + 6], eps = B[0];
+  V3 vee = base_j - base_i;
+  float ree = norm(vee);
+  dist_grad(vee, ree, gx * exc_f3(ree, eps, B + 1).d, g.base_i, g.base_j);
+  V3 vu = base_j - back_i, vv = back_j - base_i;
+  float ru = norm(vu), rv = norm(vv);
+  dist_grad(vu, ru, gx * exc_f3(ru, eps, B + (pos ? 5 : 9)).d, g.back_i, g.base_j);
+  dist_grad(vv, rv, gx * exc_f3(rv, eps, B + (pos ? 9 : 5)).d, g.base_i, g.back_j);
+
+  // stacking, on the 3'-side body b3 and the 5'-side body b5
+  const Body& b3 = pos ? bi : bj;
+  const Body& b5 = pos ? bj : bi;
+  const float* S = P + P_STACK;
+  float sgn = pos ? -1.f : 1.f;
+  V3 ubh = v * (1.f / r), ub = sgn * ubh;
+  V3 t_st = (b3.com + R[2] * b3.a1 + R[3] * b3.a2) - (b5.com + R[0] * b5.a1 + R[1] * b5.a2);
+  float r_st = norm(t_st);
+  V3 ust = t_st * (1.f / r_st);
+  V3 p3_5 = R[4] * b5.a1 + R[5] * b5.a2 + R[6] * b5.a3;
+  V3 p5_3 = R[7] * b3.a1 + R[8] * b3.a2 + R[9] * b3.a3;
+  VD t5 = acos_poly(dot(b5.a3, ust)), t6 = acos_poly(dot(b3.a3, ust));
+  t5 = vd(PI_F - t5.v, -t5.d);
+  t6 = vd(PI_F - t6.v, -t6.d);
+  VD t9 = acos_poly(-dot(p3_5, ub)), t10 = acos_poly(-dot(p5_3, ub));
+  VD fr = f1(r_st, S, 1.f), m5 = f4(t5.v, S + 14), m6 = f4(t6.v, S + 19);
+  VD m9 = f4(t9.v, P + P_STACKR), m10 = f4(t10.v, P + P_STACKR + 5);
+  VD q1 = f5(dot(b3.a2, ub), S + 24), q2 = f5(dot(b5.a2, ub), S + 28);  // f5(-cosphi)
+  float F[7] = {fr.v, m5.v, m6.v, m9.v, m10.v, q1.v, q2.v}, O[7];
+  prod_others<7>(F, O);
+  float s = P[P_GT + 7] * wstack;
+  float g_r = s * fr.d * O[0];
+  float g5 = s * m5.d * t5.d * O[1], g6 = s * m6.d * t6.d * O[2];
+  float g9 = s * m9.d * t9.d * O[3], g10 = s * m10.d * t10.d * O[4];
+  float gq1 = s * q1.d * O[5], gq2 = s * q2.d * O[6];
+  V3 gst = unit_vjp(g5 * b5.a3 + g6 * b3.a3, ust, r_st) + g_r * ust;  // d/d t_st
+  V3 gub = -g9 * p3_5 - g10 * p5_3 + gq1 * b3.a2 + gq2 * b5.a2;
+  V3 gbk = sgn * unit_vjp(gub, ubh, r);
+  g.back_j += gbk;
+  g.back_i -= gbk;
+  V3 gp5 = -g10 * ub, gp3 = -g9 * ub;
+  Grad g3, g5b;  // the stacking's share of b3 and b5 beyond their backbone sites
+  g3.com = gst;
+  g3.a1 = R[2] * gst + R[7] * gp5;
+  g3.a2 = R[3] * gst + R[8] * gp5 + gq1 * ub;
+  g3.a3 = g6 * ust + R[9] * gp5;
+  g5b.com = -gst;
+  g5b.a1 = -R[0] * gst + R[4] * gp3;
+  g5b.a2 = -R[1] * gst + R[5] * gp3 + gq2 * ub;
+  g5b.a3 = g5 * ust + R[6] * gp3;
+  add_side<FAM_RNA2>(P, g, side_j, acc);
+  acc += (side_j ? !pos : pos) ? g3 : g5b;
 }
 
 // Gather form of the band: slot t evaluates every pair it belongs to, as
 // the i-side of (t, t+d) and as the j-side of (t-d, t), and keeps only its
 // own share (twice the pair arithmetic, no atomics, no cross-block order).
+template <int kFam>
 HD Grad slot_unbonded_grad(int t, const float* P, const float* pos, const int* seq, const int* partners,
                            const float* qf, int n, const int* w, int w_wide) {
   Grad acc = zero_grad();
@@ -630,12 +779,12 @@ HD Grad slot_unbonded_grad(int t, const float* P, const float* pos, const int* s
     int j = t + d;
     if (j < n && partners[t] != j && partners[n + t] != j) {
       Body bj = body_at(pos, n, j);
-      unbonded_pair(P, bt, bj, W[seq[t] * 4 + seq[j]], qf[t] * qf[j], d, w, w_wide, false, acc);
+      unbonded_pair<kFam>(P, bt, bj, W[seq[t] * 4 + seq[j]], qf[t] * qf[j], d, w, w_wide, false, acc);
     }
     int i = t - d;
     if (i >= 0 && partners[i] != t && partners[n + i] != t) {
       Body bi = body_at(pos, n, i);
-      unbonded_pair(P, bi, bt, W[seq[i] * 4 + seq[t]], qf[i] * qf[t], d, w, w_wide, true, acc);
+      unbonded_pair<kFam>(P, bi, bt, W[seq[i] * 4 + seq[t]], qf[i] * qf[t], d, w, w_wide, true, acc);
     }
   }
   return acc;
@@ -721,6 +870,7 @@ HD float bf16_to_float(uint16_t b) {
 
 // one lane's share of slot t's gradient (gather, as slot_unbonded_grad:
 // the lane keeps its slot's side of each pair it evaluates)
+template <int kFam>
 HD Grad k1_lane_grad(int t, bool side_j, int warp, const float* P, const float* pos, const int* seq,
                      const int* partners, const float* qf, const float* wstack, const float* dirf, int n, const int* w,
                      int w_wide) {
@@ -732,14 +882,18 @@ HD Grad k1_lane_grad(int t, bool side_j, int warp, const float* P, const float* 
   for (int d = warp + 1; d <= w_wide; d += K1_WARPS) {
     int lo = side_j ? t - d : t, hi = lo + d;
     if (lo >= 0 && hi < n && partners[lo] != hi && partners[n + lo] != hi) {
-      unbonded_pair(P, body_at(pos, n, lo), body_at(pos, n, hi), W[seq[lo] * 4 + seq[hi]], qf[lo] * qf[hi], d, w,
-                    w_wide, side_j, acc);
+      unbonded_pair<kFam>(P, body_at(pos, n, lo), body_at(pos, n, hi), W[seq[lo] * 4 + seq[hi]], qf[lo] * qf[hi],
+                          d, w, w_wide, side_j, acc);
     }
   }
   if (warp == K1_WARPS - 1) {
     int lo = side_j ? t - 2 : t, hi = lo + 2;
     if (lo >= 0 && hi < n && dirf[lo] != 0.f) {
-      bonded_pair(P, body_at(pos, n, lo), body_at(pos, n, hi), dirf[lo], wstack[lo], side_j, acc);
+      if constexpr (kFam == FAM_RNA2) {
+        bonded_pair_rna2(P, body_at(pos, n, lo), body_at(pos, n, hi), dirf[lo], wstack[lo], side_j, acc);
+      } else {
+        bonded_pair(P, body_at(pos, n, lo), body_at(pos, n, hi), dirf[lo], wstack[lo], side_j, acc);
+      }
     }
   }
   return acc;
@@ -840,18 +994,20 @@ HD void k1_finish(int t, int n, const Grad& g, const float* ou, const uint16_t* 
 // exact in-band site checks at slot t's current positions: the number of
 // (offset, check) pairs whose site distance is inside the bare cutoff.
 // checks: (n_checks, 5) = fam_a, fam_b (0 back, 1 base, 2 stack), cutoff,
-// d_lo, d_hi; a check covers offsets d_lo < d <= d_hi.
+// d_lo, d_hi; a check covers offsets d_lo < d <= d_hi. The backbone site is
+// the family's.
+template <int kFam>
 HD float slot_violations(int t, int n, const float* P, const float* pos, const int* partners, const float* checks,
                          int n_checks, int check_dm) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
   Body bt = body_at(pos, n, t);
-  V3 st[3] = {bt.com + bx * bt.a1 + by * bt.a2, bt.com + hbo * bt.a1, bt.com + sto * bt.a1};
+  V3 st[3] = {back_site<kFam>(bx, by, bt), bt.com + hbo * bt.a1, bt.com + sto * bt.a1};
   float v = 0.f;
   for (int d = 1; d <= check_dm && t + d < n; ++d) {
     int j = t + d;
     if (partners[t] == j || partners[n + t] == j) continue;
     Body bj = body_at(pos, n, j);
-    V3 sj[3] = {bj.com + bx * bj.a1 + by * bj.a2, bj.com + hbo * bj.a1, bj.com + sto * bj.a1};
+    V3 sj[3] = {back_site<kFam>(bx, by, bj), bj.com + hbo * bj.a1, bj.com + sto * bj.a1};
     for (int c = 0; c < n_checks; ++c) {
       const float* ck = checks + 5 * c;
       if (!((float)d > ck[3] && (float)d <= ck[4])) continue;

@@ -1,4 +1,5 @@
-"""Banded-stencil oxDNA2 physics: host prep, plain twins, kernel wrappers.
+"""Banded-stencil oxDNA2 and oxRNA2 physics: host prep, plain twins, kernel
+wrappers.
 
 Counterpart of mythos_tpu/ops/stencil.py. Slots are the strand-interleave
 order of simulators.neighbors.strand_interleave_perm, in which every
@@ -8,7 +9,19 @@ unbonded terms are evaluated for d = 1..w_wide (each short-range term only
 up to its own reach ``w_terms``; Debye-Hueckel out to ``w_wide``), the
 bonded terms (FENE, bonded excluded volume, stacking) on the (i, i+2) bonds.
 
-Two kernels carry the main path (sources in ``ops/csrc``):
+Two model families share the band (``StencilContext.family``, found from
+the composed energy's term classes as the reference finds its variants):
+
+* ``"dna2"``: dna1 cross stacking, dna2's f4 + f6 coaxial stacking, the
+  backbone site on (a1, a2), dna1 stacking against the dna1-compatible
+  backbone site;
+* ``"rna2"``: rna2 cross stacking (no theta4), dna1's coaxial stacking
+  (f5 of cos phi3 and cos phi4, on the backbone sites), the backbone site
+  on (a1, a3), rna2 stacking on the 3'/5' stacking sites and the p3/p5
+  axes.
+
+Two kernels carry the main path (sources in ``ops/csrc``), each with one
+compiled instance per family:
 
 * K2 :func:`field_grads` -- one unbonded band evaluation, d/dcom and
   d/dquat (replaces ``_kernel_field_grads``; runs once per run for the
@@ -25,7 +38,8 @@ only; on a CUDA tensor it launches its kernel or raises.
 
 Arrays are flat ``(rows, n)`` slot-order tensors. All term parameters ride
 in one flat vector whose layout (:data:`PARAM_GROUPS`) the CUDA header
-``stencil_physics.cuh`` mirrors (``P_*`` offsets).
+``stencil_physics.cuh`` mirrors (``P_*`` offsets); a name the family's
+term does not define packs as 0.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import torch
 
 import mythos_tpu_torch.energy.dna1.terms as t1
 import mythos_tpu_torch.energy.dna2.terms as t2
+import mythos_tpu_torch.energy.rna2.terms as tr
 from mythos_tpu_torch.energy.dna1 import geometry as geom
 from mythos_tpu_torch.simulators.neighbors import SITE_FAMILIES, StencilBand
 from mythos_tpu_torch.soa import Quat, Vec3, free_rotor_soa, quat_cotangent_to_torque_soa, quat_frame_soa, vnorm
@@ -50,7 +65,13 @@ BONDED_ORDER = ("Fene", "BondedExcludedVolume", "Stacking")
 ERR_MS_SCALAR = "multi-step path requires scalar mass/gamma/inertia (got per-particle)"
 ERR_MS_BONDS = "multi-step path requires every bond at slot offset 2 (duplex interleave)"
 ERR_MS_PSEQ = "multi-step path does not support probabilistic sequences yet"
-ERR_TERMS = "the stencil path implements exactly the oxDNA2 term set {}; got {}"
+ERR_TERMS = "the stencil path implements exactly the oxDNA2 or oxRNA2 term set {}; got {}"
+
+#: model family -> its (cross stacking, coaxial stacking, stacking) classes
+FAMILIES = {
+    "dna2": (t1.CrossStacking, t2.CoaxialStacking, t2.Stacking),
+    "rna2": (tr.CrossStacking, t1.CoaxialStacking, tr.Stacking),
+}
 
 _F1 = ("dr_low_{0}", "dr_high_{0}", "dr_c_low_{0}", "dr_c_high_{0}", "a_{0}", "dr0_{0}", "dr_c_{0}",
        "b_low_{0}", "b_high_{0}")
@@ -74,7 +95,12 @@ def _f3(fams) -> tuple:
 #: ``stencil_physics.cuh`` defines ``P_<macro>`` at each group's offset.
 #: f1 groups: r_low, r_high, r_c_low, r_c_high, a, r0, r_c, b_low, b_high;
 #: f2 groups the same with k for a; f3: r_star, sigma, b, r_c; f4: theta0,
-#: delta_theta_star, delta_theta_c, a, b; f5: x_star, x_c, a, b.
+#: delta_theta_star, delta_theta_c, a, b; f5: x_star, x_c, a, b. The groups
+#: after GT carry what only oxRNA2 reads: dna1 coax's f5 of cos phi3 and
+#: cos phi4 (COAXPHI), rna2 stacking's theta9/theta10 (STACKR) and its
+#: stacking sites and p3/p5 axes (RSITES); its cross
+#: stacking leaves theta4 (0) unread, its stacking theta4, and GEOM's
+#: ``by`` is its backbone's a3 coefficient.
 PARAM_GROUPS = (
     ("EXC", "UnbondedExcludedVolume", ("eps_exc", *_f3(("base", "back_base", "base_back", "backbone")))),
     ("HB", "HydrogenBonding", (*(f.format("hb") for f in _F1), *_f4("hb", (1, 2, 3, 4, 7, 8)), "eps_hb_weights")),
@@ -89,10 +115,15 @@ PARAM_GROUPS = (
                            "neg_cos_phi2_star_stack", "neg_cos_phi2_c_stack", "a_stack_2", "b_neg_cos_phi2_stack")),
     ("GEOM", None, ("bx", "by", "hb", "st", "bd1")),
     ("GT", None, ("exc", "hb", "cross", "coax", "debye", "fene", "bexc", "stack")),
+    ("COAXPHI", "CoaxialStacking", ("cos_phi3_star_coax", "cos_phi3_c_coax", "a_coax_3p", "b_cos_phi3_coax",
+                                  "cos_phi4_star_coax", "cos_phi4_c_coax", "a_coax_4p", "b_cos_phi4_coax")),
+    ("STACKR", "Stacking", _f4("stack", (9, 10))),
+    ("RSITES", None, ("s3a1", "s3a2", "s5a1", "s5a2", "p3x", "p3y", "p3z", "p5x", "p5y", "p5z")),
 )
 
 #: sizes of array-valued parameters (everything else is a scalar)
 _SIZES = {"eps_hb_weights": 16}
+_NAMES = {macro: names for macro, _, names in PARAM_GROUPS}
 
 
 def param_offsets() -> dict[str, int]:
@@ -106,15 +137,19 @@ def param_offsets() -> dict[str, int]:
 
 
 def unpack_params(vec: torch.Tensor) -> dict[str, SimpleNamespace]:
-    """Flat parameter vector -> ``{macro: namespace of named tensors}``."""
-    out, off = {}, 0
-    for macro, _, names in PARAM_GROUPS:
+    """Flat parameter vector -> ``{macro: namespace of named tensors}``; a
+    term's first group also carries the names of its later groups (COAX
+    holds COAXPHI's, STACK STACKR's)."""
+    out, first, off = {}, {}, 0
+    for macro, term, names in PARAM_GROUPS:
         ns = {}
         for nm in names:
             size = _SIZES.get(nm, 1)
             ns[nm] = vec[off : off + size].reshape(4, 4) if size == 16 else vec[off]
             off += size
         out[macro] = SimpleNamespace(**ns)
+        if term is not None:
+            vars(out[first.setdefault(term, macro)]).update(ns)
     return out
 
 
@@ -123,6 +158,7 @@ class StencilContext:
     """Loop-invariant inputs of the stencil kernels and twins (slot order)."""
 
     n: int
+    family: str  # "dna2" or "rna2" (FAMILIES)
     w_terms: tuple  # (exc, hb, cross, coax) one-sided reaches
     w_wide: int  # Debye reach
     params: torch.Tensor  # (P,) flat parameter vector (PARAM_GROUPS)
@@ -153,22 +189,55 @@ class StencilContext:
         )
 
 
+def model_family(composed) -> str:
+    """The family of a composed energy (FAMILIES) from its term classes;
+    raises for another term set."""
+    names = tuple(type(fn).__name__ for fn in composed.energy_fns)
+    if sorted(names) != sorted(UNBONDED_ORDER + BONDED_ORDER):
+        raise ValueError(ERR_TERMS.format(UNBONDED_ORDER + BONDED_ORDER, names))
+    by_name = {nm: type(fn) for nm, fn in zip(names, composed.energy_fns, strict=True)}
+    for family, classes in FAMILIES.items():
+        if all(by_name[cls.__name__] is cls for cls in classes):
+            return family
+    raise ValueError(ERR_TERMS.format([c.__module__ + "." + c.__name__ for c in FAMILIES["dna2"]],
+                                      [c.__module__ + "." + c.__name__ for c in by_name.values()]))
+
+
+def _geometry_values(family: str, g: dict) -> dict:
+    """GEOM and RSITES groups from the transform's keywords."""
+    if family == "dna2":
+        return {
+            "GEOM": dict(bx=g["com_to_backbone_x"], by=g["com_to_backbone_y"], hb=g["com_to_hb"],
+                         st=g["com_to_stacking"], bd1=g["com_to_backbone_dna1"]),
+            "RSITES": dict.fromkeys(_NAMES["RSITES"], 0.0),
+        }
+    rna2 = ("pos_stack_3_a1", "pos_stack_3_a2", "pos_stack_5_a1", "pos_stack_5_a2",
+            "p3_x", "p3_y", "p3_z", "p5_x", "p5_y", "p5_z")
+    return {
+        "GEOM": dict(bx=g["com_to_backbone_x"], by=g["com_to_backbone_y"], hb=g["com_to_hb"],
+                     st=g["com_to_stacking"], bd1=0.0),
+        "RSITES": dict(zip(_NAMES["RSITES"], (g[k] for k in rna2), strict=True)),
+    }
+
+
 def pack_params(composed, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Flat parameter vector of a composed dna2 energy (params bound)."""
+    """Flat parameter vector of a composed dna2 or rna2 energy (params
+    bound); a name its term's configuration does not define packs as 0."""
+    family = model_family(composed)
     by_name = {type(fn).__name__: fn for fn in composed.energy_fns}
     weights = {type(fn).__name__: w for fn, w in zip(composed.energy_fns, composed.term_weights(), strict=True)}
-    g = composed.energy_fns[0].transform_fn.keywords  # the default_transform_soa_fn partial
-    extra = {
-        "GEOM": dict(bx=g["com_to_backbone_x"], by=g["com_to_backbone_y"], hb=g["com_to_hb"],
-                     st=g["com_to_stacking"], bd1=g["com_to_backbone_dna1"]),
-        "GT": dict(zip(PARAM_GROUPS[-1][2], (weights[t] for t in UNBONDED_ORDER + BONDED_ORDER), strict=True)),
-    }
+    extra = _geometry_values(family, composed.energy_fns[0].transform_fn.keywords)
+    extra["GT"] = dict(zip(_NAMES["GT"], (weights[t] for t in UNBONDED_ORDER + BONDED_ORDER), strict=True))
     device = device if device is not None else composed.energy_fns[0].params.eps_backbone.device
     parts = []
     for macro, term, names in PARAM_GROUPS:
-        src = extra[macro] if term is None else None
         for nm in names:
-            v = src[nm] if src is not None else getattr(by_name[term].params, nm)
+            if term is None:
+                v = extra[macro][nm]
+            elif nm in by_name[term].params:
+                v = getattr(by_name[term].params, nm)
+            else:
+                v = torch.zeros(_SIZES.get(nm, 1))
             parts.append(torch.as_tensor(v, dtype=dtype, device=device).reshape(-1))
     return torch.cat(parts)
 
@@ -180,9 +249,8 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
     Raises for configurations the stencil kernels do not implement: another
     term set, probabilistic sequences, or bonds off slot offset 2.
     """
+    family = model_family(composed)
     names = tuple(type(fn).__name__ for fn in composed.energy_fns)
-    if sorted(names) != sorted(UNBONDED_ORDER + BONDED_ORDER):
-        raise ValueError(ERR_TERMS.format(UNBONDED_ORDER + BONDED_ORDER, names))
     first = composed.energy_fns[0]
     if getattr(first.topology, "seq", None) is None or np.asarray(first.topology.seq).ndim != 1:
         raise ValueError(ERR_MS_PSEQ)
@@ -228,6 +296,7 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
     ).reshape(-1, 5)
     return StencilContext(
         n=n,
+        family=family,
         w_terms=tuple(int(w) for w in band.w_terms),
         w_wide=int(band.w_wide),
         params=params,
@@ -281,16 +350,24 @@ def ou_constants(dt: float, kT: float, mass, inertia, gamma_t, gamma_r) -> OUCon
 # Plain twins ---------------------------------------------------------------
 
 
-def _sites(P, com: Vec3, quat: Quat):
+def _sites(P, com: Vec3, quat: Quat, family: str = "dna2"):
     a1, a2, a3 = quat_frame_soa(quat)
     g = P["GEOM"]
-    return SimpleNamespace(
+    s = SimpleNamespace(
         com=com, a1=a1, a2=a2, a3=a3,
-        back=com + g.bx * a1 + g.by * a2,
+        back=com + g.bx * a1 + g.by * (a3 if family == "rna2" else a2),
         base=com + g.hb * a1,
         stack=com + g.st * a1,
-        back_dna1=com + g.bd1 * a1,
     )
+    if family == "rna2":
+        r = P["RSITES"]
+        s.stack3 = com + r.s3a1 * a1 + r.s3a2 * a2
+        s.stack5 = com + r.s5a1 * a1 + r.s5a2 * a2
+        s.p3 = r.p3x * a1 + r.p3y * a2 + r.p3z * a3
+        s.p5 = r.p5x * a1 + r.p5y * a2 + r.p5z * a3
+    else:
+        s.back_dna1 = com + g.bd1 * a1
+    return s
 
 
 def _lo(v: Vec3, d: int) -> Vec3:
@@ -301,56 +378,75 @@ def _hi(v: Vec3, d: int) -> Vec3:
     return Vec3(*(c[d:] for c in v))
 
 
+def _band_pairs(ctx: StencilContext, device) -> tuple[torch.Tensor, torch.Tensor, list]:
+    """(lo, hi, ends) of the band's unbonded pairs (lo, hi = lo + d) for
+    d = 1..w_wide, offset-major, bonded partners dropped: the pairs up to
+    offset w are the first ``ends[w]``."""
+    n = ctx.n
+    idx = torch.arange(n, device=device)
+    partners = ctx.partners.to(device)
+    los, his, ends = [], [], [0]
+    for d in range(1, min(ctx.w_wide, n - 1) + 1):
+        lo = idx[: n - d]
+        lo = lo[(partners[0, : n - d] != lo + d) & (partners[1, : n - d] != lo + d)]
+        los.append(lo)
+        his.append(lo + d)
+        ends.append(ends[-1] + lo.numel())
+    ends += [ends[-1]] * (max(ctx.w_terms) + 1)  # reaches past the band's end
+    return torch.cat(los), torch.cat(his), ends
+
+
 def band_energy_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tensor) -> list:
     """Per-term unbonded band sums (exc, hb, cross, coax, debye), unweighted.
 
     Pair (i, i+d) for d = 1..w_wide, excluding bonded partners; each
-    short-range term up to its own reach, Debye to w_wide.
+    short-range term up to its own reach, Debye to w_wide. All offsets go
+    through each term in one pass (offset-major pair lists).
     """
     P = unpack_params(params)
-    s = _sites(P, com, quat)
-    n = ctx.n
+    s = _sites(P, com, quat, ctx.family)
+    rna2 = ctx.family == "rna2"
+    lo, hi, ends = _band_pairs(ctx, com.x.device)
+    k_exc, k_hb, k_cross, k_coax = (ends[w] for w in ctx.w_terms)
+
+    def at(v: Vec3, idx: torch.Tensor, k: int) -> Vec3:  # rows idx[:k] of a field
+        return Vec3(*(torch.index_select(c, 0, idx[:k]) for c in v))
+
+    back_i, back_j = at(s.back, lo, len(lo)), at(s.back, hi, len(hi))
+    r_bb = vnorm(back_j - back_i)
+    k_base = max(k_exc, k_hb, k_cross)
+    base_i, base_j = at(s.base, lo, k_base), at(s.base, hi, k_base)
+
+    def pre(v: Vec3, k: int) -> Vec3:
+        return Vec3(*(c[:k] for c in v))
+
+    exc = t1.unbonded_exc(
+        P["EXC"], vnorm(pre(base_j - base_i, k_exc)), vnorm(pre(base_j, k_exc) - pre(back_i, k_exc)),
+        vnorm(pre(back_j, k_exc) - pre(base_i, k_exc)), r_bb[:k_exc],
+    )
+    k_ang = max(k_hb, k_cross)
+    g = geom.unbonded_geometry_vec(
+        pre(base_i, k_ang), pre(base_j, k_ang), at(s.a1, lo, k_ang), at(s.a1, hi, k_ang), at(s.a3, lo, k_ang),
+        at(s.a3, hi, k_ang), arccos_poly,
+    )
     seq = ctx.seq.long()
-    w_hb = P["HB"].eps_hb_weights
-    idx = torch.arange(n, device=com.x.device)
-    sums = [com.x.new_zeros(()) for _ in range(5)]
-    for d in range(1, min(ctx.w_wide, n - 1) + 1):
-        m = n - d
-        valid = (ctx.partners[0, :m] != idx[:m] + d) & (ctx.partners[1, :m] != idx[:m] + d)
-        back_i, back_j = _lo(s.back, d), _hi(s.back, d)
-        r_bb = vnorm(back_j - back_i)
-        terms = [None] * 5
-        if d <= ctx.w_terms[0] or d <= ctx.w_terms[1] or d <= ctx.w_terms[2]:
-            base_i, base_j = _lo(s.base, d), _hi(s.base, d)
-        if d <= ctx.w_terms[0]:
-            terms[0] = t1.unbonded_exc(
-                P["EXC"], vnorm(base_j - base_i), vnorm(base_j - back_i), vnorm(back_j - base_i), r_bb
-            )
-        if d <= ctx.w_terms[1] or d <= ctx.w_terms[2]:
-            g = geom.unbonded_geometry_vec(
-                base_i, base_j, _lo(s.a1, d), _hi(s.a1, d), _lo(s.a3, d), _hi(s.a3, d), arccos_poly
-            )
-            if d <= ctx.w_terms[1]:
-                terms[1] = t1.hb_product(P["HB"], g) * w_hb[seq[:m], seq[d:]]
-            if d <= ctx.w_terms[2]:
-                terms[2] = t1.cross_product(P["CROSS"], g)
-        if d <= ctx.w_terms[3]:
-            gc = geom.coax_geometry_vec(
-                _lo(s.stack, d), _hi(s.stack, d), _lo(s.a1, d), _hi(s.a1, d), _lo(s.a3, d), _hi(s.a3, d),
-                arccos_poly,
-            )
-            terms[3] = t2.coax_value(P["COAX"], gc)
-        terms[4] = t2.debye_of(P["DEBYE"], r_bb) * ctx.qf[:m] * ctx.qf[d:]
-        for t, e in enumerate(terms):
-            if e is not None:
-                sums[t] = sums[t] + torch.where(valid, e, torch.zeros_like(e)).sum()
-    return sums
+    hb = t1.hb_product(P["HB"], type(g)(*(x[:k_hb] for x in g)))
+    hb = hb * P["HB"].eps_hb_weights[seq[lo[:k_hb]], seq[hi[:k_hb]]]
+    cross = (tr.cross_value if rna2 else t1.cross_product)(P["CROSS"], type(g)(*(x[:k_cross] for x in g)))
+    gc = geom.coax_geometry_vec(
+        at(s.stack, lo, k_coax), at(s.stack, hi, k_coax), at(s.a1, lo, k_coax), at(s.a1, hi, k_coax),
+        at(s.a3, lo, k_coax), at(s.a3, hi, k_coax), arccos_poly,
+        **(dict(back_i=pre(back_i, k_coax), back_j=pre(back_j, k_coax)) if rna2 else {}),
+    )
+    coax = t1.coax_product(P["COAX"], gc) if rna2 else t2.coax_value(P["COAX"], gc)
+    debye = t2.debye_of(P["DEBYE"], r_bb) * ctx.qf[lo] * ctx.qf[hi]
+    return [e.sum() for e in (exc, hb, cross, coax, debye)]
 
 
 def bonded_energy(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tensor) -> torch.Tensor:
     """Weighted FENE + bonded excluded volume + stacking over bonds (i, i+2)."""
     P = unpack_params(params)
-    s = _sites(P, com, quat)
+    s = _sites(P, com, quat, ctx.family)
     m = ctx.n - 2
     dirf = ctx.dirf[:m]
     mask = dirf != 0.0
@@ -373,10 +469,17 @@ def bonded_energy(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tens
         return (Vec3(*(torch.where(pos, a, b) for a, b in zip(lo, hi, strict=True))),
                 Vec3(*(torch.where(pos, b, a) for a, b in zip(lo, hi, strict=True))))
 
-    g = geom.bonded_geometry_vec(
-        *by_side(s.back_dna1), *by_side(s.stack), *by_side(s.a3), *by_side(s.a2), arccos=arccos_poly
-    )
-    stack = ctx.wstack[:m] * t1.stack_product(ps, g)
+    if ctx.family == "rna2":
+        (s5_3, _), (_, s3_5) = by_side(s.stack5), by_side(s.stack3)
+        (p5_3, _), (_, p3_5) = by_side(s.p5), by_side(s.p3)
+        g = tr.stack_geometry_vec(s5_3, s3_5, *by_side(s.back), *by_side(s.a3), p5_3, p3_5, *by_side(s.a2),
+                                  arccos=arccos_poly)
+        stack = ctx.wstack[:m] * tr.stack_product(ps, g)
+    else:
+        g = geom.bonded_geometry_vec(
+            *by_side(s.back_dna1), *by_side(s.stack), *by_side(s.a3), *by_side(s.a2), arccos=arccos_poly
+        )
+        stack = ctx.wstack[:m] * t1.stack_product(ps, g)
     zero = torch.zeros_like(fene)
     return (
         gt.fene * torch.where(mask, fene, zero).sum()
@@ -445,7 +548,7 @@ def site_violations_plain(ctx: StencilContext, com: Vec3, quat: Quat) -> torch.T
     """(n,) count of in-band site checks violated per slot (kernel form:
     bonded partners masked), at the given positions."""
     P = unpack_params(ctx.params.to(com.x.dtype))
-    s = _sites(P, com, quat)
+    s = _sites(P, com, quat, ctx.family)
     fams = {k: getattr(s, nm) for k, nm in enumerate(SITE_FAMILIES)}
     n = ctx.n
     viol = torch.zeros(n, dtype=com.x.dtype, device=com.x.device)
@@ -524,9 +627,16 @@ def _ctx_args(ctx: StencilContext) -> tuple:
     )
 
 
+def _instance(name: str, ctx: StencilContext) -> str:
+    """The C entry point of the kernel's instance for the context's family
+    (``<name>`` for dna2, ``<name>_rna2``)."""
+    return name if ctx.family == "dna2" else f"{name}_{ctx.family}"
+
+
 def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
     """K2: (7, n) [com, quat] -> (7, n) [dE/dcom, dE/dquat] of the weighted
-    unbonded band energy. CPU tensors run :func:`field_grads_plain`."""
+    unbonded band energy. CPU tensors run :func:`field_grads_plain`.
+    ``launches`` counts every launch, ``by_family`` each family's."""
     if dyn.device.type == "cpu":
         return field_grads_plain(ctx, dyn)
     from mythos_tpu_torch.ops import _build
@@ -534,18 +644,20 @@ def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
     _check_cuda("field_grads", dyn=dyn, params=ctx.params)
     if dyn.dtype != torch.float32 or ctx.params.dtype != torch.float32 or dyn.shape != (7, ctx.n):
         raise ValueError(f"field_grads takes (7, {ctx.n}) float32, got {tuple(dyn.shape)} {dyn.dtype}")
-    lib = _build.load_library()
+    name = _instance("stencil_field_grads", ctx)
     out = torch.empty_like(dyn)
-    rc = lib.stencil_field_grads(
+    rc = getattr(_build.load_library(), name)(
         *_ctx_args(ctx), _ptr(dyn), _ptr(out), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     )
     if rc != 0:
-        raise RuntimeError(f"stencil_field_grads launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     field_grads.launches += 1
+    field_grads.by_family[ctx.family] += 1
     return out
 
 
 field_grads.launches = 0
+field_grads.by_family = dict.fromkeys(FAMILIES, 0)
 
 
 def multistep_chunk(ctx: StencilContext, ou: torch.Tensor, noise: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -554,7 +666,8 @@ def multistep_chunk(ctx: StencilContext, ou: torch.Tensor, noise: torch.Tensor, 
     ``noise``: (n_inner, 6, n) bfloat16 standard normals. CPU tensors run
     :func:`multistep_chunk_plain`. On the card one call enqueues the
     chunk's ``n_inner + 1`` kernels on the current stream and never
-    synchronises."""
+    synchronises. ``launches`` counts every call that launched, ``by_family``
+    each family's."""
     if state.device.type == "cpu":
         return multistep_chunk_plain(ctx, ou, noise, state)
     from mythos_tpu_torch.ops import _build
@@ -567,23 +680,25 @@ def multistep_chunk(ctx: StencilContext, ou: torch.Tensor, noise: torch.Tensor, 
         raise ValueError(f"multistep_chunk takes (n_inner, 6, {n}) bfloat16 noise, got {tuple(noise.shape)}")
     if ou.dtype != torch.float32 or ou.shape != (13,):
         raise ValueError("multistep_chunk takes the (13,) float32 OU vector")
-    lib = _build.load_library()
+    name = _instance("multistep_chunk", ctx)
     out = torch.empty((27, n), dtype=torch.float32, device=state.device)
     out[:19].copy_(state)
     state_out, alt = out[:20], out[20:]  # alt: the positions' second buffer
-    rc = lib.multistep_chunk(
+    rc = getattr(_build.load_library(), name)(
         *_ctx_args(ctx), _ptr(ctx.wstack), _ptr(ctx.dirf), _ptr(ctx.checks),
         ctypes.c_int(ctx.checks.shape[0]), ctypes.c_int(ctx.check_dm),
         _ptr(ou), _ptr(noise), ctypes.c_int(noise.shape[0]), _ptr(state_out), _ptr(alt),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     if rc != 0:
-        raise RuntimeError(f"multistep_chunk launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     multistep_chunk.launches += 1
+    multistep_chunk.by_family[ctx.family] += 1
     return state_out
 
 
 multistep_chunk.launches = 0
+multistep_chunk.by_family = dict.fromkeys(FAMILIES, 0)
 
 
 class FieldGrads(torch.autograd.Function):

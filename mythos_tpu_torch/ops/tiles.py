@@ -153,8 +153,9 @@ def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind:
     energy (parameters bound); ``perm`` as the table was built with."""
     names = tuple(type(fn).__name__ for fn in composed.energy_fns)
     need = stencil.UNBONDED_ORDER + stencil.BONDED_ORDER
-    if sorted(names) != sorted(need):
-        raise ValueError(ERR_TERMS.format(need, names))
+    if sorted(names) != sorted(need) or stencil.model_family(composed) != "dna2":
+        raise ValueError(ERR_TERMS.format(need, [f"{type(fn).__module__}.{type(fn).__name__}"
+                                                 for fn in composed.energy_fns]))
     first = composed.energy_fns[0]
     if np.asarray(first.topology.seq).ndim != 1:
         raise ValueError(ERR_PSEQ)

@@ -63,7 +63,8 @@ def _trajectory(traj: torch.Tensor, kT: float, overflow: torch.Tensor) -> Simula
 
 @dc.dataclass(frozen=True)
 class CudaSimulator:
-    """Rigid-body BAOAB Langevin of a composed oxDNA2 energy on the stencil.
+    """Rigid-body BAOAB Langevin of a composed oxDNA2 or oxRNA2 energy on the
+    stencil (the kernels' instance of the energy's family).
 
     ``run(opt_params, init_state, n_steps, generator)`` returns a
     SimulatorOutput with one SimulatorTrajectory (every ``save_every``-th

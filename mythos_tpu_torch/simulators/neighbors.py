@@ -214,6 +214,8 @@ def stencil_band_for_site_cutoffs(
     init_orientation,
     perm: np.ndarray | None = None,
     site_margin: int = 1,
+    fam_slack_overrides: dict | None = None,
+    far_slack: float | None = None,
 ) -> StencilBand:
     """Size a site-mode StencilBand from the initial conformation.
 
@@ -221,7 +223,10 @@ def stencil_band_for_site_cutoffs(
     interaction-site distances with per-family thermal slack plus
     ``site_margin`` slots; exact checks out to ``check_dm``; the far sweep
     beyond). ``init_centers``/``init_orientation``: (N, 3)/(N, 4) arrays or
-    tensors in the original nucleotide order.
+    tensors in the original nucleotide order. ``fam_slack_overrides``
+    ({(fa, fb): slack}, either order) and ``far_slack`` replace the
+    B-DNA defaults where a helix form breathes further (A-form rna2:
+    ``energy.rna2.aform_site_slacks`` / ``aform_far_slack``).
     """
     n = topology.n_nucleotides
     bn = np.asarray(topology.bonded_neighbors)
@@ -242,10 +247,15 @@ def stencil_band_for_site_cutoffs(
     if missing:
         raise ValueError(f"site_cutoffs missing short-range terms {missing}")
 
+    fam_slack = dict(FAMILY_SLACK)
+    for (fa, fb), v in (fam_slack_overrides or {}).items():
+        fam_slack[(fa, fb)] = fam_slack[(fb, fa)] = max(SITE_SLACK, float(v))
+    far_slack = max(SITE_SLACK, FAR_SLACK if far_slack is None else float(far_slack))
+
     def reach_of(pairs) -> int:
         r = 0
         for fa, fb, cutoff in pairs:
-            slack = FAMILY_SLACK.get((fa, fb), SITE_SLACK)
+            slack = fam_slack.get((fa, fb), SITE_SLACK)
             r = max(r, _band_reach2(spos[fa], spos[fb], float(cutoff) + slack))
         return r + site_margin
 
@@ -259,7 +269,7 @@ def stencil_band_for_site_cutoffs(
     far_cutoff = max(float(cu) for prs in terms_sc.values() for _, _, cu in prs)
     b_sz = max(CHECK_BLOCK, -(-n // 4096))
     gaps = _delta_min_gaps(spos, b_sz, n)
-    ok = gaps > far_cutoff + FAR_SLACK
+    ok = gaps > far_cutoff + far_slack
     suffix_ok = np.flip(np.logical_and.accumulate(np.flip(ok)))
     cand = np.nonzero(suffix_ok)[0]
     cand = cand[cand >= 1]

@@ -42,6 +42,10 @@ def vdot(a: Vec3, b: Vec3) -> torch.Tensor:
     return a.x * b.x + a.y * b.y + a.z * b.z
 
 
+def vcross(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x)
+
+
 def vnorm(a: Vec3, eps: float = 1e-18) -> torch.Tensor:
     """sqrt(|a|^2 + eps): finite gradient at zero distance."""
     return torch.sqrt(vdot(a, a) + eps)

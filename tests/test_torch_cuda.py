@@ -1,5 +1,6 @@
 """PyTorch port (mythos_tpu_torch): the CUDA kernels K1-K6 against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card (K1 and K2 in both model families,
+oxDNA2 and oxRNA2).
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it also runs on
@@ -18,7 +19,10 @@ holds the Pallas kernel), its position and box gradients rtol 2e-4 with
 atol 1e-4 x max|plain| (also with the beads permuted, with the box and
 positions scaled, and in a box too wide for floor(box / LJ_CELL) cells a
 side), its cells exactly; K1, K3, K4, K5 and K6 give equal bits on a
-second call; the MARTINI runs card vs CPU rtol 1e-4, atol 1e-5.
+second call; the MARTINI runs card vs CPU rtol 1e-4, atol 1e-5. The
+oxRNA2 instances of K1 and K2 as oxDNA2's, on the 40-bp A-form duplex,
+K2 also on coaxially stacked pairs (coaxial stacking alone), and a 40-bp
+oxRNA2 run card vs CPU.
 """
 
 import math
@@ -30,7 +34,7 @@ torch = pytest.importorskip("torch")
 
 from mythos_tpu_torch.energy.martini.systems import default_bilayer_terms, lattice_bilayer  # noqa: E402
 from mythos_tpu_torch.entry import build_sim  # noqa: E402
-from mythos_tpu_torch.io.synthetic import synthetic_duplex  # noqa: E402
+from mythos_tpu_torch.io.synthetic import coax_engaged, synthetic_duplex  # noqa: E402
 from mythos_tpu_torch.ops import stencil as ts  # noqa: E402
 from mythos_tpu_torch.ops import lj, tiles  # noqa: E402
 from mythos_tpu_torch.rigid_body import RigidBody  # noqa: E402
@@ -88,6 +92,99 @@ def test_k1_kernel_matches_twin(system):
     odd = noise[:3].contiguous()
     torch.testing.assert_close(ts.multistep_chunk(ctx, ou, odd, state), ts.multistep_chunk_plain(ctx, ou, odd, state),
                                rtol=2e-4, atol=5e-5)
+
+
+@pytest.fixture(scope="module")
+def rna2_system(card):
+    top, body = synthetic_duplex(40, form="A", dtype=torch.float32, device=card)
+    e, sim = build_sim(top, KT, model="rna2", init_centers=body.center, init_orientation=body.orientation,
+                       device=card)
+    ctx = ts.prepare_stencil_context(e, sim.band, device=card)
+    return e, sim, ctx, body
+
+
+def _jittered(body, gen, scale=0.01):
+    q = body.orientation + scale * torch.randn(body.orientation.shape, generator=gen, device=body.center.device)
+    c = body.center + scale * torch.randn(body.center.shape, generator=gen, device=body.center.device)
+    return RigidBody(c, q / q.norm(dim=-1, keepdim=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["jittered", "coax"])
+def test_k2_rna2_kernel_matches_twin(rna2_system, case):
+    """K2's oxRNA2 instance against its plain version: the jittered A-form
+    duplex (every term), and three coaxially stacked pairs placed in with
+    every term weight but coax's 0 (oxDNA1's coax is zero in a duplex)."""
+    import dataclasses as dc
+
+    _, _, ctx, body = rna2_system
+    if case == "jittered":
+        b = _jittered(body, torch.Generator(device="cuda").manual_seed(3))
+        dyn = torch.cat([ctx.to_slots(b.center.T), ctx.to_slots(b.orientation.T)]).contiguous()
+    else:
+        com, quat = (ctx.to_slots(x.T.double()).T.cpu().numpy() for x in (body.center, body.orientation))
+        com, quat = coax_engaged(com, quat, [(10, 11), (30, 33), (50, 57)], seed=3)
+        dyn = torch.as_tensor(np.concatenate([com.T, quat.T]), dtype=torch.float32, device="cuda").contiguous()
+        params = ctx.params.clone()
+        off = ts.param_offsets()["GT"]
+        params[off : off + 8] = torch.tensor([0, 0, 0, 1, 0, 0, 0, 0], dtype=torch.float32)
+        ctx = dc.replace(ctx, params=params)
+    before = dict(ts.field_grads.by_family)
+    got = ts.field_grads(ctx, dyn)
+    ref = ts.field_grads_plain(ctx, dyn)
+    torch.cuda.synchronize()
+    assert ts.field_grads.by_family == {**before, "rna2": before["rna2"] + 1}
+    assert float(ref.abs().max()) > 1.0
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(got, ts.field_grads(ctx, dyn))
+
+
+@pytest.mark.cuda
+def test_k1_rna2_kernel_matches_twin(rna2_system):
+    """K1's oxRNA2 instance against its plain version over 4 and 3 steps
+    (rtol 2e-4, atol 5e-5), equal bits on a second call, one launch counted
+    for the family a call; the exact checks widened to every in-band offset
+    (d_lo 1), so that row 19 counts the helix's own contacts on the (a1, a3)
+    backbone."""
+    import dataclasses as dc
+
+    _, sim, ctx, body = rna2_system
+    checks = ctx.checks.clone()
+    checks[:, 3] = 1.0
+    ctx = dc.replace(ctx, checks=checks)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = sim.initial_state(ctx, _jittered(body, gen), gen)
+    noise = torch.randn((4, 6, ctx.n), generator=gen, device="cuda").to(torch.bfloat16)
+    ou = ts.ou_constants(sim.dt, sim.kT, [1.0], [[1.0, 1.0, 1.0]], [sim.gamma_t], [sim.gamma_r]).vector("cuda")
+    before = dict(ts.multistep_chunk.by_family)
+    got = ts.multistep_chunk(ctx, ou, noise, state)
+    assert ts.multistep_chunk.by_family == {**before, "rna2": before["rna2"] + 1}
+    ref = ts.multistep_chunk_plain(ctx, ou, noise, state)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=5e-5)
+    assert float(ref[19].sum()) > 0
+    assert torch.equal(got, ts.multistep_chunk(ctx, ou, noise, state))
+    odd = noise[:3].contiguous()
+    torch.testing.assert_close(ts.multistep_chunk(ctx, ou, odd, state), ts.multistep_chunk_plain(ctx, ou, odd, state),
+                               rtol=2e-4, atol=5e-5)
+
+
+@pytest.mark.cuda
+def test_rna2_simulator_on_card_matches_cpu_twins(card):
+    """The oxRNA2 slice: 40 bp A-form, 4 chunks, thermostat off -- the run
+    on the card (K1/K2's rna2 instances) agrees with the CPU twins."""
+
+    def run(device):
+        top, b = synthetic_duplex(40, form="A", dtype=torch.float32, device=device)
+        e, sim = build_sim(top, 0.0, model="rna2", init_centers=b.center, init_orientation=b.orientation,
+                           neighbor_update_every=10, device=device)
+        out = sim.replace(save_every=10).run(e.opt_params(), b, 40, torch.Generator(device=device).manual_seed(0))
+        return out.observables[0]
+
+    gpu, cpu = run(card), run("cpu")
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    assert not bool(gpu.metadata["neighbor_overflow"].any())
 
 
 @pytest.mark.cuda

@@ -138,8 +138,9 @@ def test_total_energy_gradient_flows_to_params(energies):
 
 
 def test_port_imports_no_jax():
-    """(h) importing every module of the port pulls in no jax, chex, sympy,
-    MDAnalysis, nor any module of the JAX package."""
+    """(h) importing every module of the port (the oxRNA2 package among
+    them) pulls in no jax, chex, sympy, MDAnalysis, nor any module of the
+    JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mythos_tpu_torch\n"
@@ -147,6 +148,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'chex', 'sympy', 'MDAnalysis', 'mythos_tpu'))\n"
         "assert not bad, bad\n"
+        "rna2 = {'mythos_tpu_torch.energy.rna2', 'mythos_tpu_torch.energy.rna2.nucleotide', "
+        "'mythos_tpu_torch.energy.rna2.terms'}\n"
+        "assert rna2 <= set(sys.modules), rna2 - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('mythos_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

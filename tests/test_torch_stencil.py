@@ -159,10 +159,17 @@ def test_line_band_flags_match(where, _f32_mode):
 
 
 def test_param_layout_matches_cuda_header():
-    """The P_* offsets of stencil_physics.cuh are the Python layout's."""
+    """The P_* offsets of stencil_physics.cuh are the Python layout's, the
+    oxRNA2 groups (dna1 coax's phi modulations, rna2 stacking's theta9/10,
+    its sites and axes) among them, each as long as the header says."""
     text = (CSRC / "stencil_physics.cuh").read_text()
-    header = {m.group(1): int(m.group(2)) for m in re.finditer(r"#define P_([A-Z]+) (\d+)", text)}
-    assert header == ts.param_offsets()
+    header = {m.group(1): int(m.group(2)) for m in re.finditer(r"#define P_([A-Z0-9]+) (\d+)", text)}
+    offsets = ts.param_offsets()
+    assert header == offsets
+    assert {"COAXPHI", "STACKR", "RSITES"} <= header.keys()
+    sizes = {macro: len(names) for macro, _, names in ts.PARAM_GROUPS}
+    assert (sizes["COAXPHI"], sizes["STACKR"], sizes["RSITES"]) == (8, 10, 10)
+    assert offsets["TOTAL"] == offsets["RSITES"] + sizes["RSITES"]
 
 
 # (e) K2 twin ---------------------------------------------------------------
