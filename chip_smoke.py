@@ -10,7 +10,10 @@ Phases, one line each; any failure exits non-zero:
 
 1. the device and its power limit;
 2. build the CUDA kernels from ``mythos_tpu_torch/ops/csrc`` (nvcc, sm_90a);
-3. K2 (band force) against its plain PyTorch twin on a 10k-nt duplex;
+3. K2 (band force) against its plain PyTorch twin on the 10k-nt duplex
+   (K2's tolerance), equal bits on a second call, its tally of the band
+   pairs by gate against the plain gate (``band_gate_counts``), its
+   registers and spill (none), its device time a call;
 4. K1 (40-step BAOAB chunk) against its twin, same bf16 noise, at 10k nt
    (inside the float32 twin's error against a float64 twin; equal bits on
    a second call; its kernel launches a chunk, counted by torch.profiler)
@@ -61,19 +64,26 @@ Phases, one line each; any failure exits non-zero:
    margin 2): (10a) K2's rna2 instance against its plain version on a
    jittered state (K2's tolerance; as phase 6, the slots with a pair at
    the float32 arccos clamp, else all, may take the float32 budget of
-   phase 4; equal bits on a second call), and at 80 nt on three
-   coaxially stacked pairs (coaxial stacking alone);
+   phase 4), its bits, tally, registers and spill as in phase 3, and at 80
+   nt on three coaxially stacked pairs (coaxial stacking alone);
    (10b) K1's rna2 instance, one 40-step chunk against its plain version
    with the same bf16 noise, at 10k nt inside the float32 budget of phase
    4 and at 80 nt to rtol 2e-4 / atol 5e-5 (else that budget), equal bits
    on a second call; (10c) ``build_sim(mode="stencil", model="rna2")``
    runs 2000 steps (50 chunks) after a warm-up run, with a torch.profiler
    window, and a 40-bp run on the card agrees with the CPU; (10d) the
-   same run from the B-form helix, its overflow flag printed.
+   same run from the B-form helix, its overflow flag printed;
+11. the stencil's per-step branch (``save_every`` 1) at 10k nt: oxDNA2 400
+   steps and oxRNA2 200 steps after a warm-up run, a state emitted every
+   step, K2 launched once a step and once for the initial force, K1 never,
+   no overflow; a torch.profiler window of 40 steps (launches a step, idle
+   share, K2's device time a call and its share of a step); 40-bp
+   per-step runs of both families and of the block tier, card vs CPU.
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
-phases 3 and 4 also build DIR's kernels and say whether its K2 and K1
-give this checkout's bits on their inputs.
+phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
+checkout's bits on their inputs, and its K2 this checkout's values within
+K2's tolerance.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -124,6 +134,8 @@ FLOP_LJ_TEST, FLOP_LJ_ENERGY, FLOP_LJ_GRAD = 22, 12, 30
 MARTINI_LATTICE = (16, 16, 6)  # phase 9: 512 lipids, 8,112 waters, 10,160 beads
 MARTINI_STEPS, MARTINI_SAVE, MARTINI_WARM = 1000, 50, 50
 MARTINI_BAROSTAT = {"pressure0": 1.0, "tau": 4.0, "every": 10}
+PER_STEP_STEPS = {"dna2": 400, "rna2": 200}  # phase 11: a state every step (400 x 7 x 10k floats: 112 MB)
+PER_STEP_WINDOW = 40  # phase 11's profiled steps
 WIDE_BOX = (70.0, 70.0, 10.84)  # phase 9a: floor(box / LJ_CELL) gives 63 x 63 x 9 > MAX_CELLS cells
 #: a row is "near the clamp" when one of its pairs inside the short-range
 #: reach has an angle cosine within this many float32 ulps of +-1
@@ -689,7 +701,63 @@ def _band_pair_geometry(ctx, dyn, site_cutoffs):
         yield d, short, debye, ((1.0 - cos.abs()) / eps).amin(0)
 
 
-def _rna2(dev, smi: str) -> list[dict]:
+def _k2_held(label: str, ctx, dyn, ptx: dict, site_cutoffs=None) -> dict:
+    """K2 of the context's family on a (7, n) slot-order state against its
+    plain version (phases 3 and 10a): K2's tolerance, or, with the model's
+    ``site_cutoffs`` (10a), as phase 6, K2's tolerance or else the float32
+    budget on the slots with a short-range pair at the float32 arccos clamp
+    (else all); equal bits on a second call; its tally of the
+    band pairs by gate against band_gate_counts (within 1e-4 of the pairs, as
+    phase 6's tallies: a distance within an ulp of a cutoff may round
+    either way); its registers and spill (phase 2), none spilt. Fails on
+    any. Returns its readings: err, ms (events) and plain_ms lists, dev_ms,
+    tally, bound."""
+    import torch
+
+    from mythos_tpu_torch.ops import stencil as st
+
+    n = ctx.n
+    k2_ms, k2 = _events_ms(lambda: st.field_grads(ctx, dyn), 20)
+    det = torch.equal(k2, st.field_grads(ctx, dyn))
+    dev_ms = _per_call(_profiled(lambda: st.field_grads(ctx, dyn), 10), {"stencil_field_grads": 1})
+    _, tally = st._field_grads(ctx, dyn, count=True)
+    gate = st.band_gate_counts(ctx, dyn)
+    tally_ok = sum(abs(tally[k] - gate[k]) for k in gate) <= 1e-4 * (gate["short"] + gate["debye"] + gate["skipped"])
+    p_ms, plain = _events_ms(lambda: st.field_grads_plain(ctx, dyn), 3)
+    near = torch.zeros(n, dtype=torch.bool, device=dyn.device)
+    if site_cutoffs is None:
+        ok, err = _within(k2, plain, rtol=1e-4, atol=1e-4 * float(plain.abs().max()))
+        rule = "K2 tolerance"
+    else:
+        plain64 = st.field_grads_plain(ctx.astype(torch.float64), dyn.double())
+        for d, short, _, ulps in _band_pair_geometry(ctx, dyn, site_cutoffs):
+            at = short & (ulps <= CLAMP_ULPS)
+            near[: n - d] |= at
+            near[d:] |= at
+        ok, rule, err = _checked(label, k2.T, plain.T, plain64.T, near)
+        if rule != "K2 tolerance":
+            r, t = divmod(int((k2 - plain).abs().argmax()), n)
+            print(f"    {label} worst element: row {r}, slot {t} (z {float(dyn[2, t]):.1f}, near the clamp: "
+                  f"{bool(near[t])}): kernel {float(k2[r, t]):.5f} f32 {float(plain[r, t]):.5f} f64 "
+                  f"{float(plain64[r, t]):.5f}")
+    fam = 0 if ctx.family == "dna2" else 1
+    regs, spill = ptx.get(f"stencil_field_grads_kernel<{fam}>", (0, -1))
+    bound = _bound(2 * 7 * n * 4, tally["short"] * FLOP_PAIR_GRAD + tally["debye"] * FLOP_DEBYE_GRAD)
+    clamp = "" if site_cutoffs is None else (f" {int(near.sum())} slots with a short-range pair whose angle cosine lies "
+                                             f"within {CLAMP_ULPS} float32 ulps of +-1;")
+    print(f"[{label}] n={n} w_terms={ctx.w_terms} w_wide={ctx.w_wide}:{clamp} max_abs_err={err:.3e} ({rule}) ok={ok}; "
+          f"kernel {statistics.median(k2_ms):.4f} ms by events, {_dev(dev_ms)} of device time a call; plain "
+          f"{statistics.median(p_ms):.2f} ms; equal bits on a second call: {det}; {regs} registers, {spill} B spill "
+          f"stores; the band pairs by gate: kernel {tally}, plain gate {gate}; bound {bound[0]:.5f} ms ({bound[1]}): "
+          f"{_share(bound[0], dev_ms)} of its device time")
+    if not (ok and det):
+        raise SystemExit(f"{label}: K2 disagrees with its plain version, or is not deterministic")
+    if not tally_ok or spill != 0:
+        raise SystemExit(f"{label}: K2's gate disagrees with the plain gate, or its registers spill ({spill} B)")
+    return {"err": err, "ms": k2_ms, "plain_ms": p_ms, "dev_ms": dev_ms, "tally": tally, "bound": bound, "k2": k2}
+
+
+def _rna2(dev, smi: str, ptx: dict) -> list[dict]:
     """Phase 10: the oxRNA2 stencil main path at 10k nt -- K2's and K1's
     rna2 instances against their plain versions, the main path through
     them, a 40-bp run card vs CPU. The K1 and K2 rna2 records."""
@@ -719,41 +787,7 @@ def _rna2(dev, smi: str) -> list[dict]:
     # 10a. K2 (rna2) against its plain version on a jittered state
     jb = jittered(body)
     dyn = torch.cat([ctx.to_slots(jb.center.T), ctx.to_slots(jb.orientation.T)]).contiguous()
-    k2_ms, k2 = _events_ms(lambda: st.field_grads(ctx, dyn), 20)
-    k2_det = torch.equal(k2, st.field_grads(ctx, dyn))
-    k2_win = _profiled(lambda: st.field_grads(ctx, dyn), 10)
-    k2_dev = _per_call(k2_win, {"stencil_field_grads": 1})
-    p2_ms, plain = _events_ms(lambda: st.field_grads_plain(ctx, dyn), 3)
-    plain64 = st.field_grads_plain(ctx.astype(torch.float64), dyn.double())
-    # the slots with a pair inside the short-range reach at the float32
-    # arccos clamp, and the pairs the bound charges (those in reach)
-    near = torch.zeros(n, dtype=torch.bool, device=dev)
-    n_short = n_debye = 0
-    for d, short, debye, ulps in _band_pair_geometry(ctx, dyn, rna2.per_term_site_cutoffs()):
-        at = short & (ulps <= CLAMP_ULPS)
-        near[: n - d] |= at
-        near[d:] |= at
-        n_short, n_debye = n_short + int(short.sum()), n_debye + int(debye.sum())
-    print(f"[10a K2 rna2] {int(near.sum())} of {n} slots have a pair inside the short-range reach with an angle "
-          f"cosine within {CLAMP_ULPS} float32 ulps of +-1")
-    ok2, rule2, err2 = _checked("K2 rna2", k2.T, plain.T, plain64.T, near)
-    print(f"[10a K2 rna2] max_abs_err={err2:.3e} ({rule2}) ok={ok2}; kernel {statistics.median(k2_ms):.4f} ms by "
-          f"events, {_dev(k2_dev)} of device time a call; plain {statistics.median(p2_ms):.2f} ms; equal bits on a "
-          f"second call: {k2_det}")
-    if rule2 != "K2 tolerance":
-        # where the gap lies: the worst element, and the same with the origin
-        # moved to its nucleotide (float32 far from the origin: ROADMAP queue 3)
-        r, t = divmod(int((k2 - plain).abs().argmax()), n)
-        i = int(ctx.perm[t]) if ctx.perm is not None else t
-        z = float(dyn[2, t])
-        sh = dyn.clone()
-        sh[:3] -= dyn[:3, t : t + 1]
-        vals = [float(x[r, t]) for x in (k2, plain, plain64, st.field_grads(ctx, sh), st.field_grads_plain(ctx, sh))]
-        print(f"    K2 rna2 worst element: row {r}, slot {t} (nucleotide {i}, z {z:.1f}): kernel {vals[0]:.5f} f32 "
-              f"{vals[1]:.5f} f64 {vals[2]:.5f}; with the origin at that nucleotide: kernel {vals[3]:.5f} f32 "
-              f"{vals[4]:.5f}")
-    if not (ok2 and k2_det):
-        raise SystemExit("K2's rna2 instance disagrees with its plain version, or is not deterministic")
+    k2r = _k2_held("10a K2 rna2", ctx, dyn, ptx, rna2.per_term_site_cutoffs())
     # the same at 80 nt on three coaxially stacked pairs, coaxial stacking alone
     top_s, body_s = synthetic_duplex(40, form="A", dtype=torch.float32, device=dev)
     _, sim_s = build_sim(top_s, KT, model="rna2", init_centers=body_s.center, init_orientation=body_s.orientation,
@@ -862,17 +896,17 @@ def _rna2(dev, smi: str) -> list[dict]:
           f"{sim_b.band.w_terms} w_wide={sim_b.band.w_wide}, overflow at init={bool(sim_b.band.did_overflow)}): "
           f"overflow={ovf_b}")
 
-    # bounds from the pairs of the jittered state the kernels met in 10a
+    # K1's bound from the band pairs of the jittered state K2 counted in 10a
     n_bonds = int((ctx.dirf != 0).sum())
-    k2_bound = _bound(2 * 7 * n * 4, n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD)
+    n_short, n_debye = k2r["tally"]["short"], k2r["tally"]["debye"]
     k1_bound = _bound(
         (19 + 20) * n * 4 + u * 6 * n * 2,
         u * (n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD + n_bonds * FLOP_BOND_GRAD_RNA2
              + n * FLOP_BODY_STEP),
     )
-    print(f"[10 bounds] {n_short} band pairs inside a short-range site cutoff, {n_debye} inside Debye's alone, "
+    print(f"[10 bounds] {n_short} band pairs inside a short-range cutoff, {n_debye} inside Debye's alone, "
           f"{n_bonds} bonds: K1 rna2 {k1_bound[0]:.4f} ms ({k1_bound[1]}; {_share(k1_bound[0], k1_dev)} of its device "
-          f"time), K2 rna2 {k2_bound[0]:.5f} ms ({k2_bound[1]}; {_share(k2_bound[0], k2_dev)})")
+          f"time)")
     _lap("10 rna2")
     src = "mythos_tpu_torch/ops/csrc/"
     return [
@@ -881,35 +915,117 @@ def _rna2(dev, smi: str) -> list[dict]:
          "ms": statistics.median(k1_ms), "plain_ms": statistics.median(p1_ms), "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "K2 field_grads (rna2)", "route": "cuda", "source": src + "stencil_grads.cu",
-         "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": launches["K2"], "max_abs_err": err2,
-         "ms": statistics.median(k2_ms), "plain_ms": statistics.median(p2_ms), "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": None, "max_abs_err": k2r["err"],
+         "ms": statistics.median(k2r["ms"]), "plain_ms": statistics.median(k2r["plain_ms"]),
+         "bound_ms": k2r["bound"][0], "bound_by": k2r["bound"][1], "library_ms": None},
     ]
+
+
+def _per_step(dev, smi: str) -> dict:
+    """Phase 11: the stencil's per-step branch (``save_every`` 1) at 10k nt,
+    oxDNA2 on the B-form and oxRNA2 on the A-form duplex: after a warm-up
+    run, the counted, timed run (a state emitted every step, K2 launched
+    once for the initial force and once a step, K1 never, no overflow), a
+    torch.profiler window; then 40-bp per-step runs of both families and of
+    the block tier, card vs CPU. K2's launches in each counted run."""
+    import torch
+
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.ops import stencil as st
+
+    launches = {}
+    for model, form in (("dna2", "B"), ("rna2", "A")):
+        steps = PER_STEP_STEPS[model]
+        topology, body = synthetic_duplex(N_BP, form=form, dtype=torch.float32, device=dev)
+        energy_fn, sim = build_sim(topology, KT, model=model, init_centers=body.center,
+                                   init_orientation=body.orientation, device=dev)
+        sim = sim.replace(save_every=1)
+        u, params = sim.neighbor_update_every, energy_fn.opt_params()
+        sim.run(params, body, u, torch.Generator(device=dev).manual_seed(20))
+        st.field_grads.launches = st.multistep_chunk.launches = 0
+        st.field_grads.by_family = dict.fromkeys(st.FAMILIES, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.run(params, body, steps, torch.Generator(device=dev).manual_seed(21))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches[model] = k2 = st.field_grads.by_family[model]
+        k1 = st.multistep_chunk.launches
+        traj = out.observables[0]
+        finite = bool(torch.isfinite(traj.center).all() and torch.isfinite(traj.orientation).all())
+        qdev = float((traj.orientation.norm(dim=-1) - 1.0).abs().max())
+        overflow = bool(traj.metadata["neighbor_overflow"].any())
+        print(f"[11 per-step {model}] {steps} steps at {topology.n_nucleotides} nt, a state every step: {elapsed:.3f} s = "
+              f"{steps / elapsed * 60.0:.1f} steps/min on {smi}; states {tuple(traj.center.shape)} finite={finite} "
+              f"max||q|-1|={qdev:.2e} overflow={overflow}; K2 launches {k2} (all families {st.field_grads.launches}), "
+              f"K1 {k1}")
+        if not finite or qdev > 1e-5 or overflow or traj.center.shape[0] != steps:
+            raise SystemExit(f"the {model} per-step branch produced a bad trajectory")
+        if k2 != steps + 1 or k1 != 0:
+            raise SystemExit(f"the {model} per-step branch did not launch K2 once a step (and K1 never): {k2}, {k1}")
+        w = _profiled(lambda: sim.run(params, body, PER_STEP_WINDOW, torch.Generator(device=dev).manual_seed(22)))
+        k2_call = _per_call(w, {"stencil_field_grads": 1})
+        step_ms = w["wall_ms"] / PER_STEP_WINDOW
+        print(f"[11 profile {model}] {PER_STEP_WINDOW} steps under torch.profiler: wall {w['wall_ms']:.1f} ms "
+              f"({step_ms:.3f} ms a step), device kernels {w['device_ms']:.1f} ms (idle share "
+              f"{1 - w['device_ms'] / w['wall_ms']:.0%}), {w['launches'] / PER_STEP_WINDOW:.1f} launches a step; K2 "
+              f"{_dev(k2_call)} of device time a call ({k2_call / step_ms:.2%} of a step); host top: "
+              + ", ".join(f"{k} {ms:.0f} ms" for k, ms in w["host"]))
+
+    def small_run(device, model, mode):
+        top, b = synthetic_duplex(40, form="B" if model == "dna2" else "A", dtype=torch.float32, device=device)
+        kw = {"init_orientation": b.orientation} if mode == "stencil" else {}
+        e, s_ = build_sim(top, 0.0, mode=mode, model=model, init_centers=b.center, neighbor_update_every=5,
+                          device=device, **kw)
+        o = s_.replace(save_every=1).run(e.opt_params(), b, 20, torch.Generator(device=device).manual_seed(0))
+        return o.observables[0]
+
+    for model, mode in (("dna2", "stencil"), ("rna2", "stencil"), ("dna2", "block")):
+        gpu, cpu = small_run(dev, model, mode), small_run("cpu", model, mode)
+        okc, errc = _within(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+        okq, errq = _within(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+        print(f"[11 small input {model} {mode}] 40 bp, 20 steps emitted every step, kT=0: states "
+              f"{tuple(gpu.center.shape)}, card vs CPU center err {errc:.2e} quat err {errq:.2e}")
+        if not (okc and okq) or gpu.center.shape[0] != 20:
+            raise SystemExit(f"the card's {model} {mode} per-step trajectory disagrees with the CPU")
+    _lap("11 per-step branch")
+    return launches
 
 
 def _against(root: str, ctx, dyn, ou, noise, state, k2, k1) -> None:
     """Build the kernels of the checkout at ``root`` and run its K2 and K1
-    (oxDNA2) on phases 3 and 4's inputs, through this checkout's wrappers
-    with that library loaded: are the bits this checkout's?"""
+    (oxDNA2) on phases 3 and 4's inputs: does its K1 give this checkout's
+    bits, and its K2 this checkout's values within K2's tolerance (a K2 that
+    sums in another order gives other bits)? Its K2 is called through its
+    own C signature."""
+    import ctypes
     import importlib.util
     from pathlib import Path
 
+    import torch
+
     from mythos_tpu_torch.ops import _build
     from mythos_tpu_torch.ops import stencil as st
-
-    import torch
 
     spec = importlib.util.spec_from_file_location("other_build", Path(root) / "mythos_tpu_torch/ops/_build.py")
     other = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(other)
     lib, own = other.load_library(), _build.load_library
+    out = torch.empty_like(dyn)
+    with_counts = len(other.SIGNATURES["stencil_field_grads"]) == len(_build.SIGNATURES["stencil_field_grads"])
+    rc = lib.stencil_field_grads(*st._ctx_args(ctx), st._ptr(dyn), st._ptr(out),
+                                 *((ctypes.c_void_p(None),) if with_counts else ()),
+                                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    ok2, err2 = _within(out, k2, rtol=1e-4, atol=1e-4 * float(k2.abs().max()))
     _build.load_library = lambda: lib
     try:
-        same2 = torch.equal(st.field_grads(ctx, dyn), k2)
         same1 = torch.equal(st.multistep_chunk(ctx, ou, noise, state), k1)
     finally:
         _build.load_library = own
-    print(f"[3-4 against {root}] its K2 gives this checkout's bits: {same2}; its K1: {same1}")
+    print(f"[3-4 against {root}] its K2 (rc {rc}) within K2's tolerance of this checkout's: {ok2} (max diff "
+          f"{err2:.3e}, equal bits: {torch.equal(out, k2)}); its K1 gives this checkout's bits: {same1}")
 
 
 def main() -> int:
@@ -951,7 +1067,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, nvcc_s = _build.build()
     _build.load_library()
-    regs, fn, spill = [], "?", ""
+    regs, fn, spill, ptx = [], "?", "", {}  # ptx: {kernel: (registers, spill store bytes)}
     for ln in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in ln:
             fn = ln.split("'")[1]
@@ -964,6 +1080,8 @@ def main() -> int:
             spill = ln.split(",", 1)[1].strip()
         elif "registers" in ln:
             regs.append(f"{fn}: {ln.split(':', 1)[1].strip()}, {spill}")
+            used, stores = re.search(r"Used (\d+) registers", ln), re.search(r"(\d+) bytes spill stores", spill)
+            ptx[fn] = (int(used.group(1)) if used else 0, int(stores.group(1)) if stores else -1)
     print(f"[2 build] {lib_path.name}: nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s; "
           + " | ".join(regs))
     _lap("1-2 device, build")
@@ -977,17 +1095,8 @@ def main() -> int:
     n = ctx.n
     dyn = torch.cat([ctx.to_slots(body.center.T), ctx.to_slots(body.orientation.T)]).contiguous()
 
-    # 3. K2 vs twin
-    k2_ms, k2 = _events_ms(lambda: st.field_grads(ctx, dyn), 20)
-    k2_dev = _per_call(_profiled(lambda: st.field_grads(ctx, dyn), 10), {"stencil_field_grads": 1})
-    tw_ms, twin = _events_ms(lambda: st.field_grads_plain(ctx, dyn), 20)
-    scale = float(twin.abs().max())
-    ok2, err2 = _within(k2, twin, rtol=1e-4, atol=1e-4 * scale)
-    print(f"[3 K2] n={n} w_terms={ctx.w_terms} w_wide={ctx.w_wide} max_abs_err={err2:.3e} "
-          f"(atol {1e-4 * scale:.3e}, rtol 1e-4) kernel {statistics.median(k2_ms):.4f} ms by events, "
-          f"{_dev(k2_dev)} of device time a call; twin {statistics.median(tw_ms):.4f} ms")
-    if not ok2:
-        raise SystemExit("K2 disagrees with its twin")
+    # 3. K2 vs twin, its gate, registers and spill
+    k2r = _k2_held("3 K2", ctx, dyn, ptx)
 
     # 4. K1 vs twin: one 40-step chunk from a jittered (off-lattice) state,
     # same bf16 noise. At 10k nt the duplex spans |z| ~ 2000, where a float32
@@ -1040,7 +1149,7 @@ def main() -> int:
     if not ok1s:
         raise SystemExit("K1 disagrees with its twin at 80 nt")
     if args.against:
-        _against(args.against, ctx, dyn, ou, noise, state, k2, k1)
+        _against(args.against, ctx, dyn, ou, noise, state, k2r["k2"], k1)
     _lap("3-4 K2, K1")
 
     # 5a. the main path at 10k nt: warm-up run, then the counted, timed run
@@ -1227,12 +1336,11 @@ def main() -> int:
                       f"{_dev(v['dev_ms arc270'])}; kernels {v['kernels ideal']}), bound {v['bound'][0]:.5f} ms "
                       f"({v['bound'][1]}): {_share(v['bound'][0], v['ms'])} by events, "
                       f"{_share(v['bound'][0], v['dev_ms ideal'])} by device time" for k, v in tile_rec.items()))
-    k2_bound = _bound(2 * 7 * n * 4, n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD)
     k1_bound = _bound(
         (19 + 20) * n * 4 + u * 6 * n * 2,
         u * (n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD + (n - 2) * FLOP_BOND_GRAD + n * FLOP_BODY_STEP),
     )
-    print(f"[6 bounds] K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 {k2_bound[0]:.5f} ms ({k2_bound[1]})")
+    print(f"[6 bounds] K1 {k1_bound[0]:.4f} ms ({k1_bound[1]})")
     _lap("6 tiles")
 
     # 7. the block tier on the 270-degree arc: warm-up run, then the counted, timed run
@@ -1375,7 +1483,13 @@ def main() -> int:
     k6_records = _martini(dev, smi)
 
     # 10. the oxRNA2 main path: K2 and K1's rna2 instances, 2000 steps at 10k nt
-    rna2_records = _rna2(dev, smi)
+    rna2_records = _rna2(dev, smi, ptx)
+
+    # 11. the stencil's per-step branch: K2 every step, both families
+    per_step = _per_step(dev, smi)
+    for rec in rna2_records:
+        if rec["launches"] is None:
+            rec["launches"] = per_step["rna2"]
 
     src = "mythos_tpu_torch/ops/csrc/"
     tile_launch = {"K3": k3_launches, "K4": d_launches["K4"], "K5": d_launches["K5"]}
@@ -1390,9 +1504,9 @@ def main() -> int:
          "ms": statistics.median(k1_ms), "plain_ms": statistics.median(tw1_ms), "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "K2 field_grads", "route": "cuda", "source": src + "stencil_grads.cu",
-         "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": launches["K2"], "max_abs_err": err2,
-         "ms": statistics.median(k2_ms), "plain_ms": statistics.median(tw_ms), "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": per_step["dna2"], "max_abs_err": k2r["err"],
+         "ms": statistics.median(k2r["ms"]), "plain_ms": statistics.median(k2r["plain_ms"]),
+         "bound_ms": k2r["bound"][0], "bound_by": k2r["bound"][1], "library_ms": None},
     ] + rna2_records + [
         {"name": f"{k} {tile_meta[k][0]}", "route": "cuda", "source": src + "tiles.cu", "replaces": tile_meta[k][1],
          "launches": tile_launch[k], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -12,9 +12,13 @@ friction gamma = (kT/2.5, kT/7.5):
   a symmetric two-level (tight, wide) block-neighbor table over the same
   slot order, rebuilt every ``neighbor_update_every`` steps (kernel K3).
 
-Other modes and models, and the rna2 block tier, are not ported yet and
-raise. Everything runs on the card unless ``device="cpu"`` asks for the
-plain versions.
+Both simulators save a state every ``save_every`` (40) steps; callers that
+want every state take ``sim.replace(save_every=1)``, and the stencil then
+steps one step at a time (K2 plus the bonded gradient each step) instead
+of in K1's chunks, as the reference's per-step branch does. Other modes
+and models, and the rna2 block tier, are not ported yet and raise.
+Everything runs on the card unless ``device="cpu"`` asks for the plain
+versions.
 
 Example (one H100)::
 
@@ -23,6 +27,9 @@ Example (one H100)::
                                init_orientation=body.orientation)
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = sim.run(energy_fn.opt_params(), body, 2000, gen)
+
+    # every state: the per-step branch
+    out = sim.replace(save_every=1).run(energy_fn.opt_params(), body, 400, gen)
 
     # oxRNA2 starts from the A-form helix
     topology, body = synthetic_duplex(5000, form="A", dtype=torch.float32)

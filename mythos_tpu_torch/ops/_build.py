@@ -31,7 +31,10 @@ _I = ctypes.c_int
 #: argument types of each exported C function (every pointer and the
 #: stream as c_void_p, every count as c_int)
 SIGNATURES = {
-    "stencil_field_grads": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # params, seq, partners, qf, n, w x4, w_wide, dyn, out, counts, stream
+    "stencil_field_grads": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # n: the blocks of K2, the rows of its tally
+    "stencil_field_grads_blocks": (_I,),
     "multistep_chunk": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,  # params, seq, partners, qf, n, w x4, w_wide
         _P, _P, _P, _I, _I,  # wstack, dirf, checks, n_checks, check_dm

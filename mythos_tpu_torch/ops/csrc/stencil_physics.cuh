@@ -1,13 +1,12 @@
 // oxDNA2 and oxRNA2 pair physics shared by the stencil kernels K1/K2 and
 // the tile kernels K3/K4/K5 (oxDNA2 only).
 //
-// The slot_* functions are written for ONE slot t and read the positions of
-// its band neighbours from global memory (K2 is one thread per slot); the
-// k1_* functions are the pieces of K1's block (one lane's pairs, the
-// fixed-order reduction, one slot's integrator update); the pair functions
+// The k1_* functions are the pieces of K1's block (one lane's pairs, the
+// fixed-order reduction, one slot's integrator update); slot_violations
+// reads one slot's band neighbours from global memory; the pair functions
 // (unbonded_pair and its gated forms with unbonded_reach, bonded_pair,
-// unbonded_pair_energy_gated) take two bodies, which the tile kernels read
-// from their row arrays. Functions are
+// unbonded_pair_energy_gated) take two bodies, which K2 reads from its
+// staged slots and the tile kernels from their row arrays. Functions are
 // __host__ __device__ so that the same arithmetic can be compiled for the
 // CPU as well; the kernels live in stencil_grads.cu (K2), multistep.cu (K1)
 // and tiles.cu (K3-K5).
@@ -378,11 +377,12 @@ HD PairSites zero_sites() {
 #define REACH_SHORT 127  // any short-range term
 #define REACH_DEBYE 128
 
-// The reach bits of unbonded pair (i, j), its site distances formed as
-// unbonded_pair forms them.
+// The reach bits of unbonded pair (i, j) of family kFam, its site distances
+// formed as unbonded_pair forms them (the backbone by back_site<kFam>).
+template <int kFam = FAM_DNA2>
 HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
-  V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
+  V3 back_i = back_site<kFam>(bx, by, bi), back_j = back_site<kFam>(bx, by, bj);
   V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
   V3 stack_i = bi.com + sto * bi.a1, stack_j = bj.com + sto * bj.a1;
   float r_bb = norm(back_j - back_i), r_ee = norm(base_j - base_i);
@@ -394,17 +394,31 @@ HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
          (r_ss < P[P_COAX + 3] ? REACH_COAX : 0) | (r_bb < P[P_DEBYE + 3] ? REACH_DEBYE : 0);
 }
 
+// The reach bits of the band pair (i, j = i + d) of family kFam:
+// unbonded_reach<kFam> ANDed with the offset reaches (w[0..3] for exc, hb,
+// cross, coax; Debye out to w_wide), so that a gated evaluation takes
+// exactly the terms the offset-gated one does, less exact zeros
+// (ops/stencil.py::band_gates_plain).
+template <int kFam>
+HD int band_reach(const float* P, const Body& bi, const Body& bj, int d, const int* w, int w_wide) {
+  const int offsets = (d <= w[0] ? REACH_EXC : 0) | (d <= w[1] ? REACH_HB : 0) | (d <= w[2] ? REACH_CROSS : 0) |
+                      (d <= w[3] ? REACH_COAX : 0) | (d <= w_wide ? REACH_DEBYE : 0);
+  return unbonded_reach<kFam>(P, bi, bj) & offsets;
+}
+
 // Unbonded pair: gradient of the weighted excluded volume, HB, cross
-// stacking, coax and Debye energies of family kFam. kGated (oxDNA2 only):
-// each term (each excluded-volume distance) only where its `reach` bit is
-// set; else, for the band pair (i, j = i + d), each term only within its
-// offset reach (w[0..3] for exc, hb, cross, coax; Debye out to w_wide). Adds
-// body i's (side_j false) or body j's (side_j true) share to `acc`; where
-// `hb` is given and the HB term ran, sets *hb to its weight-free product
-// f1(r) * prod f4.
-template <bool kGated, int kFam = FAM_DNA2>
+// stacking, coax and Debye energies of family kFam. kGated: each term (each
+// excluded-volume distance) only where its `reach` bit is set
+// (unbonded_reach<kFam>, for the band ANDed with the offset reaches:
+// band_reach); else, for the band pair (i, j = i + d), each term only within
+// its offset reach (w[0..3] for exc, hb, cross, coax; Debye out to w_wide).
+// Adds body i's (side_j false) or body j's (side_j true) share to `acc`, or
+// with kBoth body i's to `acc` and body j's to `*acc_j`; where `hb` is given
+// and the HB term ran, sets *hb to its weight-free product f1(r) * prod f4.
+template <bool kGated, int kFam = FAM_DNA2, bool kBoth = false>
 HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int d,
-                            const int* w, int w_wide, int reach, bool side_j, Grad& acc, float* hb = nullptr) {
+                            const int* w, int w_wide, int reach, bool side_j, Grad& acc, float* hb = nullptr,
+                            Grad* acc_j = nullptr) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
   PairSites g = zero_sites();
   V3 back_i = back_site<kFam>(bx, by, bi), back_j = back_site<kFam>(bx, by, bj);
@@ -545,7 +559,12 @@ HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, floa
       g.stack_i -= gv;
     }
   }
-  add_side<kFam>(P, g, side_j, acc);
+  if constexpr (kBoth) {
+    add_side<kFam>(P, g, false, acc);
+    add_side<kFam>(P, g, true, *acc_j);
+  } else {
+    add_side<kFam>(P, g, side_j, acc);
+  }
 }
 
 // The band's pair (i, j = i + d), each term within its offset reach (K1, K2).
@@ -766,30 +785,6 @@ HD void bonded_pair_rna2(const float* P, const Body& bi, const Body& bj, float d
   acc += (side_j ? !pos : pos) ? g3 : g5b;
 }
 
-// Gather form of the band: slot t evaluates every pair it belongs to, as
-// the i-side of (t, t+d) and as the j-side of (t-d, t), and keeps only its
-// own share (twice the pair arithmetic, no atomics, no cross-block order).
-template <int kFam>
-HD Grad slot_unbonded_grad(int t, const float* P, const float* pos, const int* seq, const int* partners,
-                           const float* qf, int n, const int* w, int w_wide) {
-  Grad acc = zero_grad();
-  Body bt = body_at(pos, n, t);
-  const float* W = P + P_HB + 39;
-  for (int d = 1; d <= w_wide; ++d) {
-    int j = t + d;
-    if (j < n && partners[t] != j && partners[n + t] != j) {
-      Body bj = body_at(pos, n, j);
-      unbonded_pair<kFam>(P, bt, bj, W[seq[t] * 4 + seq[j]], qf[t] * qf[j], d, w, w_wide, false, acc);
-    }
-    int i = t - d;
-    if (i >= 0 && partners[i] != t && partners[n + i] != t) {
-      Body bi = body_at(pos, n, i);
-      unbonded_pair<kFam>(P, bi, bt, W[seq[i] * 4 + seq[t]], qf[i] * qf[t], d, w, w_wide, true, acc);
-    }
-  }
-  return acc;
-}
-
 // d/dquat of the frame cotangent (transpose of the quaternion -> frame map)
 HD void frame_vjp(const float* q, const Grad& g, float* gq) {
   float w = q[0], x = q[1], y = q[2], z = q[3];
@@ -868,8 +863,8 @@ HD float bf16_to_float(uint16_t b) {
 #define K1_WARPS 8
 #define K1_RED (K1_WARPS * 32 + 16)  // stride of a component in the reduction buffer (no bank conflicts)
 
-// one lane's share of slot t's gradient (gather, as slot_unbonded_grad:
-// the lane keeps its slot's side of each pair it evaluates)
+// one lane's share of slot t's gradient (gather: the lane keeps its slot's
+// side of each pair it evaluates)
 template <int kFam>
 HD Grad k1_lane_grad(int t, bool side_j, int warp, const float* P, const float* pos, const int* seq,
                      const int* partners, const float* qf, const float* wstack, const float* dirf, int n, const int* w,

@@ -24,8 +24,9 @@ Two kernels carry the main path (sources in ``ops/csrc``), each with one
 compiled instance per family:
 
 * K2 :func:`field_grads` -- one unbonded band evaluation, d/dcom and
-  d/dquat (replaces ``_kernel_field_grads``; runs once per run for the
-  initial force).
+  d/dquat (replaces ``_kernel_field_grads``; the initial force of a run,
+  and every step's force on the per-step branch). Its gate has a plain
+  version too, :func:`band_gates_plain`.
 * K1 :func:`multistep_chunk` -- ``n_inner`` BAOAB Langevin steps with the
   bonded terms, and the exact site-distance band checks at the chunk's
   entry positions (replaces ``_multistep_chunk_l``).
@@ -396,13 +397,12 @@ def _band_pairs(ctx: StencilContext, device) -> tuple[torch.Tensor, torch.Tensor
     return torch.cat(los), torch.cat(his), ends
 
 
-def band_energy_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tensor) -> list:
-    """Per-term unbonded band sums (exc, hb, cross, coax, debye), unweighted.
-
-    Pair (i, i+d) for d = 1..w_wide, excluding bonded partners; each
-    short-range term up to its own reach, Debye to w_wide. All offsets go
-    through each term in one pass (offset-major pair lists).
-    """
+def band_pair_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tensor) -> tuple:
+    """Per-pair unbonded band energies, unweighted: (lo, hi, [exc, hb,
+    cross, coax, debye]), term k's values those of the first ``len(e_k)``
+    pairs (lo, hi) -- the pairs (i, i + d) for d = 1..w_wide, offset-major,
+    bonded partners dropped, each short-range term up to its own reach,
+    Debye to w_wide (all offsets through each term in one pass)."""
     P = unpack_params(params)
     s = _sites(P, com, quat, ctx.family)
     rna2 = ctx.family == "rna2"
@@ -440,7 +440,72 @@ def band_energy_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.
     )
     coax = t1.coax_product(P["COAX"], gc) if rna2 else t2.coax_value(P["COAX"], gc)
     debye = t2.debye_of(P["DEBYE"], r_bb) * ctx.qf[lo] * ctx.qf[hi]
-    return [e.sum() for e in (exc, hb, cross, coax, debye)]
+    return lo, hi, [exc, hb, cross, coax, debye]
+
+
+def band_energy_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tensor) -> list:
+    """Per-term unbonded band sums (exc, hb, cross, coax, debye), unweighted
+    (:func:`band_pair_terms` summed)."""
+    return [e.sum() for e in band_pair_terms(ctx, com, quat, params)[2]]
+
+
+#: K2's tally of the band pairs (stencil_grads.cu, K2_TALLY): the pairs
+#: each term's gate keeps, then the classes -- a short-range term kept,
+#: Debye alone, nothing
+BAND_TALLY = ("UnbondedExcludedVolume", "HydrogenBonding", "CrossStacking", "CoaxialStacking", "Debye",
+              "short", "debye", "skipped")
+#: the parameter names of the four excluded-volume distances' upper cutoffs
+#: (base-base, base_j - back_i, back_j - base_i, back-back)
+_EXC_CUTOFFS = ("dr_c_base", "dr_c_back_base", "dr_c_base_back", "dr_c_backbone")
+
+
+def band_gates_plain(ctx: StencilContext, dyn: torch.Tensor) -> dict:
+    """Plain version of K2's gate: {term: (w_wide, n) bool}, entry [d - 1, i]
+    for the band pair (i, i + d) of the (7, n) slot-order state, set where
+    the pair is in the band (i + d < n, not bonded partners), within the
+    term's offset reach (``w_terms``; Debye ``w_wide``), and one of the
+    term's site distances lies inside the upper cutoff its radial factor
+    reads from the parameters (past it the factor, and so the term and its
+    gradient, is exactly zero). Excluded volume: any of its four distances;
+    hydrogen bonding and cross stacking: base-base; coaxial stacking:
+    stack-stack; Debye: backbone-backbone."""
+    P = unpack_params(ctx.params.to(dyn.dtype))
+    s = _sites(P, Vec3(*dyn[:3]), Quat(*dyn[3:7]), ctx.family)
+    n, w_wide = ctx.n, ctx.w_wide
+    idx = torch.arange(n, device=dyn.device)
+    reaches = (*ctx.w_terms, w_wide)
+    gates = {nm: torch.zeros((w_wide, n), dtype=torch.bool, device=dyn.device) for nm in UNBONDED_ORDER}
+    for d in range(1, min(w_wide, n - 1) + 1):
+        m = n - d
+        valid = (ctx.partners[0, :m] != idx[:m] + d) & (ctx.partners[1, :m] != idx[:m] + d)
+        r_ee, r_eb, r_be, r_bb, r_ss = (
+            vnorm(_hi(b, d) - _lo(a, d))
+            for a, b in ((s.base, s.base), (s.back, s.base), (s.base, s.back), (s.back, s.back), (s.stack, s.stack))
+        )
+        exc = P["EXC"]
+        inside = {
+            "UnbondedExcludedVolume": torch.stack([r < getattr(exc, nm) for r, nm in
+                                                   zip((r_ee, r_eb, r_be, r_bb), _EXC_CUTOFFS, strict=True)]).any(0),
+            "HydrogenBonding": r_ee < P["HB"].dr_c_high_hb,
+            "CrossStacking": r_ee < P["CROSS"].dr_c_high_cross,
+            "CoaxialStacking": r_ss < P["COAX"].dr_c_high_coax,
+            "Debye": r_bb < P["DEBYE"].r_cut,
+        }
+        for nm, w in zip(UNBONDED_ORDER, reaches, strict=True):
+            if d <= w:
+                gates[nm][d - 1, :m] = valid & inside[nm]
+    return gates
+
+
+def band_gate_counts(ctx: StencilContext, dyn: torch.Tensor) -> dict:
+    """K2's tally (:data:`BAND_TALLY`) by the plain gate: the band pairs each
+    term's gate keeps, and the band pairs by class."""
+    gates = band_gates_plain(ctx, dyn)
+    short = torch.stack([gates[nm] for nm in UNBONDED_ORDER[:4]]).any(0)
+    counts = {nm: int(g.sum()) for nm, g in gates.items()}
+    counts.update(short=int(short.sum()), debye=int((gates["Debye"] & ~short).sum()))
+    counts["skipped"] = _band_pairs(ctx, dyn.device)[0].numel() - counts["short"] - counts["debye"]
+    return counts
 
 
 def bonded_energy(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tensor) -> torch.Tensor:
@@ -633,12 +698,10 @@ def _instance(name: str, ctx: StencilContext) -> str:
     return name if ctx.family == "dna2" else f"{name}_{ctx.family}"
 
 
-def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
-    """K2: (7, n) [com, quat] -> (7, n) [dE/dcom, dE/dquat] of the weighted
-    unbonded band energy. CPU tensors run :func:`field_grads_plain`.
-    ``launches`` counts every launch, ``by_family`` each family's."""
-    if dyn.device.type == "cpu":
-        return field_grads_plain(ctx, dyn)
+def _field_grads(ctx: StencilContext, dyn: torch.Tensor, count: bool = False):
+    """:func:`field_grads` on CUDA tensors: (out, counts), ``counts`` (with
+    ``count``) the kernel's tally {name: pairs} of the band pairs by gate
+    (:data:`BAND_TALLY`; :func:`band_gate_counts`), else None."""
     from mythos_tpu_torch.ops import _build
 
     _check_cuda("field_grads", dyn=dyn, params=ctx.params)
@@ -646,14 +709,27 @@ def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"field_grads takes (7, {ctx.n}) float32, got {tuple(dyn.shape)} {dyn.dtype}")
     name = _instance("stencil_field_grads", ctx)
     out = torch.empty_like(dyn)
-    rc = getattr(_build.load_library(), name)(
-        *_ctx_args(ctx), _ptr(dyn), _ptr(out), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    lib = _build.load_library()
+    parts = torch.empty((lib.stencil_field_grads_blocks(ctx.n), len(BAND_TALLY)), dtype=torch.int32,
+                        device=dyn.device) if count else None
+    rc = getattr(lib, name)(
+        *_ctx_args(ctx), _ptr(dyn), _ptr(out), ctypes.c_void_p(None if parts is None else parts.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     field_grads.launches += 1
     field_grads.by_family[ctx.family] += 1
-    return out
+    return out, None if parts is None else dict(zip(BAND_TALLY, parts.sum(0).tolist(), strict=True))
+
+
+def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
+    """K2: (7, n) [com, quat] -> (7, n) [dE/dcom, dE/dquat] of the weighted
+    unbonded band energy. CPU tensors run :func:`field_grads_plain`.
+    ``launches`` counts every launch, ``by_family`` each family's."""
+    if dyn.device.type == "cpu":
+        return field_grads_plain(ctx, dyn)
+    return _field_grads(ctx, dyn)[0]
 
 
 field_grads.launches = 0

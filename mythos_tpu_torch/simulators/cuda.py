@@ -1,30 +1,41 @@
 """The Langevin simulators of the port: the stencil tier and the block tier.
 
 Counterpart of mythos_tpu.simulators.tpu.TpuSimulator. :class:`CudaSimulator`
-is its banded-stencil fused multi-step branch (``build_run_fn``,
-simulators/tpu.py:253-296 and 386-450); :class:`BlockSimulator` its
-symmetric block-table branch (simulators/tpu.py:297-322 and 451-501).
+is its banded-stencil tier: the fused multi-step branch (``build_run_fn``,
+simulators/tpu.py:253-296 and 386-450) and, with ``save_every`` <= 1, the
+generic per-step branch (:451-482); :class:`BlockSimulator` its symmetric
+block-table branch (simulators/tpu.py:297-322 and 451-501).
 
 A stencil run:
 
 * binds the parameters (dependent ones re-derived) and prepares the
   stencil context in slot order;
 * computes the initial force with the K2 kernel (+ the bonded gradient);
-* steps ``n_steps // neighbor_update_every`` chunks, each: the far
-  fold-back sweep on every ``FAR_EVERY``-th chunk, bf16 normals from the
-  run's ``torch.Generator``, one K1 call (whose row 19 carries the exact
-  in-band checks at the chunk's entry positions);
+* with ``save_every`` > 1 (the chunk path), steps ``n_steps //
+  neighbor_update_every`` chunks, each: the far fold-back sweep on every
+  ``FAR_EVERY``-th chunk, bf16 normals from the run's ``torch.Generator``,
+  one K1 call (whose row 19 carries the exact in-band checks at the
+  chunk's entry positions), a state saved every ``save_every`` steps;
+* with ``save_every`` <= 1 (the per-step branch), every
+  ``neighbor_update_every`` steps runs the band's exact checks and far
+  sweep (``StencilBand.slot_check``, as the reference's band build), then
+  that many BAOAB steps of ``integrators.nvt_langevin_soa`` whose force is
+  K2 plus the bonded gradient, and saves every state;
 * un-permutes the saved states once, at the end, and reads the overflow
   flag back once.
 
-There is no per-step fallback: a configuration the chunk kernel cannot run
-raises (scalar mass/friction, every bond at slot offset 2, discrete
-sequence, ``save_every`` a multiple of ``neighbor_update_every``).
+``save_every`` alone picks the branch. Neither is a fallback of the other:
+a configuration the stencil kernels cannot run raises on both (scalar
+mass/friction, every bond at slot offset 2, discrete sequence), and so
+does a ``save_every`` that is not a multiple of ``neighbor_update_every``
+on the chunk path, or an ``n_steps`` that is not on the per-step branch.
 
 A block run rebuilds its (tight, wide) tables every
 ``neighbor_update_every`` steps, with the previous tables as ``prev`` (the
-missed-interaction detector), and takes each step's force from K3 on each
-table plus the bonded gradient by autograd (ops.tiles.fused_grads_ctx).
+missed-interaction detector), takes each step's force from K3 on each
+table plus the bonded gradient by autograd (ops.tiles.fused_grads_ctx),
+and saves every ``save_every``-th state (every state with ``save_every``
+<= 1, under the same rule).
 """
 
 from __future__ import annotations
@@ -43,12 +54,35 @@ from mythos_tpu_torch.simulators.neighbors import BlockNeighborList, StencilBand
 from mythos_tpu_torch.soa import BodySoA, Quat, Vec3, to_soa
 
 ERR_SAVE_EVERY = "`save_every` must evenly divide n_steps. Got {} and {}."
-ERR_UPDATE_EVERY = "`neighbor_update_every` must divide save_every. Got {} and {}."
+ERR_UPDATE_EVERY = (
+    "`neighbor_update_every` must divide save_every (or n_steps when emitting every step). Got {} and {}."
+)
 
 #: chunks between far fold-back sweeps: fold-backs develop over thousands
 #: of steps and the band's site slack covers ~4 chunks of drift; the exact
 #: near-band checks run every chunk, in K1 (as the reference, tpu.py:401-407)
 FAR_EVERY = 4
+
+
+def _every_step(save_every: int, u: int, n_steps: int) -> bool:
+    """Whether a run emits every state (``save_every`` <= 1, as the
+    reference's generic branch); raises where the cadence does not divide,
+    with the reference's messages (simulators/tpu.py:233-234, 468-469,
+    486-487)."""
+    if save_every <= 1:
+        if u < 1 or n_steps % u:
+            raise ValueError(ERR_UPDATE_EVERY.format(u, n_steps))
+        return True
+    if n_steps % save_every:
+        raise ValueError(ERR_SAVE_EVERY.format(save_every, n_steps))
+    if u < 1 or save_every % u:
+        raise ValueError(ERR_UPDATE_EVERY.format(u, save_every))
+    return False
+
+
+def _positions(state) -> torch.Tensor:
+    """(7, n) com + quat rows of a LangevinStateSoA."""
+    return torch.stack([*state.position.center, *state.position.orientation])
 
 
 def _trajectory(traj: torch.Tensor, kT: float, overflow: torch.Tensor) -> SimulatorTrajectory:  # noqa: N803
@@ -68,8 +102,8 @@ class CudaSimulator:
 
     ``run(opt_params, init_state, n_steps, generator)`` returns a
     SimulatorOutput with one SimulatorTrajectory (every ``save_every``-th
-    state, original nucleotide order, ``neighbor_overflow`` metadata). The
-    device is that of ``init_state``.
+    state, every state with ``save_every`` <= 1; original nucleotide order,
+    ``neighbor_overflow`` metadata). The device is that of ``init_state``.
     """
 
     energy_fn: object
@@ -94,44 +128,53 @@ class CudaSimulator:
         )
         return ctx, ou.vector(device)
 
-    def initial_state(self, ctx, body: RigidBody, generator: torch.Generator) -> torch.Tensor:
-        """(19, n) slot-order state: positions, thermal momenta, and the
-        force/torque of K2's unbonded gradient plus the bonded gradient."""
-        com = ctx.to_slots(body.center.T.to(torch.float32)).contiguous()
-        quat = ctx.to_slots(body.orientation.T.to(torch.float32)).contiguous()
-        dyn = torch.cat([com, quat]).contiguous()
+    def _init(self, ctx, body: RigidBody, generator: torch.Generator):
+        """(initial LangevinStateSoA of the slot-order body, step_fn) of BAOAB
+        whose force is K2's unbonded gradient plus the bonded gradient."""
 
         def grad_fn(b: BodySoA):
             rows = torch.stack([*b.center, *b.orientation])
             g = ops_stencil.field_grads(ctx, rows) + ops_stencil.bonded_grads_plain(ctx, rows)
             return Vec3(*g[:3]), Quat(*g[3:])
 
-        init_fn, _ = nvt_langevin_soa(grad_fn, self.dt, self.kT, self.gamma_t, self.gamma_r)
-        s = init_fn(generator, BodySoA(Vec3(*dyn[:3]), Quat(*dyn[3:])), self.mass, self.inertia)
-        return torch.stack([*dyn, *s.momentum, *s.angmom, *s.force, *s.torque]).contiguous()
+        init_fn, step_fn = nvt_langevin_soa(grad_fn, self.dt, self.kT, self.gamma_t, self.gamma_r)
+        com = ctx.to_slots(body.center.T.to(torch.float32)).contiguous()
+        quat = ctx.to_slots(body.orientation.T.to(torch.float32)).contiguous()
+        return init_fn(generator, BodySoA(Vec3(*com), Quat(*quat)), self.mass, self.inertia), step_fn
+
+    def initial_state(self, ctx, body: RigidBody, generator: torch.Generator) -> torch.Tensor:
+        """(19, n) slot-order state: positions, thermal momenta, and the
+        force/torque of K2's unbonded gradient plus the bonded gradient."""
+        s, _ = self._init(ctx, body, generator)
+        return torch.stack([*_positions(s), *s.momentum, *s.angmom, *s.force, *s.torque]).contiguous()
 
     def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
         u = self.neighbor_update_every
-        if n_steps % self.save_every:
-            raise ValueError(ERR_SAVE_EVERY.format(self.save_every, n_steps))
-        if u < 1 or self.save_every % u:
-            raise ValueError(ERR_UPDATE_EVERY.format(u, self.save_every))
+        every_step = _every_step(self.save_every, u, n_steps)
         device = init_state.center.device
         ctx, ou = self._context(opt_params, device)
-        n = ctx.n
-        state = self.initial_state(ctx, init_state, generator)
         overflow = torch.as_tensor(self.band.did_overflow, device=device).clone()
         saves = []
-        per_save = self.save_every // u
-        for chunk in range(n_steps // u):
-            if chunk % FAR_EVERY == 0:
-                overflow |= self.band.far_check(Vec3(*state[0:3]), Quat(*state[3:7]))
-            noise = torch.randn((u, 6, n), generator=generator, device=device).to(torch.bfloat16)
-            out = ops_stencil.multistep_chunk(ctx, ou, noise, state)
-            overflow |= out[19].max() > 0
-            state = out[:19]
-            if (chunk + 1) % per_save == 0:
-                saves.append(state[:7].clone())
+        if every_step:
+            s, step_fn = self._init(ctx, init_state, generator)
+            for _ in range(n_steps // u):
+                overflow |= self.band.slot_check(s.position.center, s.position.orientation)
+                for _ in range(u):
+                    s = step_fn(s, generator)
+                    saves.append(_positions(s))
+            state = torch.stack([*_positions(s), *s.momentum, *s.angmom, *s.force, *s.torque])
+        else:
+            state = self.initial_state(ctx, init_state, generator)
+            per_save = self.save_every // u
+            for chunk in range(n_steps // u):
+                if chunk % FAR_EVERY == 0:
+                    overflow |= self.band.far_check(Vec3(*state[0:3]), Quat(*state[3:7]))
+                noise = torch.randn((u, 6, ctx.n), generator=generator, device=device).to(torch.bfloat16)
+                out = ops_stencil.multistep_chunk(ctx, ou, noise, state)
+                overflow |= out[19].max() > 0
+                state = out[:19]
+                if (chunk + 1) % per_save == 0:
+                    saves.append(state[:7].clone())
         trajectory = _trajectory(ctx.from_slots(torch.stack(saves)), self.kT, overflow)
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})
 
@@ -143,8 +186,9 @@ class BlockSimulator:
 
     ``run(opt_params, init_state, n_steps, generator)`` returns a
     SimulatorOutput with one SimulatorTrajectory (every ``save_every``-th
-    state, original order, ``neighbor_overflow`` metadata). The device is
-    that of ``init_state``; the tables live where ``neighbors`` was built.
+    state, every state with ``save_every`` <= 1; original order,
+    ``neighbor_overflow`` metadata). The device is that of ``init_state``;
+    the tables live where ``neighbors`` was built.
     """
 
     energy_fn: object
@@ -163,10 +207,7 @@ class BlockSimulator:
 
     def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
         u = self.neighbor_update_every
-        if n_steps % self.save_every:
-            raise ValueError(ERR_SAVE_EVERY.format(self.save_every, n_steps))
-        if u < 1 or self.save_every % u:
-            raise ValueError(ERR_UPDATE_EVERY.format(u, self.save_every))
+        every_step = _every_step(self.save_every, u, n_steps)
         nbl = self.neighbors
         with torch.no_grad():
             energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
@@ -187,8 +228,10 @@ class BlockSimulator:
             overflow |= ovf
             for _ in range(u):
                 state = step_fn(state, generator, tables=ids)
+                if every_step:
+                    saves.append(_positions(state))
             prev = ids
-            if (chunk + 1) % per_save == 0:
-                saves.append(torch.stack([*state.position.center, *state.position.orientation]))
+            if not every_step and (chunk + 1) % per_save == 0:
+                saves.append(_positions(state))
         trajectory = _trajectory(torch.stack(saves), self.kT, overflow)
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})

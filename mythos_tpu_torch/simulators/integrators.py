@@ -9,10 +9,11 @@ NO_SQUISH free rotor and exact Ornstein-Uhlenbeck momenta,
     A, then the force refresh and B.
 
 Random numbers come from an explicit ``torch.Generator``. The stencil
-tier runs its steps in whole chunks in the K1 kernel
+tier's chunk path runs its steps in whole chunks in the K1 kernel
 (ops.stencil.multistep_chunk) and takes only the initial state from here;
-the block tier steps with :func:`nvt_langevin_soa`'s ``step_fn``, its force
-from an injected ``grad_fn`` (ops.tiles.fused_grads_ctx: K3).
+its per-step branch (``save_every`` 1) and the block tier step with
+:func:`nvt_langevin_soa`'s ``step_fn``, their force from an injected
+``grad_fn`` (K2 plus the bonded gradient; ops.tiles.fused_grads_ctx: K3).
 """
 
 from __future__ import annotations

@@ -198,6 +198,10 @@ class StencilBand:
         if self.perm is not None:
             idx = torch.as_tensor(self.perm, device=com.x.device)
             com, quat = Vec3(*(c[idx] for c in com)), Quat(*(c[idx] for c in quat))
+        return self.slot_check(com, quat)
+
+    def slot_check(self, com: Vec3, quat: Quat) -> torch.Tensor:
+        """:meth:`check` of slot-order positions."""
         sites = self.sites(com, quat)
         return self._exact_violation(sites) | self._far_violation(sites)
 

@@ -22,7 +22,11 @@ side), its cells exactly; K1, K3, K4, K5 and K6 give equal bits on a
 second call; the MARTINI runs card vs CPU rtol 1e-4, atol 1e-5. The
 oxRNA2 instances of K1 and K2 as oxDNA2's, on the 40-bp A-form duplex,
 K2 also on coaxially stacked pairs (coaxial stacking alone), and a 40-bp
-oxRNA2 run card vs CPU.
+oxRNA2 run card vs CPU. K2 in both families, ideal, jittered and (oxRNA2)
+coaxially stacked: its tally of the band pairs by gate equals the plain
+gate's (band_gate_counts), two calls give equal bits; a per-step run
+(save_every 1) of n steps launches K2 n + 1 times and K1 never, and
+agrees with the CPU (rtol 1e-4, atol 1e-5).
 """
 
 import math
@@ -137,6 +141,65 @@ def test_k2_rna2_kernel_matches_twin(rna2_system, case):
     assert float(ref.abs().max()) > 1.0
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
     assert torch.equal(got, ts.field_grads(ctx, dyn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dna2 ideal", "dna2 jittered", "rna2 ideal", "rna2 jittered", "rna2 coax"])
+def test_k2_gate_tally_and_bits(system, rna2_system, case):
+    """K2 against its plain version (rtol 1e-4, atol 1e-4 max|plain|), its
+    tally of the band pairs by gate equal to band_gate_counts', equal bits
+    on a second call, one launch counted for the family."""
+    import dataclasses as dc
+
+    family, state = case.split()
+    _, _, ctx, body = system if family == "dna2" else rna2_system
+    if state == "coax":
+        com, quat = (ctx.to_slots(x.T.double()).T.cpu().numpy() for x in (body.center, body.orientation))
+        com, quat = coax_engaged(com, quat, [(10, 11), (30, 33), (50, 57)], seed=3)
+        dyn = torch.as_tensor(np.concatenate([com.T, quat.T]), dtype=torch.float32, device="cuda").contiguous()
+        params = ctx.params.clone()
+        off = ts.param_offsets()["GT"]
+        params[off : off + 8] = torch.tensor([0, 0, 0, 1, 0, 0, 0, 0], dtype=torch.float32)
+        ctx = dc.replace(ctx, params=params)
+    else:
+        b = body if state == "ideal" else _jittered(body, torch.Generator(device="cuda").manual_seed(5))
+        dyn = torch.cat([ctx.to_slots(b.center.T), ctx.to_slots(b.orientation.T)]).contiguous()
+    before = dict(ts.field_grads.by_family)
+    got, tally = ts._field_grads(ctx, dyn, count=True)
+    assert ts.field_grads.by_family == {**before, family: before[family] + 1}
+    ref = ts.field_grads_plain(ctx, dyn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    assert tally == ts.band_gate_counts(ctx, dyn)
+    assert tally["short"] > 0 and tally["debye"] > 0
+    assert torch.equal(got, ts.field_grads(ctx, dyn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dna2", "rna2"])
+def test_per_step_run_on_card_matches_cpu(card, model):
+    """The per-step branch (save_every 1): 40 bp, 20 steps, rebuild every 5,
+    thermostat off -- K2 launched once for the initial force and once a
+    step, K1 never, and every emitted state agrees with the CPU."""
+    form = "B" if model == "dna2" else "A"
+
+    def run(device):
+        top, b = synthetic_duplex(40, form=form, dtype=torch.float32, device=device)
+        e, sim = build_sim(top, 0.0, model=model, init_centers=b.center, init_orientation=b.orientation,
+                           neighbor_update_every=5, device=device)
+        out = sim.replace(save_every=1).run(e.opt_params(), b, 20, torch.Generator(device=device).manual_seed(0))
+        return out.observables[0]
+
+    k2, k1 = dict(ts.field_grads.by_family), ts.multistep_chunk.launches
+    gpu = run(card)
+    torch.cuda.synchronize()
+    assert ts.field_grads.by_family == {**k2, model: k2[model] + 21}
+    assert ts.multistep_chunk.launches == k1
+    cpu = run("cpu")
+    assert gpu.center.shape == (20, 80, 3)
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    assert not bool(gpu.metadata["neighbor_overflow"].any())
 
 
 @pytest.mark.cuda
