@@ -78,7 +78,21 @@ Phases, one line each; any failure exits non-zero:
    step, K2 launched once a step and once for the initial force, K1 never,
    no overflow; a torch.profiler window of 40 steps (launches a step, idle
    share, K2's device time a call and its share of a step); 40-bp
-   per-step runs of both families and of the block tier, card vs CPU.
+   per-step runs of both families and of the block tier, card vs CPU;
+12. direct differentiation through ``CudaSimulator.run`` (d loss / d every
+   parameter by ``loss.backward()``; K1 and K2 forward, their plain
+   versions backward): (12a) the reference's configuration, 1,000 nt, the
+   propeller-twist loss through 200 steps (5 chunks) after a 40-step
+   warm-up -- finite, nonzero, d / d eps_stack_base nonzero, K1 launched 5
+   times and K2 once, the forward's and the backward's seconds, peak
+   memory; (12b) 40 bp, one 40-step chunk at kT 0 from a jittered state,
+   card vs CPU for oxDNA2 and oxRNA2 (loss rtol 1e-5, gradients rtol 1e-2
+   / atol 1e-3 max|grad|); (12c) the per-step branch at 1,000 nt, 40
+   steps in 4 rebuild intervals, ``checkpoint_every`` 1 (K2 41 times
+   forward, 40 more in the backward) against 0 (the same gradient, rtol
+   1e-5), with the memory the graph holds after the forward and the
+   peak's rise over the evaluation, each; (12d) oxRNA2 at
+   1,000 nt, 80 steps through K1's rna2 instance.
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
 phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
@@ -136,6 +150,11 @@ MARTINI_STEPS, MARTINI_SAVE, MARTINI_WARM = 1000, 50, 50
 MARTINI_BAROSTAT = {"pressure0": 1.0, "tau": 4.0, "every": 10}
 PER_STEP_STEPS = {"dna2": 400, "rna2": 200}  # phase 11: a state every step (400 x 7 x 10k floats: 112 MB)
 PER_STEP_WINDOW = 40  # phase 11's profiled steps
+#: phase 12: the reference's direct-differentiation configuration
+#: (benchmarks/RESULTS.md, "Direct differentiation"): 1,000 nt, 200 steps
+#: after a 40-step warm-up; 40 per-step steps; 80 oxRNA2 steps
+DIRECT_N_BP, DIRECT_STEPS, DIRECT_WARM = 500, 200, 40
+DIRECT_PER_STEP, DIRECT_RNA2_STEPS = 40, 80
 WIDE_BOX = (70.0, 70.0, 10.84)  # phase 9a: floor(box / LJ_CELL) gives 63 x 63 x 9 > MAX_CELLS cells
 #: a row is "near the clamp" when one of its pairs inside the short-range
 #: reach has an angle cosine within this many float32 ulps of +-1
@@ -993,6 +1012,179 @@ def _per_step(dev, smi: str) -> dict:
     return launches
 
 
+def _direct(dev, smi: str) -> dict:
+    """Phase 12: direct differentiation through ``CudaSimulator.run`` --
+    d loss / d every ``opt_params`` tensor by ``loss.backward()``, K1 and K2
+    forward on the card, their plain versions backward (the reference's
+    custom-JVP rule). 12a the reference's own configuration at 1,000 nt
+    (the propeller-twist loss through 200 steps, 5 chunks), timed after a
+    40-step warm-up; 12b 40 bp, one 40-step chunk at kT 0, card vs CPU, both
+    families; 12c the per-step branch at 1,000 nt with ``checkpoint_every``
+    1 against 0; 12d oxRNA2 at 1,000 nt, two chunks. Returns {"K1", "K2",
+    "K1 rna2": launches of 12a/12d; "bwd_ms_chunk": 12a's backward a chunk}."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    import mythos_tpu_torch.energy.dna2 as dna2
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.observables import PropellerTwist
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.rigid_body import RigidBody
+
+    def leaves(e):
+        return {k: v.detach().clone().requires_grad_(True) for k, v in e.opt_params().items()}
+
+    def grads_of(p):
+        return {k: (torch.zeros_like(v) if v.grad is None else v.grad).detach() for k, v in p.items()}
+
+    def counted_eval(e, sim, body, n_steps, seed, loss_fn):
+        """(loss, grads, forward s, backward s, forward launches, backward
+        launches, MiB {"held": allocated after the forward less before it
+        (the graph and the trajectory), "peak": max_memory_allocated over
+        the evaluation, "rise": that peak less the allocation before it,
+        which earlier phases' leftovers do not move}) of one evaluation,
+        the counters set to 0 just before."""
+        p = leaves(e)
+        st.field_grads.launches = st.multistep_chunk.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss = loss_fn(sim.run(p, body, n_steps, torch.Generator(device=body.center.device).manual_seed(seed))
+                       .observables[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        held = torch.cuda.memory_allocated() - m0
+        fwd = {"K1": st.multistep_chunk.launches, "K2": st.field_grads.launches}
+        loss.backward()
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t1
+        bwd = {"K1": st.multistep_chunk.launches - fwd["K1"], "K2": st.field_grads.launches - fwd["K2"]}
+        peak = torch.cuda.max_memory_allocated()
+        mem = {"held": held / 2**20, "peak": peak / 2**20, "rise": (peak - m0) / 2**20}
+        return loss.detach(), grads_of(p), t1 - t0, t_b, fwd, bwd, mem
+
+    def summary(g) -> tuple[float, int, bool]:
+        g_max = max(float(v.abs().max()) for v in g.values())
+        finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+        return g_max, sum(bool((v != 0).any()) for v in g.values()), finite
+
+    def twist_loss(n_nt):
+        bps = torch.tensor([[i, n_nt - 1 - i] for i in range(n_nt // 2)], device=dev)
+        obs = PropellerTwist(rigid_body_transform_fn=dna2.default_transform_soa_fn(), h_bonded_base_pairs=bps)
+        return lambda traj: (obs(traj).mean() - 21.7) ** 2
+
+    # 12a. the full-width slice: 1,000 nt, 200 steps, a state every 40
+    topology, body = synthetic_duplex(DIRECT_N_BP, dtype=torch.float32, device=dev)
+    n_nt = topology.n_nucleotides
+    energy_fn, sim = build_sim(topology, KT, init_centers=body.center, init_orientation=body.orientation, device=dev)
+    loss_fn = twist_loss(n_nt)
+    counted_eval(energy_fn, sim, body, DIRECT_WARM, 30, loss_fn)
+    loss, g, t_f, t_b, fwd, bwd, mem = counted_eval(energy_fn, sim, body, DIRECT_STEPS, 31, loss_fn)
+    g_max, n_nonzero, finite = summary(g)
+    chunks = DIRECT_STEPS // sim.neighbor_update_every
+    print(f"[12a direct] {DIRECT_STEPS} steps at {n_nt} nt, propeller-twist loss {float(loss):.6g}: forward "
+          f"{t_f:.3f} s, backward {t_b:.3f} s ({t_b / chunks:.3f} s a chunk, {t_b / (t_f + t_b):.0%} of the "
+          f"evaluation) = {60.0 / (t_f + t_b):.2f} grad-evaluations/min, {DIRECT_STEPS * 60.0 / (t_f + t_b):.1f} "
+          f"grad-steps/min on {smi}; max|grad| {g_max:.4g}, d/d eps_stack_base {float(g['eps_stack_base']):.6g}, "
+          f"d/d eps_hb {float(g['eps_hb']):.6g}, {n_nonzero} of {len(g)} parameters nonzero; launches forward "
+          f"{fwd}, backward {bwd}; peak memory {mem['peak']:.1f} MiB ({mem['rise']:.1f} above the start)")
+    if not (finite and g_max > 0 and float(g["eps_stack_base"]) != 0 and bool(torch.isfinite(loss))):
+        raise SystemExit("direct differentiation gave a non-finite or zero gradient, or none for eps_stack_base")
+    if fwd != {"K1": chunks, "K2": 1} or bwd != {"K1": 0, "K2": 0}:
+        raise SystemExit(f"the differentiated run did not launch K1 {chunks} times and K2 once: {fwd}, {bwd}")
+    out = {"K1": fwd["K1"], "K2": fwd["K2"], "bwd_ms_chunk": t_b / chunks * 1e3}
+
+    # 12b. 40 bp, one 40-step chunk at kT 0 from a jittered state: card vs CPU
+    for model, form in (("dna2", "B"), ("rna2", "A")):
+        top_s, b_s = synthetic_duplex(40, form=form, dtype=torch.float32, device="cpu")
+        gen = torch.Generator().manual_seed(32)
+        q = b_s.orientation + 0.01 * torch.randn(b_s.orientation.shape, generator=gen)
+        c = b_s.center + 0.01 * torch.randn(b_s.center.shape, generator=gen)
+        b_s = RigidBody(c, q / q.norm(dim=-1, keepdim=True))
+        w = torch.randn((1, top_s.n_nucleotides, 7), generator=gen)
+
+        def small(device):
+            b = RigidBody(b_s.center.to(device), b_s.orientation.to(device))
+            e, s_ = build_sim(top_s, 0.0, model=model, init_centers=b.center, init_orientation=b.orientation,
+                              device=device)
+            wd = w.to(device)
+
+            def proj(traj):
+                return (wd[..., :3] * traj.center).sum() + (wd[..., 3:] * traj.orientation).sum()
+
+            p = leaves(e)
+            value = proj(s_.run(p, b, s_.neighbor_update_every, torch.Generator(device=device).manual_seed(0))
+                         .observables[0])
+            value.backward()
+            return float(value.detach()), {k: v.cpu() for k, v in grads_of(p).items()}
+
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = small(dev), small("cpu")
+        scale = max(float(v.abs().max()) for v in g_cpu.values())
+        err = max(float((g_gpu[k] - g_cpu[k]).abs().max()) for k in g_cpu)
+        ok_g = all(bool(((g_gpu[k] - g_cpu[k]).abs() <= 1e-2 * g_cpu[k].abs() + 1e-3 * scale).all()) for k in g_cpu)
+        ok_l = abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+        print(f"[12b direct small input {model}] 40 bp, one 40-step chunk, kT=0: loss card {l_gpu:.8g} CPU "
+              f"{l_cpu:.8g}; max|grad card - CPU| {err:.3e} (max|grad| {scale:.3e}; rtol 1e-2, atol 1e-3 max|grad|); "
+              f"d/d eps_stack_base card {float(g_gpu['eps_stack_base']):.6g} CPU {float(g_cpu['eps_stack_base']):.6g}")
+        if not (ok_l and ok_g) or float(g_cpu["eps_stack_base"]) == 0:
+            raise SystemExit(f"the card's {model} gradient through a run disagrees with the CPU plain versions")
+
+    # 12c. the per-step branch at 1,000 nt, 40 steps in 4 rebuild intervals,
+    # a state every step: checkpoint_every 1 (each interval a checkpoint,
+    # recomputed in the backward) against 0, after one small checkpointed
+    # call (the checkpoint's first-call costs)
+    x = torch.ones(1, device=dev, requires_grad=True)
+    checkpoint(torch.sin, x, use_reentrant=False).backward()
+    runs = {}
+    for ck in (1, 0):
+        sim_c = sim.replace(save_every=1, neighbor_update_every=DIRECT_PER_STEP // 4, checkpoint_every=ck)
+        runs[ck] = counted_eval(energy_fn, sim_c, body, DIRECT_PER_STEP, 33, loss_fn)
+        _, g_c, t_f, t_b, fwd, bwd, mem = runs[ck]
+        print(f"[12c direct per-step checkpoint_every={ck}] {DIRECT_PER_STEP} steps at {n_nt} nt in 4 intervals, "
+              f"a state every step: forward {t_f:.3f} s, backward {t_b:.3f} s = "
+              f"{DIRECT_PER_STEP * 60.0 / (t_f + t_b):.1f} grad-steps/min on {smi}; max|grad| "
+              f"{summary(g_c)[0]:.4g}; K2 launches forward {fwd['K2']}, backward {bwd['K2']}; K1 "
+              f"{fwd['K1'] + bwd['K1']}; memory held after the forward {mem['held']:.1f} MiB, peak "
+              f"{mem['rise']:.1f} MiB above the start ({mem['peak']:.1f} MiB in all)")
+        want_bwd = DIRECT_PER_STEP if ck else 0
+        if fwd != {"K1": 0, "K2": DIRECT_PER_STEP + 1} or bwd != {"K1": 0, "K2": want_bwd}:
+            raise SystemExit(f"the per-step gradient run launched K2 {fwd}, {bwd} (checkpoint_every {ck})")
+    g1, g0 = runs[1][1], runs[0][1]
+    ck_err = max(float(((g1[k] - g0[k]).abs() / g0[k].abs().clamp_min(1e-30)).max()) for k in g0)
+    ck_ok = all(bool(((g1[k] - g0[k]).abs() <= 1e-5 * g0[k].abs()).all()) for k in g0)
+    print(f"[12c checkpoint] gradient with checkpoint_every 1 against 0: max relative difference {ck_err:.3e} "
+          f"(rtol 1e-5); equal bits: {all(torch.equal(g1[k], g0[k]) for k in g0)}")
+    if not ck_ok or not summary(g1)[2] or summary(g1)[0] == 0:
+        raise SystemExit("checkpoint_every changed the per-step gradient, or it is not finite and nonzero")
+
+    # 12d. oxRNA2 at 1,000 nt: two chunks through K1's rna2 instance
+    top_r, body_r = synthetic_duplex(DIRECT_N_BP, form="A", dtype=torch.float32, device=dev)
+    e_r, sim_r = build_sim(top_r, KT, model="rna2", init_centers=body_r.center, init_orientation=body_r.orientation,
+                           device=dev)
+    w_r = torch.randn((DIRECT_RNA2_STEPS // sim_r.save_every, top_r.n_nucleotides, 3),
+                      generator=torch.Generator().manual_seed(34)).to(dev)
+    st.multistep_chunk.by_family = dict.fromkeys(st.FAMILIES, 0)
+    loss_r, g_r, t_f, t_b, fwd, bwd, _ = counted_eval(e_r, sim_r, body_r, DIRECT_RNA2_STEPS, 35,
+                                                    lambda traj: (w_r * traj.center).sum())
+    g_max, n_nonzero, finite = summary(g_r)
+    k1_rna2 = st.multistep_chunk.by_family["rna2"]
+    print(f"[12d direct rna2] {DIRECT_RNA2_STEPS} steps at {top_r.n_nucleotides} nt (A-form): "
+          f"loss {float(loss_r):.6g}; "
+          f"forward {t_f:.3f} s, backward {t_b:.3f} s on {smi}; max|grad| {g_max:.4g}, d/d eps_stack_base "
+          f"{float(g_r['eps_stack_base']):.6g}, {n_nonzero} of {len(g_r)} nonzero; launches forward {fwd} "
+          f"(K1 rna2 {k1_rna2}), backward {bwd}")
+    chunks_r = DIRECT_RNA2_STEPS // sim_r.neighbor_update_every
+    if not finite or g_max == 0 or float(g_r["eps_stack_base"]) == 0:
+        raise SystemExit("the rna2 gradient through a run is not finite and nonzero")
+    if fwd != {"K1": chunks_r, "K2": 1} or k1_rna2 != chunks_r or bwd != {"K1": 0, "K2": 0}:
+        raise SystemExit(f"the rna2 differentiated run did not go through K1's rna2 instance: {fwd}, {k1_rna2}")
+    out["K1 rna2"] = k1_rna2
+    _lap("12 direct differentiation")
+    return out
+
+
 def _against(root: str, ctx, dyn, ou, noise, state, k2, k1) -> None:
     """Build the kernels of the checkout at ``root`` and run its K2 and K1
     (oxDNA2) on phases 3 and 4's inputs: does its K1 give this checkout's
@@ -1490,6 +1682,12 @@ def main() -> int:
     for rec in rna2_records:
         if rec["launches"] is None:
             rec["launches"] = per_step["rna2"]
+
+    # 12. direct differentiation through the stencil run
+    direct = _direct(dev, smi)
+    print(f"[12 kernels] a 1,000-nt grad evaluation of 200 steps launched K1 {direct['K1']} times and K2 "
+          f"{direct['K2']} (the oxRNA2 one of 80 steps K1 {direct['K1 rna2']}); the backward, the plain versions, "
+          f"took {direct['bwd_ms_chunk']:.1f} ms a chunk on {smi}")
 
     src = "mythos_tpu_torch/ops/csrc/"
     tile_launch = {"K3": k3_launches, "K4": d_launches["K4"], "K5": d_launches["K5"]}

@@ -15,7 +15,14 @@ friction gamma = (kT/2.5, kT/7.5):
 Both simulators save a state every ``save_every`` (40) steps; callers that
 want every state take ``sim.replace(save_every=1)``, and the stencil then
 steps one step at a time (K2 plus the bonded gradient each step) instead
-of in K1's chunks, as the reference's per-step branch does. Other modes
+of in K1's chunks, as the reference's per-step branch does. The stencil's
+run is differentiable in its parameters on both branches (K1 and K2
+forward, their plain versions backward); ``checkpoint_every`` trades the
+per-step branch's graph for recompute (at 1,000 nt on an H100, the graph
+a 40-step forward holds falls from 79.7 to 26.4 MiB with a checkpoint
+every 10-step interval, while the evaluation's peak, set by the
+backward's working set at that length, stays ~104-109 MiB above its
+start: ``chip_smoke.py`` phase 12c). Other modes
 and models, and the rna2 block tier, are not ported yet and raise.
 Everything runs on the card unless ``device="cpu"`` asks for the plain
 versions.
@@ -30,6 +37,10 @@ Example (one H100)::
 
     # every state: the per-step branch
     out = sim.replace(save_every=1).run(energy_fn.opt_params(), body, 400, gen)
+
+    # direct differentiation: d loss / d every parameter through the run
+    p = {k: v.clone().requires_grad_(True) for k, v in energy_fn.opt_params().items()}
+    loss(sim.run(p, body, 200, gen)).backward()
 
     # oxRNA2 starts from the A-form helix
     topology, body = synthetic_duplex(5000, form="A", dtype=torch.float32)
@@ -62,17 +73,26 @@ def build_sim(
     init_orientation=None,
     site_margin: int | None = None,
     block_size: int = 8,
+    checkpoint_every: int = 0,
     device: torch.device | str = "cuda",
 ):
     """(energy_fn, simulator) of one tier in float32 (the kernels' type);
-    the reference's ``_build_sim`` arguments less ``checkpoint_every`` and
-    ``dr_threshold`` (the block tables' skin is the reference's default
-    0.5; the site-mode stencil band reads none), plus ``device``.
-    ``block_size`` sizes the block tier's tables; ``site_margin`` defaults
-    to 2 under rna2, else 1."""
+    the reference's ``_build_sim`` arguments less ``dr_threshold`` (the
+    block tables' skin is the reference's default 0.5; the site-mode
+    stencil band reads none), plus ``device``. ``block_size`` sizes the
+    block tier's tables; ``site_margin`` defaults to 2 under rna2, else 1.
+    ``checkpoint_every`` (rebuild intervals a checkpoint on the stencil's
+    per-step branch; ignored on its chunk path, as the reference's fused
+    branch) is the stencil's only: the block tier is not differentiable
+    yet and refuses it."""
     if (mode, model) not in (("stencil", "dna2"), ("block", "dna2"), ("stencil", "rna2")):
         raise NotImplementedError(
             f"mode={mode!r}, model={model!r} is not ported yet (stencil dna2 or rna2, block dna2)"
+        )
+    if mode == "block" and checkpoint_every > 0:
+        raise NotImplementedError(
+            "checkpoint_every > 0 on the block tier: direct differentiation through the block tier (K3) is not "
+            "ported yet (ROADMAP.md, queue 1)"
         )
     device = devices.resolve(device)
     pkg = rna2 if model == "rna2" else dna2
@@ -106,4 +126,4 @@ def build_sim(
         fam_slack_overrides=rna2.aform_site_slacks() if aform else None,
         far_slack=rna2.aform_far_slack() if aform else None,
     )
-    return energy_fn, CudaSimulator(energy_fn=energy_fn, band=band, **dynamics)
+    return energy_fn, CudaSimulator(energy_fn=energy_fn, band=band, checkpoint_every=checkpoint_every, **dynamics)

@@ -37,6 +37,11 @@ differentiated with ``torch.autograd.grad`` -- an independent check of the
 kernels' hand-written derivatives. A wrapper runs the twin for CPU tensors
 only; on a CUDA tensor it launches its kernel or raises.
 
+Direct differentiation through a run goes through two autograd Functions,
+:class:`FieldGrads` and :class:`MultistepChunk`: the kernel forward, the
+twin backward (the reference differentiates its XLA functions, not its
+Pallas kernels), and :func:`bonded_grads_plain` with ``create_graph``.
+
 Arrays are flat ``(rows, n)`` slot-order tensors. All term parameters ride
 in one flat vector whose layout (:data:`PARAM_GROUPS`) the CUDA header
 ``stencil_physics.cuh`` mirrors (``P_*`` offsets); a name the family's
@@ -45,6 +50,7 @@ term does not define packs as 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses as dc
 from types import SimpleNamespace
@@ -172,6 +178,10 @@ class StencilContext:
     check_dm: int
     perm: np.ndarray | None
     inv_perm: np.ndarray | None
+    #: the plain versions run inside a ``torch.utils.checkpoint`` region
+    #: (the per-step branch's ``checkpoint_every``): they keep the tensors
+    #: their energy saves for its own gradient (:func:`_own_saves`)
+    checkpointed: bool = False
 
     def to_slots(self, x: torch.Tensor) -> torch.Tensor:
         """(..., N) original nucleotide order -> slot order."""
@@ -559,16 +569,41 @@ def _unbonded_energy(ctx, com, quat, params):
     return sum(wi * e for wi, e in zip(w, band_energy_terms(ctx, com, quat, params), strict=True))
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _own_saves(ctx: StencilContext):
+    """Inside a checkpointed region (``ctx.checkpointed``), keep the tensors
+    an energy saves for its own gradient as they are.
+
+    A plain version differentiates its energy inside the call; under
+    ``torch.utils.checkpoint`` (the per-step branch's ``checkpoint_every``)
+    the checkpoint's hooks would otherwise drop those tensors and recompute
+    the whole checkpointed stretch to get them back, at every step. What the
+    gradient itself saves for a backward stays the checkpoint's, and that is
+    most of the graph: on an H100 (``chip_smoke.py`` phase 12c, 1,000 nt,
+    40 per-step steps in 4 intervals) the graph held after the forward is
+    26.4 MiB with ``checkpoint_every`` 1 against 79.7 MiB without. The peak
+    of that evaluation does not fall (108.7 against 104.0 MiB above its
+    start): at 40 steps the backward's own working set sets it. Elsewhere
+    no hooks: each costs the host microseconds a saved tensor."""
+    return torch.autograd.graph.saved_tensors_hooks(_same, _same) if ctx.checkpointed else contextlib.nullcontext()
+
+
 def _grads(energy, com: Vec3, quat: Quat, create_graph: bool = False):
     g = torch.autograd.grad(energy, (*com, *quat), create_graph=create_graph, allow_unused=True)
     return [torch.zeros_like(x) if gi is None else gi for gi, x in zip(g, (*com, *quat), strict=True)]
 
 
 def _leaf_rows(rows: torch.Tensor, k0: int, k1: int, create_graph: bool) -> list:
+    """Rows k0..k1 to differentiate by: with ``create_graph`` the rows
+    themselves where they are on the graph (the gradient stays a function
+    of whatever they depend on), else detached leaves."""
     out = []
     for k in range(k0, k1):
         r = rows[k]
-        out.append(r if create_graph else r.detach().requires_grad_(True))
+        out.append(r if create_graph and r.requires_grad else r.detach().requires_grad_(True))
     return out
 
 
@@ -581,19 +616,27 @@ def field_grads_plain(
     with torch.enable_grad():
         rows = _leaf_rows(dyn, 0, 7, create_graph)
         com, quat = Vec3(*rows[:3]), Quat(*rows[3:])
-        g = _grads(_unbonded_energy(ctx, com, quat, params), com, quat, create_graph)
+        with _own_saves(ctx):
+            e = _unbonded_energy(ctx, com, quat, params)
+        g = _grads(e, com, quat, create_graph)
     return torch.stack(g)
 
 
-def bonded_grads_plain(ctx: StencilContext, dyn: torch.Tensor, params: torch.Tensor | None = None) -> torch.Tensor:
+def bonded_grads_plain(
+    ctx: StencilContext, dyn: torch.Tensor, params: torch.Tensor | None = None, create_graph: bool = False
+) -> torch.Tensor:
     """(7, n) [dE/dcom, dE/dquat] of the bonded terms, by autograd (the
     initial force adds it to K2's unbonded gradient, as the reference adds
-    its XLA bonded gradient)."""
+    its XLA bonded gradient). With ``create_graph`` the result stays on the
+    graph of ``dyn``, ``params`` and ``ctx.wstack`` (direct differentiation
+    through a run)."""
     params = ctx.params if params is None else params
     with torch.enable_grad():
-        rows = _leaf_rows(dyn, 0, 7, False)
+        rows = _leaf_rows(dyn, 0, 7, create_graph)
         com, quat = Vec3(*rows[:3]), Quat(*rows[3:])
-        g = _grads(bonded_energy(ctx, com, quat, params), com, quat)
+        with _own_saves(ctx):
+            e = bonded_energy(ctx, com, quat, params)
+        g = _grads(e, com, quat, create_graph)
     return torch.stack(g)
 
 
@@ -603,7 +646,8 @@ def _force_torque_plain(ctx, com: Vec3, quat: Quat, params, create_graph: bool):
         if not create_graph:
             c = Vec3(*(x.detach().requires_grad_(True) for x in com))
             q = Quat(*(x.detach().requires_grad_(True) for x in quat))
-        e = _unbonded_energy(ctx, c, q, params) + bonded_energy(ctx, c, q, params)
+        with _own_saves(ctx):
+            e = _unbonded_energy(ctx, c, q, params) + bonded_energy(ctx, c, q, params)
         g = _grads(e, c, q, create_graph)
     force = Vec3(-g[0], -g[1], -g[2])
     return force, quat_cotangent_to_torque_soa(quat, Quat(*g[3:]))
@@ -777,12 +821,37 @@ multistep_chunk.launches = 0
 multistep_chunk.by_family = dict.fromkeys(FAMILIES, 0)
 
 
+#: the float tables each kernel reads from the context rather than as an
+#: input of its Function (``seq``, ``partners`` and ``checks`` are integer
+#: or constant tables)
+_K2_HIDDEN = ("qf",)
+_K1_HIDDEN = ("qf", "dirf")
+
+
+def _no_hidden_grads(name: str, ctx: StencilContext, hidden: tuple) -> None:
+    """Raise where the kernel reads a context tensor that needs a gradient
+    its Function does not take as an input: the gradient would drop
+    silently."""
+    for field in hidden:
+        if getattr(ctx, field).requires_grad:
+            raise ValueError(f"{name}: ctx.{field} needs a gradient but is not an input of the Function")
+
+
 class FieldGrads(torch.autograd.Function):
-    """K2 forward; backward through the twin (double-backward of the band
-    energy), as the reference's custom JVP falls back to XLA."""
+    """K2 forward; backward through :func:`field_grads_plain` (the double
+    backward of the band energy).
+
+    ``FieldGrads.apply(dyn, params, ctx)``: the forward is the kernel call
+    of :func:`field_grads` (its plain version on CPU tensors), the backward
+    always the plain version -- the port of the reference's custom-JVP
+    rule, which differentiates its XLA band instead of the Pallas kernel
+    (``_kernel_field_grads_jvp`` -> ``_xla_field_grads_layout``,
+    mythos_tpu/ops/stencil.py:1486-1488). K2 reads no ``wstack``; a
+    ``ctx.qf`` that needs a gradient raises."""
 
     @staticmethod
     def forward(fctx, dyn, params, ctx):
+        _no_hidden_grads("FieldGrads", ctx, _K2_HIDDEN)
         fctx.save_for_backward(dyn, params)
         fctx.sctx = ctx
         return field_grads(dc.replace(ctx, params=params.detach()), dyn.detach())
@@ -799,20 +868,34 @@ class FieldGrads(torch.autograd.Function):
 
 
 class MultistepChunk(torch.autograd.Function):
-    """K1 forward; backward through :func:`multistep_chunk_plain`."""
+    """K1 forward; backward through :func:`multistep_chunk_plain`.
+
+    ``MultistepChunk.apply(state, params, wstack, ou, noise, ctx)`` -> (20,
+    n): the forward is the kernel call of :func:`multistep_chunk` (its
+    plain version on CPU tensors), the backward always the plain version
+    with ``create_graph`` -- the port of the reference's custom-JVP rule
+    (``_multistep_chunk_l_jvp`` -> ``_xla_multistep_reference``,
+    mythos_tpu/ops/stencil.py:2399-2401). The gradient reaches ``state``,
+    ``params`` and the stacking weight ``wstack`` (``eps_stack[seq_3',
+    seq_5']``, so ``eps_stack_base``); row 19, the band checks' counts,
+    carries none. Only the chunk's entry state is saved. A ``ctx.qf`` or
+    ``ctx.dirf`` that needs a gradient raises."""
 
     @staticmethod
-    def forward(fctx, state, params, ou, noise, ctx):
-        fctx.save_for_backward(state, params, ou, noise)
+    def forward(fctx, state, params, wstack, ou, noise, ctx):
+        _no_hidden_grads("MultistepChunk", ctx, _K1_HIDDEN)
+        fctx.save_for_backward(state, params, wstack, ou, noise)
         fctx.sctx = ctx
-        return multistep_chunk(dc.replace(ctx, params=params.detach()), ou, noise, state.detach())
+        return multistep_chunk(dc.replace(ctx, params=params.detach(), wstack=wstack.detach()), ou, noise,
+                               state.detach())
 
     @staticmethod
     def backward(fctx, g_out):
-        state, params, ou, noise = fctx.saved_tensors
+        state, params, wstack, ou, noise = fctx.saved_tensors
         with torch.enable_grad():
             st_ = state.detach().requires_grad_(True)
             par_ = params.detach().requires_grad_(True)
-            out = multistep_chunk_plain(fctx.sctx, ou, noise, st_, par_, create_graph=True)
-            g_st, g_par = torch.autograd.grad(out, (st_, par_), g_out, allow_unused=True)
-        return g_st, g_par, None, None, None
+            ws_ = wstack.detach().requires_grad_(True)
+            out = multistep_chunk_plain(dc.replace(fctx.sctx, wstack=ws_), ou, noise, st_, par_, create_graph=True)
+            g_st, g_par, g_ws = torch.autograd.grad(out, (st_, par_, ws_), g_out, allow_unused=True)
+        return g_st, g_par, g_ws, None, None, None

@@ -24,6 +24,12 @@ A stencil run:
 * un-permutes the saved states once, at the end, and reads the overflow
   flag back once.
 
+Where grad mode is on and a parameter (or the initial state) needs a
+gradient, the same run builds the autograd graph through K1's and K2's
+Functions (ops.stencil.MultistepChunk, FieldGrads) and the bonded gradient,
+so that ``loss.backward()`` reaches every parameter; ``checkpoint_every``
+recomputes the per-step branch's rebuild intervals in the backward.
+
 ``save_every`` alone picks the branch. Neither is a fallback of the other:
 a configuration the stencil kernels cannot run raises on both (scalar
 mass/friction, every bond at slot offset 2, discrete sequence), and so
@@ -43,6 +49,7 @@ from __future__ import annotations
 import dataclasses as dc
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mythos_tpu_torch.ops import stencil as ops_stencil
 from mythos_tpu_torch.ops import tiles
@@ -53,6 +60,7 @@ from mythos_tpu_torch.simulators.io import SimulatorTrajectory
 from mythos_tpu_torch.simulators.neighbors import BlockNeighborList, StencilBand
 from mythos_tpu_torch.soa import BodySoA, Quat, Vec3, to_soa
 
+ERR_CHKPNT_SCN = "`checkpoint_every` must evenly divide the length of `xs`. Got {} and {}."
 ERR_SAVE_EVERY = "`save_every` must evenly divide n_steps. Got {} and {}."
 ERR_UPDATE_EVERY = (
     "`neighbor_update_every` must divide save_every (or n_steps when emitting every step). Got {} and {}."
@@ -104,6 +112,29 @@ class CudaSimulator:
     SimulatorOutput with one SimulatorTrajectory (every ``save_every``-th
     state, every state with ``save_every`` <= 1; original nucleotide order,
     ``neighbor_overflow`` metadata). The device is that of ``init_state``.
+
+    The run is differentiable: the chunks run through
+    ``ops.stencil.MultistepChunk`` and every force through ``FieldGrads``,
+    and where grad mode is on and a tensor of ``opt_params`` (or the
+    initial state) needs a gradient, the bonded gradient stays on the
+    graph, so that ``loss(sim.run(p, body, n, gen)).backward()`` gives
+    d loss / d every parameter. The forward is the same kernel call either
+    way (the same trajectory, bit for bit, and the same launches); the
+    backward runs the kernels' plain versions, as the reference's
+    custom-JVP rules run its XLA functions
+    (mythos_tpu/ops/stencil.py:1486-1488, 2399-2401). The band checks, the
+    overflow flag and K1's row 19 carry no gradient.
+
+    ``checkpoint_every`` has the reference's meaning (simulators/tpu.py:
+    110-132, 224-229): iterations of the outer loop -- on the per-step
+    branch, rebuild intervals of ``neighbor_update_every`` steps -- kept
+    under one checkpoint, their inner states recomputed in the backward
+    (``torch.utils.checkpoint``, each step's normals drawn before the
+    checkpointed stretch so that it replays them); it must divide
+    ``n_steps // neighbor_update_every`` (ERR_CHKPNT_SCN). The chunk path
+    accepts and ignores it, as the reference's fused branch (a plain
+    ``lax.scan``, tpu.py:386-444): K1's Function already keeps only each
+    chunk's entry state, which is what checkpointing every chunk keeps.
     """
 
     energy_fn: object
@@ -116,6 +147,7 @@ class CudaSimulator:
     gamma_r: float = 0.0
     save_every: int = 40
     neighbor_update_every: int = 40
+    checkpoint_every: int = 0
 
     def replace(self, **kw) -> "CudaSimulator":
         return dc.replace(self, **kw)
@@ -128,13 +160,15 @@ class CudaSimulator:
         )
         return ctx, ou.vector(device)
 
-    def _init(self, ctx, body: RigidBody, generator: torch.Generator):
+    def _init(self, ctx, body: RigidBody, generator: torch.Generator, graph: bool = False):
         """(initial LangevinStateSoA of the slot-order body, step_fn) of BAOAB
-        whose force is K2's unbonded gradient plus the bonded gradient."""
+        whose force is K2's unbonded gradient plus the bonded gradient (with
+        ``graph``, the bonded gradient on the autograd graph)."""
 
         def grad_fn(b: BodySoA):
             rows = torch.stack([*b.center, *b.orientation])
-            g = ops_stencil.field_grads(ctx, rows) + ops_stencil.bonded_grads_plain(ctx, rows)
+            g = ops_stencil.FieldGrads.apply(rows, ctx.params, ctx)
+            g = g + ops_stencil.bonded_grads_plain(ctx, rows, create_graph=graph)
             return Vec3(*g[:3]), Quat(*g[3:])
 
         init_fn, step_fn = nvt_langevin_soa(grad_fn, self.dt, self.kT, self.gamma_t, self.gamma_r)
@@ -142,41 +176,81 @@ class CudaSimulator:
         quat = ctx.to_slots(body.orientation.T.to(torch.float32)).contiguous()
         return init_fn(generator, BodySoA(Vec3(*com), Quat(*quat)), self.mass, self.inertia), step_fn
 
-    def initial_state(self, ctx, body: RigidBody, generator: torch.Generator) -> torch.Tensor:
+    def initial_state(self, ctx, body: RigidBody, generator: torch.Generator, graph: bool = False) -> torch.Tensor:
         """(19, n) slot-order state: positions, thermal momenta, and the
         force/torque of K2's unbonded gradient plus the bonded gradient."""
-        s, _ = self._init(ctx, body, generator)
+        s, _ = self._init(ctx, body, generator, graph)
         return torch.stack([*_positions(s), *s.momentum, *s.angmom, *s.force, *s.torque]).contiguous()
 
     def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
         u = self.neighbor_update_every
         every_step = _every_step(self.save_every, u, n_steps)
+        if every_step and self.checkpoint_every > 0 and (n_steps // u) % self.checkpoint_every:
+            raise ValueError(ERR_CHKPNT_SCN.format(self.checkpoint_every, n_steps // u))
         device = init_state.center.device
+        graph = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*(opt_params or {}).values(), init_state.center, init_state.orientation)
+        )
         ctx, ou = self._context(opt_params, device)
         overflow = torch.as_tensor(self.band.did_overflow, device=device).clone()
-        saves = []
         if every_step:
-            s, step_fn = self._init(ctx, init_state, generator)
-            for _ in range(n_steps // u):
-                overflow |= self.band.slot_check(s.position.center, s.position.orientation)
-                for _ in range(u):
-                    s = step_fn(s, generator)
-                    saves.append(_positions(s))
+            if graph and self.checkpoint_every > 0:
+                ctx = dc.replace(ctx, checkpointed=True)
+            s, step_fn = self._init(ctx, init_state, generator, graph)
+            s, saves, overflow = self._every_step_run(ctx, s, step_fn, n_steps, generator, overflow, graph)
             state = torch.stack([*_positions(s), *s.momentum, *s.angmom, *s.force, *s.torque])
         else:
-            state = self.initial_state(ctx, init_state, generator)
+            state = self.initial_state(ctx, init_state, generator, graph)
             per_save = self.save_every // u
+            saves = []
             for chunk in range(n_steps // u):
                 if chunk % FAR_EVERY == 0:
-                    overflow |= self.band.far_check(Vec3(*state[0:3]), Quat(*state[3:7]))
+                    with torch.no_grad():
+                        overflow |= self.band.far_check(Vec3(*state[0:3]), Quat(*state[3:7]))
                 noise = torch.randn((u, 6, ctx.n), generator=generator, device=device).to(torch.bfloat16)
-                out = ops_stencil.multistep_chunk(ctx, ou, noise, state)
-                overflow |= out[19].max() > 0
+                out = ops_stencil.MultistepChunk.apply(state, ctx.params, ctx.wstack, ou, noise, ctx)
+                with torch.no_grad():
+                    overflow |= out[19].max() > 0
                 state = out[:19]
                 if (chunk + 1) % per_save == 0:
                     saves.append(state[:7].clone())
         trajectory = _trajectory(ctx.from_slots(torch.stack(saves)), self.kT, overflow)
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})
+
+    def _every_step_run(self, ctx, s, step_fn, n_steps, generator, overflow, graph):
+        """The per-step branch from state ``s``: (the last state, the
+        positions of every step, the overflow flag). Each group of
+        ``checkpoint_every`` rebuild intervals (one interval without it)
+        draws its steps' normals first, then runs its intervals: each the
+        band's exact checks and far sweep (``StencilBand.slot_check``), then
+        ``neighbor_update_every`` steps. With ``graph`` and
+        ``checkpoint_every`` > 0 a group runs under ``torch.utils.checkpoint``:
+        its inner states are recomputed (K2 launched again) in the backward."""
+        u = self.neighbor_update_every
+        group = self.checkpoint_every if self.checkpoint_every > 0 else 1
+        n = ctx.n
+        device = s.position.center.x.device
+
+        def intervals(s, xis):
+            ovf, pos = torch.zeros((), dtype=torch.bool, device=device), []
+            for k in range(group):
+                with torch.no_grad():
+                    ovf = ovf | self.band.slot_check(s.position.center, s.position.orientation)
+                for xi in xis[k * u : (k + 1) * u]:
+                    s = step_fn(s, xi=xi)
+                    pos.append(_positions(s))
+            return s, ovf, pos
+
+        saves = []
+        for _ in range(n_steps // u // group):
+            xis = [torch.randn((6, n), generator=generator, device=device) for _ in range(group * u)]
+            if graph and self.checkpoint_every > 0:
+                s, ovf, pos = checkpoint(intervals, s, xis, use_reentrant=False, preserve_rng_state=False)
+            else:
+                s, ovf, pos = intervals(s, xis)
+            overflow |= ovf
+            saves += pos
+        return s, saves, overflow
 
 
 @dc.dataclass(frozen=True)

@@ -70,7 +70,12 @@ def nvt_langevin_soa(
     force and torque. ``init_fn(generator, body, mass, inertia, **kwargs)``
     draws thermal momenta; ``step_fn(state, generator, **kwargs)`` is one
     B-A-O-A-B step with the exact OU constants of ops.stencil.ou_constants
-    and six fresh standard normals per particle from ``generator``.
+    and six fresh standard normals per particle from ``generator``, one
+    (6, n) draw a step. ``step_fn(state, xi=normals, **kwargs)`` takes that
+    draw from the caller instead: a caller that draws each step's normals
+    ahead, in the same order, gets the same steps and leaves the generator
+    in the same state (a checkpointed stretch of steps replays its normals,
+    not the generator).
     """
 
     def force_torque(body: soa.BodySoA, **kwargs):
@@ -93,7 +98,9 @@ def nvt_langevin_soa(
             inv_inertia=tuple(1.0 / float(i) for i in inertia),
         )
 
-    def step_fn(state: LangevinStateSoA, generator: torch.Generator, **kwargs) -> LangevinStateSoA:
+    def step_fn(
+        state: LangevinStateSoA, generator: torch.Generator | None = None, *, xi: torch.Tensor | None = None, **kwargs
+    ) -> LangevinStateSoA:
         ou = ou_constants(dt, kT, [1.0 / state.inv_mass], [[1.0 / i for i in state.inv_inertia]], [gamma_t], [gamma_r])
         half, him = 0.5 * dt, 0.5 * dt * state.inv_mass
         pos = state.position
@@ -103,7 +110,8 @@ def nvt_langevin_soa(
         x = pos.center + him * p
         q, ell = soa.free_rotor_soa(pos.orientation, ell, state.inv_inertia, half)
         # O: exact Ornstein-Uhlenbeck
-        xi = torch.randn((6, x.x.shape[0]), generator=generator, device=x.x.device, dtype=x.x.dtype)
+        if xi is None:
+            xi = torch.randn((6, x.x.shape[0]), generator=generator, device=x.x.device, dtype=x.x.dtype)
         p = soa.Vec3(*(ou.c_t * pc + ou.s_t * xi[k] for k, pc in enumerate(p)))
         ell = soa.Vec3(*(ou.c_r[k] * lc + ou.s_r[k] * xi[3 + k] for k, lc in enumerate(ell)))
         # A, force refresh, B

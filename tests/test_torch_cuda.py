@@ -26,7 +26,13 @@ oxRNA2 run card vs CPU. K2 in both families, ideal, jittered and (oxRNA2)
 coaxially stacked: its tally of the band pairs by gate equals the plain
 gate's (band_gate_counts), two calls give equal bits; a per-step run
 (save_every 1) of n steps launches K2 n + 1 times and K1 never, and
-agrees with the CPU (rtol 1e-4, atol 1e-5).
+agrees with the CPU (rtol 1e-4, atol 1e-5). Direct differentiation
+through a run (K1 and K2 forward, their plain versions backward): the
+gradient of a loss through one 40-step chunk at kT 0 from a jittered state
+agrees with the CPU in both families (loss rtol 1e-5, gradients rtol 1e-2 /
+atol 1e-3 max|grad|), and a chunk-path and a checkpointed per-step grad
+evaluation launch K1 and K2 as the same runs without gradients do (the
+backward only K2 again, where it recomputes a checkpointed interval).
 """
 
 import math
@@ -262,6 +268,71 @@ def test_k2_autograd_backward_goes_through_twin(system):
     ref = ts.field_grads_plain(ctx, dyn.detach().requires_grad_(True), params, create_graph=True)
     (g_ref,) = torch.autograd.grad(ref[:3].sum(), params)
     torch.testing.assert_close(g, g_ref)
+
+
+def _launches() -> tuple:
+    return ts.multistep_chunk.launches, ts.field_grads.launches
+
+
+def _grad_run(device, model, n_steps, **sim_kw):
+    """(loss, {name: gradient on the CPU}, (K1, K2) launches of the forward,
+    of the backward) of a weighted sum of the states of a 40-bp run at kT 0
+    from a 0.01-jittered start, every opt_params tensor a leaf."""
+    top, b = synthetic_duplex(40, form="B" if model == "dna2" else "A", dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(32)
+    q = b.orientation + 0.01 * torch.randn(b.orientation.shape, generator=gen)
+    b = RigidBody((b.center + 0.01 * torch.randn(b.center.shape, generator=gen)).to(device),
+                  (q / q.norm(dim=-1, keepdim=True)).to(device))
+    e, sim = build_sim(top, 0.0, model=model, init_centers=b.center, init_orientation=b.orientation, device=device)
+    sim = sim.replace(**sim_kw)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in e.opt_params().items()}
+    k0 = _launches()
+    traj = sim.run(p, b, n_steps, torch.Generator(device=device).manual_seed(0)).observables[0]
+    k1 = _launches()
+    w = torch.randn((*traj.center.shape[:2], 7), generator=gen).to(device)
+    loss = (w[..., :3] * traj.center).sum() + (w[..., 3:] * traj.orientation).sum()
+    loss.backward()
+    k2 = _launches()
+    grads = {k: (torch.zeros_like(v) if v.grad is None else v.grad).cpu() for k, v in p.items()}
+    return loss.item(), grads, tuple(b - a for a, b in zip(k0, k1)), tuple(b - a for a, b in zip(k1, k2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dna2", "rna2"])
+def test_gradient_through_run_on_card_matches_cpu(card, model):
+    """d loss / d opt_params through one 40-step chunk (K1 forward on the
+    card) agrees with the CPU plain versions: loss rtol 1e-5, gradients
+    rtol 1e-2 / atol 1e-3 max|grad|; d / d eps_stack_base nonzero."""
+    l_gpu, g_gpu, _, _ = _grad_run(card, model, 40)
+    l_cpu, g_cpu, _, _ = _grad_run("cpu", model, 40)
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-5)
+    scale = max(float(v.abs().max()) for v in g_cpu.values())
+    for k in g_cpu:
+        torch.testing.assert_close(g_gpu[k], g_cpu[k], rtol=1e-2, atol=1e-3 * scale, msg=k)
+    assert float(g_cpu["eps_stack_base"]) != 0 and float(g_gpu["eps_stack_base"]) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["chunk", "per-step checkpoint_every=1"])
+def test_gradient_run_launches(card, path):
+    """A grad evaluation launches K1 and K2 in its forward as the run does
+    without gradients (chunk path: K1 once a chunk, K2 once; per-step: K2
+    n + 1 times), and the backward, the plain versions, launches neither --
+    except K2 once a step again where it recomputes a checkpointed
+    interval."""
+    chunk = path == "chunk"
+    kw = {"save_every": 40} if chunk else {"save_every": 1, "neighbor_update_every": 5, "checkpoint_every": 1}
+    n_steps = 80 if chunk else 10
+    _, g, fwd, bwd = _grad_run(card, "dna2", n_steps, **kw)
+    with torch.no_grad():
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=card)
+        e, sim = build_sim(top, 0.0, init_centers=b.center, init_orientation=b.orientation, device=card)
+        k0 = _launches()
+        sim.replace(**kw).run(e.opt_params(), b, n_steps, torch.Generator(device=card).manual_seed(0))
+        plain = tuple(b - a for a, b in zip(k0, _launches()))
+    assert fwd == plain == ((2, 1) if chunk else (0, n_steps + 1))
+    assert bwd == ((0, 0) if chunk else (0, n_steps))
+    assert all(bool(torch.isfinite(v).all()) for v in g.values())
 
 
 @pytest.mark.cuda

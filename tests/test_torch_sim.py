@@ -7,6 +7,8 @@ their plain twins on CPU tensors. kT = 0 keeps random numbers out of the
 comparison (tolerances as tests/test_multistep.py:150-157).
 """
 
+import dataclasses as dc
+
 import numpy as np
 import pytest
 
@@ -157,24 +159,38 @@ def test_build_sim_refuses_unported_modes():
 
 def test_kernel_autograd_functions_backward_through_twins():
     """FieldGrads / MultistepChunk (the kernels' autograd wrappers) give the
-    gradients of differentiating the twins directly (CPU: forward is the
-    twin too, so this checks the wrappers' plumbing and arity)."""
+    gradients of differentiating the twins directly, MultistepChunk's also
+    with respect to the stacking weight ``wstack`` (nonzero: the way to
+    ``eps_stack_base``) (CPU: forward is the twin too, so this checks the
+    wrappers' plumbing and arity); a context tensor that needs a gradient
+    and is not an input of the Function raises."""
     e, sim, body = _port(KT)
     ctx = ts.prepare_stencil_context(e, sim.band)
     state = sim.initial_state(ctx, body, torch.Generator().manual_seed(0))
     ou = ts.ou_constants(5e-3, KT, [1.0], [[1.0, 1.0, 1.0]], [KT / 2.5], [KT / 7.5]).vector("cpu")
     noise = torch.randn((1, 6, ctx.n), generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    # a weighted sum of the last seven rows (K1's force, torque and checks;
+    # all of K2's): one step's centres read no force of the step's end
+    weights = torch.randn((7, ctx.n), generator=torch.Generator().manual_seed(2))
 
-    def grads(fn, x0):
+    def grads(fn, x0, with_w=False):
         x = x0.detach().clone().requires_grad_(True)
         p = ctx.params.detach().clone().requires_grad_(True)
-        return torch.autograd.grad(fn(x, p)[:3].sum(), (x, p))
+        w = ctx.wstack.detach().clone().requires_grad_(with_w)
+        return torch.autograd.grad((weights * fn(x, p, w)[-7:]).sum(), (x, p, w) if with_w else (x, p))
 
-    via_fn = grads(lambda x, p: ts.MultistepChunk.apply(x, p, ou, noise, ctx), state)
-    direct = grads(lambda x, p: ts.multistep_chunk_plain(ctx, ou, noise, x, p, create_graph=True), state)
+    via_fn = grads(lambda x, p, w: ts.MultistepChunk.apply(x, p, w, ou, noise, ctx), state, True)
+    direct = grads(lambda x, p, w: ts.multistep_chunk_plain(dc.replace(ctx, wstack=w), ou, noise, x, p,
+                                                            create_graph=True), state, True)
     for a, b in zip(via_fn, direct, strict=True):
         torch.testing.assert_close(a, b)
-    via_fn = grads(lambda x, p: ts.FieldGrads.apply(x, p, ctx), state[:7])
-    direct = grads(lambda x, p: ts.field_grads_plain(ctx, x, p, create_graph=True), state[:7])
+    assert bool(via_fn[2].abs().max() > 0)
+    via_fn = grads(lambda x, p, w: ts.FieldGrads.apply(x, p, ctx), state[:7])
+    direct = grads(lambda x, p, w: ts.field_grads_plain(ctx, x, p, create_graph=True), state[:7])
     for a, b in zip(via_fn, direct, strict=True):
         torch.testing.assert_close(a, b)
+    hidden = dc.replace(ctx, qf=ctx.qf.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="ctx.qf needs a gradient"):
+        ts.FieldGrads.apply(state[:7], ctx.params, hidden)
+    with pytest.raises(ValueError, match="ctx.qf needs a gradient"):
+        ts.MultistepChunk.apply(state, ctx.params, ctx.wstack, ou, noise, hidden)
