@@ -92,7 +92,28 @@ Phases, one line each; any failure exits non-zero:
    forward, 40 more in the backward) against 0 (the same gradient, rtol
    1e-5), with the memory the graph holds after the forward and the
    peak's rise over the evaluation, each; (12d) oxRNA2 at
-   1,000 nt, 80 steps through K1's rna2 instance.
+   1,000 nt, 80 steps through K1's rna2 instance;
+13. direct differentiation through ``BlockSimulator.run`` (K3 forward
+   through ``TileForces``, its plain version backward): (13a) 1,000 nt
+   under ``build_sim(mode="block")``, the propeller-twist loss through 200
+   steps after a 40-step warm-up -- finite, nonzero, d / d eps_stack_base
+   nonzero, K3 launched as in the same run without gradients and never in
+   the backward, the forward's and backward's seconds, peak memory; (13b)
+   40 bp, 40 steps at kT 0 from a jittered state, card vs CPU (loss rtol
+   1e-5, gradients rtol 1e-2 / atol 1e-3 max|grad|); (13c) 1,000 nt, 40
+   steps in 4 rebuild intervals, ``checkpoint_every`` 1 against 0 (the same
+   gradient, rtol 1e-5; K3 in the forward and the recompute; the memory
+   held after the forward and the peak's rise); (13d) the 10k-nt
+   270-degree arc of phase 7, 40 steps, a loss on the last state;
+14. direct differentiation through ``MartiniSimulator.run`` with the
+   barostat (K6 forward, ``LJGrads``' plain double backward): (14a) the
+   reference example's fit, 5 Adam steps (lr 0.1) on lj_epsilon_C1_C1 from
+   3.5, each 300 NPT steps of ``lattice_bilayer(4, 4, water_layers=2)`` at
+   dt 0.02, loss (mean of the last 3 APLs - 0.64)^2; (14b) the 10,160-bead
+   bilayer, 50 steps, d (mean APL) / d lj_epsilon_C1_C1, K6 launched as
+   without gradients and never in the backward; (14c) the 104-bead bilayer
+   with the same pre-drawn noise, card vs CPU (loss rtol 1e-4 / atol
+   1e-5, gradients rtol 1e-2 / atol 1e-3 max|grad|).
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
 phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
@@ -155,6 +176,11 @@ PER_STEP_WINDOW = 40  # phase 11's profiled steps
 #: after a 40-step warm-up; 40 per-step steps; 80 oxRNA2 steps
 DIRECT_N_BP, DIRECT_STEPS, DIRECT_WARM = 500, 200, 40
 DIRECT_PER_STEP, DIRECT_RNA2_STEPS = 40, 80
+#: phase 14: the reference example's fit (examples/martini_bilayer_native.py:
+#: 5 Adam steps, each a 300-step NPT run of lattice_bilayer(4, 4, 2)), and
+#: 50 steps of phase 9's bilayer
+MARTINI_FIT_LATTICE, MARTINI_FIT_STEPS, MARTINI_FIT_MD = (4, 4, 2), 5, 300
+MARTINI_DIRECT_STEPS = 50
 WIDE_BOX = (70.0, 70.0, 10.84)  # phase 9a: floor(box / LJ_CELL) gives 63 x 63 x 9 > MAX_CELLS cells
 #: a row is "near the clamp" when one of its pairs inside the short-range
 #: reach has an angle cosine within this many float32 ulps of +-1
@@ -1035,40 +1061,14 @@ def _direct(dev, smi: str) -> dict:
     def leaves(e):
         return {k: v.detach().clone().requires_grad_(True) for k, v in e.opt_params().items()}
 
-    def grads_of(p):
-        return {k: (torch.zeros_like(v) if v.grad is None else v.grad).detach() for k, v in p.items()}
-
     def counted_eval(e, sim, body, n_steps, seed, loss_fn):
         """(loss, grads, forward s, backward s, forward launches, backward
-        launches, MiB {"held": allocated after the forward less before it
-        (the graph and the trajectory), "peak": max_memory_allocated over
-        the evaluation, "rise": that peak less the allocation before it,
-        which earlier phases' leftovers do not move}) of one evaluation,
-        the counters set to 0 just before."""
+        launches, MiB) of one evaluation (:func:`_grad_eval`)."""
         p = leaves(e)
-        st.field_grads.launches = st.multistep_chunk.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        m0 = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        loss = loss_fn(sim.run(p, body, n_steps, torch.Generator(device=body.center.device).manual_seed(seed))
-                       .observables[0])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        held = torch.cuda.memory_allocated() - m0
-        fwd = {"K1": st.multistep_chunk.launches, "K2": st.field_grads.launches}
-        loss.backward()
-        torch.cuda.synchronize()
-        t_b = time.perf_counter() - t1
-        bwd = {"K1": st.multistep_chunk.launches - fwd["K1"], "K2": st.field_grads.launches - fwd["K2"]}
-        peak = torch.cuda.max_memory_allocated()
-        mem = {"held": held / 2**20, "peak": peak / 2**20, "rise": (peak - m0) / 2**20}
-        return loss.detach(), grads_of(p), t1 - t0, t_b, fwd, bwd, mem
-
-    def summary(g) -> tuple[float, int, bool]:
-        g_max = max(float(v.abs().max()) for v in g.values())
-        finite = all(bool(torch.isfinite(v).all()) for v in g.values())
-        return g_max, sum(bool((v != 0).any()) for v in g.values()), finite
+        gen = torch.Generator(device=body.center.device).manual_seed(seed)
+        r = _grad_eval(lambda: sim.run(p, body, n_steps, gen).observables[0], loss_fn,
+                       {"K1": st.multistep_chunk, "K2": st.field_grads})
+        return r["loss"], _grads_of(p), r["fwd_s"], r["bwd_s"], r["fwd"], r["bwd"], r
 
     def twist_loss(n_nt):
         bps = torch.tensor([[i, n_nt - 1 - i] for i in range(n_nt // 2)], device=dev)
@@ -1082,7 +1082,7 @@ def _direct(dev, smi: str) -> dict:
     loss_fn = twist_loss(n_nt)
     counted_eval(energy_fn, sim, body, DIRECT_WARM, 30, loss_fn)
     loss, g, t_f, t_b, fwd, bwd, mem = counted_eval(energy_fn, sim, body, DIRECT_STEPS, 31, loss_fn)
-    g_max, n_nonzero, finite = summary(g)
+    g_max, n_nonzero, finite = _grad_summary(g)
     chunks = DIRECT_STEPS // sim.neighbor_update_every
     print(f"[12a direct] {DIRECT_STEPS} steps at {n_nt} nt, propeller-twist loss {float(loss):.6g}: forward "
           f"{t_f:.3f} s, backward {t_b:.3f} s ({t_b / chunks:.3f} s a chunk, {t_b / (t_f + t_b):.0%} of the "
@@ -1118,7 +1118,7 @@ def _direct(dev, smi: str) -> dict:
             value = proj(s_.run(p, b, s_.neighbor_update_every, torch.Generator(device=device).manual_seed(0))
                          .observables[0])
             value.backward()
-            return float(value.detach()), {k: v.cpu() for k, v in grads_of(p).items()}
+            return float(value.detach()), {k: v.cpu() for k, v in _grads_of(p).items()}
 
         (l_gpu, g_gpu), (l_cpu, g_cpu) = small(dev), small("cpu")
         scale = max(float(v.abs().max()) for v in g_cpu.values())
@@ -1145,7 +1145,7 @@ def _direct(dev, smi: str) -> dict:
         print(f"[12c direct per-step checkpoint_every={ck}] {DIRECT_PER_STEP} steps at {n_nt} nt in 4 intervals, "
               f"a state every step: forward {t_f:.3f} s, backward {t_b:.3f} s = "
               f"{DIRECT_PER_STEP * 60.0 / (t_f + t_b):.1f} grad-steps/min on {smi}; max|grad| "
-              f"{summary(g_c)[0]:.4g}; K2 launches forward {fwd['K2']}, backward {bwd['K2']}; K1 "
+              f"{_grad_summary(g_c)[0]:.4g}; K2 launches forward {fwd['K2']}, backward {bwd['K2']}; K1 "
               f"{fwd['K1'] + bwd['K1']}; memory held after the forward {mem['held']:.1f} MiB, peak "
               f"{mem['rise']:.1f} MiB above the start ({mem['peak']:.1f} MiB in all)")
         want_bwd = DIRECT_PER_STEP if ck else 0
@@ -1156,7 +1156,7 @@ def _direct(dev, smi: str) -> dict:
     ck_ok = all(bool(((g1[k] - g0[k]).abs() <= 1e-5 * g0[k].abs()).all()) for k in g0)
     print(f"[12c checkpoint] gradient with checkpoint_every 1 against 0: max relative difference {ck_err:.3e} "
           f"(rtol 1e-5); equal bits: {all(torch.equal(g1[k], g0[k]) for k in g0)}")
-    if not ck_ok or not summary(g1)[2] or summary(g1)[0] == 0:
+    if not ck_ok or not _grad_summary(g1)[2] or _grad_summary(g1)[0] == 0:
         raise SystemExit("checkpoint_every changed the per-step gradient, or it is not finite and nonzero")
 
     # 12d. oxRNA2 at 1,000 nt: two chunks through K1's rna2 instance
@@ -1168,7 +1168,7 @@ def _direct(dev, smi: str) -> dict:
     st.multistep_chunk.by_family = dict.fromkeys(st.FAMILIES, 0)
     loss_r, g_r, t_f, t_b, fwd, bwd, _ = counted_eval(e_r, sim_r, body_r, DIRECT_RNA2_STEPS, 35,
                                                     lambda traj: (w_r * traj.center).sum())
-    g_max, n_nonzero, finite = summary(g_r)
+    g_max, n_nonzero, finite = _grad_summary(g_r)
     k1_rna2 = st.multistep_chunk.by_family["rna2"]
     print(f"[12d direct rna2] {DIRECT_RNA2_STEPS} steps at {top_r.n_nucleotides} nt (A-form): "
           f"loss {float(loss_r):.6g}; "
@@ -1182,6 +1182,280 @@ def _direct(dev, smi: str) -> dict:
         raise SystemExit(f"the rna2 differentiated run did not go through K1's rna2 instance: {fwd}, {k1_rna2}")
     out["K1 rna2"] = k1_rna2
     _lap("12 direct differentiation")
+    return out
+
+
+def _grad_eval(run, loss_fn, counters: dict) -> dict:
+    """One grad evaluation of phases 13-14: ``loss_fn(run())`` then
+    ``loss.backward()``, the launch counters (name: wrapper) set to 0 just
+    before. {"loss", "fwd_s", "bwd_s", "fwd": launches of the forward,
+    "bwd": of the backward, "held": MiB allocated after the forward less
+    before it, "peak": max_memory_allocated over the evaluation in MiB,
+    "rise": that peak less the allocation before it}."""
+    import torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss = loss_fn(run())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    held = torch.cuda.memory_allocated() - m0
+    fwd = {k: fn.launches for k, fn in counters.items()}
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bwd = {k: fn.launches - fwd[k] for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    return {"loss": loss.detach(), "fwd_s": t1 - t0, "bwd_s": t2 - t1, "fwd": fwd, "bwd": bwd, "held": held / 2**20,
+            "peak": peak / 2**20, "rise": (peak - m0) / 2**20}
+
+
+def _grads_of(p: dict) -> dict:
+    import torch
+
+    return {k: (torch.zeros_like(v) if v.grad is None else v.grad).detach() for k, v in p.items()}
+
+
+def _grad_summary(g: dict) -> tuple[float, int, bool]:
+    """(max|grad|, parameters with a nonzero gradient, all finite)."""
+    import torch
+
+    g_max = max(float(v.abs().max()) for v in g.values())
+    return g_max, sum(bool((v != 0).any()) for v in g.values()), all(bool(torch.isfinite(v).all()) for v in g.values())
+
+
+def _card_vs_cpu(label: str, l_gpu: float, g_gpu: dict, l_cpu: float, g_cpu: dict, loss_rtol: float,
+                 loss_atol: float = 0.0) -> None:
+    """Print and hold a card gradient against the CPU's: the loss within
+    ``loss_rtol`` (+ ``loss_atol``), every gradient within rtol 1e-2 / atol
+    1e-3 max|grad|."""
+    scale = max(float(v.abs().max()) for v in g_cpu.values())
+    err = max(float((g_gpu[k].cpu() - g_cpu[k]).abs().max()) for k in g_cpu)
+    ok_g = all(bool(((g_gpu[k].cpu() - g_cpu[k]).abs() <= 1e-2 * g_cpu[k].abs() + 1e-3 * scale).all()) for k in g_cpu)
+    ok_l = abs(l_gpu - l_cpu) <= loss_rtol * abs(l_cpu) + loss_atol
+    print(f"[{label}] loss card {l_gpu:.8g} CPU {l_cpu:.8g} (rtol {loss_rtol:g}); max|grad card - CPU| {err:.3e} "
+          f"(max|grad| {scale:.3e}; rtol 1e-2, atol 1e-3 max|grad|)")
+    if not (ok_l and ok_g) or scale == 0:
+        raise SystemExit(f"{label}: the card's gradient disagrees with the CPU plain versions, or is zero")
+
+
+def _block_direct(dev, smi: str) -> dict:
+    """Phase 13: direct differentiation through ``BlockSimulator.run`` --
+    d loss / d every ``opt_params`` tensor by ``loss.backward()``, K3 forward
+    on the card through ``TileForces``, its plain version backward. 13a the
+    1,000-nt duplex, the propeller-twist loss through 200 steps after a
+    40-step warm-up, K3 launched as the same run without gradients does and
+    none backward; 13b 40 bp, 40 steps at kT 0, card vs CPU; 13c 1,000 nt,
+    40 steps in 4 rebuild intervals, ``checkpoint_every`` 1 against 0; 13d
+    the 10k-nt 270-degree arc of phase 7, 40 steps, a loss on the last
+    state. Returns {"K3 fwd", "K3 bwd": 13a's launches, "bwd_s": 13a's
+    backward seconds}."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    import mythos_tpu_torch.energy.dna2 as dna2
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.observables import PropellerTwist
+    from mythos_tpu_torch.ops import tiles
+    from mythos_tpu_torch.rigid_body import RigidBody
+
+    k3 = {"K3": tiles.tile_forces}
+
+    def leaves(e):
+        return {k: v.detach().clone().requires_grad_(True) for k, v in e.opt_params().items()}
+
+    def twist_loss(n_nt):
+        bps = torch.tensor([[i, n_nt - 1 - i] for i in range(n_nt // 2)], device=dev)
+        obs = PropellerTwist(rigid_body_transform_fn=dna2.default_transform_soa_fn(), h_bonded_base_pairs=bps)
+        return lambda traj: (obs(traj).mean() - 21.7) ** 2
+
+    # 13a. 1,000 nt, 200 steps, a rebuild and a state every 40
+    topology, body = synthetic_duplex(DIRECT_N_BP, dtype=torch.float32, device=dev)
+    n_nt = topology.n_nucleotides
+    energy_fn, sim = build_sim(topology, KT, mode="block", init_centers=body.center, device=dev)
+    loss_fn = twist_loss(n_nt)
+
+    def run_with(p, n_steps, seed, s=sim):
+        return lambda: s.run(p, body, n_steps, torch.Generator(device=dev).manual_seed(seed)).observables[0]
+
+    _grad_eval(run_with(leaves(energy_fn), DIRECT_WARM, 40), loss_fn, k3)
+    p = leaves(energy_fn)
+    r = _grad_eval(run_with(p, DIRECT_STEPS, 41), loss_fn, k3)
+    g = _grads_of(p)
+    tiles.tile_forces.launches = 0
+    with torch.no_grad():
+        sim.run(energy_fn.opt_params(), body, DIRECT_STEPS, torch.Generator(device=dev).manual_seed(41))
+    plain_k3 = tiles.tile_forces.launches
+    g_max, n_nonzero, finite = _grad_summary(g)
+    t_all = r["fwd_s"] + r["bwd_s"]
+    print(f"[13a block direct] {DIRECT_STEPS} steps at {n_nt} nt, block tier, propeller-twist loss {float(r['loss']):.6g}: "
+          f"forward {r['fwd_s']:.3f} s, backward {r['bwd_s']:.3f} s ({r['bwd_s'] / t_all:.0%} of the evaluation) = "
+          f"{DIRECT_STEPS * 60.0 / t_all:.1f} grad-steps/min on {smi}; max|grad| {g_max:.4g}, d/d eps_stack_base "
+          f"{float(g['eps_stack_base']):.6g}, d/d eps_hb {float(g['eps_hb']):.6g}, {n_nonzero} of {len(g)} nonzero; "
+          f"K3 launches forward {r['fwd']['K3']} (the run without gradients {plain_k3}), backward {r['bwd']['K3']}; "
+          f"peak memory {r['peak']:.1f} MiB ({r['rise']:.1f} above the start)")
+    if not (finite and g_max > 0 and float(g["eps_stack_base"]) != 0 and bool(torch.isfinite(r["loss"]))):
+        raise SystemExit("the block tier's gradient is non-finite or zero, or none for eps_stack_base")
+    if r["fwd"]["K3"] != plain_k3 or plain_k3 < DIRECT_STEPS or r["bwd"]["K3"] != 0:
+        raise SystemExit(f"the differentiated block run launched K3 {r['fwd']}, {r['bwd']}, without gradients {plain_k3}")
+    out = {"K3 fwd": r["fwd"]["K3"], "K3 bwd": r["bwd"]["K3"], "bwd_s": r["bwd_s"]}
+
+    # 13b. 40 bp, 40 steps at kT 0 from a jittered state: card vs CPU
+    top_s, b_s = synthetic_duplex(40, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(42)
+    q = b_s.orientation + 0.01 * torch.randn(b_s.orientation.shape, generator=gen)
+    c = b_s.center + 0.01 * torch.randn(b_s.center.shape, generator=gen)
+    b_s = RigidBody(c, q / q.norm(dim=-1, keepdim=True))
+    w = torch.randn((1, top_s.n_nucleotides, 7), generator=gen)
+
+    def small(device):
+        b = RigidBody(b_s.center.to(device), b_s.orientation.to(device))
+        e, s_ = build_sim(top_s, 0.0, mode="block", init_centers=b.center, device=device)
+        wd = w.to(device)
+        pp = leaves(e)
+        traj = s_.run(pp, b, 40, torch.Generator(device=device).manual_seed(0)).observables[0]
+        value = (wd[..., :3] * traj.center).sum() + (wd[..., 3:] * traj.orientation).sum()
+        value.backward()
+        return float(value.detach()), {k: v.cpu() for k, v in _grads_of(pp).items()}
+
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = small(dev), small("cpu")
+    _card_vs_cpu("13b block direct small input: 40 bp, 40 steps, kT=0", l_gpu, g_gpu, l_cpu, g_cpu, 1e-5)
+    if float(g_cpu["eps_stack_base"]) == 0:
+        raise SystemExit("13b: no gradient for eps_stack_base")
+
+    # 13c. 1,000 nt, 40 steps in 4 rebuild intervals, a state every interval:
+    # checkpoint_every 1 (each save a checkpoint, recomputed in the backward)
+    # against 0, after one small checkpointed call (its first-call costs)
+    x = torch.ones(1, device=dev, requires_grad=True)
+    checkpoint(torch.sin, x, use_reentrant=False).backward()
+    u_c = DIRECT_PER_STEP // 4
+    runs = {}
+    for ck in (1, 0):
+        sim_c = sim.replace(save_every=u_c, neighbor_update_every=u_c, checkpoint_every=ck)
+        pc = leaves(energy_fn)
+        runs[ck] = (_grad_eval(run_with(pc, DIRECT_PER_STEP, 43, sim_c), loss_fn, k3), _grads_of(pc))
+        rc = runs[ck][0]
+        print(f"[13c block direct checkpoint_every={ck}] {DIRECT_PER_STEP} steps at {n_nt} nt in 4 rebuild intervals: "
+              f"forward {rc['fwd_s']:.3f} s, backward {rc['bwd_s']:.3f} s on {smi}; K3 launches forward "
+              f"{rc['fwd']['K3']}, backward (the recompute) {rc['bwd']['K3']}; memory held after the forward "
+              f"{rc['held']:.1f} MiB, peak {rc['rise']:.1f} MiB above the start ({rc['peak']:.1f} MiB in all)")
+        n_tables = rc["fwd"]["K3"] // (DIRECT_PER_STEP + 1)
+        want_bwd = n_tables * DIRECT_PER_STEP if ck else 0
+        if rc["fwd"]["K3"] != n_tables * (DIRECT_PER_STEP + 1) or rc["bwd"]["K3"] != want_bwd:
+            raise SystemExit(f"13c launched K3 {rc['fwd']}, {rc['bwd']} (checkpoint_every {ck})")
+    g1, g0 = runs[1][1], runs[0][1]
+    ck_err = max(float(((g1[k] - g0[k]).abs() / g0[k].abs().clamp_min(1e-30)).max()) for k in g0)
+    ck_ok = all(bool(((g1[k] - g0[k]).abs() <= 1e-5 * g0[k].abs()).all()) for k in g0)
+    print(f"[13c checkpoint] gradient with checkpoint_every 1 against 0: max relative difference {ck_err:.3e} "
+          f"(rtol 1e-5); equal bits: {all(torch.equal(g1[k], g0[k]) for k in g0)}")
+    if not ck_ok or not _grad_summary(g1)[2] or _grad_summary(g1)[0] == 0:
+        raise SystemExit("checkpoint_every changed the block tier's gradient, or it is not finite and nonzero")
+
+    # 13d. full width: the 10k-nt 270-degree arc, 40 steps, a loss on the last state
+    top_a, body_a = synthetic_duplex(N_BP, bend=math.radians(270), dtype=torch.float32, device=dev)
+    e_a, sim_a = build_sim(top_a, KT, mode="block", init_centers=body_a.center, device=dev)
+    w_a = torch.randn((top_a.n_nucleotides, 3), generator=torch.Generator().manual_seed(44)).to(dev)
+    pa = leaves(e_a)
+    ra = _grad_eval(lambda: sim_a.run(pa, body_a, DIRECT_PER_STEP, torch.Generator(device=dev).manual_seed(45))
+                    .observables[0], lambda traj: (w_a * traj.center[-1]).sum(), k3)
+    g_max, n_nonzero, finite = _grad_summary(_grads_of(pa))
+    print(f"[13d block direct full width] {DIRECT_PER_STEP} steps at {top_a.n_nucleotides} nt, 270-degree arc: loss "
+          f"{float(ra['loss']):.6g}; forward {ra['fwd_s']:.3f} s, backward {ra['bwd_s']:.3f} s on {smi}; max|grad| "
+          f"{g_max:.4g}, {n_nonzero} of {len(pa)} nonzero; K3 launches forward {ra['fwd']['K3']}, backward "
+          f"{ra['bwd']['K3']}; peak memory {ra['peak']:.1f} MiB ({ra['rise']:.1f} above the start)")
+    if not finite or g_max == 0:
+        raise SystemExit("the full-width block gradient is not finite and nonzero")
+    _lap("13 block direct differentiation")
+    return out
+
+
+def _martini_direct(dev, smi: str) -> dict:
+    """Phase 14: direct differentiation through ``MartiniSimulator.run``
+    (the barostat on) -- K6 forward on the card, its plain double backward
+    (``ops.lj.LJGrads``). 14a the reference example's fit
+    (examples/martini_bilayer_native.py): 5 Adam steps on lj_epsilon_C1_C1,
+    each a 300-step NPT run; 14b the 10,160-bead bilayer of phase 9, 50
+    steps, d (mean APL) / d lj_epsilon_C1_C1; 14c the 104-bead bilayer with
+    the same pre-drawn noise, card vs CPU. Returns {"K6 fwd", "K6 bwd":
+    14b's launches forward and backward, "bwd_s": 14b's backward seconds}."""
+    import torch
+
+    from mythos_tpu_torch.energy.martini.systems import default_bilayer_terms, lattice_bilayer
+    from mythos_tpu_torch.observables import AreaPerLipid
+    from mythos_tpu_torch.ops import lj
+    from mythos_tpu_torch.simulators.martini import MartiniSimulator
+
+    k6 = {"K6 fwd": lj.lj_energy, "K6 bwd": lj.lj_grads, "K6 cells": lj.lj_cells}
+
+    def bilayer(n_x, n_y, layers, device, **kw):
+        top, pos, box, masses = lattice_bilayer(n_x, n_y, water_layers=layers)
+        sim = MartiniSimulator(energy_fns=default_bilayer_terms(top), box=box, masses=masses,
+                               barostat=MARTINI_BAROSTAT, device=device, **kw)
+        heads = [i for i, nm in enumerate(top.atom_names) if nm == "PO4"]
+        return sim, torch.as_tensor(pos, dtype=torch.float32, device=device), AreaPerLipid(head_indices=heads)
+
+    # 14a. the reference example's fit: 5 Adam steps on the tail-tail epsilon
+    sim, x0, apl = bilayer(*MARTINI_FIT_LATTICE, dev, dt=0.02, save_every=50)
+    eps = torch.tensor(3.5, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([eps], lr=0.1)
+    t0 = time.perf_counter()
+    for step in range(MARTINI_FIT_STEPS):
+        opt.zero_grad()
+        r = _grad_eval(lambda: sim.run({"lj_epsilon_C1_C1": eps}, x0, MARTINI_FIT_MD,
+                                       torch.Generator(device=dev).manual_seed(step)).observables[0],
+                       lambda traj: (apl(traj)[-3:].mean() - 0.64) ** 2, k6)
+        grad = float(eps.grad)
+        opt.step()
+        print(f"[14a MARTINI fit] step {step}: loss={float(r['loss']):.5f} eps_C1_C1={float(eps.detach()):.3f} "
+              f"grad={grad:+.4f}; forward {r['fwd_s']:.3f} s, backward {r['bwd_s']:.3f} s; launches forward "
+              f"{r['fwd']}, backward {r['bwd']}; peak {r['peak']:.1f} MiB ({r['rise']:.1f} above the start)")
+        if not (math.isfinite(grad) and bool(torch.isfinite(r["loss"]))) or r["fwd"]["K6 fwd"] < MARTINI_FIT_MD:
+            raise SystemExit("the MARTINI fit gave a non-finite loss or gradient, or did not go through K6")
+        if r["bwd"] != dict.fromkeys(k6, 0) or r["fwd"]["K6 cells"] != r["fwd"]["K6 fwd"]:
+            raise SystemExit(f"the MARTINI fit launched K6 {r['fwd']}, {r['bwd']}")
+    print(f"[14a MARTINI fit] {MARTINI_FIT_STEPS} Adam steps of {MARTINI_FIT_MD} NPT steps at {x0.shape[0]} beads: "
+          f"{time.perf_counter() - t0:.3f} s on {smi}")
+
+    # 14b. full width: the 10,160-bead bilayer, 50 steps, d (mean APL) / d epsilon
+    sim_b, x_b, apl_b = bilayer(*MARTINI_LATTICE, dev, save_every=MARTINI_BAROSTAT["every"])
+    eps_b = torch.tensor(3.5, device=dev, requires_grad=True)
+    r = _grad_eval(lambda: sim_b.run({"lj_epsilon_C1_C1": eps_b}, x_b, MARTINI_DIRECT_STEPS,
+                                     torch.Generator(device=dev).manual_seed(46)).observables[0],
+                   lambda traj: apl_b(traj).mean(), k6)
+    print(f"[14b MARTINI direct full width] {MARTINI_DIRECT_STEPS} NPT steps at {x_b.shape[0]} beads: mean APL "
+          f"{float(r['loss']):.6f} nm^2, d/d lj_epsilon_C1_C1 {float(eps_b.grad):.6g}; forward {r['fwd_s']:.3f} s, "
+          f"backward {r['bwd_s']:.3f} s on {smi}; launches forward {r['fwd']}, backward {r['bwd']}; peak memory "
+          f"{r['peak']:.1f} MiB ({r['rise']:.1f} above the start)")
+    evals = 1 + MARTINI_DIRECT_STEPS + MARTINI_DIRECT_STEPS // MARTINI_BAROSTAT["every"]
+    if not math.isfinite(float(eps_b.grad)) or float(eps_b.grad) == 0.0:
+        raise SystemExit("the full-width MARTINI gradient is not finite and nonzero")
+    if r["fwd"] != dict.fromkeys(k6, evals) or r["bwd"] != dict.fromkeys(k6, 0):
+        raise SystemExit(f"the differentiated NPT run launched K6 {r['fwd']}, {r['bwd']}, not {evals} each forward")
+    out = {"K6 fwd": r["fwd"]["K6 fwd"], "K6 bwd": r["fwd"]["K6 bwd"], "bwd_s": r["bwd_s"]}
+
+    # 14c. the 104-bead bilayer with the same pre-drawn noise: card vs CPU
+    top_s, pos_s, _, masses_s = lattice_bilayer(3, 3, water_layers=1)
+    gen = torch.Generator().manual_seed(47)
+    mom = torch.randn(pos_s.shape, generator=gen) * (float(masses_s[0]) * sim.kT) ** 0.5
+    noise = torch.randn((50, *pos_s.shape), generator=gen)
+
+    def small(device):
+        s_, x_s, apl_s = bilayer(3, 3, 1, device, save_every=10)
+        pp = {"lj_epsilon_C1_C1": torch.tensor(3.5, device=device, requires_grad=True),
+              "lj_sigma_C1_C1": torch.tensor(0.47, device=device, requires_grad=True)}
+        traj = s_.run(pp, x_s, 50, init_momentum=mom, noise=noise).observables[0]
+        value = apl_s(traj).mean()
+        value.backward()
+        return float(value.detach()), {k: v.grad.detach().cpu().reshape(1) for k, v in pp.items()}
+
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = small(dev), small("cpu")
+    _card_vs_cpu("14c MARTINI direct small input: 104 beads, 50 NPT steps", l_gpu, g_gpu, l_cpu, g_cpu, 1e-4, 1e-5)
+    _lap("14 MARTINI direct differentiation")
     return out
 
 
@@ -1688,6 +1962,16 @@ def main() -> int:
     print(f"[12 kernels] a 1,000-nt grad evaluation of 200 steps launched K1 {direct['K1']} times and K2 "
           f"{direct['K2']} (the oxRNA2 one of 80 steps K1 {direct['K1 rna2']}); the backward, the plain versions, "
           f"took {direct['bwd_ms_chunk']:.1f} ms a chunk on {smi}")
+
+    # 13. direct differentiation through the block tier
+    block_direct = _block_direct(dev, smi)
+    # 14. direct differentiation through MARTINI NPT
+    martini_direct = _martini_direct(dev, smi)
+    print(f"[13-14 kernels] a 1,000-nt block grad evaluation of 200 steps launched K3 {block_direct['K3 fwd']} times "
+          f"forward and {block_direct['K3 bwd']} backward (the plain version, {block_direct['bwd_s']:.3f} s); a "
+          f"10,160-bead NPT grad evaluation of {MARTINI_DIRECT_STEPS} steps launched K6's forward "
+          f"{martini_direct['K6 fwd']} and backward {martini_direct['K6 bwd']} times forward, none backward (the plain "
+          f"double backward, {martini_direct['bwd_s']:.3f} s) on {smi}")
 
     src = "mythos_tpu_torch/ops/csrc/"
     tile_launch = {"K3": k3_launches, "K4": d_launches["K4"], "K5": d_launches["K5"]}

@@ -169,6 +169,9 @@ class MartiniEnergyFunction:
         self.displacement_fn = displacement_fn
         self._cache: dict = {}  # tensors of the parameters
         self._shared: dict = {}  # tensors of the topology, shared by every replace()d copy
+        #: keep tensors built from parameters that need a gradient too (a copy
+        #: made for one run: their graph lives as long as the run's)
+        self.keep_graphs = False
 
     @classmethod
     def from_topology(cls, topology: MartiniTopology, **kwargs) -> "MartiniEnergyFunction":
@@ -211,14 +214,16 @@ class MartiniEnergyFunction:
 
     def cached(self, key: str, device, dtype, make, shared: bool = False):
         """``make(device, dtype)``, kept per (key, device, dtype) unless it
-        carries a graph (a parameter that requires grad). ``shared``: a
-        tensor of the topology alone, kept for every copy replace() makes."""
+        carries a graph (a parameter that requires grad) and ``keep_graphs``
+        is off. ``shared``: a tensor of the topology alone, kept for every
+        copy replace() makes."""
         cache = self._shared if shared else self._cache
         k = (key, str(torch.device(device)), dtype)
         if k in cache:
             return cache[k]
         v = make(device, dtype)
-        if not any(isinstance(x, torch.Tensor) and x.requires_grad for x in (v if isinstance(v, tuple) else (v,))):
+        graph = any(isinstance(x, torch.Tensor) and x.requires_grad for x in (v if isinstance(v, tuple) else (v,)))
+        if self.keep_graphs or not graph:
             cache[k] = v
         return v
 

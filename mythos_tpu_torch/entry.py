@@ -17,13 +17,15 @@ want every state take ``sim.replace(save_every=1)``, and the stencil then
 steps one step at a time (K2 plus the bonded gradient each step) instead
 of in K1's chunks, as the reference's per-step branch does. The stencil's
 run is differentiable in its parameters on both branches (K1 and K2
-forward, their plain versions backward); ``checkpoint_every`` trades the
-per-step branch's graph for recompute (at 1,000 nt on an H100, the graph
-a 40-step forward holds falls from 79.7 to 26.4 MiB with a checkpoint
-every 10-step interval, while the evaluation's peak, set by the
-backward's working set at that length, stays ~104-109 MiB above its
-start: ``chip_smoke.py`` phase 12c). Other modes
-and models, and the rna2 block tier, are not ported yet and raise.
+forward, their plain versions backward), and so is the block tier's (K3
+forward through ``ops.tiles.TileForces``); ``checkpoint_every`` trades a
+differentiated run's graph for recompute (at 1,000 nt on an H100 80GB
+HBM3 at 700 W, the graph a 40-step per-step stencil forward holds falls
+from 79.7 to 26.4 MiB with a checkpoint every 10-step interval, while the
+evaluation's peak, set by the backward's working set at that length,
+stays ~104-109 MiB above its start: ``chip_smoke.py`` phase 12c; the
+block tier's: phase 13c). Other modes and models, and the rna2 block
+tier, are not ported yet and raise.
 Everything runs on the card unless ``device="cpu"`` asks for the plain
 versions.
 
@@ -40,6 +42,10 @@ Example (one H100)::
 
     # direct differentiation: d loss / d every parameter through the run
     p = {k: v.clone().requires_grad_(True) for k, v in energy_fn.opt_params().items()}
+    loss(sim.run(p, body, 200, gen)).backward()
+
+    # the block tier, differentiated with a checkpoint every save
+    energy_fn, sim = build_sim(topology, kT, mode="block", init_centers=body.center, checkpoint_every=1)
     loss(sim.run(p, body, 200, gen)).backward()
 
     # oxRNA2 starts from the A-form helix
@@ -81,18 +87,14 @@ def build_sim(
     block tables' skin is the reference's default 0.5; the site-mode
     stencil band reads none), plus ``device``. ``block_size`` sizes the
     block tier's tables; ``site_margin`` defaults to 2 under rna2, else 1.
-    ``checkpoint_every`` (rebuild intervals a checkpoint on the stencil's
-    per-step branch; ignored on its chunk path, as the reference's fused
-    branch) is the stencil's only: the block tier is not differentiable
-    yet and refuses it."""
+    ``checkpoint_every`` has the reference's meaning on both tiers: outer
+    iterations a checkpoint of a differentiated run -- rebuild intervals on
+    the per-step branches, saves of ``save_every`` steps on the block
+    tier's saving branch; the stencil's chunk path ignores it, as the
+    reference's fused branch."""
     if (mode, model) not in (("stencil", "dna2"), ("block", "dna2"), ("stencil", "rna2")):
         raise NotImplementedError(
             f"mode={mode!r}, model={model!r} is not ported yet (stencil dna2 or rna2, block dna2)"
-        )
-    if mode == "block" and checkpoint_every > 0:
-        raise NotImplementedError(
-            "checkpoint_every > 0 on the block tier: direct differentiation through the block tier (K3) is not "
-            "ported yet (ROADMAP.md, queue 1)"
         )
     device = devices.resolve(device)
     pkg = rna2 if model == "rna2" else dna2
@@ -112,7 +114,8 @@ def build_sim(
             r_cutoff_inner=dna2.short_range_neighbor_cutoff(),
             perm=strand_interleave_perm(topology),
         )
-        return energy_fn, BlockSimulator(energy_fn=energy_fn, neighbors=neighbors, **dynamics)
+        return energy_fn, BlockSimulator(energy_fn=energy_fn, neighbors=neighbors, checkpoint_every=checkpoint_every,
+                                         **dynamics)
     if init_centers is None or init_orientation is None:
         raise ValueError("the site-mode stencil band is sized from init_centers and init_orientation")
     aform = model == "rna2"

@@ -20,9 +20,16 @@ Called alone, :func:`lj_energy` and :func:`lj_grads` each build their own
 cells; :class:`LJPairEnergy` builds them once in the forward and hands them
 to the backward, so a force evaluation builds one set. :func:`lj_pair_energy`
 is the entry. A wrapper runs its plain version for CPU tensors only; on a
-CUDA tensor it launches its kernel or raises. The sigma/epsilon tables get
-no gradient (the kernels give none): the Function refuses tables that
-require grad, and its backward is once-differentiable.
+CUDA tensor it launches its kernel or raises.
+
+The energy is differentiable to any order in the positions, the box and
+the sigma/epsilon tables: its backward is :class:`LJGrads` (K6's backward
+kernel forward, on the forward's cells), whose own backward is the VJP of
+:func:`lj_grads_plain` (:func:`lj_grads_vjp_plain`), and the tables'
+gradient of the energy is autograd of :func:`lj_energy_plain`. So a force
+or a virial taken with ``create_graph`` carries d / d (positions, box,
+tables) into a loss -- direct differentiation through an NPT run -- while
+a run without gradients launches the same kernels as before.
 
 The pair mask (:class:`PairMask`) is symmetric and bit-packed, 32 pairs a
 word: 13 MB at 10,160 beads, where a float32 (N, N) mask would be 413 MB.
@@ -38,7 +45,6 @@ import dataclasses as dc
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 LJ_CUTOFF = 1.1  # nm, the fixed MARTINI cutoff
 MAX_TYPES = 32  # the kernels keep the (t, t) tables in shared memory
@@ -49,10 +55,6 @@ LJ_CELL = 1.1001
 MAX_CELLS = 32768  # lj.cu's LJ_MAX_CELLS: the cell build's histogram
 
 ERR_BOX = "the minimum image needs every box side above twice the LJ cutoff ({}); got box {}"
-ERR_TABLE_GRAD = (
-    "LJPairEnergy gives no gradient for the sigma/epsilon tables (K6 computes position and box "
-    "gradients only); detach them"
-)
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -230,27 +232,38 @@ def _lj_terms(r2: torch.Tensor, sigma: torch.Tensor, eps: torch.Tensor) -> torch
     return torch.where(r2 < LJ_CUTOFF * LJ_CUTOFF, v - v_c, torch.zeros_like(v))
 
 
-def _chunk_rows(n: int) -> int:
-    return max(1, 2**24 // max(n, 1))
+def _chunk_rows(n: int, entries: int = 2**24) -> int:
+    return max(1, entries // max(n, 1))
+
+
+#: pair entries a row chunk of :func:`lj_grads_vjp_plain` holds: its
+#: double backward saves ~30 float32 tensors of that size (~0.5 GB)
+VJP_CHUNK_ENTRIES = 2**22
 
 
 def _rows_energy(positions, types, mask_rows, box, tables, i0: int, i1: int) -> torch.Tensor:
     """Energy of the pairs (i, j) of rows i0:i1 that ``mask_rows`` keeps
-    (dense, differentiable in positions and box)."""
+    (dense, differentiable in positions, box and tables)."""
     sigmas, epsilons = tables
     dr = positions[i0:i1, None, :] - positions[None, :, :]
     dr = dr - box * torch.round(dr / box)
     r2 = (dr * dr).sum(-1) + 1e-18
     r2 = torch.where(mask_rows, r2, torch.ones_like(r2))  # masked pairs never reach r^-12
+    # the (rows, n) tables gathered by rows, then by columns: their backward
+    # is two index_adds, not an index_put into the few table entries (on the
+    # card a serial walk of ~n^2 / t^2 duplicates an entry)
     t = types.long()
-    energy = _lj_terms(r2, sigmas[t[i0:i1, None], t[None, :]], epsilons[t[i0:i1, None], t[None, :]])
+    ti = t[i0:i1]
+    sig = sigmas.index_select(0, ti).index_select(1, t)
+    eps = epsilons.index_select(0, ti).index_select(1, t)
+    energy = _lj_terms(r2, sig, eps)
     return torch.where(mask_rows, energy, torch.zeros_like(energy)).sum()
 
 
 def lj_energy_plain(positions, types, pair_mask: PairMask, box, tables) -> torch.Tensor:
     """Plain version of K6: the energy over the mask's upper half, dense by row
-    chunks as ``lj_energy_forces_reference`` is; autograd gives the position
-    and box gradients (and the tables', which the kernels do not)."""
+    chunks as ``lj_energy_forces_reference`` is; autograd gives the position,
+    box and table gradients."""
     check_box(box)
     n = positions.shape[0]
     step = _chunk_rows(n)
@@ -259,6 +272,11 @@ def lj_energy_plain(positions, types, pair_mask: PairMask, box, tables) -> torch
         i1 = min(n, i0 + step)
         total = total + _rows_energy(positions, types, pair_mask.upper(i0, i1), box, tables, i0, i1)
     return total
+
+
+def _leaf(t: torch.Tensor, keep: bool) -> torch.Tensor:
+    """``t`` itself where ``keep`` and it is on the graph, else a detached leaf."""
+    return t if keep and t.requires_grad else t.detach().requires_grad_(True)
 
 
 def lj_grads_plain(positions, types, pair_mask: PairMask, box, tables):
@@ -279,6 +297,31 @@ def lj_grads_plain(positions, types, pair_mask: PairMask, box, tables):
             g_pos += gp
             g_box += gb
     return g_pos, g_box
+
+
+def lj_grads_vjp_plain(positions, types, pair_mask: PairMask, box, tables, g_pos, g_box,
+                       create_graph: bool = False) -> tuple:
+    """The VJP of :func:`lj_grads_plain` for cotangents (g_pos (N, 3),
+    g_box (3,)): d/d(positions, box, sigmas, epsilons) of <g_pos, dU/dpos> +
+    <g_box, dU/dbox>, the double backward of the energy, one row chunk of
+    VJP_CHUNK_ENTRIES pair entries at a time (the peak is one chunk's
+    graph). With ``create_graph`` the result stays differentiable in all
+    inputs, the cotangents included."""
+    check_box(box)
+    n = positions.shape[0]
+    step = _chunk_rows(n, VJP_CHUNK_ENTRIES)
+    ins = [_leaf(t, create_graph) for t in (positions, box, *tables)]
+    pos, b, sig, eps = ins
+    out = [torch.zeros_like(t) for t in ins]
+    with torch.enable_grad():
+        for i0 in range(0, n, step):
+            i1 = min(n, i0 + step)
+            e = _rows_energy(pos, types, pair_mask.upper(i0, i1), b, (sig, eps), i0, i1)
+            gp, gb = torch.autograd.grad(e, (pos, b), create_graph=True)
+            s = (gp * g_pos).sum() + (gb * g_box).sum()
+            d = torch.autograd.grad(s, ins, create_graph=create_graph, allow_unused=True)
+            out = [o if di is None else o + di for o, di in zip(out, d, strict=True)]
+    return tuple(out)
 
 
 # Kernel wrappers -------------------------------------------------------------
@@ -423,16 +466,85 @@ def lj_grads(positions, types, pair_mask: PairMask, box, tables):
 lj_grads.launches = 0
 
 
+def _vjp(fn, xs: tuple, cots: tuple) -> tuple:
+    """d/d xs of <cots, fn(*xs)>, by autograd of ``fn`` on fresh leaves (the
+    partial derivatives; zeros for an unused input)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in xs]
+        g = torch.autograd.grad(fn(*leaves), leaves, cots, allow_unused=True)
+    return tuple(torch.zeros_like(x) if gi is None else gi for gi, x in zip(g, leaves, strict=True))
+
+
+class _Plain(torch.autograd.Function):
+    """``_Plain.apply(fn, *xs)``: the tuple ``fn(*xs)`` of a plain version,
+    computed on detached inputs without a graph; its backward is the VJP of
+    ``fn`` by autograd (:func:`_vjp`), itself a ``_Plain``, so that the
+    result is differentiable to any order in ``xs`` (and in the
+    cotangents). ``fn`` builds its outputs on the graph of its arguments
+    where grad mode is on."""
+
+    @staticmethod
+    def forward(fctx, fn, *xs):
+        fctx.fn = fn
+        fctx.save_for_backward(*xs)
+        return fn(*(x.detach() for x in xs))
+
+    @staticmethod
+    def backward(fctx, *cots):
+        xs = fctx.saved_tensors
+        n, fn = len(xs), fctx.fn
+
+        def vjp(*args):
+            return _vjp(fn, args[:n], args[n:])
+
+        return (None, *_Plain.apply(vjp, *xs, *cots))
+
+
+def _grads_on(positions, box, sigmas, epsilons, types, pair_mask: PairMask, cells: CellList | None):
+    """:func:`lj_grads`, on the card over ``cells`` where given."""
+    tables = (sigmas, epsilons)
+    if positions.device.type == "cpu" or cells is None:
+        return lj_grads(positions, types, pair_mask, box, tables)
+    grad, box_grad, _ = _lj_grads(positions, types, pair_mask, box, tables, cells)
+    return grad, box_grad
+
+
+class LJGrads(torch.autograd.Function):
+    """K6's backward as a differentiable function: ``LJGrads.apply(positions,
+    box, sigmas, epsilons, types, pair_mask, cells)`` -> (dU/dpositions (N, 3),
+    dU/dbox (3,)). The forward is :func:`lj_grads` -- on the card K6's
+    backward kernel over ``cells`` (those :class:`LJPairEnergy`'s forward
+    built; None builds them), its plain version on the CPU; the backward is
+    :func:`lj_grads_vjp_plain`, the plain double backward, with respect to
+    the positions, the box and both tables, itself differentiable again."""
+
+    @staticmethod
+    def forward(fctx, positions, box, sigmas, epsilons, types, pair_mask, cells):
+        fctx.save_for_backward(positions, box, sigmas, epsilons, types)
+        fctx.pair_mask = pair_mask
+        return _grads_on(positions, box, sigmas, epsilons, types, pair_mask, cells)
+
+    @staticmethod
+    def backward(fctx, g_pos, g_box):
+        positions, box, sigmas, epsilons, types = fctx.saved_tensors
+        mask = fctx.pair_mask
+
+        def vjp(pos, b, sig, eps, gp, gb):
+            return lj_grads_vjp_plain(pos, types, mask, b, (sig, eps), gp, gb, create_graph=torch.is_grad_enabled())
+
+        return (*_Plain.apply(vjp, positions, box, sigmas, epsilons, g_pos, g_box)[:4], None, None, None)
+
+
 class LJPairEnergy(torch.autograd.Function):
-    """The LJ pair energy: :func:`lj_energy` forward, :func:`lj_grads`
-    backward, returning the position and box cotangents. On the card the
-    backward visits the cells the forward built (the saved positions and
-    box are those they were built from): one build a force evaluation."""
+    """The LJ pair energy: :func:`lj_energy` forward; backward the position
+    and box cotangents from K6's backward kernel on the cells the forward
+    built (one build a force evaluation) -- through :class:`LJGrads`, so
+    differentiable again, where the backward builds a graph -- and, where
+    the sigma/epsilon tables need a gradient, theirs by autograd of
+    :func:`lj_energy_plain`."""
 
     @staticmethod
     def forward(fctx, positions, box, types, pair_mask, sigmas, epsilons):
-        if fctx.needs_input_grad[4] or fctx.needs_input_grad[5]:
-            raise ValueError(ERR_TABLE_GRAD)
         fctx.save_for_backward(positions, box, types, sigmas, epsilons)
         fctx.pair_mask = pair_mask
         if positions.device.type == "cpu":
@@ -442,21 +554,33 @@ class LJPairEnergy(torch.autograd.Function):
         return energy
 
     @staticmethod
-    @once_differentiable
     def backward(fctx, g):
         positions, box, types, sigmas, epsilons = fctx.saved_tensors
-        if fctx.cells is None:
-            grad, box_grad = lj_grads(positions, types, fctx.pair_mask, box, (sigmas, epsilons))
-        else:
-            grad, box_grad, _ = _lj_grads(positions, types, fctx.pair_mask, box, (sigmas, epsilons), fctx.cells)
-        g_pos = g * grad if fctx.needs_input_grad[0] else None
-        g_box = g * box_grad if fctx.needs_input_grad[1] else None
-        return g_pos, g_box, None, None, None, None
+        need, mask = fctx.needs_input_grad, fctx.pair_mask
+        g_pos = g_box = g_sig = g_eps = None
+        if need[0] or need[1]:
+            # a Function only where the force itself is differentiated (its
+            # host cost is per force evaluation)
+            grads = LJGrads.apply if torch.is_grad_enabled() else _grads_on
+            grad, box_grad = grads(positions, box, sigmas, epsilons, types, mask, fctx.cells)
+            g_pos = g * grad if need[0] else None
+            g_box = g * box_grad if need[1] else None
+        if need[4] or need[5]:
+
+            def table_grads(pos, b, sig, eps):
+                create_graph = torch.is_grad_enabled()
+                with torch.enable_grad():
+                    sig_, eps_ = _leaf(sig, create_graph), _leaf(eps, create_graph)
+                    e = lj_energy_plain(pos, types, mask, b, (sig_, eps_))
+                    return torch.autograd.grad(e, (sig_, eps_), create_graph=create_graph)
+
+            g_sig, g_eps = (g * t for t in _Plain.apply(table_grads, positions, box, sigmas, epsilons))
+        return g_pos, g_box, None, None, g_sig, g_eps
 
 
 def lj_pair_energy(positions, types, pair_mask: PairMask, box, tables) -> torch.Tensor:
     """Total shifted-LJ energy over the masked pairs (ref ``lj_pair_energy``):
-    differentiable in ``positions`` and ``box``. CPU tensors take the plain
+    differentiable in ``positions``, ``box`` and the tables, to any order. CPU tensors take the plain
     versions; CUDA tensors the K6 kernels, or it raises."""
     box = torch.as_tensor(box, dtype=positions.dtype, device=positions.device)
     sigmas, epsilons = tables

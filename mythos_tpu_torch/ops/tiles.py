@@ -35,6 +35,7 @@ of ``stencil_physics.cuh``), the one vector K1/K2 read.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses as dc
 
@@ -76,6 +77,10 @@ _GT_SLOT = {nm: k for k, nm in enumerate(KIND_TERMS["full"])}
 
 ERR_PSEQ = "the tile path does not support probabilistic sequences"
 ERR_TERMS = "the tile kernels implement the oxDNA2 term set {}; got {}"
+ERR_HIDDEN_GRAD = (
+    "fused_grads_ctx: a context's parameters or static tail need a gradient, which K3 would drop; pass "
+    "create_graph=True"
+)
 
 
 @dc.dataclass(frozen=True)
@@ -394,6 +399,24 @@ def _body_row_grads(rows, params, ids, gt, spec: TileSpec, width: int) -> torch.
     return torch.zeros_like(head) if g is None else g
 
 
+def tile_forces_graph(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """:func:`tile_forces_plain` with ``create_graph``: the same row forces,
+    differentiable in ``rows`` -- through a row's own fields and through its
+    appearance as a column of every block that lists it, which the second
+    derivative needs (the force itself holds the columns constant) -- and in
+    ``params``, the term weights included. ``rows`` and ``params`` are used
+    as given (on the graph where they are), else as fresh leaves."""
+    width = spec.n_force_fields
+    with torch.enable_grad():
+        rows = rows if rows.requires_grad else rows.detach().requires_grad_(True)
+        head = rows[:, :width]
+        r = torch.cat([head, rows[:, width:]], dim=1)
+        sums = _masked_sums(r, _gather_cols(rows, ids, spec), params, spec, triangular=False)
+        total = sum(w * s for w, s in zip(term_weights(params, spec), sums, strict=True))
+        (g,) = torch.autograd.grad(total, head, create_graph=True)
+    return g
+
+
 def tile_energies_plain(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """Plain version of K4: (T,) unweighted per-term sums, triangular mask."""
     with torch.no_grad():
@@ -505,6 +528,38 @@ def tile_forces(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spe
 tile_forces.launches = 0
 
 
+class TileForces(torch.autograd.Function):
+    """K3 forward; backward through :func:`tile_forces_graph` (the double
+    backward of the tile energy).
+
+    ``TileForces.apply(rows, params, ids, spec)``: the forward is the kernel
+    call of :func:`tile_forces` (its plain version on CPU tensors), the
+    backward the VJP of the plain version with ``create_graph`` with respect
+    to the whole ``rows`` -- the body fields and the static tail, whose hb
+    weights and Debye charge factors depend on parameters
+    (:func:`pair_static_fields`) -- and to ``params``: the port of the
+    reference's rule that differentiates its XLA tiles instead of the
+    Pallas kernel. K3 reads nothing else but the integer table, so nothing
+    that needs a gradient is hidden from the Function."""
+
+    @staticmethod
+    def forward(fctx, rows, params, ids, spec):
+        fctx.save_for_backward(rows, params, ids)
+        fctx.spec = spec
+        with _keep_saves(True):  # the plain version (CPU) differentiates inside: its saves are its own
+            return tile_forces(rows.detach(), params.detach(), ids, spec)
+
+    @staticmethod
+    def backward(fctx, g_out):
+        rows, params, ids = fctx.saved_tensors
+        with torch.enable_grad():
+            rows_ = rows.detach().requires_grad_(True)
+            par_ = params.detach().requires_grad_(True)
+            out = tile_forces_graph(rows_, par_, ids, fctx.spec)
+            g_rows, g_par = torch.autograd.grad(out, (rows_, par_), g_out, allow_unused=True)
+        return g_rows, g_par, None, None
+
+
 def _tile_energies(rows, params, ids, spec: TileSpec, count: bool = False):
     """:func:`tile_energies` on CUDA tensors: (sums, counts), ``counts``
     as :func:`_tile_forces` gives them but under the triangular mask
@@ -614,25 +669,51 @@ def fused_energy_ctx(composed, ctxs: tuple, body: BodySoA, sym_ids) -> torch.Ten
     return total + _bonded_energy(composed, unbonded, body)
 
 
-def fused_grads_ctx(composed, ctxs: tuple, body: BodySoA, sym_ids) -> tuple[Vec3, Quat]:
+def _keep_saves(on: bool):
+    """Inside a checkpointed region, keep what an energy saves for its own
+    gradient (ops.stencil._own_saves): the gradient is taken inside the
+    region, and the checkpoint's hooks would recompute the region for it."""
+    return torch.autograd.graph.saved_tensors_hooks(stencil._same, stencil._same) if on else contextlib.nullcontext()
+
+
+def fused_grads_ctx(composed, ctxs: tuple, body: BodySoA, sym_ids, create_graph: bool = False,
+                    checkpointed: bool = False) -> tuple[Vec3, Quat]:
     """(dE/dcom, dE/dquat) of the total energy: K3 on each table, the
     row-field packing transposed back to the body by autograd, plus the
     bonded gradient by autograd (ref ``fused_grads_ctx``). No forward
-    energy kernel runs."""
-    leaves = [c.detach().requires_grad_(True) for c in (*body.center, *body.orientation)]
+    energy kernel runs.
+
+    With ``create_graph`` (direct differentiation through a run) the result
+    stays on the autograd graph of the body, the contexts' parameters and
+    static tails, and the composed energy's parameters (K3 through
+    :class:`TileForces`); the body's tensors
+    are used as given where they are on the graph. Without it, contexts that
+    need a gradient raise (ERR_HIDDEN_GRAD) rather than lose it.
+    ``checkpointed``: the call runs inside a ``torch.utils.checkpoint``
+    region (:func:`_keep_saves`)."""
+    if not create_graph and torch.is_grad_enabled():
+        if any(ctx.params.requires_grad or ctx.static_tail.requires_grad for ctx in ctxs):
+            raise ValueError(ERR_HIDDEN_GRAD)
+    comps = (*body.center, *body.orientation)
+    leaves = [c if create_graph and c.requires_grad else c.detach().requires_grad_(True) for c in comps]
     b = BodySoA(Vec3(*leaves[:3]), Quat(*leaves[3:]))
     outs, cots, unbonded = [], [], set()
     with torch.enable_grad():
         for ctx, ids in zip(ctxs, _as_tables(sym_ids), strict=True):
-            rows = dynamic_rows(ctx, b)
-            g = tile_forces(rows.detach(), ctx.params.detach(), pad_ids(ctx.spec, ids), ctx.spec)
+            with _keep_saves(checkpointed):
+                rows = dynamic_rows(ctx, b)
+            ids = pad_ids(ctx.spec, ids)
+            if create_graph:
+                g = TileForces.apply(rows, ctx.params, ids, ctx.spec)
+            else:  # no Function on the path without gradients: its host cost is per step
+                g = tile_forces(rows.detach(), ctx.params.detach(), ids, ctx.spec)
             outs.append(rows)
             cots.append(torch.nn.functional.pad(g, (0, ctx.spec.n_fields - g.shape[1])))
             unbonded.update(i for i, _ in ctx.unbonded)
-        e = _bonded_energy(composed, unbonded, b)
+        with _keep_saves(checkpointed):
+            e = _bonded_energy(composed, unbonded, b)
         outs.append(e)
         cots.append(torch.ones_like(e))
-        g = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+        g = torch.autograd.grad(outs, leaves, cots, create_graph=create_graph, allow_unused=True)
     g = [torch.zeros_like(x) if gi is None else gi for gi, x in zip(g, leaves, strict=True)]
     return Vec3(*g[:3]), Quat(*g[3:])
-

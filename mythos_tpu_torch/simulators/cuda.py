@@ -41,11 +41,14 @@ A block run rebuilds its (tight, wide) tables every
 missed-interaction detector), takes each step's force from K3 on each
 table plus the bonded gradient by autograd (ops.tiles.fused_grads_ctx),
 and saves every ``save_every``-th state (every state with ``save_every``
-<= 1, under the same rule).
+<= 1, under the same rule). It is differentiable as the stencil run is:
+K3 forward through ``ops.tiles.TileForces``, its plain version backward,
+and ``checkpoint_every`` on both of its branches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses as dc
 
 import torch
@@ -263,6 +266,28 @@ class BlockSimulator:
     state, every state with ``save_every`` <= 1; original order,
     ``neighbor_overflow`` metadata). The device is that of ``init_state``;
     the tables live where ``neighbors`` was built.
+
+    The run is differentiable: where grad mode is on and a tensor of
+    ``opt_params`` (or the initial state) needs a gradient, the tile
+    contexts are prepared on the graph and every force goes through
+    ``ops.tiles.TileForces`` (K3 forward, its plain version with
+    ``create_graph`` backward) and the bonded gradient with
+    ``create_graph`` (``fused_grads_ctx(create_graph=True)``), so that
+    ``loss(sim.run(p, body, n, gen)).backward()`` gives d loss / d every
+    parameter. The forward is the same K3 call either way (the same
+    trajectory, bit for bit, and the same launches); the table builds and
+    the overflow flag carry no gradient.
+
+    ``checkpoint_every`` has the reference's meaning (simulators/tpu.py:
+    110-132, 224-229, 466-499): iterations of the outer loop kept under one
+    checkpoint, their inner states recomputed (K3 launched again) in the
+    backward -- on the every-step branch rebuild intervals of
+    ``neighbor_update_every`` steps, of which there are ``n_steps //
+    neighbor_update_every``; otherwise saves of ``save_every`` steps, of
+    which there are ``n_steps // save_every``. It must divide that number
+    (ERR_CHKPNT_SCN). Each group of ``checkpoint_every`` outer iterations
+    (one without it) draws its steps' normals first, so that a recompute
+    replays them and not the generator.
     """
 
     energy_fn: object
@@ -275,6 +300,7 @@ class BlockSimulator:
     gamma_r: float = 0.0
     save_every: int = 40
     neighbor_update_every: int = 40
+    checkpoint_every: int = 0
 
     def replace(self, **kw) -> "BlockSimulator":
         return dc.replace(self, **kw)
@@ -282,30 +308,59 @@ class BlockSimulator:
     def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
         u = self.neighbor_update_every
         every_step = _every_step(self.save_every, u, n_steps)
+        per_save = 1 if every_step else self.save_every // u  # rebuild intervals an outer iteration
+        n_outer = n_steps // u // per_save
+        ck = self.checkpoint_every
+        if ck > 0 and n_outer % ck:
+            raise ValueError(ERR_CHKPNT_SCN.format(ck, n_outer))
         nbl = self.neighbors
-        with torch.no_grad():
+        graph = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*(opt_params or {}).values(), init_state.center, init_state.orientation)
+        )
+        with contextlib.nullcontext() if graph else torch.no_grad():
             energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
             ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
+        checkpointed = graph and ck > 0
 
         def grad_fn(body: BodySoA, tables):
-            return tiles.fused_grads_ctx(energy, ctxs, body, tables)
+            return tiles.fused_grads_ctx(energy, ctxs, body, tables, create_graph=graph, checkpointed=checkpointed)
 
         init_fn, step_fn = nvt_langevin_soa(grad_fn, self.dt, self.kT, self.gamma_t, self.gamma_r)
         body = to_soa(RigidBody(init_state.center.to(torch.float32), init_state.orientation.to(torch.float32)))
         state = init_fn(generator, body, self.mass, self.inertia, tables=nbl.idx)
+        n, device = body.center.x.shape[0], body.center.x.device
+        group = ck if ck > 0 else 1
+
+        def outer(state, prev, xis):
+            """``group`` outer iterations from ``state``: each ``per_save``
+            rebuilds, each followed by ``u`` steps taking their normals from
+            ``xis``; (state, last tables, overflow, saved positions)."""
+            ovf, pos, k = torch.zeros((), dtype=torch.bool, device=device), [], 0
+            for _ in range(group):
+                for _ in range(per_save):
+                    with torch.no_grad():
+                        ids, o = nbl.build(state.position.center, prev=prev)
+                    ovf = ovf | o
+                    for _ in range(u):
+                        state = step_fn(state, xi=xis[k], tables=ids)
+                        k += 1
+                        if every_step:
+                            pos.append(_positions(state))
+                    prev = ids
+                if not every_step:
+                    pos.append(_positions(state))
+            return state, prev, ovf, pos
+
         overflow = nbl.did_overflow.clone()
-        prev = nbl.idx
-        saves = []
-        per_save = self.save_every // u
-        for chunk in range(n_steps // u):
-            ids, ovf = nbl.build(state.position.center, prev=prev)
+        prev, saves = nbl.idx, []
+        for _ in range(n_outer // group):
+            xis = [torch.randn((6, n), generator=generator, device=device) for _ in range(group * per_save * u)]
+            if checkpointed:
+                state, prev, ovf, pos = checkpoint(outer, state, prev, xis, use_reentrant=False,
+                                                   preserve_rng_state=False)
+            else:
+                state, prev, ovf, pos = outer(state, prev, xis)
             overflow |= ovf
-            for _ in range(u):
-                state = step_fn(state, generator, tables=ids)
-                if every_step:
-                    saves.append(_positions(state))
-            prev = ids
-            if not every_step and (chunk + 1) % per_save == 0:
-                saves.append(_positions(state))
+            saves += pos
         trajectory = _trajectory(torch.stack(saves), self.kT, overflow)
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})

@@ -19,6 +19,18 @@ A run:
 * keeps every ``save_every``-th state: centers, box and the kinetic kT
   (metadata ``kinetic_kT``).
 
+The run is differentiable: where grad mode is on and a tensor of
+``opt_params`` (or the initial positions or momenta) needs a gradient,
+every force and every barostat virial is taken with ``create_graph``
+(simulators/particles.py) and the LJ term's double backward is K6's plain
+version (ops.lj.LJGrads), so ``loss(sim.run(p, x0, n, gen)).backward()``
+gives d loss / d every parameter, through the box as well -- the
+reference's ``jax.grad`` through its NPT scan. The forward launches the
+same kernels as a run without gradients and gives the same trajectory. The
+parameters' tensors (the LJ tables, the bond and angle constants) are built
+once a run, not at every force evaluation. The reference's simulator has
+no ``checkpoint_every``, nor does this one.
+
 Units follow GROMACS (nm, kJ/mol, ps, amu, bar): kT = kB T with kB =
 0.0083144621 kJ/mol/K; the barostat's ``pressure0`` (bar) and
 ``compressibility`` (1/bar) are converted with BAR (1 kJ/mol/nm^3 =
@@ -83,9 +95,14 @@ class MartiniSimulator:
         return dc.replace(self, **kw)
 
     def _energy_fn(self, opt_params: dict | None):
+        """energy(position, box) of the terms with ``opt_params`` merged in:
+        copies of the terms, which keep the tensors they build from the
+        parameters even on the graph (one build of the LJ tables a run)."""
         fns = self.energy_fns
         if opt_params:
             fns = [fn.replace(params=fn.params | _term_params_view(fn, opt_params)) for fn in fns]
+            for fn in fns:
+                fn.keep_graphs = True
         n = len(fns[0].atom_types)
         quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=self.device).expand(n, 4)
 
@@ -113,11 +130,14 @@ class MartiniSimulator:
         box = torch.as_tensor(self.box, dtype=dtype, device=dev)
         ops_lj.check_box(box)
         masses = torch.as_tensor(self.masses, dtype=dtype, device=dev)
-        energy = self._energy_fn(opt_params)
-        init_fn, step_fn = pt.nvt_langevin_particles(energy, lambda x, dx: x + dx, self.dt, self.kT, self.gamma)
         if init_momentum is None:
             init_momentum = pt.thermal_momentum(x0, masses, self.kT, generator)
-        state = init_fn(x0, box, masses, torch.as_tensor(init_momentum, dtype=dtype, device=dev))
+        p0 = torch.as_tensor(init_momentum, dtype=dtype, device=dev)
+        leaves = [v for v in (opt_params or {}).values() if isinstance(v, torch.Tensor)]
+        graph = pt._on_graph(x0, p0, *leaves)
+        energy = self._energy_fn(opt_params)
+        init_fn, step_fn = pt.nvt_langevin_particles(energy, lambda x, dx: x + dx, self.dt, self.kT, self.gamma)
+        state = init_fn(x0, box, masses, p0, graph)
 
         baro = self.barostat
         every = int(baro["every"]) if baro else 0
@@ -127,7 +147,7 @@ class MartiniSimulator:
                 normals = torch.randn(x0.shape, generator=generator, dtype=dtype, device=dev)
             else:
                 normals = torch.as_tensor(noise[step], dtype=dtype, device=dev)
-            state = step_fn(state, normals)
+            state = step_fn(state, normals, graph)
             if baro and (step + 1) % every == 0:
                 state = pt.berendsen_semi_isotropic(
                     energy,
@@ -137,7 +157,8 @@ class MartiniSimulator:
                     dt=self.dt * every,
                     compressibility=baro.get("compressibility", 3e-4) / BAR,
                 )
-                ops_lj.check_box(state.box)
+                with torch.no_grad():
+                    ops_lj.check_box(state.box)
             if (step + 1) % self.save_every == 0:
                 centers.append(state.position)
                 boxes.append(state.box)

@@ -33,6 +33,12 @@ agrees with the CPU in both families (loss rtol 1e-5, gradients rtol 1e-2 /
 atol 1e-3 max|grad|), and a chunk-path and a checkpointed per-step grad
 evaluation launch K1 and K2 as the same runs without gradients do (the
 backward only K2 again, where it recomputes a checkpointed interval).
+Direct differentiation through the block tier and MARTINI NPT (K3 and K6
+forward, their plain versions backward): the VJPs of ``TileForces`` (every
+kind) and ``LJGrads`` on the card against the CPU (rtol 1e-3, atol 1e-4 x
+max|CPU|), a 40-bp block gradient and the 104-bead bilayer's NPT gradient
+card vs CPU (gradients rtol 1e-2 / atol 1e-3 max|grad|), and runs with
+gradients giving the bits and launches of the runs without them.
 """
 
 import math
@@ -538,3 +544,161 @@ def test_martini_run_on_card_matches_cpu(card):
     cpu = run("cpu")
     torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gpu.box_size.cpu(), cpu.box_size, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["full", "short", "debye"])
+def test_tile_forces_vjp_on_card_matches_cpu(tile_inputs, kind):
+    """TileForces on the card: K3 forward (one launch), its backward the
+    plain version with create_graph on CUDA tensors (no launch); the VJP in
+    the rows and the parameters agrees with the same Function on the CPU
+    (rtol 1e-3, atol 1e-4 x max|CPU|)."""
+    ctx, ids, rows = tile_inputs["straight", kind]
+    ids = tiles.pad_ids(ctx.spec, ids)
+    gen = torch.Generator().manual_seed(5)
+    cot = torch.randn((ctx.spec.n_pad, ctx.spec.n_force_fields), generator=gen)
+
+    def vjp(device):
+        r = rows.detach().to(device).requires_grad_(True)
+        p = ctx.params.detach().to(device).requires_grad_(True)
+        out = tiles.TileForces.apply(r, p, ids.to(device), ctx.spec)
+        k3 = tiles.tile_forces.launches
+        g_r, g_p = torch.autograd.grad(out, (r, p), cot.to(device))
+        return out.detach().cpu(), g_r.cpu(), g_p.cpu(), tiles.tile_forces.launches - k3
+
+    before = tiles.tile_forces.launches
+    out_g, gr_g, gp_g, bwd = vjp(card_device := rows.device)
+    assert card_device.type == "cuda" and tiles.tile_forces.launches == before + 1 and bwd == 0
+    out_c, gr_c, gp_c, _ = vjp("cpu")
+    _close(out_g, out_c)
+    for got, ref in ((gr_g, gr_c), (gp_g, gp_c)):
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lj_grads_vjp_on_card_matches_cpu(card):
+    """LJGrads on the card: K6's backward kernel forward, the plain double
+    backward on CUDA tensors; the VJP in positions, box and both tables
+    agrees with the CPU (104 beads, float32; rtol 1e-3, atol 1e-4 x
+    max|CPU|), and the forward launched K6's backward once, the backward
+    never."""
+    x, types, mask, b, (sig, eps) = _bilayer_lj(card, 3, 1, "jittered")
+    gen = torch.Generator().manual_seed(6)
+    cots = (torch.randn(x.shape, generator=gen), torch.randn(3, generator=gen))
+
+    def vjp(device):
+        ins = [t.detach().to(device).requires_grad_(True) for t in (x, b, sig, eps)]
+        k6 = lj.lj_grads.launches
+        out = lj.LJGrads.apply(*ins, types.to(device), mask if device != "cpu" else
+                               lj.PairMask(mask.n, mask.bits.cpu()), None)
+        fwd = lj.lj_grads.launches - k6
+        g = torch.autograd.grad(out, ins, tuple(c.to(device) for c in cots))
+        return [t.cpu() for t in g], fwd, lj.lj_grads.launches - k6 - fwd
+
+    got, fwd, bwd = vjp(card)
+    assert fwd == 1 and bwd == 0
+    ref, _, _ = vjp("cpu")
+    for gg, gr in zip(got, ref, strict=True):
+        torch.testing.assert_close(gg, gr, rtol=1e-3, atol=1e-4 * float(gr.abs().max()))
+
+
+def _block_grad_run(device, n_steps=20, kT=0.0, seed=0, grad=True):  # noqa: N803
+    """(loss or None, {name: gradient on the CPU} or None, trajectory, K3
+    launches of the forward, of the backward) of a 40-bp block run from a
+    0.01-jittered start (a rebuild every 5 steps, a state every 10)."""
+    top, b = synthetic_duplex(40, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(32)
+    q = b.orientation + 0.01 * torch.randn(b.orientation.shape, generator=gen)
+    b = RigidBody((b.center + 0.01 * torch.randn(b.center.shape, generator=gen)).to(device),
+                  (q / q.norm(dim=-1, keepdim=True)).to(device))
+    e, sim = build_sim(top, kT, mode="block", init_centers=b.center, neighbor_update_every=5, device=device)
+    sim = sim.replace(save_every=10)
+    p = {k: v.detach().clone().requires_grad_(grad) for k, v in e.opt_params().items()}
+    k0 = tiles.tile_forces.launches
+    traj = sim.run(p, b, n_steps, torch.Generator(device=device).manual_seed(seed)).observables[0]
+    fwd = tiles.tile_forces.launches - k0
+    if not grad:
+        return None, None, traj, fwd, 0
+    w = torch.randn((*traj.center.shape[:2], 7), generator=gen).to(device)
+    loss = (w[..., :3] * traj.center).sum() + (w[..., 3:] * traj.orientation).sum()
+    loss.backward()
+    grads = {k: (torch.zeros_like(v) if v.grad is None else v.grad).cpu() for k, v in p.items()}
+    return loss.item(), grads, traj, fwd, tiles.tile_forces.launches - k0 - fwd
+
+
+@pytest.mark.cuda
+def test_block_gradient_on_card_matches_cpu(card):
+    """d loss / d opt_params through a 40-bp, 20-step block run at kT 0 (K3
+    forward on the card) agrees with the CPU plain versions: loss rtol 1e-5,
+    gradients rtol 1e-2 / atol 1e-3 max|grad|; d / d eps_stack_base
+    nonzero."""
+    l_gpu, g_gpu, _, _, _ = _block_grad_run(card)
+    l_cpu, g_cpu, _, _, _ = _block_grad_run("cpu")
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-5)
+    scale = max(float(v.abs().max()) for v in g_cpu.values())
+    for k in g_cpu:
+        torch.testing.assert_close(g_gpu[k], g_cpu[k], rtol=1e-2, atol=1e-3 * scale, msg=k)
+    assert float(g_cpu["eps_stack_base"]) != 0 and float(g_gpu["eps_stack_base"]) != 0
+
+
+@pytest.mark.cuda
+def test_block_grad_run_is_the_no_grad_run_on_card(card):
+    """At kT > 0 on the card, a block run that builds the graph gives the
+    trajectory of the run without gradients bit for bit and launches K3 as
+    often (once a table and step, plus the initial force); its backward
+    launches none."""
+    _, _, ref, fwd_ref, _ = _block_grad_run(card, kT=KT, seed=3, grad=False)
+    _, g, got, fwd, bwd = _block_grad_run(card, kT=KT, seed=3)
+    assert torch.equal(got.center.detach(), ref.center) and torch.equal(got.orientation.detach(), ref.orientation)
+    assert fwd == fwd_ref >= 21 and bwd == 0
+    assert all(bool(torch.isfinite(v).all()) for v in g.values())
+
+
+def _martini_grad_run(device, grad=True):
+    """(loss, d loss / d lj_epsilon_C1_C1 and lj_sigma_C1_C1, trajectory,
+    K6 (forward, backward, cells) launches) of the 104-bead bilayer, 50 NPT
+    steps with the barostat every 10, pre-drawn noise, the loss the mean
+    area per lipid."""
+    from mythos_tpu_torch.observables import AreaPerLipid
+
+    top, pos, box, masses = lattice_bilayer(3, 3, water_layers=1)
+    gen = torch.Generator().manual_seed(0)
+    mom = torch.randn(pos.shape, generator=gen) * (72.0 * 0.0083144621 * 305.0) ** 0.5
+    noise = torch.randn((50, *pos.shape), generator=gen)
+    sim = MartiniSimulator(energy_fns=default_bilayer_terms(top), box=box, masses=masses, save_every=10,
+                           barostat={"pressure0": 1.0, "tau": 4.0, "every": 10}, device=device)
+    p = {k: torch.tensor(v, device=device).requires_grad_(grad) for k, v in (("lj_epsilon_C1_C1", 3.5),
+                                                                            ("lj_sigma_C1_C1", 0.47))}
+    k0 = (lj.lj_energy.launches, lj.lj_grads.launches, lj.lj_cells.launches)
+    traj = sim.run(p, torch.as_tensor(pos, dtype=torch.float32), 50, init_momentum=mom, noise=noise).observables[0]
+    k1 = (lj.lj_energy.launches, lj.lj_grads.launches, lj.lj_cells.launches)
+    heads = [i for i, nm in enumerate(top.atom_names) if nm == "PO4"]
+    loss = AreaPerLipid(head_indices=heads)(traj).mean()
+    grads = torch.autograd.grad(loss, list(p.values())) if grad else None
+    return float(loss.detach()), grads, traj, tuple(b - a for a, b in zip(k0, k1))
+
+
+@pytest.mark.cuda
+def test_martini_gradient_on_card_matches_cpu(card):
+    """d (mean APL) / d (LJ epsilon, sigma) through 50 NPT steps of the
+    104-bead bilayer (K6 forward on the card, its plain double backward)
+    agrees with the CPU: loss rtol 1e-4, gradients rtol 1e-2 / atol 1e-3
+    max|grad|; both nonzero."""
+    l_gpu, g_gpu, _, _ = _martini_grad_run(card)
+    l_cpu, g_cpu, _, _ = _martini_grad_run("cpu")
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-4)
+    scale = max(float(g.abs()) for g in g_cpu)
+    for gg, gc in zip(g_gpu, g_cpu, strict=True):
+        assert float(gc) != 0.0
+        torch.testing.assert_close(gg.cpu(), gc, rtol=1e-2, atol=1e-3 * scale)
+
+
+@pytest.mark.cuda
+def test_martini_grad_run_is_the_no_grad_run_on_card(card):
+    """On the card, an NPT run with gradients gives the trajectory of the
+    run without them bit for bit and launches K6 as often: forward, backward
+    and one cell build a force evaluation."""
+    _, _, ref, k_ref = _martini_grad_run(card, grad=False)
+    _, _, got, k = _martini_grad_run(card)
+    assert torch.equal(got.center.detach(), ref.center) and torch.equal(got.box_size.detach(), ref.box_size)
+    assert k == k_ref and k[0] == k[1] == k[2] == 1 + 50 + 5

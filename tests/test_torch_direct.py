@@ -269,11 +269,17 @@ def test_chunk_path_ignores_checkpoint_every():
 
 
 def test_block_tier_refuses_checkpoint_every():
-    """Direct differentiation through the block tier (K3) is not ported:
-    build_sim(mode="block", checkpoint_every > 0) raises."""
+    """The block tier takes checkpoint_every from build_sim (its direct
+    differentiation: tests/test_torch_block_direct.py) and refuses one that
+    does not divide its outer loop -- 2 saves of 5 steps here -- with the
+    reference's ERR_CHKPNT_SCN."""
     top, body = synthetic_duplex(N_BP, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="block tier"):
-        entry.build_sim(top, KT, mode="block", init_centers=body.center, checkpoint_every=1, device="cpu")
+    e, sim = entry.build_sim(top, KT, mode="block", init_centers=body.center, neighbor_update_every=U,
+                             checkpoint_every=3, device="cpu")
+    assert sim.checkpoint_every == 3
+    with pytest.raises(ValueError) as err:
+        sim.run(e.opt_params(), body, N_STEPS, torch.Generator())
+    assert str(err.value) == ERR_CHKPNT_SCN.format(3, N_STEPS // U)
 
 
 def test_rna2_chunk_gradient_matches_per_step():

@@ -18,7 +18,8 @@ CPU, both in float64:
     ``LJ.map`` over its states;
 (f) couplings, merge and ``opt_params`` carried across by
     ``params_from_numpy``;
-(g) ``LJPairEnergy`` refuses table gradients and a double backward;
+(g) (the table gradients and the double backward of ``LJPairEnergy``:
+    tests/test_torch_martini_direct.py);
 (h) the spatial cells K6 visits (``cell_list_plain``, the kernel's plain
     version) cover every masked pair inside the cutoff, on axes of 2 and 1
     cells too, and in a box too wide for floor(box / LJ_CELL) cells a side
@@ -273,25 +274,6 @@ def test_configuration_carried_across(bilayer):
     e_t = float(tsim._energy_fn(params_from_numpy(opt, dtype=torch.float64))(torch.as_tensor(pos),
                                                                               torch.as_tensor(box)))
     np.testing.assert_allclose(e_t, e_j, rtol=1e-10)
-
-
-def test_lj_pair_energy_refuses_missing_gradients(bilayer):
-    """(g) LJPairEnergy raises when the tables require grad (K6 gives them
-    no gradient) and on a double backward (once-differentiable)."""
-    _, t_top, pos, box, _ = bilayer
-    tl = t_terms(t_top)[2]
-    types, mask = tl.types("cpu"), tl.pair_mask("cpu")
-    sig, eps = tl.tables("cpu", torch.float64)
-    x, b = torch.as_tensor(pos), torch.as_tensor(box)
-    with pytest.raises(ValueError, match="no gradient for the sigma/epsilon tables"):
-        tlj.lj_pair_energy(x, types, mask, b, (sig, eps.clone().requires_grad_(True)))
-    xg, seed = x.clone().requires_grad_(True), torch.ones((), dtype=x.dtype, requires_grad=True)
-    e = tlj.lj_pair_energy(xg, types, mask, b, (sig, eps))
-    (g,) = torch.autograd.grad(e, xg, grad_outputs=seed, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
-    with pytest.raises(RuntimeError, match="not have been used in the graph"):
-        torch.autograd.grad(g.sum(), xg)
 
 
 def test_martini_simulator_refuses_missing_card(bilayer):
