@@ -113,7 +113,23 @@ Phases, one line each; any failure exits non-zero:
    bilayer, 50 steps, d (mean APL) / d lj_epsilon_C1_C1, K6 launched as
    without gradients and never in the backward; (14c) the 104-bead bilayer
    with the same pre-drawn noise, card vs CPU (loss rtol 1e-4 / atol
-   1e-5, gradients rtol 1e-2 / atol 1e-3 max|grad|).
+   1e-5, gradients rtol 1e-2 / atol 1e-3 max|grad|);
+15. oxDNA1 (no Debye-Hueckel term): (15a) K2's dna1 instance against its
+   plain version on the 0.01-jittered 10k-nt duplex (as 10a; its tally
+   with no Debye class), its bits, registers and spill, its device time a
+   call; (15b) K1's dna1 instance, one 40-step chunk with the same bf16
+   noise, at 10k nt inside the float32 budget of phase 4 and at 80 nt to
+   rtol 2e-4 / atol 5e-5 (else that budget); (15c)
+   ``build_sim(mode="stencil", model="dna1")`` at 10k nt, 2000 steps after
+   a warm-up run, a torch.profiler window, the overflow flag printed, 40
+   bp card vs CPU; (15d) K3's dna1 instance against its plain version on
+   the one-level tables of the jittered duplex and of the 270-degree arc
+   (phase 6's tolerances and tallies), then ``build_sim(mode="block",
+   model="dna1")`` on the arc, 200 steps, and 40 bp card vs CPU; (15e) the
+   small-system path: ``entry.entry()``'s 8-bp step 100 times, a 40-bp
+   duplex written as oxDNA files and read back by the port's readers,
+   ``build_sim(mode="pairs", model="dna1")`` on them for 1000 steps (no
+   kernel: autograd on the card), 40 steps card vs CPU.
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
 phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
@@ -187,6 +203,12 @@ WIDE_BOX = (70.0, 70.0, 10.84)  # phase 9a: floor(box / LJ_CELL) gives 63 x 63 x
 #: (arccos_poly clamps 8 ulps inside; two float32 orderings of a cosine
 #: differ by a few ulps)
 CLAMP_ULPS = 32
+#: the kernels' template argument of each model family (stencil_physics.cuh FAM_*)
+FAMILY_CODE = {"dna2": 0, "rna2": 1, "dna1": 2}
+#: phase 15: oxDNA1's block run on the arc (phase 7 runs 400), the
+#: small-system path's duplex, its steps, and entry()'s steps
+DNA1_BLOCK_STEPS = 200
+SMALL_BP, SMALL_STEPS, ENTRY_STEPS = 40, 1000, 100
 
 
 def _events_ms(fn, reps: int) -> tuple[list[float], object]:
@@ -734,7 +756,7 @@ def _band_pair_geometry(ctx, dyn, site_cutoffs):
             return hit & valid
 
         short = reach([pr for nm, prs in terms.items() if nm != "Debye" for pr in prs])
-        debye = reach(terms["Debye"]) & ~short
+        debye = reach(terms.get("Debye", ())) & ~short
 
         def unit(v):
             return v * (1.0 / vdot(v, v).sqrt())
@@ -785,8 +807,7 @@ def _k2_held(label: str, ctx, dyn, ptx: dict, site_cutoffs=None) -> dict:
             print(f"    {label} worst element: row {r}, slot {t} (z {float(dyn[2, t]):.1f}, near the clamp: "
                   f"{bool(near[t])}): kernel {float(k2[r, t]):.5f} f32 {float(plain[r, t]):.5f} f64 "
                   f"{float(plain64[r, t]):.5f}")
-    fam = 0 if ctx.family == "dna2" else 1
-    regs, spill = ptx.get(f"stencil_field_grads_kernel<{fam}>", (0, -1))
+    regs, spill = ptx.get(f"stencil_field_grads_kernel<{FAMILY_CODE[ctx.family]}>", (0, -1))
     bound = _bound(2 * 7 * n * 4, tally["short"] * FLOP_PAIR_GRAD + tally["debye"] * FLOP_DEBYE_GRAD)
     clamp = "" if site_cutoffs is None else (f" {int(near.sum())} slots with a short-range pair whose angle cosine lies "
                                              f"within {CLAMP_ULPS} float32 ulps of +-1;")
@@ -800,6 +821,57 @@ def _k2_held(label: str, ctx, dyn, ptx: dict, site_cutoffs=None) -> dict:
     if not tally_ok or spill != 0:
         raise SystemExit(f"{label}: K2's gate disagrees with the plain gate, or its registers spill ({spill} B)")
     return {"err": err, "ms": k2_ms, "plain_ms": p_ms, "dev_ms": dev_ms, "tally": tally, "bound": bound, "k2": k2}
+
+
+def _ptxas(log_path) -> tuple[list, dict]:
+    """What ``nvcc -Xptxas -v`` said of each kernel in the build log: the
+    lines "kernel: registers..., spill" and {kernel: (registers, spill store
+    bytes)}, a template instance named ``name<argument>``."""
+    regs, fn, spill, ptx = [], "?", "", {}
+    for ln in log_path.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            mangled = re.match(r"_Z(\d+)", fn)  # _Z<length><name>[I<template arguments>E]<arguments>
+            if mangled:
+                end = mangled.end() + int(mangled.group(1))
+                targs = re.match(r"ILi(\d+)E", fn[end:])
+                fn = fn[mangled.end() : end] + (f"<{targs.group(1)}>" if targs else "")
+        elif "spill stores" in ln:
+            spill = ln.split(",", 1)[1].strip()
+        elif "registers" in ln:
+            regs.append(f"{fn}: {ln.split(':', 1)[1].strip()}, {spill}")
+            used, stores = re.search(r"Used (\d+) registers", ln), re.search(r"(\d+) bytes spill stores", spill)
+            ptx[fn] = (int(used.group(1)) if used else 0, int(stores.group(1)) if stores else -1)
+    return regs, ptx
+
+
+def _k1_held(label: str, ctx, sim, body, ou, gen) -> tuple:
+    """K1 of the context's family over one chunk of ``sim.neighbor_update_every``
+    steps from ``body`` with the same bf16 noise as its plain version
+    (phases 10b and 15b): whether it meets rtol 2e-4 / atol 5e-5, whether it
+    stays inside the float32 budget of phase 4 (per row, |K1 - f32| <= 2
+    |f32 - f64| + 5e-5 + 2e-4 max|row|), equal bits on a second call; (fixed,
+    budget, equal bits, max error, ms by events, plain ms, state, noise)."""
+    import torch
+
+    from mythos_tpu_torch.ops import stencil as st
+
+    u = sim.neighbor_update_every
+    state = sim.initial_state(ctx, body, gen)
+    noise = torch.randn((u, 6, ctx.n), generator=gen, device=state.device).to(torch.bfloat16)
+    k_ms, got = _events_ms(lambda: st.multistep_chunk(ctx, ou, noise, state), 5)
+    det = torch.equal(got, st.multistep_chunk(ctx, ou, noise, state))
+    p_ms, plain = _events_ms(lambda: st.multistep_chunk_plain(ctx, ou, noise, state), 1)
+    plain64 = st.multistep_chunk_plain(ctx.astype(torch.float64), ou.double(), noise, state.double())
+    err_k = (got - plain).abs().amax(1).double()
+    err_32 = (plain.double() - plain64).abs().amax(1)
+    budget = bool((err_k <= 2 * err_32 + 5e-5 + 2e-4 * plain64.abs().amax(1)).all())
+    fixed, err = _within(got, plain, rtol=2e-4, atol=5e-5)
+    rows = " ".join(f"{r}:{float(a):.1e}/{float(b_):.1e}" for r, (a, b_) in enumerate(zip(err_k, err_32)))
+    print(f"[{label}] {u} steps at {ctx.n} nt: max|K1-plain|={err:.3e}; rtol 2e-4/atol 5e-5 met: {fixed}; float32 "
+          f"budget met: {budget}; kernel {statistics.median(k_ms):.3f} ms plain {statistics.median(p_ms):.1f} ms; "
+          f"two chunks equal: {det}; row:|K1-f32|/|f32-f64| {rows}")
+    return fixed, budget, det, err, k_ms, p_ms, state, noise
 
 
 def _rna2(dev, smi: str, ptx: dict) -> list[dict]:
@@ -856,30 +928,14 @@ def _rna2(dev, smi: str, ptx: dict) -> list[dict]:
     # the float32 budget of phase 4, 80 nt to the fixed tolerance (else that budget)
     ou = st.ou_constants(sim.dt, sim.kT, [sim.mass], [sim.inertia], [sim.gamma_t], [sim.gamma_r]).vector(dev)
 
-    def chunk_case(c, s_, b, label):
-        state = s_.initial_state(c, jittered(b), gen)
-        noise = torch.randn((u, 6, c.n), generator=gen, device=dev).to(torch.bfloat16)
-        k_ms, got = _events_ms(lambda: st.multistep_chunk(c, ou, noise, state), 5)
-        det = torch.equal(got, st.multistep_chunk(c, ou, noise, state))
-        p_ms, plain = _events_ms(lambda: st.multistep_chunk_plain(c, ou, noise, state), 1)
-        plain64 = st.multistep_chunk_plain(c.astype(torch.float64), ou.double(), noise, state.double())
-        err_k = (got - plain).abs().amax(1).double()
-        err_32 = (plain.double() - plain64).abs().amax(1)
-        budget = bool((err_k <= 2 * err_32 + 5e-5 + 2e-4 * plain64.abs().amax(1)).all())
-        fixed, err = _within(got, plain, rtol=2e-4, atol=5e-5)
-        rows = " ".join(f"{r}:{float(a):.1e}/{float(b_):.1e}" for r, (a, b_) in enumerate(zip(err_k, err_32)))
-        print(f"[10b K1 rna2 {label}] {u} steps at {c.n} nt: max|K1-plain|={err:.3e}; rtol 2e-4/atol 5e-5 met: "
-              f"{fixed}; float32 budget met: {budget}; kernel {statistics.median(k_ms):.3f} ms plain "
-              f"{statistics.median(p_ms):.1f} ms; two chunks equal: {det}; row:|K1-f32|/|f32-f64| {rows}")
-        return fixed, budget, det, err, k_ms, p_ms, state, noise
-
-    fixed, budget, det, err1, k1_ms, p1_ms, state, noise = chunk_case(ctx, sim, body, "10k")
+    fixed, budget, det, err1, k1_ms, p1_ms, state, noise = _k1_held("10b K1 rna2 10k", ctx, sim, jittered(body), ou,
+                                                                    gen)
     if not (budget and det):
         raise SystemExit("K1's rna2 instance is outside the float32 budget of its plain version, or not deterministic")
     k1_win = _profiled(lambda: st.multistep_chunk(ctx, ou, noise, state), 3)
     k1_dev = _per_call(k1_win, {"k1_step": u, "k1_entry": 1})
     print(f"[10b K1 rna2] device time {_dev(k1_dev)} a chunk ({_kernel_list(k1_win)})")
-    fixed_s, budget_s, det_s, *_ = chunk_case(ctx_s, sim_s, body_s, "80 nt")
+    fixed_s, budget_s, det_s, *_ = _k1_held("10b K1 rna2 80 nt", ctx_s, sim_s, jittered(body_s), ou, gen)
     if not ((fixed_s or budget_s) and det_s):
         raise SystemExit("K1's rna2 instance disagrees with its plain version at 80 nt")
     _lap("10a-b K2, K1 rna2")
@@ -1459,6 +1515,287 @@ def _martini_direct(dev, smi: str) -> dict:
     return out
 
 
+def _dna1(dev, smi: str, ptx: dict) -> list[dict]:
+    """Phase 15: oxDNA1 -- K2's and K1's dna1 instances against their plain
+    versions at 10k nt (15a, 15b), the stencil main path through them
+    (15c), K3's dna1 instance on the one-level tables and the block tier on
+    the arc (15d), the small-system path and the oxDNA file readers (15e).
+    The K1, K2 and K3 dna1 records."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import mythos_tpu_torch.energy.dna1 as dna1
+    from mythos_tpu_torch import entry
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.io import topology as io_top
+    from mythos_tpu_torch.io import trajectory as io_traj
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.ops import tiles
+    from mythos_tpu_torch.rigid_body import RigidBody
+    from mythos_tpu_torch.soa import Quat, quat_frame_soa, to_soa
+
+    site_cutoffs = dna1.per_term_site_cutoffs()
+    topology, body = synthetic_duplex(N_BP, dtype=torch.float32, device=dev)
+    energy_fn, sim = build_sim(topology, KT, model="dna1", init_centers=body.center,
+                               init_orientation=body.orientation, device=dev)
+    ctx = st.prepare_stencil_context(energy_fn, sim.band, device=dev)
+    n, u = ctx.n, sim.neighbor_update_every
+    print(f"[15 dna1] {n} nt B-form: family {ctx.family}, w_terms={ctx.w_terms} w_wide={ctx.w_wide} "
+          f"check_dm={ctx.check_dm} {ctx.checks.shape[0]} exact checks, overflow at init={bool(sim.band.did_overflow)}")
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def jittered(b):
+        q = b.orientation + 0.01 * torch.randn(b.orientation.shape, generator=gen, device=dev)
+        c = b.center + 0.01 * torch.randn(b.center.shape, generator=gen, device=dev)
+        return RigidBody(c, q / q.norm(dim=-1, keepdim=True))
+
+    # 15a. K2 (dna1) against its plain version on the jittered 10k-nt duplex
+    jb = jittered(body)
+    dyn = torch.cat([ctx.to_slots(jb.center.T), ctx.to_slots(jb.orientation.T)]).contiguous()
+    k2r = _k2_held("15a K2 dna1", ctx, dyn, ptx, site_cutoffs)
+    if k2r["tally"]["debye"] or k2r["tally"]["Debye"]:
+        raise SystemExit(f"K2's dna1 instance gated pairs in by Debye: {k2r['tally']}")
+
+    # 15b. K1 (dna1): one 40-step chunk, the same bf16 noise; 10k nt inside the
+    # float32 budget of phase 4, 80 nt to the fixed tolerance (else that budget)
+    ou = st.ou_constants(sim.dt, sim.kT, [sim.mass], [sim.inertia], [sim.gamma_t], [sim.gamma_r]).vector(dev)
+    _, budget, det, err1, k1_ms, p1_ms, state, noise = _k1_held("15b K1 dna1 10k", ctx, sim, jittered(body), ou, gen)
+    if not (budget and det):
+        raise SystemExit("K1's dna1 instance is outside the float32 budget of its plain version, or not deterministic")
+    k1_win = _profiled(lambda: st.multistep_chunk(ctx, ou, noise, state), 3)
+    k1_dev = _per_call(k1_win, {"k1_step": u, "k1_entry": 1})
+    regs, spill = ptx.get(f"k1_step_kernel<{FAMILY_CODE['dna1']}>", (0, -1))
+    print(f"[15b K1 dna1] device time {_dev(k1_dev)} a chunk ({_kernel_list(k1_win)}); k1_step_kernel<2>: {regs} "
+          f"registers, {spill} B spill stores (the dna2 instance's: {ptx.get('k1_step_kernel<0>', (0, -1))})")
+    top_s, body_s = synthetic_duplex(40, dtype=torch.float32, device=dev)
+    _, sim_s = build_sim(top_s, KT, model="dna1", init_centers=body_s.center, init_orientation=body_s.orientation,
+                         device=dev)
+    ctx_s = st.prepare_stencil_context(sim_s.energy_fn, sim_s.band, device=dev)
+    fixed_s, budget_s, det_s, *_ = _k1_held("15b K1 dna1 80 nt", ctx_s, sim_s, jittered(body_s), ou, gen)
+    if not ((fixed_s or budget_s) and det_s):
+        raise SystemExit("K1's dna1 instance disagrees with its plain version at 80 nt")
+    _lap("15a-b K2, K1 dna1")
+
+    # 15c. the stencil main path: warm-up run, then the counted, timed run
+    params = energy_fn.opt_params()
+    sim.run(params, body, N_STEPS, torch.Generator(device=dev).manual_seed(22))
+    st.field_grads.launches = st.multistep_chunk.launches = 0
+    st.field_grads.by_family = dict.fromkeys(st.FAMILIES, 0)
+    st.multistep_chunk.by_family = dict.fromkeys(st.FAMILIES, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.run(params, body, N_STEPS, torch.Generator(device=dev).manual_seed(23))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"K1": st.multistep_chunk.by_family["dna1"], "K2": st.field_grads.by_family["dna1"]}
+    traj = out.observables[0]
+    finite = bool(torch.isfinite(traj.center).all() and torch.isfinite(traj.orientation).all())
+    qdev = float((traj.orientation.norm(dim=-1) - 1.0).abs().max())
+    overflow = bool(traj.metadata["neighbor_overflow"].any())
+    print(f"[15c dna1 main path] {N_STEPS} steps at {n} nt: {elapsed:.3f} s = {N_STEPS / elapsed * 60.0:.1f} "
+          f"steps/min on {smi}; states {tuple(traj.center.shape)} finite={finite} max||q|-1|={qdev:.2e} "
+          f"overflow={overflow} (the band's B-DNA slacks, site margin 1) launches={launches}")
+    if not finite or qdev > 1e-5:
+        raise SystemExit("the dna1 main path produced a bad trajectory")
+    if launches["K1"] != N_STEPS // u or launches["K2"] < 1:
+        raise SystemExit(f"the dna1 main path did not run through the dna1 kernels: {launches}")
+    w = _profiled(lambda: sim.run(params, body, 10 * u, torch.Generator(device=dev).manual_seed(23)))
+    k1_chunk = _per_call(w, {"k1_step": u, "k1_entry": 1})
+    print(f"[15c profile] {10 * u} steps under torch.profiler: wall {w['wall_ms']:.1f} ms, device kernels "
+          f"{w['device_ms']:.1f} ms (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}), K1's kernels "
+          f"{_dev(k1_chunk)} a chunk, {w['launches'] / (10 * u):.2f} launches per step")
+
+    def small_stencil(device):
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=device)
+        e, s_ = build_sim(top, 0.0, model="dna1", init_centers=b.center, init_orientation=b.orientation,
+                          neighbor_update_every=10, device=device)
+        o = s_.replace(save_every=10).run(e.opt_params(), b, 40, torch.Generator(device=device).manual_seed(0))
+        return o.observables[0]
+
+    gpu, cpu = small_stencil(dev), small_stencil("cpu")
+    okc, errc = _within(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    okq, errq = _within(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    print(f"[15c small input] 40 bp, 40 steps, kT=0: card vs CPU center err {errc:.2e} quat err {errq:.2e}")
+    if not (okc and okq):
+        raise SystemExit("the card's dna1 stencil trajectory disagrees with the CPU")
+    n_bonds = int((ctx.dirf != 0).sum())
+    k1_bound = _bound(
+        (19 + 20) * n * 4 + u * 6 * n * 2,
+        u * (k2r["tally"]["short"] * FLOP_PAIR_GRAD + n_bonds * FLOP_BOND_GRAD + n * FLOP_BODY_STEP),
+    )
+    print(f"[15c bounds] {k2r['tally']['short']} band pairs inside a short-range cutoff, {n_bonds} bonds: K1 dna1 "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}; {_share(k1_bound[0], k1_dev)} of its device time)")
+    _lap("15c dna1 main path")
+
+    # 15d. K3 (dna1) against its plain version on the one-level tables of the
+    # jittered duplex and the 270-degree arc; then the block tier on the arc
+    k3 = {"err": 0.0}
+    for label, bend in (("ideal", None), ("arc270", math.radians(270))):
+        top_b, b0 = synthetic_duplex(N_BP, bend=bend, dtype=torch.float32, device=dev)
+        e_b, sim_b = build_sim(top_b, KT, mode="block", model="dna1", block_size=8, init_centers=b0.center,
+                               device=dev)
+        nbl = sim_b.neighbors
+        (tctx,) = tiles.prepare_contexts(e_b, nbl.idx, nbl.block_size, perm=nbl.perm, forces_only=True)
+        ids, sp, P = nbl.idx, tctx.spec, tctx.params
+        rows = tiles.dynamic_rows(tctx, to_soa(jittered(b0))).contiguous()
+        geo = _pair_geometry(tctx, ids, rows, site_cutoffs)
+        full, tri, short, _, _, ulps, _ = geo
+        near = ((ulps <= CLAMP_ULPS) & short & full).any(-1).reshape(-1)
+        k_ms, got = _events_ms(lambda: tiles.tile_forces(rows, P, ids, sp), 20)
+        p_ms, ref = _events_ms(lambda: tiles.tile_forces_plain(rows, P, ids, sp), 3)
+        ok, rule, err = _checked("15d K3 dna1", got, ref, tiles.tile_forces_plain(rows.double(), P.double(), ids, sp),
+                                 near)
+        again, counts = tiles._tile_forces(rows, P, ids, sp, count=True)
+        tally = dict(zip(("short", "debye", "skipped"), counts.tolist(), strict=True))
+        gate = tiles.tile_gate_counts(rows, P, ids, sp)
+        same = torch.equal(got, again)
+        tally_ok = sum(abs(tally[k] - gate[k]) for k in gate) <= 1e-4 * sum(gate.values()) and tally["debye"] == 0
+        win = _profiled(lambda: tiles.tile_forces(rows, P, ids, sp), 10)
+        dev_ms = sum(ms / c for k, (ms, c) in win["kernels"].items() if k.startswith("tile_forces_dna1"))
+        print(f"[15d K3 dna1 {label}] B={nbl.block_size} cap {nbl.capacity} (one table: {nbl.r_cutoff_inner is None}) "
+              f"banded={nbl.banded} overflow={bool(nbl.did_overflow)}; {int(near.sum())} of {sp.n} rows near the "
+              f"clamp; err {err:.2e} ({rule}) ok={ok}; kernel {statistics.median(k_ms):.4f} ms by events, "
+              f"{_dev(dev_ms)} of device time a call, plain {statistics.median(p_ms):.2f} ms; the pairs a call: "
+              f"kernel {tally}, plain gate {gate}; equal bits on a second call: {same}")
+        if not (ok and same and tally_ok):
+            raise SystemExit(f"K3's dna1 instance disagrees with its plain version or gate, or is not deterministic "
+                             f"({label})")
+        k3["err"] = max(k3["err"], err)
+        if label == "ideal":
+            n_short = int((short & tri).sum())
+            in_bytes = sp.n_pad * sp.n_fields * 4 + sp.n_blocks * sp.cap * 4 + 4 * st.param_offsets()["TOTAL"]
+            k3.update(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms), dev_ms=dev_ms,
+                      bound=_bound(in_bytes + sp.n_pad * 12 * 4, n_short * FLOP_PAIR_GRAD))
+            print(f"[15d bounds] {n_short} unordered pairs inside the short-range reach: K3 dna1 "
+                  f"{k3['bound'][0]:.5f} ms ({k3['bound'][1]}; {_share(k3['bound'][0], dev_ms)} of its device time)")
+    e_a, sim_a, body_a = e_b, sim_b, b0  # the arc's
+    sim_a.run(e_a.opt_params(), body_a, sim_a.save_every, torch.Generator(device=dev).manual_seed(24))
+    tiles.tile_forces.by_family = dict.fromkeys(tiles.tile_forces.by_family, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_a = sim_a.run(e_a.opt_params(), body_a, DNA1_BLOCK_STEPS, torch.Generator(device=dev).manual_seed(25))
+    torch.cuda.synchronize()
+    el_a = time.perf_counter() - t0
+    k3_launches = tiles.tile_forces.by_family["dna1"]
+    tr_a = out_a.observables[0]
+    fin_a = bool(torch.isfinite(tr_a.center).all() and torch.isfinite(tr_a.orientation).all())
+    ovf_a = bool(tr_a.metadata["neighbor_overflow"].any())
+    print(f"[15d dna1 block tier] {DNA1_BLOCK_STEPS} steps at {n} nt, 270-degree arc, one table: {el_a:.3f} s = "
+          f"{DNA1_BLOCK_STEPS / el_a * 60.0:.1f} steps/min on {smi}; K3 dna1 {k3_launches} launches; finite={fin_a} "
+          f"overflow={ovf_a}")
+    if not fin_a or ovf_a or k3_launches < DNA1_BLOCK_STEPS:
+        raise SystemExit("the dna1 block tier produced a bad trajectory or did not run through K3's dna1 instance")
+    u_a = sim_a.save_every
+    w = _profiled(lambda: sim_a.run(e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(26)))
+    print(f"[15d profile] {u_a} steps under torch.profiler: wall {w['wall_ms']:.1f} ms, device kernels "
+          f"{w['device_ms']:.1f} ms (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}), "
+          f"{w['launches'] / u_a:.0f} launches per step")
+
+    def small_block(device):
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=device)
+        e, s_ = build_sim(top, 0.0, mode="block", model="dna1", init_centers=b.center, neighbor_update_every=5,
+                          device=device)
+        return s_.replace(save_every=10).run(e.opt_params(), b, 40,
+                                             torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    gpu, cpu = small_block(dev), small_block("cpu")
+    okc, errc = _within(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    okq, errq = _within(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    print(f"[15d small input] 40 bp, 40 steps, kT=0, block: card vs CPU center err {errc:.2e} quat err {errq:.2e}")
+    if not (okc and okq):
+        raise SystemExit("the card's dna1 block trajectory disagrees with the CPU")
+    _lap("15d K3 dna1, block tier")
+
+    # 15e. the small-system path: entry()'s step, the oxDNA files, pairs
+    step, (s0,) = entry.entry(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENTRY_STEPS):
+        s0 = step(s0)
+    torch.cuda.synchronize()
+    el_e = time.perf_counter() - t0
+    fin_e = bool(torch.isfinite(s0.position.center).all())
+    print(f"[15e entry] {ENTRY_STEPS} steps of the 8-bp dna1 dense step on the card: {el_e:.3f} s "
+          f"({el_e / ENTRY_STEPS * 1e3:.2f} ms a step), finite={fin_e}")
+    top_f, body_f = synthetic_duplex(SMALL_BP, dtype=torch.float64, device="cpu")
+    a1, _, a3 = (torch.stack(tuple(v), -1) for v in quat_frame_soa(Quat(*body_f.orientation.unbind(-1))))
+    nt = top_f.n_nucleotides
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, start = [f"{nt} {len(top_f.strand_counts)}"], 0
+        for sid, length in enumerate(top_f.strand_counts, start=1):
+            for k in range(int(length)):
+                i = start + k
+                lines.append(f"{sid} {'ACGT'[int(top_f.seq[i])]} {i - 1 if k > 0 else -1} "
+                             f"{i + 1 if k < length - 1 else -1}")
+            start += int(length)
+        (Path(tmp) / "sys.top").write_text("\n".join(lines) + "\n")
+        conf = torch.cat([body_f.center, a1, a3, torch.zeros((nt, 6), dtype=torch.float64)], dim=1).numpy()
+        io_traj.Trajectory(n_nucleotides=nt, strand_lengths=[int(c) for c in top_f.strand_counts],
+                           times=np.zeros(1), energies=np.zeros((1, 3)), states=[io_traj.NucleotideState(conf)],
+                           box_size=np.array([50.0, 50.0, 50.0])).to_file(Path(tmp) / "init.conf")
+        top_r = io_top.from_oxdna_file(Path(tmp) / "sys.top")
+        state_r = io_traj.from_file(Path(tmp) / "init.conf", top_r.strand_counts, is_5p_3p=False).states[0]
+    body_r = state_r.to_rigid_body(dtype=torch.float32, device=dev)
+    a1_r, _, a3_r = (torch.stack(tuple(v), -1) for v in quat_frame_soa(Quat(*body_r.orientation.double().unbind(-1))))
+    io_err = max(float((body_r.center.double().cpu() - body_f.center).abs().max()),
+                 float((a1_r.cpu() - a1).abs().max()), float((a3_r.cpu() - a3).abs().max()))
+    same_top = (np.array_equal(top_r.seq, top_f.seq) and np.array_equal(top_r.bonded_neighbors, top_f.bonded_neighbors))
+    print(f"[15e files] a {SMALL_BP}-bp duplex written as sys.top (classic) and init.conf, read back by the port's "
+          f"readers: topology equal {same_top}, positions and frames within {io_err:.1e}")
+    if not same_top or io_err > 1e-6:
+        raise SystemExit("the oxDNA files did not read back as written")
+    e_p, sim_p = build_sim(top_r, KT, mode="pairs", model="dna1", device=dev)
+    params_p = e_p.opt_params()
+    sim_p.run(params_p, body_r, 10, torch.Generator(device=dev).manual_seed(27))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = sim_p.run(params_p, body_r, SMALL_STEPS, torch.Generator(device=dev).manual_seed(28))
+    torch.cuda.synchronize()
+    el_p = time.perf_counter() - t0
+    tr_p = out_p.observables[0]
+    fin_p = bool(torch.isfinite(tr_p.center).all() and torch.isfinite(tr_p.orientation).all())
+    w = _profiled(lambda: sim_p.run(params_p, body_r, 20, torch.Generator(device=dev).manual_seed(29)))
+    print(f"[15e pairs] {SMALL_STEPS} steps of {top_r.n_nucleotides} nt on the pair list on the card: {el_p:.3f} s = "
+          f"{SMALL_STEPS / el_p * 60.0:.1f} steps/min on {smi}; states {tuple(tr_p.center.shape)} finite={fin_p}; "
+          f"20 steps under torch.profiler: {w['launches'] / 20:.0f} launches per step, idle share "
+          f"{1 - w['device_ms'] / w['wall_ms']:.0%} (no kernel of the port: autograd on the card)")
+    if not fin_p or tr_p.center.device.type != torch.device(dev).type:
+        raise SystemExit("the small-system path produced a bad trajectory or left the card")
+
+    def small_pairs(device):
+        e, s_ = build_sim(top_r, 0.0, mode="pairs", model="dna1", device=device)
+        b = RigidBody(body_r.center.to(device), body_r.orientation.to(device))
+        return s_.run(e.opt_params(), b, 40, torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    gpu, cpu = small_pairs(dev), small_pairs("cpu")
+    okc, errc = _within(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    okq, errq = _within(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    print(f"[15e small input] {SMALL_BP} bp, 40 steps, kT=0, pairs: card vs CPU center err {errc:.2e} quat err "
+          f"{errq:.2e}")
+    if not (okc and okq and fin_e):
+        raise SystemExit("the card's small-system trajectory disagrees with the CPU, or entry() gave non-finite states")
+    _lap("15 dna1")
+    src = "mythos_tpu_torch/ops/csrc/"
+    return [
+        {"name": "K1 multistep_chunk (dna1)", "route": "cuda", "source": src + "multistep.cu",
+         "replaces": "mythos_tpu/ops/stencil.py:2236", "launches": launches["K1"], "max_abs_err": err1,
+         "ms": statistics.median(k1_ms), "plain_ms": statistics.median(p1_ms), "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "K2 field_grads (dna1)", "route": "cuda", "source": src + "stencil_grads.cu",
+         "replaces": "mythos_tpu/ops/stencil.py:1420", "launches": launches["K2"], "max_abs_err": k2r["err"],
+         "ms": statistics.median(k2r["ms"]), "plain_ms": statistics.median(k2r["plain_ms"]),
+         "bound_ms": k2r["bound"][0], "bound_by": k2r["bound"][1], "library_ms": None},
+        {"name": "K3 tile_forces (dna1)", "route": "cuda", "source": src + "tiles.cu",
+         "replaces": "mythos_tpu/ops/oxdna_tiles.py:1094", "launches": k3_launches, "max_abs_err": k3["err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
+         "library_ms": None},
+    ]
+
+
 def _against(root: str, ctx, dyn, ou, noise, state, k2, k1) -> None:
     """Build the kernels of the checkout at ``root`` and run its K2 and K1
     (oxDNA2) on phases 3 and 4's inputs: does its K1 give this checkout's
@@ -1533,21 +1870,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, nvcc_s = _build.build()
     _build.load_library()
-    regs, fn, spill, ptx = [], "?", "", {}  # ptx: {kernel: (registers, spill store bytes)}
-    for ln in (lib_path.parent / "build.log").read_text().splitlines():
-        if "Compiling entry function" in ln:
-            fn = ln.split("'")[1]
-            mangled = re.match(r"_Z(\d+)", fn)  # _Z<length><name>[I<template arguments>E]<arguments>
-            if mangled:
-                end = mangled.end() + int(mangled.group(1))
-                targs = re.match(r"ILi(\d+)E", fn[end:])
-                fn = fn[mangled.end() : end] + (f"<{targs.group(1)}>" if targs else "")
-        elif "spill stores" in ln:
-            spill = ln.split(",", 1)[1].strip()
-        elif "registers" in ln:
-            regs.append(f"{fn}: {ln.split(':', 1)[1].strip()}, {spill}")
-            used, stores = re.search(r"Used (\d+) registers", ln), re.search(r"(\d+) bytes spill stores", spill)
-            ptx[fn] = (int(used.group(1)) if used else 0, int(stores.group(1)) if stores else -1)
+    regs, ptx = _ptxas(lib_path.parent / "build.log")
     print(f"[2 build] {lib_path.name}: nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s; "
           + " | ".join(regs))
     _lap("1-2 device, build")
@@ -1967,6 +2290,8 @@ def main() -> int:
     block_direct = _block_direct(dev, smi)
     # 14. direct differentiation through MARTINI NPT
     martini_direct = _martini_direct(dev, smi)
+    # 15. oxDNA1: K1, K2 and K3's dna1 instances, the stencil, block and small-system paths
+    dna1_records = _dna1(dev, smi, ptx)
     print(f"[13-14 kernels] a 1,000-nt block grad evaluation of 200 steps launched K3 {block_direct['K3 fwd']} times "
           f"forward and {block_direct['K3 bwd']} backward (the plain version, {block_direct['bwd_s']:.3f} s); a "
           f"10,160-bead NPT grad evaluation of {MARTINI_DIRECT_STEPS} steps launched K6's forward "
@@ -1994,7 +2319,7 @@ def main() -> int:
          "launches": tile_launch[k], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
         for k, r in tile_rec.items()
-    ] + k6_records
+    ] + k6_records + dna1_records
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -127,14 +127,48 @@ class BaseEnergyFunction:
     """One energy term bound to a topology.
 
     ``compute_energy(nucleotide)`` evaluates the term over the topology's
-    pair lists (bonded pairs, or every unbonded i<j pair): the small-system
-    reference path the stencil kernels are held against.
+    pair lists (bonded pairs, or the unbonded pairs): the small-system path
+    the stencil kernels are held against. An unbonded term takes its pairs
+    from ``unbonded_neighbors`` ((U, 2), every i<j pair less the bonded ones
+    when None) or, with ``dense_mask`` set ((N, N) bool, upper triangular),
+    evaluates every (i, j) by broadcasts and sums under the mask -- the
+    reference's ``dense_unbonded`` path (simulators.neighbors.dense_pair_mask).
     """
+
+    #: a static (U, 2) pair list replacing the topology's (NoNeighborList)
+    unbonded_neighbors: np.ndarray | None = None
+    #: (N, N) bool mask of the dense evaluation (DensePairs)
+    dense_mask: np.ndarray | None = None
 
     def __init__(self, params: BaseConfiguration, topology, transform_fn: Callable) -> None:
         self.params = params
         self.topology = topology
         self.transform_fn = transform_fn
+
+    def with_props(self, **props) -> "BaseEnergyFunction":
+        """A copy with ``unbonded_neighbors`` and/or ``dense_mask`` set (the
+        reference's ``with_props``); the device caches start afresh."""
+        unknown = set(props) - {"unbonded_neighbors", "dense_mask"}
+        if unknown:
+            raise TypeError(f"unknown properties {sorted(unknown)}")
+        new = copy.copy(self)
+        new.__dict__.pop("_device_cache", None)
+        for k, v in props.items():
+            setattr(new, k, None if v is None else np.asarray(v))
+        return new
+
+    def unbonded_index(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(i, j) of the unbonded pairs as long tensors on ``device``, cached."""
+
+        def make():
+            pairs = self.topology.unbonded_neighbors if self.unbonded_neighbors is None else self.unbonded_neighbors
+            return tuple(torch.as_tensor(np.asarray(pairs).reshape(-1, 2).T).long())
+
+        return self._cached("unbonded", device, make)
+
+    def dense_mask_on(self, device) -> torch.Tensor:
+        """The (N, N) ``dense_mask`` as a bool tensor on ``device``, cached."""
+        return self._cached("dense", device, lambda: torch.as_tensor(self.dense_mask, dtype=torch.bool))
 
     @property
     def seq(self) -> np.ndarray:
@@ -196,6 +230,11 @@ class ComposedEnergyFunction:
 
     def opt_params(self) -> dict:
         return {k: v for fn in self.energy_fns for k, v in fn.opt_params().items()}
+
+    def with_props(self, **props) -> "ComposedEnergyFunction":
+        """Every member with ``unbonded_neighbors``/``dense_mask`` set
+        (:meth:`BaseEnergyFunction.with_props`); the bonded terms ignore them."""
+        return self.replace(energy_fns=[fn.with_props(**props) for fn in self.energy_fns])
 
     def with_params(self, *repl_dicts: dict, **repl_kwargs) -> "ComposedEnergyFunction":
         replacements = {k: v for d in repl_dicts for k, v in d.items()} | repl_kwargs

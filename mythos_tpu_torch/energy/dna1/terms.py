@@ -1,12 +1,14 @@
-"""oxDNA1 terms that oxDNA2 and oxRNA2 share: FENE, excluded volumes,
-stacking configuration, hydrogen bonding, cross stacking and (oxRNA2's)
-coaxial stacking.
+"""The oxDNA1 terms (several of which oxDNA2 and oxRNA2 share): FENE,
+excluded volumes, stacking, hydrogen bonding, cross stacking and coaxial
+stacking.
 
-Counterpart of the matching classes of mythos_tpu/energy/dna1/terms.py.
-Each term's pair physics is a module-level product function of its
-parameters (anything with the configuration's attribute names) and a
-geometry tuple, shared by the pair-list path here and the stencil band
-twin (ops/stencil.py). Probabilistic sequences are not ported yet.
+Counterpart of mythos_tpu/energy/dna1/terms.py. Each term's pair physics
+is a module-level product function of its parameters (anything with the
+configuration's attribute names) and a geometry tuple, shared by the
+pair-list and dense paths here and the stencil band twin (ops/stencil.py).
+The unbonded terms evaluate either a pair list or, with ``dense_mask``,
+every (i, j) by broadcasts under the mask (:class:`_UnbondedPairs`).
+Probabilistic sequences are not ported yet.
 """
 
 from __future__ import annotations
@@ -140,27 +142,54 @@ def unbonded_exc(p, r_ee, r_eb, r_be, r_bb):
 
 
 class _UnbondedPairs(BaseEnergyFunction):
-    """Pair-list evaluation over every unbonded i<j pair of the topology."""
+    """An unbonded term over its pairs (i, j): a pair list (the topology's
+    every unbonded i<j pair, or a static ``unbonded_neighbors``), or with
+    ``dense_mask`` every (i, j) at once, rows i against columns j, summed
+    under the mask."""
 
-    def pairs(self):
-        ub = self.topology.unbonded_neighbors
-        return ub[:, 0], ub[:, 1]
+    def sides(self, *fields):
+        """Each (n,) field as its (i side, j side): gathered along the pair
+        list, or (n, 1) rows and (1, n) columns on the dense path."""
+        if self.dense_mask is not None:
+            return [(type(f)(*(c[:, None] for c in f)), type(f)(*(c[None, :] for c in f))) for f in fields]
+        i, j = self.unbonded_index(fields[0][0].device)
+        return [(geom.gather(f, i), geom.gather(f, j)) for f in fields]
+
+    def seq_sides(self, device):
+        """The sequence indices of the i and j sides (as :meth:`sides`)."""
+        seq = self.seq_index(device)
+        if self.dense_mask is not None:
+            return seq[:, None], seq[None, :]
+        i, j = self.unbonded_index(device)
+        return seq[i], seq[j]
+
+    @property
+    def norm_eps(self) -> float:
+        """The epsilon under the square root of a distance that may be 0: none
+        on a pair list (the reference's plain norm), 1e-18 on the dense path,
+        whose diagonal (masked out) must keep finite gradients (the
+        reference's ``_norm_safe``)."""
+        return 0.0 if self.dense_mask is None else 1e-18
+
+    def pair_sum(self, values: torch.Tensor) -> torch.Tensor:
+        """The term's total: the pair list's sum, or the dense values' under the mask."""
+        if self.dense_mask is not None:
+            values = torch.where(self.dense_mask_on(values.device), values, torch.zeros_like(values))
+        return values.sum()
 
 
 class UnbondedExcludedVolume(_UnbondedPairs):
     """Excluded volume over unbonded pairs (4 site pairs incl. backbones)."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.pairs()
-        base_i, base_j = geom.gather(nuc.base, i), geom.gather(nuc.base, j)
-        back_i, back_j = geom.gather(nuc.back, i), geom.gather(nuc.back, j)
-        return unbonded_exc(
+        (base_i, base_j), (back_i, back_j) = self.sides(nuc.base, nuc.back)
+        return self.pair_sum(unbonded_exc(
             self.params,
             vnorm(base_j - base_i),
             vnorm(base_j - back_i),
             vnorm(back_j - base_i),
-            vnorm(back_j - back_i, 0.0),
-        ).sum()
+            vnorm(back_j - back_i, self.norm_eps),
+        ))
 
 
 # Stacking ---------------------------------------------------------------------
@@ -181,6 +210,9 @@ def f4_of(p, name: str, k, theta):
 
 
 class StackingConfiguration(BaseConfiguration):
+    """Stacking: eps = (eps_stack_base + eps_stack_kt_coeff kt) x the
+    sequence table (its ``kt`` fixed, not optimised)."""
+
     required_params = (
         "eps_stack_base", "eps_stack_kt_coeff", "dr_low_stack", "dr_high_stack", "a_stack",
         "dr0_stack", "dr_c_stack", "theta0_stack_4", "delta_theta_star_stack_4", "a_stack_4",
@@ -236,6 +268,26 @@ def stack_product(p, g: geom.BondedGeometry):
     )
 
 
+class Stacking(BaseEnergyFunction):
+    """Stacking over bonded pairs with sequence-dependent epsilon, its cos
+    phi sites the backbone sites (``site``; oxDNA2 overrides it)."""
+
+    site = "back"
+
+    def compute_energy(self, nuc) -> torch.Tensor:
+        i, j = self.bond_index(nuc.back.x.device)
+        back = getattr(nuc, self.site)
+        g = geom.bonded_geometry_vec(
+            geom.gather(back, i), geom.gather(back, j),
+            geom.gather(nuc.stack, i), geom.gather(nuc.stack, j),
+            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
+            geom.gather(nuc.a2, i), geom.gather(nuc.a2, j),
+        )
+        seq = self.seq_index(g.r_stack.device)
+        w = self.params.eps_stack[seq[i], seq[j]]
+        return (w * stack_product(self.params, g)).sum()
+
+
 # Hydrogen bonding ---------------------------------------------------------------
 
 _HB_ANGLES = (1, 2, 3, 4, 7, 8)
@@ -287,15 +339,10 @@ class HydrogenBonding(_UnbondedPairs):
     """Hydrogen bonding over unbonded pairs."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.pairs()
-        g = geom.unbonded_geometry_vec(
-            geom.gather(nuc.base, i), geom.gather(nuc.base, j),
-            geom.gather(nuc.a1, i), geom.gather(nuc.a1, j),
-            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
-        )
-        seq = self.seq_index(g.r_base.device)
-        w = self.params.eps_hb_weights[seq[i], seq[j]]
-        return (w * hb_product(self.params, g)).sum()
+        (base_i, base_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.base, nuc.a1, nuc.a3)
+        g = geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, a3_i, a3_j)
+        s_i, s_j = self.seq_sides(g.r_base.device)
+        return self.pair_sum(self.params.eps_hb_weights[s_i, s_j] * hb_product(self.params, g))
 
 
 # Cross stacking ------------------------------------------------------------------
@@ -354,13 +401,9 @@ class CrossStacking(_UnbondedPairs):
     """Cross stacking over unbonded pairs (shares geometry with HB)."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.pairs()
-        g = geom.unbonded_geometry_vec(
-            geom.gather(nuc.base, i), geom.gather(nuc.base, j),
-            geom.gather(nuc.a1, i), geom.gather(nuc.a1, j),
-            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
-        )
-        return cross_product(self.params, g).sum()
+        (base_i, base_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.base, nuc.a1, nuc.a3)
+        return self.pair_sum(cross_product(self.params, geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j,
+                                                                                  a3_i, a3_j)))
 
 
 # Coaxial stacking ------------------------------------------------------------------
@@ -428,11 +471,6 @@ class CoaxialStacking(_UnbondedPairs):
     """oxDNA1 coaxial stacking over unbonded pairs (oxRNA2 composes it)."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.pairs()
-        g = geom.coax_geometry_vec(
-            geom.gather(nuc.stack, i), geom.gather(nuc.stack, j),
-            geom.gather(nuc.a1, i), geom.gather(nuc.a1, j),
-            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
-            back_i=geom.gather(nuc.back, i), back_j=geom.gather(nuc.back, j),
-        )
-        return coax_product(self.params, g).sum()
+        (st_i, st_j), (a1_i, a1_j), (a3_i, a3_j), (bk_i, bk_j) = self.sides(nuc.stack, nuc.a1, nuc.a3, nuc.back)
+        g = geom.coax_geometry_vec(st_i, st_j, a1_i, a1_j, a3_i, a3_j, back_i=bk_i, back_j=bk_j)
+        return self.pair_sum(coax_product(self.params, g))

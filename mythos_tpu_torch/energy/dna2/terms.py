@@ -14,25 +14,15 @@ import torch
 import mythos_tpu_torch.energy.dna1.terms as t1
 import mythos_tpu_torch.energy.functions as bf
 import mythos_tpu_torch.energy.smoothing as sm
-from mythos_tpu_torch.energy.base import BaseConfiguration, BaseEnergyFunction
+from mythos_tpu_torch.energy.base import BaseConfiguration
 from mythos_tpu_torch.energy.dna1 import geometry as geom
-from mythos_tpu_torch.soa import vnorm
+from mythos_tpu_torch.soa import Vec3, vnorm
 
 
-class Stacking(BaseEnergyFunction):
+class Stacking(t1.Stacking):
     """dna1 stacking evaluated against the dna1-compatible backbone site."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.bond_index(nuc.back.x.device)
-        g = geom.bonded_geometry_vec(
-            geom.gather(nuc.back_dna1, i), geom.gather(nuc.back_dna1, j),
-            geom.gather(nuc.stack, i), geom.gather(nuc.stack, j),
-            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
-            geom.gather(nuc.a2, i), geom.gather(nuc.a2, j),
-        )
-        seq = self.seq_index(g.r_stack.device)
-        w = self.params.eps_stack[seq[i], seq[j]]
-        return (w * t1.stack_product(self.params, g)).sum()
+    site = "back_dna1"
 
 
 _COAX_ANGLES = (4, 1, 5, 6)
@@ -92,13 +82,8 @@ class CoaxialStacking(t1._UnbondedPairs):
     """oxDNA2 coaxial stacking over unbonded pairs."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.pairs()
-        g = geom.coax_geometry_vec(
-            geom.gather(nuc.stack, i), geom.gather(nuc.stack, j),
-            geom.gather(nuc.a1, i), geom.gather(nuc.a1, j),
-            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
-        )
-        return coax_value(self.params, g).sum()
+        (st_i, st_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.stack, nuc.a1, nuc.a3)
+        return self.pair_sum(coax_value(self.params, geom.coax_geometry_vec(st_i, st_j, a1_i, a1_j, a3_i, a3_j)))
 
 
 def debye_potential(r, kappa, prefactor, smoothing_coeff, r_cut, r_high):
@@ -145,7 +130,8 @@ class Debye(t1._UnbondedPairs):
         return half if bool(self.params.half_charged_ends) else torch.ones_like(half)
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.pairs()
-        r = vnorm(geom.gather(nuc.back, j) - geom.gather(nuc.back, i), 0.0)
+        ((back_i, back_j),) = self.sides(nuc.back)
+        r = vnorm(back_j - back_i, self.norm_eps)
         qf = self.charge_factors(r)
-        return (debye_of(self.params, r) * qf[i] * qf[j]).sum()
+        ((q_i, q_j),) = self.sides(Vec3(qf, qf, qf))
+        return self.pair_sum(debye_of(self.params, r) * q_i.x * q_j.x)

@@ -193,10 +193,6 @@ class CrossStacking(t1._UnbondedPairs):
     """oxRNA2 cross stacking over unbonded pairs (theta1, 2, 3, 7, 8)."""
 
     def compute_energy(self, nuc) -> torch.Tensor:
-        i, j = self.pairs()
-        g = geom.unbonded_geometry_vec(
-            geom.gather(nuc.base, i), geom.gather(nuc.base, j),
-            geom.gather(nuc.a1, i), geom.gather(nuc.a1, j),
-            geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
-        )
-        return cross_value(self.params, g).sum()
+        (base_i, base_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.base, nuc.a1, nuc.a3)
+        return self.pair_sum(cross_value(self.params, geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j,
+                                                                                a3_i, a3_j)))

@@ -1,21 +1,56 @@
-"""Nucleic-acid topology: the fields the ported main path reads.
+"""Nucleic-acid topology and the oxDNA topology files (classic and new).
 
-Counterpart of mythos_tpu/io/topology.py (``Topology``, ``_bonded_neighbors``,
-``unbonded_pairs``). The JAX module imports ``mythos_tpu.utils.types``,
-which imports jax, so the port owns this container. File parsers are not
-ported yet.
+Counterpart of mythos_tpu/io/topology.py (``Topology``, ``from_oxdna_file``
+with its format sniffing, ``_bonded_neighbors``, ``unbonded_pairs``). The
+JAX module imports ``mythos_tpu.utils.types``, which imports jax, so the
+port owns this module. Discrete sequences only (the probabilistic ones
+are not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses as dc
+import enum
 import itertools
+import warnings
+from pathlib import Path
 
 import numpy as np
 
+import mythos_tpu_torch.utils.constants as const
+
+N_1ST_LINE_OXDNA_CLASSIC = 2
+N_1ST_LINE_OXDNA_NEW = 3
+
 ERR_INVALID_NUMBER_NUCLEOTIDES = "Invalid number of nucleotides"
+ERR_INVALID_STRAND_COUNTS = "Invalid strand counts"
 ERR_STRAND_COUNTS_NOT_MATCH = "Strand counts do not match number of nucleotides"
 ERR_BONDED_NEIGHBORS_INVALID_SHAPE = "Invalid bonded neighbors shape"
+ERR_INVALID_SEQUENCE_NUCLEOTIDES = "Invalid sequence nucleotides"
+ERR_INVALID_DISCRETE_SEQUENCE_SHAPE = "Invalid discrete sequence shape"
+ERR_INVALID_OXDNA_FORMAT = (
+    "Invalid oxDNA topology format. See "
+    "https://lorenzo-rovigatti.github.io/oxDNA/configurations.html#topology-file"
+)
+ERR_STRAND_COUNTS_CIRCULAR_MISMATCH = "Strand counts and circularity do not match"
+ERR_FILE_NOT_FOUND = "Topology file not found"
+
+WARN_UNSPECIFIED_NT_TYPE = "Type of strand {strand_idx} not specified"
+
+
+class OxDNAFormat(enum.Enum):
+    """The two oxDNA topology file formats."""
+
+    CLASSIC = "classic"
+    NEW = "new"
+
+
+class NucleotideType(enum.IntEnum):
+    """Nucleotide types (also used per strand)."""
+
+    UNSPECIFIED = 0
+    DNA = 1
+    RNA = 2
 
 
 @dc.dataclass(frozen=True)
@@ -23,8 +58,10 @@ class Topology:
     """Connectivity and sequence of a nucleic-acid system.
 
     ``bonded_neighbors``: (B, 2) int pairs (i 3'-side, j 5'-side).
-    ``seq``: discrete (N,) int array. ``is_end``: (N,) 1 at strand termini.
-    ``unbonded_neighbors`` (all i<j pairs minus bonded) derives lazily.
+    ``seq``: discrete (N,) int array. ``is_end``: (N,) 1 at the termini of
+    non-circular strands. ``nt_type``: (N,) NucleotideType values where a
+    file gave them. ``unbonded_neighbors`` (all i<j pairs minus bonded)
+    derives lazily, once.
     """
 
     n_nucleotides: int
@@ -32,23 +69,39 @@ class Topology:
     bonded_neighbors: np.ndarray
     seq: np.ndarray
     is_end: np.ndarray
+    nt_type: np.ndarray | None = None
 
     def __post_init__(self) -> None:
         if self.n_nucleotides < 1:
             raise ValueError(ERR_INVALID_NUMBER_NUCLEOTIDES)
+        if len(self.strand_counts) == 0 or int(np.sum(self.strand_counts)) == 0:
+            raise ValueError(ERR_INVALID_STRAND_COUNTS)
         if self.n_nucleotides != int(np.sum(self.strand_counts)):
             raise ValueError(ERR_STRAND_COUNTS_NOT_MATCH)
         if self.bonded_neighbors.ndim != 2 or self.bonded_neighbors.shape[1] != 2:
             raise ValueError(ERR_BONDED_NEIGHBORS_INVALID_SHAPE)
+        seq = np.asarray(self.seq)
+        if seq.ndim != 1:
+            raise ValueError(ERR_INVALID_DISCRETE_SEQUENCE_SHAPE)
+        if set(seq.tolist()) - {0, 1, 2, 3}:
+            raise ValueError(ERR_INVALID_SEQUENCE_NUCLEOTIDES)
+        if seq.shape != (self.n_nucleotides,):
+            raise ValueError(ERR_INVALID_DISCRETE_SEQUENCE_SHAPE)
 
     @property
     def unbonded_neighbors(self) -> np.ndarray:
-        """(U, 2) all i<j pairs minus bonded (O(N^2): small systems only)."""
-        return unbonded_pairs(self.n_nucleotides, self.bonded_neighbors)
+        """(U, 2) all i<j pairs minus bonded (O(N^2): small systems only),
+        derived on first use and kept."""
+        if "_unbonded" not in self.__dict__:
+            object.__setattr__(self, "_unbonded", unbonded_pairs(self.n_nucleotides, self.bonded_neighbors))
+        return self.__dict__["_unbonded"]
 
 
 def bonded_neighbors_for(strand_lengths: list[int], is_circular: list[bool]) -> np.ndarray:
-    """Consecutive-index bonds per strand; circular strands close the loop."""
+    """Consecutive-index bonds per strand; a circular strand closes its loop
+    with (last, first), keeping the (3'-side, 5'-side) order."""
+    if len(strand_lengths) != len(is_circular):
+        raise ValueError(ERR_STRAND_COUNTS_CIRCULAR_MISMATCH)
     pairs: list[tuple[int, int]] = []
     start = 0
     for length, circ in zip(strand_lengths, is_circular, strict=True):
@@ -66,3 +119,97 @@ def unbonded_pairs(n: int, bonded: np.ndarray) -> np.ndarray:
     hi = np.maximum(bonded[:, 0], bonded[:, 1]).astype(np.int64)
     keep = ~np.isin(iu.astype(np.int64) * n + ju, lo * n + hi)
     return np.stack([iu[keep], ju[keep]], axis=1).astype(np.int32)
+
+
+def from_oxdna_file(path, *, return_format: bool = False):
+    """Read a topology from either oxDNA file format, sniffed from the
+    number of fields on line 1 (2: classic, 3: new); with ``return_format``
+    also the OxDNAFormat."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(ERR_FILE_NOT_FOUND)
+    lines = path.read_text().splitlines()
+    tokens = lines[0].strip().split()
+    if len(tokens) == N_1ST_LINE_OXDNA_CLASSIC:
+        fmt, top = OxDNAFormat.CLASSIC, _from_lines_classic(lines)
+    elif len(tokens) == N_1ST_LINE_OXDNA_NEW:
+        fmt, top = OxDNAFormat.NEW, _from_lines_new(lines)
+    else:
+        raise ValueError(ERR_INVALID_OXDNA_FORMAT)
+    return (top, fmt) if return_format else top
+
+
+def _strand_ends_and_type(nucleotides: str, circ: bool) -> tuple[list[int], NucleotideType]:
+    is_end = [0] * len(nucleotides)
+    if not circ:
+        is_end[0] = 1
+        is_end[-1] = 1
+    if "T" in nucleotides:
+        nt_type = NucleotideType.DNA
+    elif "U" in nucleotides:
+        nt_type = NucleotideType.RNA
+    else:
+        nt_type = NucleotideType.UNSPECIFIED
+    return is_end, nt_type
+
+
+def _from_lines_classic(lines: list[str]) -> Topology:
+    """Classic 4-column format: strand id, base, 3' and 5' neighbours, one
+    line a nucleotide, each strand 3'->5'."""
+    n_nucleotides, n_strands = map(int, lines[0].strip().split())
+    rows = [line.strip().split() for line in lines[1 : 1 + n_nucleotides]]
+    strand_ids = np.array([int(r[0]) for r in rows])
+    bases = [r[1] for r in rows]
+    neighbor_5p = np.array([int(r[3]) for r in rows])
+    _, strand_counts = np.unique(strand_ids, return_counts=True)
+
+    sequence, is_circular, is_end, nt_type = [], [], [], []
+    for sid in range(1, n_strands + 1):
+        idxs = np.where(strand_ids == sid)[0]
+        strand_bases = "".join(bases[i] for i in idxs)
+        circ = bool(neighbor_5p[idxs[-1]] != -1)
+        is_circular.append(circ)
+        sequence.append(strand_bases)
+        ends, stype = _strand_ends_and_type(strand_bases, circ)
+        if stype == NucleotideType.UNSPECIFIED:
+            warnings.warn(WARN_UNSPECIFIED_NT_TYPE.format(strand_idx=sid), stacklevel=2)
+        is_end.extend(ends)
+        nt_type.extend([stype] * len(strand_bases))
+    return _assemble(n_nucleotides, strand_counts, "".join(sequence), is_circular, is_end, nt_type)
+
+
+def _from_lines_new(lines: list[str]) -> Topology:
+    """New format: one line a strand, its sequence 5'->3' with k=v options
+    (stored 3'->5')."""
+    n_nucleotides = int(lines[0].strip().split()[0])
+    sequence, strand_counts, is_circular, is_end, nt_type = [], [], [], [], []
+    for line in lines[1:]:
+        if not line.strip():
+            continue
+        nucleotides = line.strip().split()[0]
+        sequence.append(nucleotides[::-1])
+        strand_counts.append(len(nucleotides))
+        circ = "circular=true" in line.lower()
+        is_circular.append(circ)
+        ends, _ = _strand_ends_and_type(nucleotides, circ)
+        is_end.extend(ends)
+        if "type=DNA" in line:
+            stype = NucleotideType.DNA
+        elif "type=RNA" in line:
+            stype = NucleotideType.RNA
+        else:
+            warnings.warn(WARN_UNSPECIFIED_NT_TYPE.format(strand_idx=line), stacklevel=2)
+            stype = NucleotideType.UNSPECIFIED
+        nt_type.extend([stype] * len(nucleotides))
+    return _assemble(n_nucleotides, np.array(strand_counts), "".join(sequence), is_circular, is_end, nt_type)
+
+
+def _assemble(n_nucleotides, strand_counts, sequence: str, is_circular, is_end, nt_type) -> Topology:
+    return Topology(
+        n_nucleotides=n_nucleotides,
+        strand_counts=np.asarray(strand_counts),
+        bonded_neighbors=bonded_neighbors_for([int(c) for c in strand_counts], is_circular),
+        seq=np.array([const.NUCLEOTIDES_IDX[s] for s in sequence], dtype=np.int32),
+        is_end=np.array(is_end, dtype=np.int32),
+        nt_type=np.array(nt_type, dtype=np.int32),
+    )

@@ -55,9 +55,11 @@ SIGNATURES = {
     "lj_energy": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
     "lj_grads": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
 }
-# the oxRNA2 instances of K2 and K1 take the same arguments
-SIGNATURES["stencil_field_grads_rna2"] = SIGNATURES["stencil_field_grads"]
-SIGNATURES["multistep_chunk_rna2"] = SIGNATURES["multistep_chunk"]
+# the oxRNA2 and oxDNA1 instances of K2 and K1, and K3's oxDNA1 instance, take the same arguments
+for _fam in ("rna2", "dna1"):
+    SIGNATURES[f"stencil_field_grads_{_fam}"] = SIGNATURES["stencil_field_grads"]
+    SIGNATURES[f"multistep_chunk_{_fam}"] = SIGNATURES["multistep_chunk"]
+SIGNATURES["tile_forces_dna1"] = SIGNATURES["tile_forces"]
 
 
 def _sources() -> list[Path]:

@@ -1,8 +1,9 @@
-// K1: one chunk of n_inner rigid-body BAOAB Langevin steps of the oxDNA2 or
-// oxRNA2 stencil (unbonded band + bonded terms at slot offset 2), plus the
-// exact in-band site checks at the chunk's entry positions. One instance per
-// model family (template parameter kFam; multistep_chunk and
-// multistep_chunk_rna2): the oxDNA2 instance compiles none of oxRNA2's code.
+// K1: one chunk of n_inner rigid-body BAOAB Langevin steps of the oxDNA2,
+// oxRNA2 or oxDNA1 stencil (unbonded band + bonded terms at slot offset 2),
+// plus the exact in-band site checks at the chunk's entry positions. One
+// instance per model family (template parameter kFam; multistep_chunk,
+// multistep_chunk_rna2 and multistep_chunk_dna1): each instance compiles
+// none of the other families' code.
 //
 // Replaces mythos_tpu/ops/stencil.py::_multistep_chunk_l (Pallas body
 // _make_multistep_kernel). Plain twin: ops/stencil.py::multistep_chunk_plain.
@@ -43,6 +44,10 @@
 //     offsets 1, 9, 17 and 25 and the other warps three, most of them full
 //     physics, and its bond is bonded_pair_rna2. 128 registers, 780 B of
 //     spill stores (the oxDNA2 instance: 772 B).
+//   * The oxDNA1 instance (kFam = FAM_DNA1) has no Debye term, so its
+//     w_wide is its widest short-range reach and every warp's offsets are
+//     short-range ones; its bond is bonded_pair<FAM_DNA1> (FENE and the
+//     stacking's cos phi sites on the one backbone site on a1).
 //   * Registers: __launch_bounds__(256, 2) keeps two blocks (16 warps) on an
 //     SM, which caps a thread at 128 registers; each lane reads both bodies
 //     of a pair anew (L1 hits) rather than keep its own slot's body live.
@@ -147,5 +152,13 @@ extern "C" int multistep_chunk_rna2(const float* params, const int* seq, const i
                                     const float* checks, int n_checks, int check_dm, const float* ou,
                                     const uint16_t* noise, int n_inner, float* state, float* alt, void* stream) {
   return launch_chunk<FAM_RNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, wstack, dirf, checks, n_checks,
+                                check_dm, ou, noise, n_inner, state, alt, stream);
+}
+
+extern "C" int multistep_chunk_dna1(const float* params, const int* seq, const int* partners, const float* qf, int n,
+                                    int w0, int w1, int w2, int w3, int w_wide, const float* wstack, const float* dirf,
+                                    const float* checks, int n_checks, int check_dm, const float* ou,
+                                    const uint16_t* noise, int n_inner, float* state, float* alt, void* stream) {
+  return launch_chunk<FAM_DNA1>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, wstack, dirf, checks, n_checks,
                                 check_dm, ou, noise, n_inner, state, alt, stream);
 }

@@ -1,7 +1,10 @@
-// K2: one unbonded band evaluation of the oxDNA2 or oxRNA2 stencil -- (7, n)
-// com + quaternion in, (7, n) dE/dcom + dE/dquat out. One instance per model
-// family (template parameter kFam; stencil_field_grads and
-// stencil_field_grads_rna2).
+// K2: one unbonded band evaluation of the oxDNA2, oxRNA2 or oxDNA1 stencil --
+// (7, n) com + quaternion in, (7, n) dE/dcom + dE/dquat out. One instance
+// per model family (template parameter kFam; stencil_field_grads,
+// stencil_field_grads_rna2 and stencil_field_grads_dna1). The oxDNA1
+// instance has no Debye-Hueckel term: its band is w_wide = the widest
+// short-range reach, it reads no charge factor, and its Debye-only list
+// stays empty.
 //
 // Replaces mythos_tpu/ops/stencil.py::_kernel_field_grads (Pallas body
 // _make_stencil_kernel). Plain version: ops/stencil.py::field_grads_plain;
@@ -109,10 +112,11 @@ __device__ __forceinline__ Body staged_body(const float* s) {
 }
 
 // A Debye-only pair: body i's and body j's shares of the weighted Debye
-// term on the backbone sites.
+// term on the backbone sites (oxDNA2, oxRNA2).
 template <int kFam>
 __device__ __forceinline__ void debye_pair(const float* P, const Body& bi, const Body& bj, float qq, Grad& gi,
                                            Grad& gj) {
+  static_assert(kFam == FAM_DNA2 || kFam == FAM_RNA2, "a family without Debye-Hueckel has no Debye-only pair");
   const float bx = P[P_GEOM + 0], by = P[P_GEOM + 1];
   const V3 v = back_site<kFam>(bx, by, bj) - back_site<kFam>(bx, by, bi);
   const float r = norm(v);
@@ -184,7 +188,7 @@ __global__ void __launch_bounds__(K2_THREADS)
       s_seq[l] = seq[g];
       s_pn0[l] = partners[g];
       s_pn1[l] = partners[n + g];
-      s_qf[l] = qf[g];
+      s_qf[l] = has_debye<kFam>() ? qf[g] : 0.f;  // oxDNA1 reads no charge factor
     }
   }
   __syncthreads();
@@ -265,7 +269,7 @@ __global__ void __launch_bounds__(K2_THREADS)
       if (is_short) {
         unbonded_pair_terms<true, kFam, true>(P, bi, bj, W_hb[s_seq[il] * 4 + s_seq[jl]], qq, d, w, W, s_reach[c],
                                               false, gi, nullptr, &gj);
-      } else {
+      } else if constexpr (has_debye<kFam>()) {
         debye_pair<kFam>(P, bi, bj, qq, gi, gj);
       }
       put_grad(s_res + tid, 0, gi);
@@ -361,5 +365,12 @@ extern "C" int stencil_field_grads_rna2(const float* params, const int* seq, con
                                         int n, int w0, int w1, int w2, int w3, int w_wide, const float* dyn,
                                         float* out, int* counts, void* stream) {
   return launch_field_grads<FAM_RNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, counts,
+                                      stream);
+}
+
+extern "C" int stencil_field_grads_dna1(const float* params, const int* seq, const int* partners, const float* qf,
+                                        int n, int w0, int w1, int w2, int w3, int w_wide, const float* dyn,
+                                        float* out, int* counts, void* stream) {
+  return launch_field_grads<FAM_DNA1>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, counts,
                                       stream);
 }

@@ -1,5 +1,5 @@
-// oxDNA2 and oxRNA2 pair physics shared by the stencil kernels K1/K2 and
-// the tile kernels K3/K4/K5 (oxDNA2 only).
+// oxDNA1, oxDNA2 and oxRNA2 pair physics shared by the stencil kernels
+// K1/K2 and the tile kernels K3/K4/K5 (K3 oxDNA2 and oxDNA1, K4/K5 oxDNA2).
 //
 // The k1_* functions are the pieces of K1's block (one lane's pairs, the
 // fixed-order reduction, one slot's integrator update); slot_violations
@@ -20,8 +20,13 @@
 // get the same gradients from torch.autograd, an independent check.
 //
 // Model family: the stencil functions take it as a template parameter
-// kFam (FAM_DNA2, FAM_RNA2), so each kernel compiles one instance per
-// family and the oxDNA2 instance carries none of oxRNA2's code. oxRNA2's
+// kFam (FAM_DNA2, FAM_RNA2, FAM_DNA1), so each kernel compiles one instance
+// per family and each instance carries none of the others' code. oxDNA1
+// has one backbone site on a1 (GEOM's second offset 0, its dna1 offset the
+// same site), dna2's cross stacking with theta4, the oxDNA1 coaxial
+// stacking (below) and no Debye-Hueckel term: its instances read neither
+// the Debye parameters nor the charge factors, and gate no Debye pair.
+// oxRNA2's
 // backbone site spans (a1, a3) (GEOM's second offset is its a3
 // coefficient), its cross stacking has no theta4, its coaxial stacking is
 // oxDNA1's (f4(theta1) + f4(2 pi - theta1), and f5 of cos phi3 and cos
@@ -68,6 +73,7 @@
 
 #define FAM_DNA2 0
 #define FAM_RNA2 1
+#define FAM_DNA1 2
 
 #define PI_F 3.14159265358979323846f
 
@@ -146,11 +152,27 @@ HD Body body_at(const float* pos, int n, int i) {
   return b;
 }
 
-// the backbone site of the family: com + bx a1 + by a2 (dna2) or + by a3 (rna2)
+// the backbone site of the family: com + bx a1 + by a2 (dna2), + by a3
+// (rna2), or com + bx a1 (dna1)
 template <int kFam>
 HD V3 back_site(float bx, float by, const Body& b) {
+  static_assert(kFam == FAM_DNA2 || kFam == FAM_RNA2 || kFam == FAM_DNA1, "unknown model family");
   if constexpr (kFam == FAM_RNA2) return b.com + bx * b.a1 + by * b.a3;
+  if constexpr (kFam == FAM_DNA1) return b.com + bx * b.a1;
   return b.com + bx * b.a1 + by * b.a2;
+}
+
+// whether the family has the Debye-Hueckel term
+template <int kFam>
+HD constexpr bool has_debye() {
+  return kFam != FAM_DNA1;
+}
+
+// whether the family's coaxial stacking is oxDNA1's (f4(theta1) + f4(2 pi -
+// theta1), f5 of cos phi3 and cos phi4) rather than oxDNA2's f4 + f6
+template <int kFam>
+HD constexpr bool dna1_coax() {
+  return kFam == FAM_RNA2 || kFam == FAM_DNA1;
 }
 
 // Abramowitz & Stegun 4.4.45 polynomial arccos, clamped 8 ulps inside
@@ -347,6 +369,9 @@ HD void add_side(const float* P, const PairSites& g, bool side_j, Grad& acc) {
   if constexpr (kFam == FAM_RNA2) {
     acc.a2 += side_j ? g.a2_j : g.a2_i;
     acc.a3 += by * back + (side_j ? g.a3_j : g.a3_i);
+  } else if constexpr (kFam == FAM_DNA1) {
+    acc.a2 += side_j ? g.a2_j : g.a2_i;
+    acc.a3 += side_j ? g.a3_j : g.a3_i;
   } else {
     acc.a2 += by * back + (side_j ? g.a2_j : g.a2_i);
     acc.a3 += side_j ? g.a3_j : g.a3_i;
@@ -378,7 +403,8 @@ HD PairSites zero_sites() {
 #define REACH_DEBYE 128
 
 // The reach bits of unbonded pair (i, j) of family kFam, its site distances
-// formed as unbonded_pair forms them (the backbone by back_site<kFam>).
+// formed as unbonded_pair forms them (the backbone by back_site<kFam>); no
+// Debye bit where the family has no Debye term.
 template <int kFam = FAM_DNA2>
 HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
@@ -388,10 +414,12 @@ HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
   float r_bb = norm(back_j - back_i), r_ee = norm(base_j - base_i);
   float r_eb = norm(base_j - back_i), r_be = norm(back_j - base_i), r_ss = norm(stack_j - stack_i);
   const float* E = P + P_EXC;
-  return (r_ee < E[1 + 3] ? REACH_EXC_EE : 0) | (r_eb < E[5 + 3] ? REACH_EXC_EB : 0) |
-         (r_be < E[9 + 3] ? REACH_EXC_BE : 0) | (r_bb < E[13 + 3] ? REACH_EXC_BB : 0) |
-         (r_ee < P[P_HB + 3] ? REACH_HB : 0) | (r_ee < P[P_CROSS + 3] ? REACH_CROSS : 0) |
-         (r_ss < P[P_COAX + 3] ? REACH_COAX : 0) | (r_bb < P[P_DEBYE + 3] ? REACH_DEBYE : 0);
+  int reach = (r_ee < E[1 + 3] ? REACH_EXC_EE : 0) | (r_eb < E[5 + 3] ? REACH_EXC_EB : 0) |
+              (r_be < E[9 + 3] ? REACH_EXC_BE : 0) | (r_bb < E[13 + 3] ? REACH_EXC_BB : 0) |
+              (r_ee < P[P_HB + 3] ? REACH_HB : 0) | (r_ee < P[P_CROSS + 3] ? REACH_CROSS : 0) |
+              (r_ss < P[P_COAX + 3] ? REACH_COAX : 0);
+  if constexpr (has_debye<kFam>()) reach |= r_bb < P[P_DEBYE + 3] ? REACH_DEBYE : 0;
+  return reach;
 }
 
 // The reach bits of the band pair (i, j = i + d) of family kFam:
@@ -402,7 +430,7 @@ HD int unbonded_reach(const float* P, const Body& bi, const Body& bj) {
 template <int kFam>
 HD int band_reach(const float* P, const Body& bi, const Body& bj, int d, const int* w, int w_wide) {
   const int offsets = (d <= w[0] ? REACH_EXC : 0) | (d <= w[1] ? REACH_HB : 0) | (d <= w[2] ? REACH_CROSS : 0) |
-                      (d <= w[3] ? REACH_COAX : 0) | (d <= w_wide ? REACH_DEBYE : 0);
+                      (d <= w[3] ? REACH_COAX : 0) | (has_debye<kFam>() && d <= w_wide ? REACH_DEBYE : 0);
   return unbonded_reach<kFam>(P, bi, bj) & offsets;
 }
 
@@ -436,7 +464,9 @@ HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, floa
     if (!kGated || (reach & REACH_EXC_BE)) dist_grad(v_be, r_be, gt * exc_f3(r_be, eps, E + 9).d, g.base_i, g.back_j);
     if (!kGated || (reach & REACH_EXC_BB)) g_rbb += gt * exc_f3(r_bb, eps, E + 13).d;
   }
-  if (kGated ? (reach & REACH_DEBYE) != 0 : d <= w_wide) g_rbb += P[P_GT + 4] * qq * debye(r_bb, P + P_DEBYE).d;
+  if constexpr (has_debye<kFam>()) {
+    if (kGated ? (reach & REACH_DEBYE) != 0 : d <= w_wide) g_rbb += P[P_GT + 4] * qq * debye(r_bb, P + P_DEBYE).d;
+  }
   dist_grad(v_bb, r_bb, g_rbb, g.back_i, g.back_j);
 
   if (kGated ? (reach & (REACH_HB | REACH_CROSS)) != 0 : (d <= w[1] || d <= w[2])) {
@@ -511,7 +541,7 @@ HD void unbonded_pair_terms(const float* P, const Body& bi, const Body& bj, floa
     bool rfloor = r < 1e-8f;
     VD fr = f2(rfloor ? 1e-8f : r, C);
     VD m4 = f4(t4.v, C + 9);
-    if constexpr (kFam == FAM_RNA2) {
+    if constexpr (dna1_coax<kFam>()) {
       // oxDNA1: f4(theta1) + f4(2 pi - theta1), and f5 of cos phi3 = u . (ub x a1_j)
       // and cos phi4 = u . (ub x a1_i), ub the unit backbone separation
       VD m1a = f4(t1.v, C + 14), m1b = f4(2.f * PI_F - t1.v, C + 14);
@@ -574,15 +604,16 @@ HD void unbonded_pair(const float* P, const Body& bi, const Body& bj, float w_hb
   unbonded_pair_terms<false, kFam>(P, bi, bj, w_hb, qq, d, w, w_wide, 0, side_j, acc);
 }
 
-// Body i's share of pair (i, j), each term only where its `reach` bit is set
-// (K3, K5); with `hb`, the weight-free HB product where REACH_HB is set (K5's
-// hb-weight gradient; the caller zeroes it).
+// Body i's share of pair (i, j) of family kFam, each term only where its
+// `reach` bit is set (K3, K5); with `hb`, the weight-free HB product where
+// REACH_HB is set (K5's hb-weight gradient; the caller zeroes it).
+template <int kFam = FAM_DNA2>
 HD void unbonded_pair_gated(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int reach,
                             Grad& acc, float* hb = nullptr) {
-  unbonded_pair_terms<true>(P, bi, bj, w_hb, qq, 0, nullptr, 0, reach, false, acc, hb);
+  unbonded_pair_terms<true, kFam>(P, bi, bj, w_hb, qq, 0, nullptr, 0, reach, false, acc, hb);
 }
 
-// Unweighted energies of unbonded pair (i, j), each term (each
+// Unweighted oxDNA2 energies of unbonded pair (i, j), each term (each
 // excluded-volume distance) only where its `reach` bit is set (K4): e[0..4]
 // = excluded volume, hydrogen bonding (times w_hb), cross stacking, coax and
 // Debye-Hueckel (times qq). The values of the functions unbonded_pair_terms
@@ -634,16 +665,19 @@ HD void unbonded_pair_energy_gated(const float* P, const Body& bi, const Body& b
   if (reach & REACH_DEBYE) e[4] = debye(r_bb, P + P_DEBYE).v * qq;
 }
 
-// Bonded pair (i, j = i + 2) with direction flag dirf (+1: i is the
-// 3'-side): FENE on the backbone sites, bonded excluded volume, and
-// stacking against the dna1-compatible backbone site (ops/stencil.py::
-// bonded_energy). Adds one body's share to `acc`.
+// Bonded pair (i, j = i + 2) of family kFam (oxDNA2 or oxDNA1) with
+// direction flag dirf (+1: i is the 3'-side): FENE on the family's
+// backbone sites, bonded excluded volume, and stacking against the
+// dna1-compatible backbone site (oxDNA1: the backbone site itself;
+// ops/stencil.py::bonded_energy). Adds one body's share to `acc`.
+template <int kFam>
 HD void bonded_pair(const float* P, const Body& bi, const Body& bj, float dirf, float wstack, bool side_j,
                     Grad& acc) {
+  static_assert(kFam == FAM_DNA2 || kFam == FAM_DNA1, "oxRNA2's bonded pair is bonded_pair_rna2");
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3], bd1 = P[P_GEOM + 4];
   bool pos = dirf > 0.f;
   PairSites g = zero_sites();
-  V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
+  V3 back_i = back_site<kFam>(bx, by, bi), back_j = back_site<kFam>(bx, by, bj);
   V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
 
   // FENE
@@ -706,7 +740,7 @@ HD void bonded_pair(const float* P, const Body& bi, const Body& bj, float dirf, 
     g.a2_j += ga2_3;
     g.a2_i += ga2_5;
   }
-  add_side<FAM_DNA2>(P, g, side_j, acc);
+  add_side<kFam>(P, g, side_j, acc);
 }
 
 // oxRNA2 bonded pair (i, j = i + 2), dirf as bonded_pair: FENE and bonded
@@ -877,8 +911,9 @@ HD Grad k1_lane_grad(int t, bool side_j, int warp, const float* P, const float* 
   for (int d = warp + 1; d <= w_wide; d += K1_WARPS) {
     int lo = side_j ? t - d : t, hi = lo + d;
     if (lo >= 0 && hi < n && partners[lo] != hi && partners[n + lo] != hi) {
-      unbonded_pair<kFam>(P, body_at(pos, n, lo), body_at(pos, n, hi), W[seq[lo] * 4 + seq[hi]], qf[lo] * qf[hi],
-                          d, w, w_wide, side_j, acc);
+      const float qq = has_debye<kFam>() ? qf[lo] * qf[hi] : 0.f;  // oxDNA1 reads no charge factor
+      unbonded_pair<kFam>(P, body_at(pos, n, lo), body_at(pos, n, hi), W[seq[lo] * 4 + seq[hi]], qq, d, w, w_wide,
+                          side_j, acc);
     }
   }
   if (warp == K1_WARPS - 1) {
@@ -887,7 +922,7 @@ HD Grad k1_lane_grad(int t, bool side_j, int warp, const float* P, const float* 
       if constexpr (kFam == FAM_RNA2) {
         bonded_pair_rna2(P, body_at(pos, n, lo), body_at(pos, n, hi), dirf[lo], wstack[lo], side_j, acc);
       } else {
-        bonded_pair(P, body_at(pos, n, lo), body_at(pos, n, hi), dirf[lo], wstack[lo], side_j, acc);
+        bonded_pair<kFam>(P, body_at(pos, n, lo), body_at(pos, n, hi), dirf[lo], wstack[lo], side_j, acc);
       }
     }
   }

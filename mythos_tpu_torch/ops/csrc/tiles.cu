@@ -1,5 +1,6 @@
 // K3, K4, K5: the oxDNA2 unbonded terms over a symmetric block-neighbor
-// table (the block tier and the DiffTRe re-evaluation).
+// table (the block tier and the DiffTRe re-evaluation); K3 also has an
+// oxDNA1 instance (tile_forces_dna1), the block tier's force under oxDNA1.
 //
 // Replace, in mythos_tpu/ops/oxdna_tiles.py:
 //   K3 tile_forces     <- _bwd_rows_impl(forces_only=True) (bodies
@@ -69,6 +70,14 @@
 // of one pair's dependent chain bounds a block. A column row (104 B) is
 // read once per block, not once per row. Registers, spills and shared
 // memory of each kernel: chip_smoke.py phase 2 (nvcc -Xptxas -v).
+//
+// Model family: tile_block is templated on it (kFam). The oxDNA2 instances
+// are K3, K4 and K5 as above. The oxDNA1 instance of K3 runs the same walk
+// on a one-level table of the short kind (oxDNA1 has no Debye-Hueckel
+// term, so no Debye-only pair and no KIND_DEBYE table), with oxDNA1's
+// backbone site (com + bx a1) and its coaxial stacking (the f5 of cos phi3
+// and cos phi4 on the backbone sites); it reads no charge factor. K4 and K5
+// have no oxDNA1 instance (DiffTRe under oxDNA1 is not ported).
 #include <cuda_runtime.h>
 
 #include "stencil_physics.cuh"
@@ -141,62 +150,74 @@ __host__ __device__ constexpr int out_fields(int out, bool debye_kind) {
   return out == OUT_ENERGIES ? 5 : (out == OUT_ROW_GRADS ? (debye_kind ? 4 : 16) : (debye_kind ? 3 : 12));
 }
 
-// One pair's results into res (out_fields(kOut, debye_kind) floats): row i (ri) and
-// column j (rj), its reach bits. P_GT holds K3's term weights or K5's
-// cotangent; K4 ignores it.
+// A pair of the debye kind (the backbone site alone): its Debye energy (K4),
+// the gradient on row i's backbone site (K3), and K5's charge-factor field.
 template <int kOut>
-__device__ __forceinline__ void pair_results(const float* P, const float* ri, const float* rj, int i, int j,
-                                             int reach, bool debye_kind, float* res) {
-  if (debye_kind) {
-    if (kOut == OUT_ENERGIES) {
-      const float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
-      res[0] = res[1] = res[2] = res[3] = 0.f;
-      res[4] = debye(r, P + P_DEBYE).v * ri[D_QF] * rj[D_QF];
-      return;
-    }
-    const float gt = P[P_GT + 4];
-    V3 g = debye_back_grad(P, ri, rj, gt);
-    res[0] = g.x;
-    res[1] = g.y;
-    res[2] = g.z;
-    if (kOut == OUT_ROW_GRADS) {
-      const float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
-      res[3] = gt * debye(r, P + P_DEBYE).v * rj[D_QF];
-    }
-    return;
-  }
+__device__ __forceinline__ void pair_results_debye(const float* P, const float* ri, const float* rj, float* res) {
   if (kOut == OUT_ENERGIES) {
-    unbonded_pair_energy_gated(P, row_body(ri), row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], reach, res);
+    const float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
+    res[0] = res[1] = res[2] = res[3] = 0.f;
+    res[4] = debye(r, P + P_DEBYE).v * ri[D_QF] * rj[D_QF];
     return;
   }
-  Grad g = zero_grad();
-  float hb = 0.f;
-  unbonded_pair_gated(P, row_body(ri), row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], reach, g,
-                      kOut == OUT_ROW_GRADS ? &hb : nullptr);
-  const V3 parts[4] = {g.com, g.a1, g.a2, g.a3};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    res[3 * k] = parts[k].x;
-    res[3 * k + 1] = parts[k].y;
-    res[3 * k + 2] = parts[k].z;
-  }
+  const float gt = P[P_GT + 4];
+  V3 g = debye_back_grad(P, ri, rj, gt);
+  res[0] = g.x;
+  res[1] = g.y;
+  res[2] = g.z;
   if (kOut == OUT_ROW_GRADS) {
-    // the triangular hb-weight gradient: past HB's r_c_high the product is
-    // exactly 0, so pairs without the bit add nothing
-    const float h = (j > i && (reach & REACH_HB)) ? P[P_GT + 1] * hb : 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) res[12 + k] = h * rj[R_OH + k];
+    const float r = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2]));
+    res[3] = gt * debye(r, P + P_DEBYE).v * rj[D_QF];
   }
 }
 
-// The shared body of K3, K4 and K5: one block's rows (see the header). out:
-// K3/K5 (n_pad, nf) row results, K4 (blocks, 5) partials; counts, if set,
-// gains the ordered pairs under the mask that needed the short-range terms,
-// Debye alone, and nothing.
-template <int kOut>
+// One pair's results into res (out_fields(kOut, debye_kind) floats): row i (ri) and
+// column j (rj) of family kFam, its reach bits. P_GT holds K3's term weights or K5's
+// cotangent; K4 ignores it.
+template <int kOut, int kFam>
+__device__ __forceinline__ void pair_results(const float* P, const float* ri, const float* rj, int i, int j,
+                                             int reach, bool debye_kind, float* res) {
+  if constexpr (has_debye<kFam>()) {
+    if (debye_kind) {
+      pair_results_debye<kOut>(P, ri, rj, res);
+      return;
+    }
+  }
+  if constexpr (kOut == OUT_ENERGIES) {
+    unbonded_pair_energy_gated(P, row_body(ri), row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], reach, res);
+  } else {
+    Grad g = zero_grad();
+    float hb = 0.f;
+    const float qq = has_debye<kFam>() ? ri[R_QF] * rj[R_QF] : 0.f;  // oxDNA1 reads no charge factor
+    unbonded_pair_gated<kFam>(P, row_body(ri), row_body(rj), hb_weight(ri, rj), qq, reach, g,
+                              kOut == OUT_ROW_GRADS ? &hb : nullptr);
+    const V3 parts[4] = {g.com, g.a1, g.a2, g.a3};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      res[3 * k] = parts[k].x;
+      res[3 * k + 1] = parts[k].y;
+      res[3 * k + 2] = parts[k].z;
+    }
+    if (kOut == OUT_ROW_GRADS) {
+      // the triangular hb-weight gradient: past HB's r_c_high the product is
+      // exactly 0, so pairs without the bit add nothing
+      const float h = (j > i && (reach & REACH_HB)) ? P[P_GT + 1] * hb : 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) res[12 + k] = h * rj[R_OH + k];
+    }
+  }
+}
+
+// The shared body of K3, K4 and K5: one block's rows of family kFam (see the
+// header). out: K3/K5 (n_pad, nf) row results, K4 (blocks, 5) partials;
+// counts, if set, gains the ordered pairs under the mask that needed the
+// short-range terms, Debye alone, and nothing.
+template <int kOut, int kFam>
 __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const float* __restrict__ rows,
                                            const int* __restrict__ ids, int n, int n_blocks, int bsz, int cap,
                                            int kind, float* __restrict__ out, int* __restrict__ counts) {
+  static_assert(kFam == FAM_DNA2 || (kFam == FAM_DNA1 && kOut == OUT_FORCES),
+                "the tile kernels have oxDNA2 instances and an oxDNA1 instance of K3");
   constexpr int NF = out_fields(kOut, false);
   constexpr bool triangular = kOut == OUT_ENERGIES;
   __shared__ float P[P_TOTAL];
@@ -214,7 +235,7 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
   const int groups = (bsz + TILE_ROWS - 1) / TILE_ROWS;
   const int rb = blockIdx.x / groups, r_lo = (blockIdx.x - rb * groups) * TILE_ROWS;
   const int nr = min(TILE_ROWS, bsz - r_lo), i0 = rb * bsz + r_lo;
-  const bool debye_kind = kind == KIND_DEBYE;
+  const bool debye_kind = has_debye<kFam>() && kind == KIND_DEBYE;
   const int F = debye_kind ? F_DB : F_ROW, nf = out_fields(kOut, debye_kind);
   const int prev = debye_kind ? D_PREV : R_PREV, nxt = debye_kind ? D_NXT : R_NXT;
   const int* row_ids = ids + (size_t)rb * cap;
@@ -250,7 +271,7 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
           if (debye_kind) {
             reach = norm(v3(rj[0] - ri[0], rj[1] - ri[1], rj[2] - ri[2])) < P[P_DEBYE + 3] ? REACH_DEBYE : 0;
           } else {
-            reach = unbonded_reach(P, row_body(ri), row_body(rj));
+            reach = unbonded_reach<kFam>(P, row_body(ri), row_body(rj));
             if (kind == KIND_SHORT) reach &= REACH_SHORT;
           }
           cls = (reach & REACH_SHORT) ? 1 : (reach ? 2 : 3);
@@ -302,8 +323,8 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
       const int place = tid < sh - sl ? s_short[sl + tid] : (tid < b1 - b0 ? s_debye[dl + tid - (sh - sl)] : -1);
       if (place >= 0) {
         const int s = s_kept[place], r = s / nc, c = s - r * nc;
-        pair_results<kOut>(P, s_row + r * F, s_col + c * F, i0 + r, s_cid[c], s_reach[place], debye_kind,
-                           s_res + (place - b0) * nf);
+        pair_results<kOut, kFam>(P, s_row + r * F, s_col + c * F, i0 + r, s_cid[c], s_reach[place], debye_kind,
+                                 s_res + (place - b0) * nf);
       }
       __syncthreads();
       if (sum_r < nr) {
@@ -338,7 +359,16 @@ __global__ void __launch_bounds__(TILE_THREADS)
     tile_forces_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                        int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
                        int* __restrict__ counts) {
-  tile_block<OUT_FORCES>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  tile_block<OUT_FORCES, FAM_DNA2>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+}
+
+// K3's oxDNA1 instance: (n_pad, 12) dE/d(com, a1, a2, a3) on a table of the
+// short kind, weighted by the term weights at P_GT.
+__global__ void __launch_bounds__(TILE_THREADS)
+    tile_forces_dna1_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
+                            int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
+                            int* __restrict__ counts) {
+  tile_block<OUT_FORCES, FAM_DNA1>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
 }
 
 // K5: (n_pad, 16) = K3's 12 fields + the triangular hb-weight gradient, or
@@ -348,7 +378,7 @@ __global__ void __launch_bounds__(TILE_THREADS)
     tile_row_grads_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                           int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
                           int* __restrict__ counts) {
-  tile_block<OUT_ROW_GRADS>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  tile_block<OUT_ROW_GRADS, FAM_DNA2>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
 }
 
 // K4, first pass: (blocks, 5) partials, each block's per-term sums over its
@@ -357,7 +387,7 @@ __global__ void __launch_bounds__(TILE_THREADS)
     tile_energies_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                          int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ partials,
                          int* __restrict__ counts) {
-  tile_block<OUT_ENERGIES>(P, rows, ids, n, n_blocks, bsz, cap, kind, partials, counts);
+  tile_block<OUT_ENERGIES, FAM_DNA2>(P, rows, ids, n, n_blocks, bsz, cap, kind, partials, counts);
 }
 
 // K4, second pass: out[t] = sum of the block partials, in block order. The
@@ -395,6 +425,15 @@ extern "C" int tile_forces(const float* params, const float* rows, const int* id
                            int cap, int kind, float* out, int* counts, void* stream) {
   if (!tile_args_ok(n_blocks, bsz, cap)) return (int)cudaErrorInvalidValue;
   tile_forces_kernel<<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
+      params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  return (int)cudaGetLastError();
+}
+
+// K3's oxDNA1 instance: out (n_pad, 12), kind KIND_SHORT; counts: (3,) or null
+extern "C" int tile_forces_dna1(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
+                                int cap, int kind, float* out, int* counts, void* stream) {
+  if (!tile_args_ok(n_blocks, bsz, cap) || kind != KIND_SHORT) return (int)cudaErrorInvalidValue;
+  tile_forces_dna1_kernel<<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
       params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""Banded-stencil oxDNA2 and oxRNA2 physics: host prep, plain twins, kernel
-wrappers.
+"""Banded-stencil oxDNA2, oxRNA2 and oxDNA1 physics: host prep, plain twins,
+kernel wrappers.
 
 Counterpart of mythos_tpu/ops/stencil.py. Slots are the strand-interleave
 order of simulators.neighbors.strand_interleave_perm, in which every
@@ -9,7 +9,7 @@ unbonded terms are evaluated for d = 1..w_wide (each short-range term only
 up to its own reach ``w_terms``; Debye-Hueckel out to ``w_wide``), the
 bonded terms (FENE, bonded excluded volume, stacking) on the (i, i+2) bonds.
 
-Two model families share the band (``StencilContext.family``, found from
+Three model families share the band (``StencilContext.family``, found from
 the composed energy's term classes as the reference finds its variants):
 
 * ``"dna2"``: dna1 cross stacking, dna2's f4 + f6 coaxial stacking, the
@@ -18,7 +18,13 @@ the composed energy's term classes as the reference finds its variants):
 * ``"rna2"``: rna2 cross stacking (no theta4), dna1's coaxial stacking
   (f5 of cos phi3 and cos phi4, on the backbone sites), the backbone site
   on (a1, a3), rna2 stacking on the 3'/5' stacking sites and the p3/p5
-  axes.
+  axes;
+* ``"dna1"``: dna1 cross stacking (with theta4), dna1's coaxial stacking
+  (as rna2's), one backbone site on a1 (FENE and stacking's cos phi sites
+  on it), dna1 stacking, and no Debye-Hueckel term: its band's ``w_wide``
+  is its widest short-range reach, its charge factors are ones that no
+  kernel reads, and its Debye entries (weight, parameters, term values,
+  gate) are zero.
 
 Two kernels carry the main path (sources in ``ops/csrc``), each with one
 compiled instance per family:
@@ -72,13 +78,16 @@ BONDED_ORDER = ("Fene", "BondedExcludedVolume", "Stacking")
 ERR_MS_SCALAR = "multi-step path requires scalar mass/gamma/inertia (got per-particle)"
 ERR_MS_BONDS = "multi-step path requires every bond at slot offset 2 (duplex interleave)"
 ERR_MS_PSEQ = "multi-step path does not support probabilistic sequences yet"
-ERR_TERMS = "the stencil path implements exactly the oxDNA2 or oxRNA2 term set {}; got {}"
+ERR_TERMS = "the stencil path implements exactly the oxDNA1, oxDNA2 or oxRNA2 term set {}; got {}"
 
 #: model family -> its (cross stacking, coaxial stacking, stacking) classes
 FAMILIES = {
     "dna2": (t1.CrossStacking, t2.CoaxialStacking, t2.Stacking),
     "rna2": (tr.CrossStacking, t1.CoaxialStacking, tr.Stacking),
+    "dna1": (t1.CrossStacking, t1.CoaxialStacking, t1.Stacking),
 }
+#: the families without a Debye-Hueckel term
+NO_DEBYE = frozenset({"dna1"})
 
 _F1 = ("dr_low_{0}", "dr_high_{0}", "dr_c_low_{0}", "dr_c_high_{0}", "a_{0}", "dr0_{0}", "dr_c_{0}",
        "b_low_{0}", "b_high_{0}")
@@ -100,6 +109,7 @@ def _f3(fams) -> tuple:
 
 #: (macro, term, parameter names): the flat parameter vector, in order.
 #: ``stencil_physics.cuh`` defines ``P_<macro>`` at each group's offset.
+#: oxDNA1 reads COAXPHI as oxRNA2 does and packs DEBYE and its weight as 0.
 #: f1 groups: r_low, r_high, r_c_low, r_c_high, a, r0, r_c, b_low, b_high;
 #: f2 groups the same with k for a; f3: r_star, sigma, b, r_c; f4: theta0,
 #: delta_theta_star, delta_theta_c, a, b; f5: x_star, x_c, a, b. The groups
@@ -165,13 +175,13 @@ class StencilContext:
     """Loop-invariant inputs of the stencil kernels and twins (slot order)."""
 
     n: int
-    family: str  # "dna2" or "rna2" (FAMILIES)
+    family: str  # "dna2", "rna2" or "dna1" (FAMILIES)
     w_terms: tuple  # (exc, hb, cross, coax) one-sided reaches
     w_wide: int  # Debye reach
     params: torch.Tensor  # (P,) flat parameter vector (PARAM_GROUPS)
     seq: torch.Tensor  # (n,) int32
     partners: torch.Tensor  # (2, n) int32 bonded partner slots, -1 when none
-    qf: torch.Tensor  # (n,) Debye charge factor
+    qf: torch.Tensor  # (n,) Debye charge factor (ones under dna1)
     wstack: torch.Tensor  # (n,) stacking weight of bond (i, i+2)
     dirf: torch.Tensor  # (n,) +1: slot i is the 3'-side of bond (i, i+2); -1 5'-side; 0 none
     checks: torch.Tensor  # (n_checks, 5) f32: fam_a, fam_b, cutoff, d_lo, d_hi
@@ -200,17 +210,23 @@ class StencilContext:
         )
 
 
+def family_terms(family: str) -> tuple:
+    """The term names of a family: every unbonded and bonded term, less
+    Debye-Hueckel where the family has none."""
+    return tuple(nm for nm in UNBONDED_ORDER + BONDED_ORDER if not (nm == "Debye" and family in NO_DEBYE))
+
+
 def model_family(composed) -> str:
     """The family of a composed energy (FAMILIES) from its term classes;
     raises for another term set."""
     names = tuple(type(fn).__name__ for fn in composed.energy_fns)
-    if sorted(names) != sorted(UNBONDED_ORDER + BONDED_ORDER):
-        raise ValueError(ERR_TERMS.format(UNBONDED_ORDER + BONDED_ORDER, names))
     by_name = {nm: type(fn) for nm, fn in zip(names, composed.energy_fns, strict=True)}
+    if sorted(names) not in [sorted(family_terms(f)) for f in FAMILIES]:
+        raise ValueError(ERR_TERMS.format(UNBONDED_ORDER + BONDED_ORDER, names))
     for family, classes in FAMILIES.items():
-        if all(by_name[cls.__name__] is cls for cls in classes):
+        if sorted(names) == sorted(family_terms(family)) and all(by_name[cls.__name__] is cls for cls in classes):
             return family
-    raise ValueError(ERR_TERMS.format([c.__module__ + "." + c.__name__ for c in FAMILIES["dna2"]],
+    raise ValueError(ERR_TERMS.format({f: [c.__module__ + "." + c.__name__ for c in cls] for f, cls in FAMILIES.items()},
                                       [c.__module__ + "." + c.__name__ for c in by_name.values()]))
 
 
@@ -220,6 +236,12 @@ def _geometry_values(family: str, g: dict) -> dict:
         return {
             "GEOM": dict(bx=g["com_to_backbone_x"], by=g["com_to_backbone_y"], hb=g["com_to_hb"],
                          st=g["com_to_stacking"], bd1=g["com_to_backbone_dna1"]),
+            "RSITES": dict.fromkeys(_NAMES["RSITES"], 0.0),
+        }
+    if family == "dna1":  # one backbone site on a1: FENE's and stacking's
+        return {
+            "GEOM": dict(bx=g["com_to_backbone"], by=0.0, hb=g["com_to_hb"], st=g["com_to_stacking"],
+                         bd1=g["com_to_backbone"]),
             "RSITES": dict.fromkeys(_NAMES["RSITES"], 0.0),
         }
     rna2 = ("pos_stack_3_a1", "pos_stack_3_a2", "pos_stack_5_a1", "pos_stack_5_a2",
@@ -232,20 +254,21 @@ def _geometry_values(family: str, g: dict) -> dict:
 
 
 def pack_params(composed, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Flat parameter vector of a composed dna2 or rna2 energy (params
-    bound); a name its term's configuration does not define packs as 0."""
+    """Flat parameter vector of a composed dna2, rna2 or dna1 energy (params
+    bound); a name its term's configuration does not define packs as 0, and
+    so does a term the family lacks (dna1's Debye), its weight too."""
     family = model_family(composed)
     by_name = {type(fn).__name__: fn for fn in composed.energy_fns}
     weights = {type(fn).__name__: w for fn, w in zip(composed.energy_fns, composed.term_weights(), strict=True)}
     extra = _geometry_values(family, composed.energy_fns[0].transform_fn.keywords)
-    extra["GT"] = dict(zip(_NAMES["GT"], (weights[t] for t in UNBONDED_ORDER + BONDED_ORDER), strict=True))
+    extra["GT"] = dict(zip(_NAMES["GT"], (weights.get(t, 0.0) for t in UNBONDED_ORDER + BONDED_ORDER), strict=True))
     device = device if device is not None else composed.energy_fns[0].params.eps_backbone.device
     parts = []
     for macro, term, names in PARAM_GROUPS:
         for nm in names:
             if term is None:
                 v = extra[macro][nm]
-            elif nm in by_name[term].params:
+            elif term in by_name and nm in by_name[term].params:
                 v = getattr(by_name[term].params, nm)
             else:
                 v = torch.zeros(_SIZES.get(nm, 1))
@@ -254,7 +277,8 @@ def pack_params(composed, dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, device=None) -> StencilContext:
-    """Build the StencilContext of a composed oxDNA2 energy over ``band``.
+    """Build the StencilContext of a composed oxDNA2, oxRNA2 or oxDNA1
+    energy over ``band``.
 
     ``composed`` must carry its bound parameters (``with_params`` applied).
     Raises for configurations the stencil kernels do not implement: another
@@ -296,10 +320,12 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
     wstack = eps_stack.to(device=device, dtype=dtype)[torch.as_tensor(s3, device=device).long(),
                                                       torch.as_tensor(s5, device=device).long()]
     wstack = torch.where(torch.as_tensor(dirf != 0, device=device), wstack, torch.zeros_like(wstack))
-    debye = composed.energy_fns[names.index("Debye")]
-    qf = debye.charge_factors(params)
-    if perm is not None:
-        qf = qf[torch.as_tensor(perm, device=device)]
+    if family in NO_DEBYE:
+        qf = torch.ones(n, dtype=dtype, device=device)
+    else:
+        qf = composed.energy_fns[names.index("Debye")].charge_factors(params)
+        if perm is not None:
+            qf = qf[torch.as_tensor(perm, device=device)]
     fam = {nm: float(k) for k, nm in enumerate(SITE_FAMILIES)}
     checks = torch.tensor(
         [[fam[fa], fam[fb], cu, d_lo, d_hi] for fa, fb, cu, d_lo, d_hi in band.site_checks],
@@ -364,12 +390,9 @@ def ou_constants(dt: float, kT: float, mass, inertia, gamma_t, gamma_r) -> OUCon
 def _sites(P, com: Vec3, quat: Quat, family: str = "dna2"):
     a1, a2, a3 = quat_frame_soa(quat)
     g = P["GEOM"]
-    s = SimpleNamespace(
-        com=com, a1=a1, a2=a2, a3=a3,
-        back=com + g.bx * a1 + g.by * (a3 if family == "rna2" else a2),
-        base=com + g.hb * a1,
-        stack=com + g.st * a1,
-    )
+    back = {"dna2": lambda: com + g.bx * a1 + g.by * a2, "rna2": lambda: com + g.bx * a1 + g.by * a3,
+            "dna1": lambda: com + g.bx * a1}[family]()
+    s = SimpleNamespace(com=com, a1=a1, a2=a2, a3=a3, back=back, base=com + g.hb * a1, stack=com + g.st * a1)
     if family == "rna2":
         r = P["RSITES"]
         s.stack3 = com + r.s3a1 * a1 + r.s3a2 * a2
@@ -412,7 +435,8 @@ def band_pair_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Te
     cross, coax, debye]), term k's values those of the first ``len(e_k)``
     pairs (lo, hi) -- the pairs (i, i + d) for d = 1..w_wide, offset-major,
     bonded partners dropped, each short-range term up to its own reach,
-    Debye to w_wide (all offsets through each term in one pass)."""
+    Debye to w_wide (all offsets through each term in one pass); a family
+    without Debye gets no Debye values (an empty tensor)."""
     P = unpack_params(params)
     s = _sites(P, com, quat, ctx.family)
     rna2 = ctx.family == "rna2"
@@ -443,13 +467,17 @@ def band_pair_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Te
     hb = t1.hb_product(P["HB"], type(g)(*(x[:k_hb] for x in g)))
     hb = hb * P["HB"].eps_hb_weights[seq[lo[:k_hb]], seq[hi[:k_hb]]]
     cross = (tr.cross_value if rna2 else t1.cross_product)(P["CROSS"], type(g)(*(x[:k_cross] for x in g)))
+    dna1_coax = ctx.family != "dna2"  # oxRNA2 composes oxDNA1's coaxial stacking
     gc = geom.coax_geometry_vec(
         at(s.stack, lo, k_coax), at(s.stack, hi, k_coax), at(s.a1, lo, k_coax), at(s.a1, hi, k_coax),
         at(s.a3, lo, k_coax), at(s.a3, hi, k_coax), arccos_poly,
-        **(dict(back_i=pre(back_i, k_coax), back_j=pre(back_j, k_coax)) if rna2 else {}),
+        **(dict(back_i=pre(back_i, k_coax), back_j=pre(back_j, k_coax)) if dna1_coax else {}),
     )
-    coax = t1.coax_product(P["COAX"], gc) if rna2 else t2.coax_value(P["COAX"], gc)
-    debye = t2.debye_of(P["DEBYE"], r_bb) * ctx.qf[lo] * ctx.qf[hi]
+    coax = t1.coax_product(P["COAX"], gc) if dna1_coax else t2.coax_value(P["COAX"], gc)
+    if ctx.family in NO_DEBYE:
+        debye = r_bb[:0]
+    else:
+        debye = t2.debye_of(P["DEBYE"], r_bb) * ctx.qf[lo] * ctx.qf[hi]
     return lo, hi, [exc, hb, cross, coax, debye]
 
 
@@ -478,7 +506,7 @@ def band_gates_plain(ctx: StencilContext, dyn: torch.Tensor) -> dict:
     reads from the parameters (past it the factor, and so the term and its
     gradient, is exactly zero). Excluded volume: any of its four distances;
     hydrogen bonding and cross stacking: base-base; coaxial stacking:
-    stack-stack; Debye: backbone-backbone."""
+    stack-stack; Debye: backbone-backbone (never under dna1)."""
     P = unpack_params(ctx.params.to(dyn.dtype))
     s = _sites(P, Vec3(*dyn[:3]), Quat(*dyn[3:7]), ctx.family)
     n, w_wide = ctx.n, ctx.w_wide
@@ -499,7 +527,7 @@ def band_gates_plain(ctx: StencilContext, dyn: torch.Tensor) -> dict:
             "HydrogenBonding": r_ee < P["HB"].dr_c_high_hb,
             "CrossStacking": r_ee < P["CROSS"].dr_c_high_cross,
             "CoaxialStacking": r_ss < P["COAX"].dr_c_high_coax,
-            "Debye": r_bb < P["DEBYE"].r_cut,
+            "Debye": (r_bb < P["DEBYE"].r_cut) & (ctx.family not in NO_DEBYE),
         }
         for nm, w in zip(UNBONDED_ORDER, reaches, strict=True):
             if d <= w:
@@ -738,7 +766,7 @@ def _ctx_args(ctx: StencilContext) -> tuple:
 
 def _instance(name: str, ctx: StencilContext) -> str:
     """The C entry point of the kernel's instance for the context's family
-    (``<name>`` for dna2, ``<name>_rna2``)."""
+    (``<name>`` for dna2, ``<name>_rna2``, ``<name>_dna1``)."""
     return name if ctx.family == "dna2" else f"{name}_{ctx.family}"
 
 

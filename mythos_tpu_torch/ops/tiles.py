@@ -1,4 +1,5 @@
-"""Block-tile oxDNA2 unbonded physics: host prep, plain versions, kernels.
+"""Block-tile oxDNA2 and oxDNA1 unbonded physics: host prep, plain versions,
+kernels.
 
 Counterpart of the host side of mythos_tpu/ops/oxdna_tiles.py. Particles
 (in ``perm`` order) form index blocks of B; a symmetric block-neighbor
@@ -26,6 +27,13 @@ All three share one kernel body: each gates every pair by reach first
 term's physics only inside its cutoff; each can tally the pairs of its
 mask by class (:func:`tile_gate_counts`).
 
+Model family (``TileSpec.family``, from the composed energy's term
+classes): oxDNA2, or oxDNA1 -- one table of the "short" kind (no
+Debye-Hueckel term), the backbone site on a1, oxDNA1's coaxial stacking --
+whose K3 has its own instance (the block tier's force). K4 and K5 have no
+oxDNA1 instance: DiffTRe under oxDNA1 is not ported, and
+:func:`prepare_contexts` refuses it unless only forces are asked for.
+
 :class:`UnbondedTileEnergies` ties K4 to K5, and its parameter gradient
 to :func:`params_grad` (the port of ``_params_grad_xla``: autograd over
 the batched tile evaluation, as the reference leaves it to XLA). The
@@ -46,6 +54,7 @@ import mythos_tpu_torch.energy.dna1.terms as t1
 import mythos_tpu_torch.energy.dna2.terms as t2
 from mythos_tpu_torch.energy import blocks
 from mythos_tpu_torch.energy.dna1 import geometry as geom
+from mythos_tpu_torch.energy.dna1.nucleotide import NucleotideSoA as NucleotideSoA1
 from mythos_tpu_torch.energy.dna2.nucleotide import NucleotideSoA
 from mythos_tpu_torch.ops import stencil
 from mythos_tpu_torch.soa import BodySoA, Quat, Vec3, quat_frame_soa, vnorm
@@ -76,7 +85,12 @@ _KIND_CODE = {"full": 0, "short": 1, "debye": 2}
 _GT_SLOT = {nm: k for k, nm in enumerate(KIND_TERMS["full"])}
 
 ERR_PSEQ = "the tile path does not support probabilistic sequences"
-ERR_TERMS = "the tile kernels implement the oxDNA2 term set {}; got {}"
+ERR_TERMS = "the tile kernels implement the oxDNA2 term set (and oxDNA1's, for K3) {}; got {}"
+ERR_DNA1_DIFFTRE = (
+    "DiffTRe under oxDNA1 (the oxDNA1 instances of K4 and K5) is not ported yet; the block tier's forces "
+    "(prepare_contexts(..., forces_only=True), K3) are"
+)
+ERR_DNA1_KIND = "oxDNA1 has no Debye-Hueckel term: its one table is of the short kind, got {!r}"
 ERR_HIDDEN_GRAD = (
     "fused_grads_ctx: a context's parameters or static tail need a gradient, which K3 would drop; pass "
     "create_graph=True"
@@ -96,6 +110,7 @@ class TileSpec:
     n_blocks: int
     kind: str  # "full" | "short" | "debye"
     geometry: tuple  # (back a1, back a2, base a1, stack a1) site offsets
+    family: str = "dna2"  # "dna2" | "dna1" (ops.stencil.FAMILIES)
 
     @property
     def n_pad(self) -> int:
@@ -134,8 +149,10 @@ class TileContext:
     perm: torch.Tensor | None  # perm[slot] = original index
 
 
-def _geometry_of(composed) -> tuple:
+def _geometry_of(composed, family: str) -> tuple:
     g = composed.energy_fns[0].transform_fn.keywords
+    if family == "dna1":  # one backbone site on a1
+        return float(g["com_to_backbone"]), 0.0, float(g["com_to_hb"]), float(g["com_to_stacking"])
     return (float(g["com_to_backbone_x"]), float(g["com_to_backbone_y"]), float(g["com_to_hb"]),
             float(g["com_to_stacking"]))
 
@@ -144,23 +161,38 @@ def pair_static_fields(composed, seq: torch.Tensor, perm: torch.Tensor | None):
     """Static per-slot pair fields in slot order: (hw (n, 4), oh (n, 4),
     qf (n,)). hw/oh are the left/right factors of the hb weight, hw =
     one_hot(seq) @ eps_hb_weights (autograd reaches the weights through
-    it); qf the Debye end-charge factor. (The reference's probabilistic-
-    sequence fields corr/partner are constants here: pseq is refused.)"""
+    it); qf the Debye end-charge factor (ones without a Debye term, read by
+    no kernel). (The reference's probabilistic-sequence fields
+    corr/partner are constants here: pseq is refused.)"""
     by_name = {type(fn).__name__: fn for fn in composed.energy_fns}
     w = by_name["HydrogenBonding"].params.eps_hb_weights
     oh = torch.nn.functional.one_hot(seq.long(), 4).to(w.dtype)
+    if "Debye" not in by_name:
+        return oh @ w, oh, torch.ones(seq.shape[0], dtype=w.dtype, device=w.device)
     qf = by_name["Debye"].charge_factors(w)
     return oh @ w, oh, qf if perm is None else qf[perm]
 
 
+def _tile_family(composed) -> str:
+    """The composed energy's family, oxDNA2 or oxDNA1; raises for another."""
+    try:
+        family = stencil.model_family(composed)
+    except ValueError:
+        family = None
+    if family not in ("dna2", "dna1"):
+        raise ValueError(ERR_TERMS.format(stencil.UNBONDED_ORDER + stencil.BONDED_ORDER,
+                                          [f"{type(fn).__module__}.{type(fn).__name__}" for fn in composed.energy_fns]))
+    return family
+
+
 def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind: str = "full", perm=None) -> TileContext:
-    """The TileContext of one (n_blocks, cap) table of a composed oxDNA2
-    energy (parameters bound); ``perm`` as the table was built with."""
+    """The TileContext of one (n_blocks, cap) table of a composed oxDNA2 or
+    oxDNA1 energy (parameters bound; oxDNA1 tables are of the short kind);
+    ``perm`` as the table was built with."""
+    family = _tile_family(composed)
+    if family == "dna1" and kind != "short":
+        raise ValueError(ERR_DNA1_KIND.format(kind))
     names = tuple(type(fn).__name__ for fn in composed.energy_fns)
-    need = stencil.UNBONDED_ORDER + stencil.BONDED_ORDER
-    if sorted(names) != sorted(need) or stencil.model_family(composed) != "dna2":
-        raise ValueError(ERR_TERMS.format(need, [f"{type(fn).__module__}.{type(fn).__name__}"
-                                                 for fn in composed.energy_fns]))
     first = composed.energy_fns[0]
     if np.asarray(first.topology.seq).ndim != 1:
         raise ValueError(ERR_PSEQ)
@@ -172,7 +204,8 @@ def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind:
     nb, cap = sym_ids.shape
     if nb != -(-n // block_size):
         raise ValueError(f"table has {nb} row blocks; {n} particles in blocks of {block_size} need {-(-n // block_size)}")
-    spec = TileSpec(block_size=block_size, cap=cap, n=n, n_blocks=nb, kind=kind, geometry=_geometry_of(composed))
+    spec = TileSpec(block_size=block_size, cap=cap, n=n, n_blocks=nb, kind=kind,
+                    geometry=_geometry_of(composed, family), family=family)
     n_pad = spec.n_pad
     perm_t = None if perm is None else torch.as_tensor(np.asarray(perm), device=device)
     seq = torch.as_tensor(np.asarray(first.topology.seq), device=device)
@@ -204,9 +237,18 @@ def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind:
     )
 
 
-def prepare_contexts(composed, sym_ids, block_size: int, perm=None) -> tuple:
+def prepare_contexts(composed, sym_ids, block_size: int, perm=None, forces_only: bool = False) -> tuple:
     """TileContexts of one table ("full") or a (tight, wide) pair ("short" +
-    "debye"). Call once per run, outside any loop over steps or states."""
+    "debye"); under oxDNA1 one table of the short kind, and only where the
+    caller asks for forces alone (``forces_only``: the block tier, K3) --
+    DiffTRe under oxDNA1 raises (ERR_DNA1_DIFFTRE). Call once per run,
+    outside any loop over steps or states."""
+    if _tile_family(composed) == "dna1":
+        if not forces_only:
+            raise NotImplementedError(ERR_DNA1_DIFFTRE)
+        if isinstance(sym_ids, (tuple, list)):
+            raise ValueError(ERR_DNA1_KIND.format("(tight, wide)"))
+        return (prepare_tile_context(composed, sym_ids, block_size, "short", perm),)
     if isinstance(sym_ids, (tuple, list)):
         return (
             prepare_tile_context(composed, sym_ids[0], block_size, "short", perm),
@@ -281,24 +323,35 @@ def _tile_terms(ri: torch.Tensor, cj: torch.Tensor, params: torch.Tensor, spec: 
     order, plus the weight-free hb product (None for the debye kind).
     ``ri``: (nb, B, 1, F) rows, ``cj``: (nb, 1, M, F) columns."""
     P = stencil.unpack_params(params)
-    bx, by, hbo, sto = spec.geometry
+    _, _, hbo, sto = spec.geometry
     if spec.kind == "debye":
         r = vnorm(_vec(cj, 0) - _vec(ri, 0))
         return [t2.debye_of(P["DEBYE"], r) * ri[..., _DB_QF] * cj[..., _DB_QF]], None
     com_i, a1_i, a2_i, a3_i = (_vec(ri, o) for o in (_COM, _A1, _A2, _A3))
     com_j, a1_j, a2_j, a3_j = (_vec(cj, o) for o in (_COM, _A1, _A2, _A3))
-    back_i, back_j = com_i + bx * a1_i + by * a2_i, com_j + bx * a1_j + by * a2_j
+    back_i, back_j = _back(spec, com_i, a1_i, a2_i), _back(spec, com_j, a1_j, a2_j)
     base_i, base_j = com_i + hbo * a1_i, com_j + hbo * a1_j
     r_bb = vnorm(back_j - back_i)
     exc = t1.unbonded_exc(P["EXC"], vnorm(base_j - base_i), vnorm(base_j - back_i), vnorm(back_j - base_i), r_bb)
     g = geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, a3_i, a3_j, arccos_poly)
     hb_prod = t1.hb_product(P["HB"], g)
     weight = sum(ri[..., _HW + k] * cj[..., _OH + k] for k in range(4))
-    gc = geom.coax_geometry_vec(com_i + sto * a1_i, com_j + sto * a1_j, a1_i, a1_j, a3_i, a3_j, arccos_poly)
-    out = [exc, hb_prod * weight, t1.cross_product(P["CROSS"], g), t2.coax_value(P["COAX"], gc)]
+    stack_i, stack_j = com_i + sto * a1_i, com_j + sto * a1_j
+    if spec.family == "dna1":  # oxDNA1's coaxial stacking: the phi cosines on the backbone sites
+        coax = t1.coax_product(P["COAX"], geom.coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, a3_i, a3_j,
+                                                                 arccos_poly, back_i=back_i, back_j=back_j))
+    else:
+        coax = t2.coax_value(P["COAX"], geom.coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, a3_i, a3_j, arccos_poly))
+    out = [exc, hb_prod * weight, t1.cross_product(P["CROSS"], g), coax]
     if spec.kind == "full":
         out.append(t2.debye_of(P["DEBYE"], r_bb) * ri[..., _QF] * cj[..., _QF])
     return out, hb_prod
+
+
+def _back(spec: TileSpec, com: Vec3, a1: Vec3, a2: Vec3) -> Vec3:
+    """The family's backbone site: com + bx a1 + by a2 (oxDNA2), com + bx a1 (oxDNA1)."""
+    bx, by = spec.geometry[0], spec.geometry[1]
+    return com + bx * a1 if spec.family == "dna1" else com + bx * a1 + by * a2
 
 
 def _split(rows: torch.Tensor, cols: torch.Tensor, spec: TileSpec):
@@ -349,10 +402,10 @@ def tile_gates_plain(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor
     ri, cj = _split(rows, _gather_cols(rows, ids, spec), spec)
     if spec.kind == "debye":
         return {"Debye": vnorm(_vec(cj, 0) - _vec(ri, 0)) < params[off["DEBYE"] + _R_CUT]}
-    bx, by, hbo, sto = spec.geometry
+    _, _, hbo, sto = spec.geometry
     com_i, a1_i, a2_i = (_vec(ri, o) for o in (_COM, _A1, _A2))
     com_j, a1_j, a2_j = (_vec(cj, o) for o in (_COM, _A1, _A2))
-    back_i, back_j = com_i + bx * a1_i + by * a2_i, com_j + bx * a1_j + by * a2_j
+    back_i, back_j = _back(spec, com_i, a1_i, a2_i), _back(spec, com_j, a1_j, a2_j)
     base_i, base_j = com_i + hbo * a1_i, com_j + hbo * a1_j
     r_bb, r_ee = vnorm(back_j - back_i), vnorm(base_j - base_i)
     r_exc = (r_ee, vnorm(base_j - back_i), vnorm(back_j - base_i), r_bb)
@@ -512,20 +565,30 @@ def _tile_forces(rows, params, ids, spec: TileSpec, count: bool = False):
     under the full mask that needed the short-range terms, Debye alone,
     and nothing (:func:`tile_gate_counts`), else None."""
     out = torch.empty((spec.n_pad, spec.n_force_fields), dtype=torch.float32, device=rows.device)
-    counts = _launch("tile_forces", rows, params, ids, spec, (out,), count)
+    counts = _launch("tile_forces" if spec.family == "dna2" else f"tile_forces_{spec.family}", rows, params, ids,
+                     spec, (out,), count)
     tile_forces.launches += 1
+    tile_forces.by_family[spec.family] += 1
     return out, counts
 
 
 def tile_forces(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """K3: (n_pad, 12) row forces dE/d(com, a1, a2, a3), or (n_pad, 3)
-    dE/d(back) for the debye kind. CPU tensors run :func:`tile_forces_plain`."""
+    dE/d(back) for the debye kind. CPU tensors run :func:`tile_forces_plain`.
+    ``launches`` counts every launch, ``by_family`` each family's."""
     if rows.device.type == "cpu":
         return tile_forces_plain(rows, params, ids, spec)
     return _tile_forces(rows, params, ids, spec)[0]
 
 
 tile_forces.launches = 0
+tile_forces.by_family = {"dna2": 0, "dna1": 0}
+
+
+def _dna2_only(name: str, spec: TileSpec) -> None:
+    """K4 and K5 have oxDNA2 instances only (DiffTRe under oxDNA1 is not ported)."""
+    if spec.family != "dna2":
+        raise NotImplementedError(f"{name}: " + ERR_DNA1_DIFFTRE)
 
 
 class TileForces(torch.autograd.Function):
@@ -566,6 +629,7 @@ def _tile_energies(rows, params, ids, spec: TileSpec, count: bool = False):
     (:func:`tile_gate_counts` with ``triangular``)."""
     from mythos_tpu_torch.ops import _build
 
+    _dna2_only("tile_energies", spec)
     parts = _build.load_library().tile_energies_partials(spec.n_blocks, spec.block_size)
     buf = torch.empty(parts * 5 + 5, dtype=torch.float32, device=rows.device)
     counts = _launch("tile_energies", rows, params, ids, spec, (buf[: parts * 5], buf[parts * 5 :]), count)
@@ -587,6 +651,7 @@ tile_energies.launches = 0
 def _tile_row_grads(rows, params, ids, gt, spec: TileSpec, count: bool = False):
     """:func:`tile_row_grads` on CUDA tensors: (row gradients, counts),
     ``counts`` as :func:`_tile_forces` gives them (the same gate and mask)."""
+    _dna2_only("tile_row_grads", spec)
     # the kernel reads the cotangent where K3 reads the term weights
     p = params.detach().clone()
     p[_gt_slots(spec)] = gt.detach().to(p.dtype)
@@ -642,8 +707,9 @@ def unbonded_tile_energies(rows, params, ids, spec: TileSpec) -> torch.Tensor:
 # Composed energies and forces --------------------------------------------------
 
 
-def _nucleotides(composed, body: BodySoA) -> NucleotideSoA:
-    return NucleotideSoA.from_body_soa(body, **composed.energy_fns[0].transform_fn.keywords)
+def _nucleotides(composed, body: BodySoA):
+    cls = NucleotideSoA1 if _tile_family(composed) == "dna1" else NucleotideSoA
+    return cls.from_body_soa(body, **composed.energy_fns[0].transform_fn.keywords)
 
 
 def _bonded_energy(composed, unbonded_idx: set, body: BodySoA) -> torch.Tensor:

@@ -1,10 +1,17 @@
-"""The Langevin simulators of the port: the stencil tier and the block tier.
+"""The Langevin simulators of the port: the stencil tier, the block tier
+and the small-system path.
 
 Counterpart of mythos_tpu.simulators.tpu.TpuSimulator. :class:`CudaSimulator`
 is its banded-stencil tier: the fused multi-step branch (``build_run_fn``,
 simulators/tpu.py:253-296 and 386-450) and, with ``save_every`` <= 1, the
 generic per-step branch (:451-482); :class:`BlockSimulator` its symmetric
-block-table branch (simulators/tpu.py:297-322 and 451-501).
+block-table branch (simulators/tpu.py:297-322 and 451-501), on the
+(tight, wide) tables of oxDNA2 or one table (oxDNA1, or where the tight
+table would be as wide); :class:`PairSimulator` its static-neighbour
+branch (simulators/tpu.py:194-229, 249-252, 367-381): ``NoNeighborList``
+or ``DensePairs``, AoS BAOAB (``integrators.nvt_langevin``) with the force
+by torch autograd of the energy, on the card as the reference's is
+``jax.grad`` under XLA -- no kernel.
 
 A stencil run:
 
@@ -54,13 +61,15 @@ import dataclasses as dc
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from mythos_tpu_torch import spaces
+from mythos_tpu_torch.energy.dna1.terms import _UnbondedPairs
 from mythos_tpu_torch.ops import stencil as ops_stencil
 from mythos_tpu_torch.ops import tiles
 from mythos_tpu_torch.rigid_body import RigidBody
 from mythos_tpu_torch.simulators.base import SimulatorOutput
-from mythos_tpu_torch.simulators.integrators import nvt_langevin_soa
+from mythos_tpu_torch.simulators.integrators import nvt_langevin, nvt_langevin_soa
 from mythos_tpu_torch.simulators.io import SimulatorTrajectory
-from mythos_tpu_torch.simulators.neighbors import BlockNeighborList, StencilBand
+from mythos_tpu_torch.simulators.neighbors import BlockNeighborList, DensePairs, NoNeighborList, StencilBand
 from mythos_tpu_torch.soa import BodySoA, Quat, Vec3, to_soa
 
 ERR_CHKPNT_SCN = "`checkpoint_every` must evenly divide the length of `xs`. Got {} and {}."
@@ -108,8 +117,8 @@ def _trajectory(traj: torch.Tensor, kT: float, overflow: torch.Tensor) -> Simula
 
 @dc.dataclass(frozen=True)
 class CudaSimulator:
-    """Rigid-body BAOAB Langevin of a composed oxDNA2 or oxRNA2 energy on the
-    stencil (the kernels' instance of the energy's family).
+    """Rigid-body BAOAB Langevin of a composed oxDNA2, oxRNA2 or oxDNA1
+    energy on the stencil (the kernels' instance of the energy's family).
 
     ``run(opt_params, init_state, n_steps, generator)`` returns a
     SimulatorOutput with one SimulatorTrajectory (every ``save_every``-th
@@ -258,8 +267,9 @@ class CudaSimulator:
 
 @dc.dataclass(frozen=True)
 class BlockSimulator:
-    """Rigid-body BAOAB Langevin of a composed oxDNA2 energy on symmetric
-    block tables (the block tier: general conformations).
+    """Rigid-body BAOAB Langevin of a composed oxDNA2 or oxDNA1 energy on
+    symmetric block tables (the block tier: general conformations): a
+    (tight, wide) pair or one table (K3's instance of the family on each).
 
     ``run(opt_params, init_state, n_steps, generator)`` returns a
     SimulatorOutput with one SimulatorTrajectory (every ``save_every``-th
@@ -319,7 +329,7 @@ class BlockSimulator:
         )
         with contextlib.nullcontext() if graph else torch.no_grad():
             energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
-            ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
+            ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm, forces_only=True)
         checkpointed = graph and ck > 0
 
         def grad_fn(body: BodySoA, tables):
@@ -363,4 +373,97 @@ class BlockSimulator:
             overflow |= ovf
             saves += pos
         trajectory = _trajectory(torch.stack(saves), self.kT, overflow)
+        return SimulatorOutput(observables=[trajectory], state={"final_state": state})
+
+
+@dc.dataclass(frozen=True)
+class PairSimulator:
+    """Rigid-body BAOAB Langevin of a composed energy over static neighbours:
+    the small-system path (the reference's ``NoNeighborList``/``DensePairs``
+    branch of TpuSimulator, the one ``__graft_entry__.entry()`` and
+    ``examples/dna1_simulation.py`` run). Any model; no kernel: the force is
+    torch autograd of the energy, which runs where the state lives.
+
+    ``neighbors``: a ``NoNeighborList`` (the energy's unbonded terms take
+    its pair list) or ``DensePairs`` (the energy must carry its dense mask:
+    ``create_default_energy_fn(dense_unbonded=True)``). ``run(opt_params,
+    init_state, n_steps, generator)`` returns a SimulatorOutput with one
+    SimulatorTrajectory: every ``save_every``-th state (every state with
+    ``save_every`` <= 1, the reference's default), in the original order,
+    with no overflow metadata (a static list never overflows), as the
+    reference's. The run is differentiable in ``opt_params`` and the
+    initial state (the forces with ``create_graph``);
+    ``checkpoint_every`` keeps that many outer iterations (steps, or saves
+    of ``save_every`` steps) under one ``torch.utils.checkpoint``, their
+    normals drawn first, and must divide their number (ERR_CHKPNT_SCN).
+    """
+
+    energy_fn: object
+    neighbors: NoNeighborList | DensePairs
+    dt: float
+    kT: float  # noqa: N815 - domain casing
+    mass: float = 1.0
+    inertia: tuple = (1.0, 1.0, 1.0)
+    gamma_t: float = 0.0
+    gamma_r: float = 0.0
+    save_every: int = 1
+    checkpoint_every: int = 0
+
+    def replace(self, **kw) -> "PairSimulator":
+        return dc.replace(self, **kw)
+
+    def _energy(self, opt_params):
+        """The energy with ``opt_params`` bound and the neighbours' pairs: the
+        static list, or the dense mask the energy must carry."""
+        energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
+        if isinstance(self.neighbors, NoNeighborList):
+            return energy.with_props(unbonded_neighbors=self.neighbors.unbonded_nbrs)
+        if any(fn.dense_mask is None for fn in energy.energy_fns if isinstance(fn, _UnbondedPairs)):
+            raise ValueError("DensePairs needs an energy with its dense mask (create_default_energy_fn("
+                             "dense_unbonded=True))")
+        return energy
+
+    def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
+        every_step = self.save_every <= 1
+        if not every_step and n_steps % self.save_every:
+            raise ValueError(ERR_SAVE_EVERY.format(self.save_every, n_steps))
+        per_save = 1 if every_step else self.save_every
+        n_outer = n_steps // per_save
+        ck = self.checkpoint_every
+        if ck > 0 and n_outer % ck:
+            raise ValueError(ERR_CHKPNT_SCN.format(ck, n_outer))
+        graph = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*(opt_params or {}).values(), init_state.center, init_state.orientation)
+        )
+        gamma = RigidBody(torch.tensor([self.gamma_t], dtype=torch.float64),
+                          torch.tensor([self.gamma_r], dtype=torch.float64))
+        init_fn, step_fn = nvt_langevin(self._energy(opt_params), spaces.free()[1], self.dt, self.kT, gamma,
+                                        create_graph=graph)
+        mass = RigidBody(torch.tensor([self.mass], dtype=torch.float64), torch.tensor([self.inertia], dtype=torch.float64))
+        state = init_fn(generator, init_state, mass)
+        c = init_state.center
+        group = ck if ck > 0 else 1
+
+        def outer(state, xis):
+            pos = []
+            for k in range(group):
+                for xi in xis[k * per_save : (k + 1) * per_save]:
+                    state = step_fn(state, xi=xi)
+                pos.append(torch.cat([state.position.center, state.position.orientation], dim=-1))
+            return state, pos
+
+        saves = []
+        for _ in range(n_outer // group):
+            xis = [torch.randn((2, *c.shape), generator=generator, device=c.device, dtype=c.dtype)
+                   for _ in range(group * per_save)]
+            if graph and ck > 0:
+                state, pos = checkpoint(outer, state, xis, use_reentrant=False, preserve_rng_state=False)
+            else:
+                state, pos = outer(state, xis)
+            saves += pos
+        traj = torch.stack(saves)
+        trajectory = SimulatorTrajectory(
+            center=traj[..., :3], orientation=traj[..., 3:],
+            temperature=torch.full((traj.shape[0],), float(self.kT), device=traj.device),
+        )
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})

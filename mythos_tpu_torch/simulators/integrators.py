@@ -1,14 +1,18 @@
-"""Rigid-body BAOAB Langevin on SoA state.
+"""Rigid-body integrators: BAOAB Langevin on AoS and on SoA state, and NVE.
 
-Counterpart of ``LangevinStateSoA`` and ``nvt_langevin_soa`` in
-mythos_tpu/simulators/integrators.py: geodesic BAOAB with the exact
-NO_SQUISH free rotor and exact Ornstein-Uhlenbeck momenta,
+Counterpart of mythos_tpu/simulators/integrators.py: ``LangevinState``,
+``free_rotor``, ``nvt_langevin`` and ``nve`` (the AoS forms the
+small-system path steps with, the force by autograd of the energy), and
+``LangevinStateSoA`` and ``nvt_langevin_soa`` (the kernel tiers'):
+geodesic BAOAB with the exact NO_SQUISH free rotor and exact
+Ornstein-Uhlenbeck momenta,
 
     B: p += dt/2 F;  L += dt/2 tau      A: x += dt/2 p/m;  (q, L) <- rotor(dt/2)
     O: p <- c p + sqrt((1-c^2) m kT) xi,  c = exp(-gamma dt / m)   (same for L)
     A, then the force refresh and B.
 
-Random numbers come from an explicit ``torch.Generator``. The stencil
+Random numbers come from an explicit ``torch.Generator`` (the AoS forms
+draw (2, N, 3) normals a step: momenta, then angular momenta). The stencil
 tier's chunk path runs its steps in whole chunks in the K1 kernel
 (ops.stencil.multistep_chunk) and takes only the initial state from here;
 its per-step branch (``save_every`` 1) and the block tier step with
@@ -26,6 +30,149 @@ import torch
 
 from mythos_tpu_torch import soa
 from mythos_tpu_torch.ops.stencil import ou_constants
+from mythos_tpu_torch.rigid_body import RigidBody
+
+
+class LangevinState(NamedTuple):
+    """AoS integrator state: ``position`` (N, 3)/(N, 4), the (N, 3)
+    momenta, body-frame angular momenta, cached force and body torque, and
+    ``mass`` (center (N,) masses, orientation (N, 3) principal moments)."""
+
+    position: RigidBody
+    momentum: torch.Tensor
+    angmom: torch.Tensor
+    force: torch.Tensor
+    torque: torch.Tensor
+    mass: RigidBody
+
+
+def _aos(v: soa.Vec3) -> torch.Tensor:
+    return torch.stack(tuple(v), dim=-1)
+
+
+def free_rotor(q: torch.Tensor, angmom: torch.Tensor, inertia: torch.Tensor, dt: float):
+    """Exact NO_SQUISH free rigid-rotor flow for time dt on (N, 4)
+    quaternions and (N, 3) body angular momenta (``inertia`` (N, 3) or (3,))."""
+    inv = (1.0 / torch.broadcast_to(torch.as_tensor(inertia, dtype=angmom.dtype, device=angmom.device),
+                                    angmom.shape)).unbind(-1)
+    q2, ell = soa.free_rotor_soa(soa.Quat(*q.unbind(-1)), soa.Vec3(*angmom.unbind(-1)), inv, dt)
+    return torch.stack(tuple(q2), dim=-1), _aos(ell)
+
+
+def _force_torque(energy_fn: Callable, body: RigidBody, create_graph: bool = False, **kwargs):
+    """Force and body-frame torque from one reverse-mode gradient of the
+    energy (torch autograd, as the reference's ``jax.grad``). With
+    ``create_graph`` they stay differentiable in whatever the body and the
+    energy's parameters depend on (direct differentiation through a run)."""
+    with torch.enable_grad():
+        c, q = body
+        if not (create_graph and c.requires_grad):
+            c = c.detach().requires_grad_(True)
+        if not (create_graph and q.requires_grad):
+            q = q.detach().requires_grad_(True)
+        e = energy_fn(RigidBody(c, q), **kwargs)
+        g_c, g_q = torch.autograd.grad(e, (c, q), create_graph=create_graph)
+    if not create_graph:
+        q = q.detach()
+    torque = soa.quat_cotangent_to_torque_soa(soa.Quat(*q.unbind(-1)), soa.Quat(*g_q.unbind(-1)))
+    return -g_c, _aos(torque)
+
+
+def _mass_of(mass: RigidBody, n: int, like: torch.Tensor) -> RigidBody:
+    m = torch.broadcast_to(torch.as_tensor(mass.center, dtype=like.dtype, device=like.device).reshape(-1), (n,))
+    inertia = torch.broadcast_to(torch.as_tensor(mass.orientation, dtype=like.dtype, device=like.device), (n, 3))
+    return RigidBody(m, inertia)
+
+
+def nvt_langevin(
+    energy_fn: Callable, shift_fn: Callable, dt: float, kT: float, gamma: RigidBody,  # noqa: N803
+    create_graph: bool = False,
+) -> tuple[Callable, Callable]:
+    """(init_fn, step_fn) of rigid-body BAOAB Langevin dynamics on AoS state.
+
+    ``energy_fn(body, **kwargs) -> scalar``; ``gamma`` a RigidBody of
+    friction coefficients (center translational, orientation rotational;
+    a value or one a particle). ``init_fn(generator, body, mass, **kwargs)``
+    draws thermal momenta; ``step_fn(state, generator, **kwargs)`` is one
+    B-A-O-A-B step with exact OU momenta, ``step_fn(state, xi=normals)``
+    the same with the step's (2, N, 3) normals given (a checkpointed
+    stretch replays them). ``create_graph``: forces stay on the autograd
+    graph (:func:`_force_torque`)."""
+
+    def init_fn(generator: torch.Generator, body: RigidBody, mass: RigidBody, **kwargs) -> LangevinState:
+        c = body.center
+        n = c.shape[0]
+        m = _mass_of(mass, n, c)
+        xi = torch.randn((2, n, 3), generator=generator, device=c.device, dtype=c.dtype)
+        force, torque = _force_torque(energy_fn, body, create_graph, **kwargs)
+        return LangevinState(
+            position=body,
+            momentum=xi[0] * torch.sqrt(m.center * kT)[:, None],
+            angmom=xi[1] * torch.sqrt(m.orientation * kT),
+            force=force,
+            torque=torque,
+            mass=m,
+        )
+
+    def step_fn(state: LangevinState, generator: torch.Generator | None = None, *, xi: torch.Tensor | None = None,
+                **kwargs) -> LangevinState:
+        m, inertia = state.mass.center[:, None], state.mass.orientation
+        half = 0.5 * dt
+        pos = state.position
+        # B, A
+        p = state.momentum + half * state.force
+        ell = state.angmom + half * state.torque
+        x = shift_fn(pos.center, half * p / m)
+        q, ell = free_rotor(pos.orientation, ell, inertia, half)
+        # O: exact Ornstein-Uhlenbeck on the momenta
+        if xi is None:
+            xi = torch.randn((2, *p.shape), generator=generator, device=p.device, dtype=p.dtype)
+        g_t = torch.as_tensor(gamma.center, dtype=p.dtype, device=p.device).reshape(-1)[:, None]
+        g_r = torch.as_tensor(gamma.orientation, dtype=p.dtype, device=p.device).reshape(-1)[:, None]
+        c_t, c_r = torch.exp(-g_t * dt / m), torch.exp(-g_r * dt / inertia)
+        p = c_t * p + torch.sqrt((1.0 - c_t**2) * m * kT) * xi[0]
+        ell = c_r * ell + torch.sqrt((1.0 - c_r**2) * inertia * kT) * xi[1]
+        # A, force refresh, B
+        x = shift_fn(x, half * p / m)
+        q, ell = free_rotor(q, ell, inertia, half)
+        new_pos = RigidBody(x, q)
+        force, torque = _force_torque(energy_fn, new_pos, create_graph, **kwargs)
+        return state._replace(position=new_pos, momentum=p + half * force, angmom=ell + half * torque, force=force,
+                              torque=torque)
+
+    return init_fn, step_fn
+
+
+def nve(energy_fn: Callable, shift_fn: Callable, dt: float, create_graph: bool = False) -> tuple[Callable, Callable]:
+    """Velocity-Verlet rigid-body NVE (the gamma -> 0 limit): ``init_fn(
+    generator, body, mass, kT=0.0)`` (thermal momenta only for kT > 0),
+    ``step_fn(state)``."""
+
+    def init_fn(generator: torch.Generator, body: RigidBody, mass: RigidBody, kT: float = 0.0,  # noqa: N803
+                **kwargs) -> LangevinState:
+        c = body.center
+        n = c.shape[0]
+        m = _mass_of(mass, n, c)
+        if kT:
+            xi = torch.randn((2, n, 3), generator=generator, device=c.device, dtype=c.dtype)
+            momentum, angmom = xi[0] * torch.sqrt(m.center * kT)[:, None], xi[1] * torch.sqrt(m.orientation * kT)
+        else:
+            momentum = angmom = torch.zeros((n, 3), dtype=c.dtype, device=c.device)
+        force, torque = _force_torque(energy_fn, body, create_graph, **kwargs)
+        return LangevinState(body, momentum, angmom, force, torque, m)
+
+    def step_fn(state: LangevinState, **kwargs) -> LangevinState:
+        m, inertia = state.mass.center[:, None], state.mass.orientation
+        p = state.momentum + 0.5 * dt * state.force
+        ell = state.angmom + 0.5 * dt * state.torque
+        x = shift_fn(state.position.center, dt * p / m)
+        q, ell = free_rotor(state.position.orientation, ell, inertia, dt)
+        new_pos = RigidBody(x, q)
+        force, torque = _force_torque(energy_fn, new_pos, create_graph, **kwargs)
+        return state._replace(position=new_pos, momentum=p + 0.5 * dt * force, angmom=ell + 0.5 * dt * torque,
+                              force=force, torque=torque)
+
+    return init_fn, step_fn
 
 
 class LangevinStateSoA(NamedTuple):

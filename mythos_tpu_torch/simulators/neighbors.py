@@ -1,14 +1,20 @@
-"""Neighbor structures: the banded stencil (site mode) and block tables.
+"""Neighbor structures: static pairs, the banded stencil (site mode) and
+block tables.
 
 Counterpart of mythos_tpu/simulators/neighbors.py:
 
+* the static half (small systems): ``NoNeighborList`` (a fixed pair list),
+  ``DensePairs`` (the dense (N, N)-mask path's marker) and their masks,
+  ``bonded_exclusion_mask`` and ``dense_pair_mask``;
 * the stencil half: ``strand_interleave_perm``,
   ``stencil_band_for_site_cutoffs`` (host numpy sizing, carried over as is)
   and ``StencilBand``'s site-mode checks (``_check_site``, ``far_check``);
 * the block half: ``BlockNeighborList`` (symmetric tables, the two-level
   tight/wide mode, ``perm``, banded windows, the
   distance-prioritised compaction and the missed-interaction detector),
-  ``_max_span``, ``_snap_capacity`` and ``block_neighbor_list_for_topology``.
+  ``_max_span``, ``_snap_capacity`` and ``block_neighbor_list_for_topology``
+  (oxDNA1 has no Debye term and takes a one-level table: no
+  ``r_cutoff_inner``).
 
 All of it runs in torch on whichever device the positions live. The dense
 O(n_blocks^2) AABB pass is one plain torch pass (1.6M block pairs at 10k nt
@@ -24,6 +30,34 @@ import numpy as np
 import torch
 
 from mythos_tpu_torch.soa import Quat, Vec3, quat_frame_soa
+
+
+@dc.dataclass(frozen=True)
+class NoNeighborList:
+    """All unbonded pairs, statically precomputed (exact, O(N^2) memory):
+    ``unbonded_nbrs`` (U, 2), the energy terms' ``unbonded_neighbors``."""
+
+    unbonded_nbrs: np.ndarray
+
+
+@dc.dataclass(frozen=True)
+class DensePairs:
+    """Marker of the dense (N, N) energy path: the terms carry their
+    constant mask (``dense_pair_mask``), nothing is ever rebuilt."""
+
+
+def bonded_exclusion_mask(n: int, bonded_neighbors: np.ndarray) -> np.ndarray:
+    """(N, N) boolean mask of excluded (self + bonded) pairs."""
+    mask = np.eye(n, dtype=bool)
+    bn = np.asarray(bonded_neighbors).reshape(-1, 2)
+    mask[bn[:, 0], bn[:, 1]] = mask[bn[:, 1], bn[:, 0]] = True
+    return mask
+
+
+def dense_pair_mask(topology) -> np.ndarray:
+    """(N, N) upper-triangular unbonded-pair mask for the dense energy path."""
+    n = topology.n_nucleotides
+    return np.triu(~bonded_exclusion_mask(n, topology.bonded_neighbors), k=1)
 
 
 def strand_interleave_perm(topology) -> np.ndarray | None:

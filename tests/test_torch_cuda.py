@@ -38,7 +38,12 @@ forward, their plain versions backward): the VJPs of ``TileForces`` (every
 kind) and ``LJGrads`` on the card against the CPU (rtol 1e-3, atol 1e-4 x
 max|CPU|), a 40-bp block gradient and the 104-bead bilayer's NPT gradient
 card vs CPU (gradients rtol 1e-2 / atol 1e-3 max|grad|), and runs with
-gradients giving the bits and launches of the runs without them.
+gradients giving the bits and launches of the runs without them. oxDNA1:
+K2's and K1's dna1 instances as oxRNA2's (K2's tally with no Debye class,
+coaxial stacking alone on pairs inside coax's reach), K3's dna1 instance
+on the one-level table, 40-bp stencil (both branches) and block runs card
+vs CPU with their launches, the small-system path card vs CPU (pairs and
+dense) and entry()'s step on the card.
 """
 
 import math
@@ -702,3 +707,190 @@ def test_martini_grad_run_is_the_no_grad_run_on_card(card):
     _, _, got, k = _martini_grad_run(card)
     assert torch.equal(got.center.detach(), ref.center) and torch.equal(got.box_size.detach(), ref.box_size)
     assert k == k_ref and k[0] == k[1] == k[2] == 1 + 50 + 5
+
+
+# oxDNA1: the dna1 instances of K1, K2 and K3, and the small-system path ----------
+
+
+@pytest.fixture(scope="module")
+def dna1_system(card):
+    top, body = synthetic_duplex(40, dtype=torch.float32, device=card)
+    e, sim = build_sim(top, KT, model="dna1", init_centers=body.center, init_orientation=body.orientation,
+                       device=card)
+    ctx = ts.prepare_stencil_context(e, sim.band, device=card)
+    return e, sim, ctx, body
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ideal", "jittered", "coax"])
+def test_k2_dna1_kernel_matches_twin(dna1_system, case):
+    """K2's oxDNA1 instance against its plain version (rtol 1e-4, atol 1e-4
+    max|plain|), ideal, jittered, and with coaxial stacking alone on pairs
+    placed coaxially stacked inside coax's reach; its tally equal to
+    band_gate_counts' with no Debye class, equal bits on a second call, one
+    launch counted for the family."""
+    import dataclasses as dc
+
+    _, _, ctx, body = dna1_system
+    if case == "coax":
+        com, quat = (ctx.to_slots(x.T.double()).T.cpu().numpy() for x in (body.center, body.orientation))
+        com, quat = coax_engaged(com, quat, [(10, 11), (30, 33), (50, 55)], seed=3)
+        dyn = torch.as_tensor(np.concatenate([com.T, quat.T]), dtype=torch.float32, device="cuda").contiguous()
+        params = ctx.params.clone()
+        off = ts.param_offsets()["GT"]
+        params[off : off + 8] = torch.tensor([0, 0, 0, 1, 0, 0, 0, 0], dtype=torch.float32)
+        ctx = dc.replace(ctx, params=params)
+    else:
+        b = body if case == "ideal" else _jittered(body, torch.Generator(device="cuda").manual_seed(5))
+        dyn = torch.cat([ctx.to_slots(b.center.T), ctx.to_slots(b.orientation.T)]).contiguous()
+    before = dict(ts.field_grads.by_family)
+    got, tally = ts._field_grads(ctx, dyn, count=True)
+    assert ts.field_grads.by_family == {**before, "dna1": before["dna1"] + 1}
+    ref = ts.field_grads_plain(ctx, dyn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    assert tally == ts.band_gate_counts(ctx, dyn)
+    assert tally["short"] > 0 and tally["debye"] == tally["Debye"] == 0
+    assert torch.equal(got, ts.field_grads(ctx, dyn))
+    if case == "coax":
+        assert float(ref.abs().max()) > 1.0
+
+
+@pytest.mark.cuda
+def test_k1_dna1_kernel_matches_twin(dna1_system):
+    """K1's oxDNA1 instance against its plain version over 4 and 3 steps
+    (rtol 2e-4, atol 5e-5), equal bits on a second call, one launch counted
+    for the family; the exact checks widened to every in-band offset (d_lo
+    1), so that row 19 counts the helix's own contacts on the one backbone
+    site."""
+    import dataclasses as dc
+
+    _, sim, ctx, body = dna1_system
+    checks = ctx.checks.clone()
+    checks[:, 3] = 1.0
+    ctx = dc.replace(ctx, checks=checks)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = sim.initial_state(ctx, _jittered(body, gen), gen)
+    noise = torch.randn((4, 6, ctx.n), generator=gen, device="cuda").to(torch.bfloat16)
+    ou = ts.ou_constants(sim.dt, sim.kT, [1.0], [[1.0, 1.0, 1.0]], [sim.gamma_t], [sim.gamma_r]).vector("cuda")
+    before = dict(ts.multistep_chunk.by_family)
+    got = ts.multistep_chunk(ctx, ou, noise, state)
+    assert ts.multistep_chunk.by_family == {**before, "dna1": before["dna1"] + 1}
+    ref = ts.multistep_chunk_plain(ctx, ou, noise, state)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=5e-5)
+    assert float(ref[19].sum()) > 0
+    assert torch.equal(got, ts.multistep_chunk(ctx, ou, noise, state))
+    odd = noise[:3].contiguous()
+    torch.testing.assert_close(ts.multistep_chunk(ctx, ou, odd, state), ts.multistep_chunk_plain(ctx, ou, odd, state),
+                               rtol=2e-4, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_every", [10, 1], ids=["chunks", "per-step"])
+def test_dna1_stencil_run_on_card_matches_cpu(card, save_every):
+    """The oxDNA1 stencil, 40 bp, 40 steps, thermostat off, on the chunk path
+    (K1 once a chunk) and the per-step branch (K2 n + 1 times): the card's
+    run agrees with the CPU's (rtol 1e-4, atol 1e-5)."""
+
+    def run(device):
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=device)
+        e, sim = build_sim(top, 0.0, model="dna1", init_centers=b.center, init_orientation=b.orientation,
+                           neighbor_update_every=10, device=device)
+        return sim.replace(save_every=save_every).run(e.opt_params(), b, 40,
+                                                      torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    k1, k2 = dict(ts.multistep_chunk.by_family), dict(ts.field_grads.by_family)
+    gpu = run(card)
+    torch.cuda.synchronize()
+    if save_every == 1:
+        assert ts.field_grads.by_family["dna1"] == k2["dna1"] + 41
+        assert ts.multistep_chunk.by_family == k1
+    else:
+        assert ts.multistep_chunk.by_family["dna1"] == k1["dna1"] + 4
+    cpu = run("cpu")
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    assert not bool(gpu.metadata["neighbor_overflow"].any())
+
+
+@pytest.fixture(scope="module")
+def dna1_tile_inputs(card):
+    """{shape: (context, table, rows)} of a jittered 40-bp duplex under
+    oxDNA1, straight and bent 270 degrees, on its one-level block table."""
+    out = {}
+    for shape, bend in (("straight", None), ("bent", math.radians(270))):
+        top, body = synthetic_duplex(40, bend=bend, dtype=torch.float32, device=card)
+        e, sim = build_sim(top, KT, mode="block", model="dna1", init_centers=body.center, device=card)
+        nbl = sim.neighbors
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        (ctx,) = tiles.prepare_contexts(e, nbl.idx, nbl.block_size, perm=nbl.perm, forces_only=True)
+        out[shape] = (ctx, nbl.idx, tiles.dynamic_rows(ctx, to_soa(_jittered(body, gen))).contiguous())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["straight", "bent"])
+def test_k3_dna1_kernel_matches_plain(dna1_tile_inputs, shape):
+    """K3's oxDNA1 instance against its plain version on the one-level table
+    (short kind), its pair classes those of the plain gate (no Debye
+    class), equal bits on a second call, one launch counted for the family;
+    K4 and K5 refuse oxDNA1 (not ported)."""
+    ctx, ids, rows = dna1_tile_inputs[shape]
+    sp = ctx.spec
+    assert (sp.family, sp.kind) == ("dna1", "short")
+    before = dict(tiles.tile_forces.by_family)
+    got = tiles.tile_forces(rows, ctx.params, ids, sp)
+    torch.cuda.synchronize()
+    assert tiles.tile_forces.by_family == {**before, "dna1": before["dna1"] + 1}
+    _close(got, tiles.tile_forces_plain(rows, ctx.params, ids, sp))
+    again, counts = tiles._tile_forces(rows, ctx.params, ids, sp, count=True)
+    assert torch.equal(got, again)
+    assert _tally(counts) == tiles.tile_gate_counts(rows, ctx.params, ids, sp)
+    assert _tally(counts)["debye"] == 0
+    with pytest.raises(NotImplementedError):
+        tiles.tile_energies(rows, ctx.params, ids, sp)
+
+
+@pytest.mark.cuda
+def test_dna1_block_run_on_card_matches_cpu(card):
+    """The oxDNA1 block tier, 40 bp, 20 steps, thermostat off: K3's dna1
+    instance on the card (once a step on the one table) against the plain
+    version on the CPU."""
+
+    def run(device):
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=device)
+        e, sim = build_sim(top, 0.0, mode="block", model="dna1", init_centers=b.center, neighbor_update_every=5,
+                           device=device)
+        out = sim.replace(save_every=10).run(e.opt_params(), b, 20, torch.Generator(device=device).manual_seed(0))
+        return out.observables[0]
+
+    before = tiles.tile_forces.by_family["dna1"]
+    gpu = run(card)
+    torch.cuda.synchronize()
+    assert tiles.tile_forces.by_family["dna1"] == before + 21
+    cpu = run("cpu")
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pairs", "dense"])
+def test_small_system_run_on_card_matches_cpu(card, mode):
+    """The small-system path (no kernel: autograd on the card), oxDNA1, 40
+    bp, 20 steps, thermostat off: the card agrees with the CPU (rtol 1e-4,
+    atol 1e-5), and entry()'s step runs on the card."""
+    from mythos_tpu_torch import entry
+
+    def run(device):
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=device)
+        e, sim = build_sim(top, 0.0, mode=mode, model="dna1", device=device)
+        return sim.run(e.opt_params(), b, 20, torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    gpu, cpu = run(card), run("cpu")
+    assert gpu.center.device.type == "cuda" and gpu.center.shape == (20, 80, 3)
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    step, (state0,) = entry.entry()
+    state = step(state0)
+    assert state.position.center.device.type == "cuda" and bool(torch.isfinite(state.position.center).all())

@@ -138,9 +138,10 @@ def test_total_energy_gradient_flows_to_params(energies):
 
 
 def test_port_imports_no_jax():
-    """(h) importing every module of the port (the oxRNA2 package among
-    them) pulls in no jax, chex, sympy, MDAnalysis, nor any module of the
-    JAX package."""
+    """(h) importing every module of the port (the oxRNA2 and oxDNA1
+    packages, the oxDNA file readers and the small-system path among them)
+    pulls in no jax, chex, sympy, MDAnalysis, nor any module of the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mythos_tpu_torch\n"
@@ -151,6 +152,9 @@ def test_port_imports_no_jax():
         "rna2 = {'mythos_tpu_torch.energy.rna2', 'mythos_tpu_torch.energy.rna2.nucleotide', "
         "'mythos_tpu_torch.energy.rna2.terms'}\n"
         "assert rna2 <= set(sys.modules), rna2 - set(sys.modules)\n"
+        "dna1 = {'mythos_tpu_torch.energy.dna1', 'mythos_tpu_torch.energy.dna1.nucleotide', "
+        "'mythos_tpu_torch.io.trajectory', 'mythos_tpu_torch.io.oxdna_input', 'mythos_tpu_torch.utils.units'}\n"
+        "assert dna1 <= set(sys.modules), dna1 - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('mythos_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -151,10 +151,14 @@ def test_bonds_off_offset_two_raise():
 
 
 def test_build_sim_refuses_unported_modes():
+    """Every (mode, model) of the reference's _build_sim builds but the rna2
+    block tier (the reference's fused tiles refuse it), which raises, as
+    does a mode or model the reference does not know."""
     top, body = synthetic_duplex(8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        entry.build_sim(top, KT, mode="dense", init_centers=body.center, init_orientation=body.orientation,
-                        device="cpu")
+    for mode, model in (("block", "rna2"), ("hierarchical", "dna2"), ("stencil", "na1")):
+        with pytest.raises(NotImplementedError):
+            entry.build_sim(top, KT, mode=mode, model=model, init_centers=body.center,
+                            init_orientation=body.orientation, device="cpu")
 
 
 def test_kernel_autograd_functions_backward_through_twins():
