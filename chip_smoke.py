@@ -128,8 +128,25 @@ Phases, one line each; any failure exits non-zero:
    model="dna1")`` on the arc, 200 steps, and 40 bp card vs CPU; (15e) the
    small-system path: ``entry.entry()``'s 8-bp step 100 times, a 40-bp
    duplex written as oxDNA files and read back by the port's readers,
-   ``build_sim(mode="pairs", model="dna1")`` on them for 1000 steps (no
-   kernel: autograd on the card), 40 steps card vs CPU.
+   ``build_sim(mode="pairs", model="dna1")`` on them for 300 steps (no
+   kernel: autograd on the card; 1000 before phase 16 came), 40 steps card
+   vs CPU;
+16. DiffTRe under oxDNA1: (16a) K4's and K5's dna1 instances against
+   their plain versions on the 0.01-jittered 10k-nt duplex's B = 8 table
+   (phase 6's tolerances), their tallies against ``tile_gate_counts``,
+   bits, registers and spill, device time a call; (16b) the reference
+   example's fit at full width: ``BoundSimulator`` over the dna1 stencil
+   (10,000 MD steps a simulation, a state every 200, 10 equilibration
+   states), ``DiffTReObjective`` on the tile map (K4, K5), the
+   propeller-twist loss through ``ObservableLossFn``, ``SimpleOptimizer``
+   with Adam (lr 1e-3) and ``ConsoleLogger``, 5 steps -- finite loss and
+   gradients, ``eps_stack_base`` moves, no overflow, n_eff printed each
+   step, seconds a step, the map's states/s, K4's and K5's launches; (16c)
+   the example's own ``main()`` on a 40-bp duplex from oxDNA files (200 MD
+   steps on the pair list, 2 Adam steps), its first step's loss and
+   gradients card vs CPU (rtol 1e-4, atol 1e-5 max|grad|); (16d) the
+   native trajectory parser on the fit's 10k-nt, 50-state trajectory,
+   equal to the numpy parser's.
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
 phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
@@ -208,7 +225,14 @@ FAMILY_CODE = {"dna2": 0, "rna2": 1, "dna1": 2}
 #: phase 15: oxDNA1's block run on the arc (phase 7 runs 400), the
 #: small-system path's duplex, its steps, and entry()'s steps
 DNA1_BLOCK_STEPS = 200
-SMALL_BP, SMALL_STEPS, ENTRY_STEPS = 40, 1000, 100
+SMALL_BP, SMALL_STEPS, ENTRY_STEPS = 40, 300, 100
+#: phase 16: the DiffTRe fit under oxDNA1 at 10k nt (MD steps a simulation,
+#: a state every FIT_SAVE steps, equilibration states sliced off, Adam
+#: steps at FIT_LR; the reference example's 100-step cadence is no multiple
+#: of the 40-step chunk, its 50 optimizer steps are cut for time), the
+#: example's own shape at 40 bp (cut for time), the parser's states
+FIT_MD_STEPS, FIT_SAVE, FIT_EQ, FIT_OPT_STEPS, FIT_LR = 10_000, 200, 10, 5, 1e-3
+EXAMPLE_MD, EXAMPLE_SAVE, EXAMPLE_EQ, EXAMPLE_OPT = 200, 10, 5, 2
 
 
 def _events_ms(fn, reps: int) -> tuple[list[float], object]:
@@ -280,10 +304,26 @@ def _per_call(window: dict, launches: dict) -> float:
     return total
 
 
+def _kernels_ms(window: dict, prefix: str) -> float:
+    """Device ms a call of the kernels of a :func:`_profiled` window whose
+    name starts with ``prefix`` (a template instance's name reads "void
+    name<argument>(...)"): each one's mean time a recorded event, summed."""
+    return sum(ms / c for k, (ms, c) in window["kernels"].items() if k.removeprefix("void ").startswith(prefix))
+
+
 def _lap(phase: str) -> None:
-    """Print the wall seconds of the phase just ended and of the script so far."""
+    """Print the wall seconds of the phase just ended and of the script so
+    far, the process's peak host memory and the card memory the allocator
+    holds."""
+    import resource
+
+    import torch
+
     _LAPS.append(time.perf_counter())
-    print(f"[time] {phase}: {_LAPS[-1] - _LAPS[-2]:.1f} s (script so far {_LAPS[-1] - _LAPS[0]:.1f} s)")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB -> GiB
+    held = torch.cuda.memory_reserved() / 2**30 if torch.cuda.is_available() else 0.0
+    print(f"[time] {phase}: {_LAPS[-1] - _LAPS[-2]:.1f} s (script so far {_LAPS[-1] - _LAPS[0]:.1f} s; peak host "
+          f"memory {rss:.1f} GiB, card memory held {held:.1f} GiB)", flush=True)
 
 
 def _within(got, ref, rtol: float, atol: float) -> tuple[bool, float]:
@@ -1639,7 +1679,7 @@ def _dna1(dev, smi: str, ptx: dict) -> list[dict]:
         e_b, sim_b = build_sim(top_b, KT, mode="block", model="dna1", block_size=8, init_centers=b0.center,
                                device=dev)
         nbl = sim_b.neighbors
-        (tctx,) = tiles.prepare_contexts(e_b, nbl.idx, nbl.block_size, perm=nbl.perm, forces_only=True)
+        (tctx,) = tiles.prepare_contexts(e_b, nbl.idx, nbl.block_size, perm=nbl.perm)
         ids, sp, P = nbl.idx, tctx.spec, tctx.params
         rows = tiles.dynamic_rows(tctx, to_soa(jittered(b0))).contiguous()
         geo = _pair_geometry(tctx, ids, rows, site_cutoffs)
@@ -1655,7 +1695,7 @@ def _dna1(dev, smi: str, ptx: dict) -> list[dict]:
         same = torch.equal(got, again)
         tally_ok = sum(abs(tally[k] - gate[k]) for k in gate) <= 1e-4 * sum(gate.values()) and tally["debye"] == 0
         win = _profiled(lambda: tiles.tile_forces(rows, P, ids, sp), 10)
-        dev_ms = sum(ms / c for k, (ms, c) in win["kernels"].items() if k.startswith("tile_forces_dna1"))
+        dev_ms = _kernels_ms(win, f"tile_forces_kernel<{FAMILY_CODE['dna1']}>")
         print(f"[15d K3 dna1 {label}] B={nbl.block_size} cap {nbl.capacity} (one table: {nbl.r_cutoff_inner is None}) "
               f"banded={nbl.banded} overflow={bool(nbl.did_overflow)}; {int(near.sum())} of {sp.n} rows near the "
               f"clamp; err {err:.2e} ({rule}) ok={ok}; kernel {statistics.median(k_ms):.4f} ms by events, "
@@ -1723,22 +1763,10 @@ def _dna1(dev, smi: str, ptx: dict) -> list[dict]:
           f"({el_e / ENTRY_STEPS * 1e3:.2f} ms a step), finite={fin_e}")
     top_f, body_f = synthetic_duplex(SMALL_BP, dtype=torch.float64, device="cpu")
     a1, _, a3 = (torch.stack(tuple(v), -1) for v in quat_frame_soa(Quat(*body_f.orientation.unbind(-1))))
-    nt = top_f.n_nucleotides
     with tempfile.TemporaryDirectory() as tmp:
-        lines, start = [f"{nt} {len(top_f.strand_counts)}"], 0
-        for sid, length in enumerate(top_f.strand_counts, start=1):
-            for k in range(int(length)):
-                i = start + k
-                lines.append(f"{sid} {'ACGT'[int(top_f.seq[i])]} {i - 1 if k > 0 else -1} "
-                             f"{i + 1 if k < length - 1 else -1}")
-            start += int(length)
-        (Path(tmp) / "sys.top").write_text("\n".join(lines) + "\n")
-        conf = torch.cat([body_f.center, a1, a3, torch.zeros((nt, 6), dtype=torch.float64)], dim=1).numpy()
-        io_traj.Trajectory(n_nucleotides=nt, strand_lengths=[int(c) for c in top_f.strand_counts],
-                           times=np.zeros(1), energies=np.zeros((1, 3)), states=[io_traj.NucleotideState(conf)],
-                           box_size=np.array([50.0, 50.0, 50.0])).to_file(Path(tmp) / "init.conf")
-        top_r = io_top.from_oxdna_file(Path(tmp) / "sys.top")
-        state_r = io_traj.from_file(Path(tmp) / "init.conf", top_r.strand_counts, is_5p_3p=False).states[0]
+        top_path, conf_path = io_top.to_oxdna_files(Path(tmp), top_f, body_f)
+        top_r = io_top.from_oxdna_file(top_path)
+        state_r = io_traj.from_file(conf_path, top_r.strand_counts, is_5p_3p=False).states[0]
     body_r = state_r.to_rigid_body(dtype=torch.float32, device=dev)
     a1_r, _, a3_r = (torch.stack(tuple(v), -1) for v in quat_frame_soa(Quat(*body_r.orientation.double().unbind(-1))))
     io_err = max(float((body_r.center.double().cpu() - body_f.center).abs().max()),
@@ -1793,6 +1821,247 @@ def _dna1(dev, smi: str, ptx: dict) -> list[dict]:
          "replaces": "mythos_tpu/ops/oxdna_tiles.py:1094", "launches": k3_launches, "max_abs_err": k3["err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
          "library_ms": None},
+    ]
+
+
+def _dna1_difftre(dev, smi: str, ptx: dict) -> list[dict]:
+    """Phase 16: DiffTRe under oxDNA1 -- K4's and K5's dna1 instances
+    against their plain versions at 10k nt (16a), the fit at full width
+    through BoundSimulator, DiffTReObjective, SimpleOptimizer and
+    ConsoleLogger (16b), the reference example's own shape at 40 bp through
+    its ``main()``, its first step card vs CPU (16c), and the native
+    trajectory parser on a 10k-nt, 50-state trajectory (16d). The K4 and K5
+    dna1 records."""
+    import functools
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import mythos_tpu_torch.energy.dna1 as dna1
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.examples import difftre_propeller_fit as fit_example
+    from mythos_tpu_torch.io import native
+    from mythos_tpu_torch.io import topology as io_top
+    from mythos_tpu_torch.io import trajectory as io_traj
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.ops import tiles
+    from mythos_tpu_torch.optimization import DiffTReObjective, SimpleOptimizer
+    from mythos_tpu_torch.rigid_body import RigidBody
+    from mythos_tpu_torch.simulators.base import BoundSimulator
+    from mythos_tpu_torch.simulators.neighbors import block_neighbor_list_for_topology, strand_interleave_perm
+    from mythos_tpu_torch.soa import to_soa
+    from mythos_tpu_torch.ui.loggers import ConsoleLogger
+
+    topology, body = synthetic_duplex(N_BP, dtype=torch.float32, device=dev)
+    energy_fn, sim = build_sim(topology, KT, model="dna1", init_centers=body.center,
+                               init_orientation=body.orientation, device=dev)
+    map_nbl = block_neighbor_list_for_topology(topology, dna1.default_neighbor_cutoff(), block_size=8,
+                                               init_centers=body.center, perm=strand_interleave_perm(topology))
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device=dev)
+    jb = RigidBody(body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device=dev),
+                   q / q.norm(dim=-1, keepdim=True))
+
+    # 16a. K4 and K5 (dna1) against their plain versions on the jittered duplex's table
+    (ctx,) = tiles.prepare_contexts(energy_fn, map_nbl.idx, map_nbl.block_size, perm=map_nbl.perm)
+    sp, P, ids = ctx.spec, ctx.params, map_nbl.idx
+    rows = tiles.dynamic_rows(ctx, to_soa(jb)).contiguous()
+    rows64, P64 = rows.double(), P.double()
+    geo = _pair_geometry(ctx, ids, rows, dna1.per_term_site_cutoffs())
+    full, tri, short, hb, _, ulps, _ = geo
+    near = ((ulps <= CLAMP_ULPS) & short & full).any(-1).reshape(-1)
+    gt = tiles.term_weights(P, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device=dev)
+    print(f"[16a K4/K5 dna1] {sp.n} nt, B={sp.block_size} cap {sp.cap} banded={map_nbl.banded} kind {sp.kind} "
+          f"overflow={bool(map_nbl.did_overflow)}; {int(near.sum())} rows near the float32 arccos clamp")
+    runs = {
+        "K4": ("tile_energies", lambda: tiles.tile_energies(rows, P, ids, sp),
+               lambda: tiles.tile_energies_plain(rows, P, ids, sp),
+               lambda: tiles.tile_energies_plain(rows64, P64, ids, sp),
+               lambda: tiles._tile_energies(rows, P, ids, sp, count=True), True),
+        "K5": ("tile_row_grads", lambda: tiles.tile_row_grads(rows, P, ids, gt, sp),
+               lambda: tiles.tile_row_grads_plain(rows, P, ids, gt, sp),
+               lambda: tiles.tile_row_grads_plain(rows64, P64, ids, gt.double(), sp),
+               lambda: tiles._tile_row_grads(rows, P, ids, gt, sp, count=True), False),
+    }
+    rec = {}
+    for key, (cname, kern, plain, plain64, counted, triangular) in runs.items():
+        k_ms, got = _events_ms(kern, 20)
+        p_ms, ref = _events_ms(plain, 3)
+        ok, rule, err = _checked(f"16a {key} dna1", got, ref, plain64(), near)
+        again, counts = counted()
+        tally = dict(zip(("short", "debye", "skipped"), counts.tolist(), strict=True))
+        gate = tiles.tile_gate_counts(rows, P, ids, sp, triangular=triangular)
+        same = torch.equal(got, again)
+        tally_ok = sum(abs(tally[k] - gate[k]) for k in gate) <= 1e-4 * sum(gate.values()) and tally["debye"] == 0
+        win = _profiled(kern, 10)
+        dev_ms = _kernels_ms(win, "tile_")
+        regs, spill = ptx.get(f"{cname}_kernel<{FAMILY_CODE['dna1']}>", (0, -1))
+        print(f"[16a {key} dna1] err {err:.2e} ({rule}) ok={ok}; {statistics.median(k_ms):.4f} ms by events, "
+              f"{_dev(dev_ms)} of device time a call ({_kernel_list(win)}), plain {statistics.median(p_ms):.2f} ms; "
+              f"{cname}_kernel<2>: {regs} registers, {spill} B spill stores (the dna2 instance's: "
+              f"{ptx.get(f'{cname}_kernel<0>', (0, -1))}); the pairs a call: kernel {tally}, plain gate {gate}; "
+              f"equal bits on a second call: {same}")
+        if not (ok and same and tally_ok):
+            raise SystemExit(f"{key}'s dna1 instance disagrees with its plain version or gate, or is not deterministic")
+        rec[key] = dict(err=err, ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms), dev_ms=dev_ms)
+    k5 = tiles.tile_row_grads(rows, P, ids, tiles.term_weights(P, sp), sp)[:, : sp.n_force_fields]
+    ok35, err35 = _within(k5, tiles.tile_forces(rows, P, ids, sp), rtol=1e-5, atol=5e-6)
+    n_short, n_hb = int((short & tri).sum()), int((hb & tri).sum())
+    in_bytes = sp.n_pad * sp.n_fields * 4 + sp.n_blocks * sp.cap * 4 + 4 * st.param_offsets()["TOTAL"]
+    rec["K4"]["bound"] = _bound(in_bytes + 5 * 4, n_short * FLOP_PAIR_ENERGY)
+    rec["K5"]["bound"] = _bound(in_bytes + sp.n_pad * 16 * 4, n_short * FLOP_PAIR_GRAD + n_hb * FLOP_PAIR_HB)
+    print(f"[16a bounds] {int(tri.sum())} unordered pairs, {n_short} inside the short-range reach ({n_hb} the hb "
+          f"reach), none Debye: " + "; ".join(
+              f"{k} {r['bound'][0]:.5f} ms ({r['bound'][1]}; {_share(r['bound'][0], r['dev_ms'])} of its device time)"
+              for k, r in rec.items()) + f"; K5's body fields vs K3 dna1 {err35:.1e}")
+    if not ok35:
+        raise SystemExit("K5's dna1 body fields disagree with K3's dna1 instance")
+    _lap("16a K4, K5 dna1")
+
+    # 16b. the fit at full width: BoundSimulator over the dna1 stencil (K1, K2),
+    # DiffTReObjective on the tile map (K4, K5), SimpleOptimizer with Adam, ConsoleLogger
+    simulator = BoundSimulator(name="propeller_sim", simulator=sim.replace(save_every=FIT_SAVE),
+                               run_args=(body, FIT_MD_STEPS))
+    objective = DiffTReObjective(
+        name="propeller", required_observables=tuple(simulator.exposes()),
+        grad_or_loss_fn=fit_example.propeller_loss_fn(topology, 21.7, dev),
+        energy_fn=energy_fn.replace(map_neighbors=map_nbl), n_equilibration_steps=FIT_EQ)
+    optimizer = SimpleOptimizer(objective=objective, simulator=simulator,
+                                optimizer=functools.partial(torch.optim.Adam, lr=FIT_LR), logger=ConsoleLogger())
+    params = energy_fn.opt_params()
+    kernels = {"K1": st.multistep_chunk, "K2": st.field_grads, "K4": tiles.tile_energies, "K5": tiles.tile_row_grads}
+    steps, outs = [], []
+
+    def counts():
+        return {k: fn.by_family["dna1"] for k, fn in kernels.items()}
+
+    def record(optimizer_output, step):
+        torch.cuda.synchronize()
+        seq = optimizer_output.state.component_state["propeller_sim"]["seq"]
+        steps.append((time.perf_counter(), seq, counts()))
+        outs.append(optimizer_output)
+        return None, True
+
+    for fn in kernels.values():
+        fn.by_family = dict.fromkeys(fn.by_family, 0)
+    torch.cuda.synchronize()
+    steps.append((time.perf_counter(), 0, counts()))
+    final = optimizer.run(params, FIT_OPT_STEPS, callback=record)
+    n_states = FIT_MD_STEPS // FIT_SAVE - FIT_EQ
+    fit_launches = counts()
+    resim_s, cached_s = [], []
+    for k in range(1, len(steps)):
+        (t0, seq0, c0), (t1, seq1, c1) = steps[k - 1], steps[k]
+        obs = outs[k - 1].observables["propeller"]
+        launched = {name: c1[name] - c0[name] for name in c1}
+        (resim_s if seq1 > seq0 else cached_s).append(t1 - t0)
+        print(f"[16b fit step {k - 1}] {t1 - t0:.3f} s, {'with' if seq1 > seq0 else 'without'} a resimulation "
+              f"({seq1 - seq0} runs of {FIT_MD_STEPS} steps); loss {float(obs['loss']):.6g} n_eff "
+              f"{float(obs['neff']):.6g} propeller twist {float(obs['propeller_twist']):.6g}; launches {launched}")
+    traj = final.state.observables[simulator.exposes()[0]]
+    # a step on cached states (the objective at the reference parameters and
+    # the update), where the fit resimulated at every step
+    cached = SimpleOptimizer(objective=objective, simulator=simulator,
+                             optimizer=functools.partial(torch.optim.Adam, lr=FIT_LR))
+    state0 = final.state.replace(component_state={
+        **final.state.component_state, "propeller": {"opt_steps": 0}})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_cached = cached.step(final.opt_params, state0)
+    torch.cuda.synchronize()
+    el_cached = time.perf_counter() - t0
+    if out_cached.state.component_state["propeller_sim"]["seq"] != final.state.component_state["propeller_sim"]["seq"]:
+        raise SystemExit("the step on cached states resimulated")
+    finite = all(bool(torch.isfinite(g).all()) for o in outs for g in o.grads.values()) and all(
+        math.isfinite(float(o.observables["propeller"]["loss"])) for o in outs)
+    moved = not torch.equal(params["eps_stack_base"], final.opt_params["eps_stack_base"])
+    overflow = bool(traj.metadata["neighbor_overflow"].any())
+    states = traj.slice(slice(FIT_EQ, traj.length()))
+    with torch.no_grad():
+        e_map = objective.energy_fn.with_params(final.opt_params)
+        e_map.map(states)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_new = e_map.map(states)
+        torch.cuda.synchronize()
+        el_map = time.perf_counter() - t0
+    print(f"[16b fit] {len(outs)} Adam steps (lr {FIT_LR}) at {sp.n} nt, {FIT_MD_STEPS} MD steps a simulation, "
+          f"{n_states} states reweighted on a B={sp.block_size} table: a step {statistics.mean(resim_s):.3f} s with a "
+          f"resimulation ({len(resim_s)} steps), " + (f"{statistics.mean(cached_s):.3f} s without ({len(cached_s)})"
+                                                       if cached_s else "none without") +
+          f", {el_cached:.3f} s a step on the cached states (objective at the reference parameters, Adam)" +
+          f"; the map alone {n_states / el_map:.1f} states/s (finite {bool(torch.isfinite(e_new).all())}); launches in "
+          f"the run {fit_launches}, a step K4 {fit_launches['K4'] / len(outs):.1f}, K5 {fit_launches['K5'] / len(outs):.1f}; "
+          f"eps_stack_base {float(params['eps_stack_base']):.6g} -> {float(final.opt_params['eps_stack_base']):.6g}; "
+          f"finite={finite} overflow={overflow} on {smi}")
+    if not (finite and moved and not overflow and bool(torch.isfinite(e_new).all())):
+        raise SystemExit("the dna1 DiffTRe fit gave a non-finite loss or gradient, moved no parameter, or overflowed")
+    if fit_launches["K4"] < n_states or fit_launches["K5"] < n_states or fit_launches["K1"] < FIT_MD_STEPS // 40:
+        raise SystemExit(f"the dna1 DiffTRe fit did not run through the dna1 kernels: {fit_launches}")
+    _lap("16b dna1 DiffTRe fit")
+
+    # 16c. the example's own shape: its main() on a 40-bp duplex read from
+    # oxDNA files (the pair list, no kernel), the first step card vs CPU
+    top_f, body_f = synthetic_duplex(SMALL_BP, dtype=torch.float64, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        top_path, conf_path = io_top.to_oxdna_files(Path(tmp), top_f, body_f, new_format=True)
+        argv = [str(top_path), str(conf_path), "--sim-steps", str(EXAMPLE_MD), "--save-every", str(EXAMPLE_SAVE),
+                "--n-eq-states", str(EXAMPLE_EQ), "--opt-steps", str(EXAMPLE_OPT)]
+        ex_outs = []
+        t0 = time.perf_counter()
+        fit_example.main(argv + ["--device", str(dev)],
+                         callback=lambda optimizer_output, step: (ex_outs.append(optimizer_output), (None, True))[1])
+        torch.cuda.synchronize()
+        el_ex = time.perf_counter() - t0
+        cpu_opt, params_cpu = fit_example.build_fit(fit_example.parse_args(argv + ["--device", "cpu"]))
+    first = ex_outs[0]
+    name = cpu_opt.simulator.exposes()[0]
+    traj_g = first.state.observables[name]
+    traj_c = traj_g.replace(center=traj_g.center.cpu(), orientation=traj_g.orientation.cpu(),
+                            temperature=traj_g.temperature.cpu())
+    ref = cpu_opt.objective.calculate({name: traj_c}, opt_params=params_cpu)
+    obs_g = first.observables["propeller"]
+    loss_ok = abs(float(obs_g["loss"]) - float(ref.observables["loss"])) <= 1e-4 * abs(float(ref.observables["loss"])) + 1e-5
+    g_scale = max(float(g.abs().max()) for g in ref.grads.values())
+    g_err = max(float((first.grads[k].cpu() - g).abs().max()) for k, g in ref.grads.items())
+    grads_ok = all(_within(first.grads[k].cpu(), g, rtol=1e-4, atol=1e-5 * g_scale)[0] for k, g in ref.grads.items())
+    print(f"[16c example] examples/difftre_propeller_fit.py main() on the card: {SMALL_BP} bp from oxDNA files (new "
+          f"format), {EXAMPLE_MD} MD steps on the pair list, {EXAMPLE_OPT} Adam steps: {el_ex:.3f} s; step 0 loss card "
+          f"{float(obs_g['loss']):.8g} CPU {float(ref.observables['loss']):.8g}, n_eff {float(obs_g['neff']):.6g}; "
+          f"max|grad card - CPU| {g_err:.3e} (max|grad| {g_scale:.3e}; rtol 1e-4, atol 1e-5 max|grad|)")
+    if not (ref.is_ready and loss_ok and grads_ok):
+        raise SystemExit("the example's first step on the card disagrees with the CPU")
+    _lap("16c the example's shape")
+
+    # 16d. the native parser on the fit's 10k-nt, 50-state trajectory
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "traj.dat"
+        traj.to_file(path)
+        n = topology.n_nucleotides
+        t0 = time.perf_counter()
+        got = native.parse_trajectory(path, n)
+        el_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = io_traj.parse_numpy(path, n)
+        el_numpy = time.perf_counter() - t0
+        read = io_traj.from_file(path, topology.strand_counts, is_5p_3p=False)
+        size = path.stat().st_size
+    same = got is not None and all(np.array_equal(a, np.asarray(b)) for a, b in zip(got, plain, strict=True))
+    print(f"[16d native parser] {len(read.states)} states x {n} nt ({size / 2**20:.1f} MiB): native {el_native:.3f} "
+          f"s, numpy {el_numpy:.3f} s; equal {same}; library {native.library_path()}")
+    if not same or len(read.states) != FIT_MD_STEPS // FIT_SAVE:
+        raise SystemExit("the native parser's trajectory differs from the numpy parser's, or it is unavailable")
+    _lap("16 dna1 DiffTRe")
+    src = "mythos_tpu_torch/ops/csrc/tiles.cu"
+    return [
+        {"name": f"{k} {cname} (dna1)", "route": "cuda", "source": src, "replaces": repl,
+         "launches": fit_launches[k], "max_abs_err": rec[k]["err"], "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
+         "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1], "library_ms": None}
+        for k, cname, repl in (("K4", "tile_energies", "mythos_tpu/ops/oxdna_tiles.py:1079"),
+                               ("K5", "tile_row_grads", "mythos_tpu/ops/oxdna_tiles.py:1094"))
     ]
 
 
@@ -2101,8 +2370,7 @@ def main() -> int:
                     win = _profiled(kern, 10)
                     # the tile kernels only (K5's wrapper also copies the cotangent into the
                     # parameters); 0 (printed "not measured") where the profiler recorded none
-                    tile_rec[key][f"dev_ms {label}"] = sum(ms / c for k, (ms, c) in win["kernels"].items()
-                                                           if k.startswith("tile_"))
+                    tile_rec[key][f"dev_ms {label}"] = _kernels_ms(win, "tile_")
                     tile_rec[key][f"kernels {label}"] = _kernel_list(win)
 
     # bounds from the work each unordered pair of the jittered ideal duplex
@@ -2292,6 +2560,8 @@ def main() -> int:
     martini_direct = _martini_direct(dev, smi)
     # 15. oxDNA1: K1, K2 and K3's dna1 instances, the stencil, block and small-system paths
     dna1_records = _dna1(dev, smi, ptx)
+    # 16. DiffTRe under oxDNA1: K4 and K5's dna1 instances, the fit, the example, the native parser
+    dna1_records += _dna1_difftre(dev, smi, ptx)
     print(f"[13-14 kernels] a 1,000-nt block grad evaluation of 200 steps launched K3 {block_direct['K3 fwd']} times "
           f"forward and {block_direct['K3 bwd']} backward (the plain version, {block_direct['bwd_s']:.3f} s); a "
           f"10,160-bead NPT grad evaluation of {MARTINI_DIRECT_STEPS} steps launched K6's forward "

@@ -7,11 +7,13 @@ imports ``torch`` and ``numpy`` only (never ``jax``, ``chex`` or
 first use on a machine with ``nvcc``; on CPU tensors every kernel wrapper
 runs the kernel's plain PyTorch twin instead.
 
-Ported so far: the oxDNA2 banded-stencil Langevin main path
-(``entry.build_sim(mode="stencil", model="dna2")``, kernels K1/K2), the
-block tier (``build_sim(mode="block")``, kernel K3), one DiffTRe
-fitting step (``optimization.difftre.difftre_step``, kernels K4/K5) and
-MARTINI bilayer NPT MD (``simulators.martini.MartiniSimulator``, kernel
-K6). Every entry point runs on the card unless the caller passes
-``device="cpu"``.
+Ported so far: the oxDNA2, oxRNA2 and oxDNA1 banded-stencil Langevin
+paths (``entry.build_sim(mode="stencil")``, kernels K1/K2), the block
+tier (``build_sim(mode="block")``, kernel K3), the small-system path
+(``mode="pairs"``/``"dense"``), DiffTRe fitting (``optimization``:
+``DiffTReObjective``, ``SimpleOptimizer``; the re-evaluation on kernels
+K4/K5; ``examples/difftre_propeller_fit.py``), direct differentiation
+through every simulator, and MARTINI bilayer NPT MD
+(``simulators.martini.MartiniSimulator``, kernel K6). Every entry point
+runs on the card unless the caller passes ``device="cpu"``.
 """

@@ -9,9 +9,9 @@ package, read in place), and the pieces oxDNA2 and oxRNA2 share with it
 
 Every tier of the port runs it: the pair list and the dense (N, N) masks
 (``create_default_energy_fn(dense_unbonded=True)``; simulators.cuda.
-PairSimulator), the banded stencil (K1, K2) and the block tier on a
-one-level table (K3). DiffTRe under oxDNA1 (the dna1 instances of K4 and
-K5) is not ported: ``ops.tiles.prepare_contexts`` refuses it.
+PairSimulator), the banded stencil (K1, K2), the block tier on a
+one-level table (K3), and the DiffTRe re-evaluation on that table
+(``ComposedEnergyFunction.map`` with ``map_neighbors``: K4, backward K5).
 """
 
 from __future__ import annotations

@@ -37,8 +37,10 @@ stencil forward holds falls from 79.7 to 26.4 MiB with a checkpoint every
 10-step interval, while the evaluation's peak, set by the backward's
 working set at that length, stays ~104-109 MiB above its start:
 ``chip_smoke.py`` phase 12c; the block tier's: phase 13c). Not ported,
-and raising: the rna2 block tier, and DiffTRe under dna1 (the tile map's
-K4 and K5, ``ops.tiles.prepare_contexts``).
+and raising: the rna2 block tier. The DiffTRe fit runs on any of these
+simulators through ``simulators.base.BoundSimulator``,
+``optimization.DiffTReObjective`` and ``SimpleOptimizer``
+(``examples/difftre_propeller_fit.py``).
 Everything runs on the card unless ``device="cpu"`` asks for the plain
 versions.
 

@@ -16,8 +16,11 @@ import warnings
 from pathlib import Path
 
 import numpy as np
+import torch
 
 import mythos_tpu_torch.utils.constants as const
+from mythos_tpu_torch.io import trajectory as io_traj
+from mythos_tpu_torch.soa import Quat, quat_frame_soa
 
 N_1ST_LINE_OXDNA_CLASSIC = 2
 N_1ST_LINE_OXDNA_NEW = 3
@@ -137,6 +140,35 @@ def from_oxdna_file(path, *, return_format: bool = False):
     else:
         raise ValueError(ERR_INVALID_OXDNA_FORMAT)
     return (top, fmt) if return_format else top
+
+
+def to_oxdna_files(directory, topology: Topology, body, new_format: bool = False) -> tuple[Path, Path]:
+    """Write ``topology`` and one state ``body`` (float64 rigid body, box
+    50) as oxDNA files ``sys.top`` and ``init.conf`` in ``directory``; give
+    their paths. The classic topology keeps each strand 3'->5', as the port
+    does; the new one lists each strand 5'->3', and the state's strands are
+    reversed to match."""
+    directory = Path(directory)
+    a1, _, a3 = (torch.stack(tuple(v), -1) for v in quat_frame_soa(Quat(*body.orientation.unbind(-1))))
+    nt, counts = topology.n_nucleotides, [int(c) for c in topology.strand_counts]
+    bases = "".join("ACGT"[int(b)] for b in topology.seq)
+    starts = np.cumsum([0, *counts[:-1]])
+    if new_format:
+        lines = [f"{nt} {len(counts)} 5->3"]
+        lines += [f"{bases[s0:s0 + n][::-1]} type=DNA circular=false" for s0, n in zip(starts, counts, strict=True)]
+    else:
+        lines = [f"{nt} {len(counts)}"]
+        for sid, (s0, n) in enumerate(zip(starts, counts, strict=True), start=1):
+            lines += [f"{sid} {bases[s0 + k]} {s0 + k - 1 if k > 0 else -1} {s0 + k + 1 if k < n - 1 else -1}"
+                      for k in range(n)]
+    (directory / "sys.top").write_text("\n".join(lines) + "\n")
+    conf = torch.cat([body.center, a1, a3, torch.zeros((nt, 6), dtype=torch.float64)], dim=1).numpy()
+    if new_format:
+        conf = conf[io_traj._strand_order(counts)]
+    io_traj.Trajectory(n_nucleotides=nt, strand_lengths=counts, times=np.zeros(1), energies=np.zeros((1, 3)),
+                       states=[io_traj.NucleotideState(np.ascontiguousarray(conf))],
+                       box_size=np.array([50.0, 50.0, 50.0])).to_file(directory / "init.conf")
+    return directory / "sys.top", directory / "init.conf"
 
 
 def _strand_ends_and_type(nucleotides: str, circ: bool) -> tuple[list[int], NucleotideType]:

@@ -5,8 +5,10 @@ Counterpart of mythos_tpu/io/trajectory.py: ``NucleotideState`` (one
 through the Tait-Bryan angles of the (a1, a3 x a1, a3) frame),
 ``Trajectory`` (``to_file``) and ``from_file``, the whole file parsed in
 one vectorised numpy pass with the per-strand 5'->3' flip and a fixed-box
-check. The reference's native parser (``io/native.py``) is not ported: this
-module never builds or loads a shared library.
+check. Like the reference, ``from_file`` tries the native parser
+(:mod:`io.native`, the repo's C++ source built with g++ at first use) first
+and parses in numpy (:func:`parse_numpy`, the native parser's check) where
+it is unavailable.
 """
 
 from __future__ import annotations
@@ -160,12 +162,31 @@ def from_file(path, strand_lengths, *, is_5p_3p: bool = True) -> Trajectory:
         <15 floats> x n_nucleotides
 
     With ``is_5p_3p`` each strand's nucleotides are flipped to the internal
-    3'->5' order."""
+    3'->5' order. The native parser first, else numpy."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(ERR_FILE_NOT_FOUND.format(path))
     strand_lengths = [int(x) for x in strand_lengths]
     n = sum(strand_lengths)
+    from mythos_tpu_torch.io import native
+
+    ts, bs, es, states = native.parse_trajectory(path, n) or parse_numpy(path, n)
+    if is_5p_3p:
+        states = states[:, _strand_order(strand_lengths)]
+    validate_box_size(np.array(bs))
+    return Trajectory(
+        box_size=np.asarray(bs[0]),
+        n_nucleotides=n,
+        strand_lengths=strand_lengths,
+        times=np.array(ts, dtype=np.float64),
+        energies=np.array(es, dtype=np.float64),
+        states=[NucleotideState(array=np.ascontiguousarray(s)) for s in states],
+    )
+
+
+def parse_numpy(path, n: int):
+    """(times, boxes, energies, (S, n, 15) states) of a file, in one
+    vectorised numpy pass."""
     ts, bs, es, rows = [], [], [], []
     for line in path.read_text().splitlines():
         c = line[0] if line else ""
@@ -180,18 +201,7 @@ def from_file(path, strand_lengths, *, is_5p_3p: bool = True) -> Trajectory:
     data = np.array(" ".join(rows).split(), dtype=np.float64)
     if data.size != len(ts) * n * N_STATE_COLS:
         raise ValueError(ERR_MALFORMED.format(path))
-    states = data.reshape(len(ts), n, N_STATE_COLS)
-    if is_5p_3p:
-        states = states[:, _strand_order(strand_lengths)]
-    validate_box_size(np.array(bs))
-    return Trajectory(
-        box_size=bs[0],
-        n_nucleotides=n,
-        strand_lengths=strand_lengths,
-        times=np.array(ts, dtype=np.float64),
-        energies=np.array(es, dtype=np.float64),
-        states=[NucleotideState(array=np.ascontiguousarray(s)) for s in states],
-    )
+    return ts, bs, es, data.reshape(len(ts), n, N_STATE_COLS)
 
 
 def _write_state(file: TextIO, time: float, energies, state: np.ndarray, box_size=(0, 0, 0)) -> None:

@@ -55,11 +55,12 @@ SIGNATURES = {
     "lj_energy": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
     "lj_grads": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
 }
-# the oxRNA2 and oxDNA1 instances of K2 and K1, and K3's oxDNA1 instance, take the same arguments
+# the oxRNA2 and oxDNA1 instances of K2 and K1, and the oxDNA1 instances of K3-K5, take the same arguments
 for _fam in ("rna2", "dna1"):
     SIGNATURES[f"stencil_field_grads_{_fam}"] = SIGNATURES["stencil_field_grads"]
     SIGNATURES[f"multistep_chunk_{_fam}"] = SIGNATURES["multistep_chunk"]
-SIGNATURES["tile_forces_dna1"] = SIGNATURES["tile_forces"]
+for _name in ("tile_forces", "tile_row_grads", "tile_energies"):
+    SIGNATURES[f"{_name}_dna1"] = SIGNATURES[_name]
 
 
 def _sources() -> list[Path]:

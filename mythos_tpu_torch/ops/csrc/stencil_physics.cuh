@@ -613,18 +613,22 @@ HD void unbonded_pair_gated(const float* P, const Body& bi, const Body& bj, floa
   unbonded_pair_terms<true, kFam>(P, bi, bj, w_hb, qq, 0, nullptr, 0, reach, false, acc, hb);
 }
 
-// Unweighted oxDNA2 energies of unbonded pair (i, j), each term (each
-// excluded-volume distance) only where its `reach` bit is set (K4): e[0..4]
-// = excluded volume, hydrogen bonding (times w_hb), cross stacking, coax and
-// Debye-Hueckel (times qq). The values of the functions unbonded_pair_terms
-// differentiates. Past its cutoff each radial factor's value is exactly 0,
-// and the angular factors are finite, so a clear bit drops only zeros.
+// Unweighted energies of unbonded pair (i, j) of family kFam (oxDNA2 or
+// oxDNA1), each term (each excluded-volume distance) only where its `reach`
+// bit is set (K4): e[0..4] = excluded volume, hydrogen bonding (times w_hb),
+// cross stacking, coax and Debye-Hueckel (times qq; oxDNA1 has none, e[4] =
+// 0). The values of the functions unbonded_pair_terms differentiates. Past
+// its cutoff each radial factor's value is exactly 0, and the angular
+// factors are finite, so a clear bit drops only zeros.
+template <int kFam = FAM_DNA2>
 HD void unbonded_pair_energy_gated(const float* P, const Body& bi, const Body& bj, float w_hb, float qq, int reach,
                                    float* e) {
+  static_assert(kFam == FAM_DNA2 || kFam == FAM_DNA1, "the tile energies serve oxDNA2 and oxDNA1");
   float bx = P[P_GEOM + 0], by = P[P_GEOM + 1], hbo = P[P_GEOM + 2], sto = P[P_GEOM + 3];
-  V3 back_i = bi.com + bx * bi.a1 + by * bi.a2, back_j = bj.com + bx * bj.a1 + by * bj.a2;
+  V3 back_i = back_site<kFam>(bx, by, bi), back_j = back_site<kFam>(bx, by, bj);
   V3 base_i = bi.com + hbo * bi.a1, base_j = bj.com + hbo * bj.a1;
-  float r_bb = norm(back_j - back_i);
+  V3 v_bb = back_j - back_i;
+  float r_bb = norm(v_bb);
   for (int k = 0; k < 5; ++k) e[k] = 0.f;
   if (reach & REACH_EXC) {
     const float* E = P + P_EXC;
@@ -659,10 +663,21 @@ HD void unbonded_pair_energy_gated(const float* P, const Body& bi, const Body& b
     float t1 = acos_poly(-dot(bi.a1, bj.a1)).v, t4 = acos_poly(dot(bi.a3, bj.a3)).v;
     float t5 = acos_poly(dot(bi.a3, us)).v, t6 = acos_poly(-dot(bj.a3, us)).v;
     const float* C = P + P_COAX;
-    e[3] = f2(rs < 1e-8f ? 1e-8f : rs, C).v * f4(t4, C + 9).v * (f4(t1, C + 14).v + f6(t1, C[29], C[30]).v) *
-           f4_sym(t5, C + 19).v * f4_sym(t6, C + 24).v;
+    if constexpr (kFam == FAM_DNA1) {
+      // oxDNA1: f4(theta1) + f4(2 pi - theta1), and f5 of cos phi3 = us . (ub x a1_j)
+      // and cos phi4 = us . (ub x a1_i), ub the unit backbone separation
+      V3 ub = v_bb * (1.f / r_bb);
+      e[3] = f2(rs < 1e-8f ? 1e-8f : rs, C).v * f4(t4, C + 9).v * (f4(t1, C + 14).v + f4(2.f * PI_F - t1, C + 14).v) *
+             f4_sym(t5, C + 19).v * f4_sym(t6, C + 24).v * f5(dot(us, cross(ub, bj.a1)), P + P_COAXPHI).v *
+             f5(dot(us, cross(ub, bi.a1)), P + P_COAXPHI + 4).v;
+    } else {
+      e[3] = f2(rs < 1e-8f ? 1e-8f : rs, C).v * f4(t4, C + 9).v * (f4(t1, C + 14).v + f6(t1, C[29], C[30]).v) *
+             f4_sym(t5, C + 19).v * f4_sym(t6, C + 24).v;
+    }
   }
-  if (reach & REACH_DEBYE) e[4] = debye(r_bb, P + P_DEBYE).v * qq;
+  if constexpr (has_debye<kFam>()) {
+    if (reach & REACH_DEBYE) e[4] = debye(r_bb, P + P_DEBYE).v * qq;
+  }
 }
 
 // Bonded pair (i, j = i + 2) of family kFam (oxDNA2 or oxDNA1) with

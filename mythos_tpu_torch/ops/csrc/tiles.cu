@@ -1,6 +1,7 @@
-// K3, K4, K5: the oxDNA2 unbonded terms over a symmetric block-neighbor
-// table (the block tier and the DiffTRe re-evaluation); K3 also has an
-// oxDNA1 instance (tile_forces_dna1), the block tier's force under oxDNA1.
+// K3, K4, K5: the oxDNA2 and oxDNA1 unbonded terms over a symmetric
+// block-neighbor table (the block tier and the DiffTRe re-evaluation); each
+// has an oxDNA1 instance (tile_forces_dna1, tile_energies_dna1,
+// tile_row_grads_dna1).
 //
 // Replace, in mythos_tpu/ops/oxdna_tiles.py:
 //   K3 tile_forces     <- _bwd_rows_impl(forces_only=True) (bodies
@@ -72,12 +73,12 @@
 // memory of each kernel: chip_smoke.py phase 2 (nvcc -Xptxas -v).
 //
 // Model family: tile_block is templated on it (kFam). The oxDNA2 instances
-// are K3, K4 and K5 as above. The oxDNA1 instance of K3 runs the same walk
-// on a one-level table of the short kind (oxDNA1 has no Debye-Hueckel
-// term, so no Debye-only pair and no KIND_DEBYE table), with oxDNA1's
-// backbone site (com + bx a1) and its coaxial stacking (the f5 of cos phi3
-// and cos phi4 on the backbone sites); it reads no charge factor. K4 and K5
-// have no oxDNA1 instance (DiffTRe under oxDNA1 is not ported).
+// are K3, K4 and K5 as above. Their oxDNA1 instances run the same walk on a
+// one-level table of the short kind (oxDNA1 has no Debye-Hueckel term, so
+// no Debye-only pair and no KIND_DEBYE table), with oxDNA1's backbone site
+// (com + bx a1) and its coaxial stacking (the f5 of cos phi3 and cos phi4
+// on the backbone sites); they read no charge factor, and K4's Debye sum
+// stays 0.
 #include <cuda_runtime.h>
 
 #include "stencil_physics.cuh"
@@ -184,7 +185,8 @@ __device__ __forceinline__ void pair_results(const float* P, const float* ri, co
     }
   }
   if constexpr (kOut == OUT_ENERGIES) {
-    unbonded_pair_energy_gated(P, row_body(ri), row_body(rj), hb_weight(ri, rj), ri[R_QF] * rj[R_QF], reach, res);
+    const float qq = has_debye<kFam>() ? ri[R_QF] * rj[R_QF] : 0.f;  // oxDNA1 reads no charge factor
+    unbonded_pair_energy_gated<kFam>(P, row_body(ri), row_body(rj), hb_weight(ri, rj), qq, reach, res);
   } else {
     Grad g = zero_grad();
     float hb = 0.f;
@@ -216,8 +218,7 @@ template <int kOut, int kFam>
 __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const float* __restrict__ rows,
                                            const int* __restrict__ ids, int n, int n_blocks, int bsz, int cap,
                                            int kind, float* __restrict__ out, int* __restrict__ counts) {
-  static_assert(kFam == FAM_DNA2 || (kFam == FAM_DNA1 && kOut == OUT_FORCES),
-                "the tile kernels have oxDNA2 instances and an oxDNA1 instance of K3");
+  static_assert(kFam == FAM_DNA2 || kFam == FAM_DNA1, "the tile kernels have oxDNA2 and oxDNA1 instances");
   constexpr int NF = out_fields(kOut, false);
   constexpr bool triangular = kOut == OUT_ENERGIES;
   __shared__ float P[P_TOTAL];
@@ -354,40 +355,35 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
 }
 
 // K3: (n_pad, 12) dE/d(com, a1, a2, a3), or (n_pad, 3) dE/d(back) for the
-// debye kind, weighted by the term weights at P_GT.
+// debye kind (oxDNA2 only), weighted by the term weights at P_GT. One
+// instance per family.
+template <int kFam>
 __global__ void __launch_bounds__(TILE_THREADS)
     tile_forces_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                        int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
                        int* __restrict__ counts) {
-  tile_block<OUT_FORCES, FAM_DNA2>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
-}
-
-// K3's oxDNA1 instance: (n_pad, 12) dE/d(com, a1, a2, a3) on a table of the
-// short kind, weighted by the term weights at P_GT.
-__global__ void __launch_bounds__(TILE_THREADS)
-    tile_forces_dna1_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
-                            int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
-                            int* __restrict__ counts) {
-  tile_block<OUT_FORCES, FAM_DNA1>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  tile_block<OUT_FORCES, kFam>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
 }
 
 // K5: (n_pad, 16) = K3's 12 fields + the triangular hb-weight gradient, or
 // (n_pad, 4) = back site + charge factor for the debye kind; the cotangent
-// sits at P_GT (the wrapper writes it there).
+// sits at P_GT (the wrapper writes it there). One instance per family.
+template <int kFam>
 __global__ void __launch_bounds__(TILE_THREADS)
     tile_row_grads_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                           int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
                           int* __restrict__ counts) {
-  tile_block<OUT_ROW_GRADS, FAM_DNA2>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  tile_block<OUT_ROW_GRADS, kFam>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
 }
 
 // K4, first pass: (blocks, 5) partials, each block's per-term sums over its
-// rows' pairs j > i.
+// rows' pairs j > i. One instance per family.
+template <int kFam>
 __global__ void __launch_bounds__(TILE_THREADS)
     tile_energies_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                          int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ partials,
                          int* __restrict__ counts) {
-  tile_block<OUT_ENERGIES, FAM_DNA2>(P, rows, ids, n, n_blocks, bsz, cap, kind, partials, counts);
+  tile_block<OUT_ENERGIES, kFam>(P, rows, ids, n, n_blocks, bsz, cap, kind, partials, counts);
 }
 
 // K4, second pass: out[t] = sum of the block partials, in block order. The
@@ -420,20 +416,32 @@ static int tile_grid(int n_blocks, int bsz) { return n_blocks * ((bsz + TILE_ROW
 
 static bool tile_args_ok(int n_blocks, int bsz, int cap) { return bsz >= 1 && cap >= 1 && n_blocks >= 1; }
 
+template <int kFam>
+static int launch_forces(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
+                         int cap, int kind, float* out, int* counts, void* stream) {
+  tile_forces_kernel<kFam><<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
+      params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  return (int)cudaGetLastError();
+}
+
 // out: (n_pad, 12), or (n_pad, 3) for the debye kind; counts: (3,) or null
 extern "C" int tile_forces(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                            int cap, int kind, float* out, int* counts, void* stream) {
   if (!tile_args_ok(n_blocks, bsz, cap)) return (int)cudaErrorInvalidValue;
-  tile_forces_kernel<<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
-      params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
-  return (int)cudaGetLastError();
+  return launch_forces<FAM_DNA2>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
 }
 
 // K3's oxDNA1 instance: out (n_pad, 12), kind KIND_SHORT; counts: (3,) or null
 extern "C" int tile_forces_dna1(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                                 int cap, int kind, float* out, int* counts, void* stream) {
   if (!tile_args_ok(n_blocks, bsz, cap) || kind != KIND_SHORT) return (int)cudaErrorInvalidValue;
-  tile_forces_dna1_kernel<<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  return launch_forces<FAM_DNA1>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
+}
+
+template <int kFam>
+static int launch_row_grads(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
+                            int cap, int kind, float* out, int* counts, void* stream) {
+  tile_row_grads_kernel<kFam><<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
       params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
   return (int)cudaGetLastError();
 }
@@ -442,24 +450,42 @@ extern "C" int tile_forces_dna1(const float* params, const float* rows, const in
 extern "C" int tile_row_grads(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                               int cap, int kind, float* out, int* counts, void* stream) {
   if (!tile_args_ok(n_blocks, bsz, cap)) return (int)cudaErrorInvalidValue;
-  tile_row_grads_kernel<<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
-      params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
-  return (int)cudaGetLastError();
+  return launch_row_grads<FAM_DNA2>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
+}
+
+// K5's oxDNA1 instance: out (n_pad, 16), kind KIND_SHORT; counts: (3,) or null
+extern "C" int tile_row_grads_dna1(const float* params, const float* rows, const int* ids, int n, int n_blocks,
+                                   int bsz, int cap, int kind, float* out, int* counts, void* stream) {
+  if (!tile_args_ok(n_blocks, bsz, cap) || kind != KIND_SHORT) return (int)cudaErrorInvalidValue;
+  return launch_row_grads<FAM_DNA1>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
 }
 
 // rows of the (rows, 5) partials scratch that tile_energies needs: one per block
 extern "C" int tile_energies_partials(int n_blocks, int bsz) { return tile_grid(n_blocks, bsz); }
+
+template <int kFam>
+static int launch_energies(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
+                           int cap, int kind, float* partials, float* out, int* counts, void* stream) {
+  const int grid = tile_grid(n_blocks, bsz);
+  tile_energies_kernel<kFam><<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks, bsz,
+                                                                             cap, kind, partials, counts);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  tile_energies_sum_kernel<<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>(partials, grid, out);
+  return (int)cudaGetLastError();
+}
 
 // partials: (tile_energies_partials(n_blocks, bsz), 5) scratch; out: (5,)
 // per-term sums; counts: (3,) or null (the triangular mask's pairs)
 extern "C" int tile_energies(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                              int cap, int kind, float* partials, float* out, int* counts, void* stream) {
   if (!tile_args_ok(n_blocks, bsz, cap)) return (int)cudaErrorInvalidValue;
-  const int grid = tile_grid(n_blocks, bsz);
-  tile_energies_kernel<<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks, bsz, cap,
-                                                                       kind, partials, counts);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  tile_energies_sum_kernel<<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>(partials, grid, out);
-  return (int)cudaGetLastError();
+  return launch_energies<FAM_DNA2>(params, rows, ids, n, n_blocks, bsz, cap, kind, partials, out, counts, stream);
+}
+
+// K4's oxDNA1 instance: kind KIND_SHORT; out (5,), its Debye sum 0
+extern "C" int tile_energies_dna1(const float* params, const float* rows, const int* ids, int n, int n_blocks,
+                                  int bsz, int cap, int kind, float* partials, float* out, int* counts, void* stream) {
+  if (!tile_args_ok(n_blocks, bsz, cap) || kind != KIND_SHORT) return (int)cudaErrorInvalidValue;
+  return launch_energies<FAM_DNA1>(params, rows, ids, n, n_blocks, bsz, cap, kind, partials, out, counts, stream);
 }

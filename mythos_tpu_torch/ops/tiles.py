@@ -30,9 +30,10 @@ mask by class (:func:`tile_gate_counts`).
 Model family (``TileSpec.family``, from the composed energy's term
 classes): oxDNA2, or oxDNA1 -- one table of the "short" kind (no
 Debye-Hueckel term), the backbone site on a1, oxDNA1's coaxial stacking --
-whose K3 has its own instance (the block tier's force). K4 and K5 have no
-oxDNA1 instance: DiffTRe under oxDNA1 is not ported, and
-:func:`prepare_contexts` refuses it unless only forces are asked for.
+for which each of K3, K4 and K5 has its own instance: the block tier's
+force and the DiffTRe re-evaluation under oxDNA1. (The reference takes
+oxDNA1's one table as its "full" kind with no Debye term to sum; the
+short kind here sums the same four terms.)
 
 :class:`UnbondedTileEnergies` ties K4 to K5, and its parameter gradient
 to :func:`params_grad` (the port of ``_params_grad_xla``: autograd over
@@ -85,11 +86,7 @@ _KIND_CODE = {"full": 0, "short": 1, "debye": 2}
 _GT_SLOT = {nm: k for k, nm in enumerate(KIND_TERMS["full"])}
 
 ERR_PSEQ = "the tile path does not support probabilistic sequences"
-ERR_TERMS = "the tile kernels implement the oxDNA2 term set (and oxDNA1's, for K3) {}; got {}"
-ERR_DNA1_DIFFTRE = (
-    "DiffTRe under oxDNA1 (the oxDNA1 instances of K4 and K5) is not ported yet; the block tier's forces "
-    "(prepare_contexts(..., forces_only=True), K3) are"
-)
+ERR_TERMS = "the tile kernels implement the oxDNA2 term set and oxDNA1's {}; got {}"
 ERR_DNA1_KIND = "oxDNA1 has no Debye-Hueckel term: its one table is of the short kind, got {!r}"
 ERR_HIDDEN_GRAD = (
     "fused_grads_ctx: a context's parameters or static tail need a gradient, which K3 would drop; pass "
@@ -237,15 +234,12 @@ def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind:
     )
 
 
-def prepare_contexts(composed, sym_ids, block_size: int, perm=None, forces_only: bool = False) -> tuple:
+def prepare_contexts(composed, sym_ids, block_size: int, perm=None) -> tuple:
     """TileContexts of one table ("full") or a (tight, wide) pair ("short" +
-    "debye"); under oxDNA1 one table of the short kind, and only where the
-    caller asks for forces alone (``forces_only``: the block tier, K3) --
-    DiffTRe under oxDNA1 raises (ERR_DNA1_DIFFTRE). Call once per run,
+    "debye"); under oxDNA1 one table of the short kind. They serve K3 (the
+    block tier) and K4/K5 (the DiffTRe map) alike. Call once per run,
     outside any loop over steps or states."""
     if _tile_family(composed) == "dna1":
-        if not forces_only:
-            raise NotImplementedError(ERR_DNA1_DIFFTRE)
         if isinstance(sym_ids, (tuple, list)):
             raise ValueError(ERR_DNA1_KIND.format("(tight, wide)"))
         return (prepare_tile_context(composed, sym_ids, block_size, "short", perm),)
@@ -559,14 +553,18 @@ def _launch(name: str, rows, params, ids, spec: TileSpec, outs: tuple, count: bo
     return counts
 
 
+def _instance(name: str, spec: TileSpec) -> str:
+    """The C entry of kernel ``name``'s instance for the spec's family."""
+    return name if spec.family == "dna2" else f"{name}_{spec.family}"
+
+
 def _tile_forces(rows, params, ids, spec: TileSpec, count: bool = False):
     """:func:`tile_forces` on CUDA tensors: (forces, counts), ``counts``
     (with ``count``) the kernel's (3,) int32 tally of the ordered pairs
     under the full mask that needed the short-range terms, Debye alone,
     and nothing (:func:`tile_gate_counts`), else None."""
     out = torch.empty((spec.n_pad, spec.n_force_fields), dtype=torch.float32, device=rows.device)
-    counts = _launch("tile_forces" if spec.family == "dna2" else f"tile_forces_{spec.family}", rows, params, ids,
-                     spec, (out,), count)
+    counts = _launch(_instance("tile_forces", spec), rows, params, ids, spec, (out,), count)
     tile_forces.launches += 1
     tile_forces.by_family[spec.family] += 1
     return out, counts
@@ -583,12 +581,6 @@ def tile_forces(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spe
 
 tile_forces.launches = 0
 tile_forces.by_family = {"dna2": 0, "dna1": 0}
-
-
-def _dna2_only(name: str, spec: TileSpec) -> None:
-    """K4 and K5 have oxDNA2 instances only (DiffTRe under oxDNA1 is not ported)."""
-    if spec.family != "dna2":
-        raise NotImplementedError(f"{name}: " + ERR_DNA1_DIFFTRE)
 
 
 class TileForces(torch.autograd.Function):
@@ -629,35 +621,38 @@ def _tile_energies(rows, params, ids, spec: TileSpec, count: bool = False):
     (:func:`tile_gate_counts` with ``triangular``)."""
     from mythos_tpu_torch.ops import _build
 
-    _dna2_only("tile_energies", spec)
     parts = _build.load_library().tile_energies_partials(spec.n_blocks, spec.block_size)
     buf = torch.empty(parts * 5 + 5, dtype=torch.float32, device=rows.device)
-    counts = _launch("tile_energies", rows, params, ids, spec, (buf[: parts * 5], buf[parts * 5 :]), count)
+    counts = _launch(_instance("tile_energies", spec), rows, params, ids, spec, (buf[: parts * 5], buf[parts * 5 :]),
+                     count)
     tile_energies.launches += 1
+    tile_energies.by_family[spec.family] += 1
     return buf[parts * 5 :][_term_slots(spec)], counts
 
 
 def tile_energies(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """K4: (T,) unweighted per-term sums under the triangular mask. CPU
-    tensors run :func:`tile_energies_plain`."""
+    tensors run :func:`tile_energies_plain`. ``launches`` counts every
+    launch, ``by_family`` each family's."""
     if rows.device.type == "cpu":
         return tile_energies_plain(rows, params, ids, spec)
     return _tile_energies(rows, params, ids, spec)[0]
 
 
 tile_energies.launches = 0
+tile_energies.by_family = {"dna2": 0, "dna1": 0}
 
 
 def _tile_row_grads(rows, params, ids, gt, spec: TileSpec, count: bool = False):
     """:func:`tile_row_grads` on CUDA tensors: (row gradients, counts),
     ``counts`` as :func:`_tile_forces` gives them (the same gate and mask)."""
-    _dna2_only("tile_row_grads", spec)
     # the kernel reads the cotangent where K3 reads the term weights
     p = params.detach().clone()
     p[_gt_slots(spec)] = gt.detach().to(p.dtype)
     out = torch.empty((spec.n_pad, spec.n_grad_fields), dtype=torch.float32, device=rows.device)
-    counts = _launch("tile_row_grads", rows, p, ids, spec, (out,), count)
+    counts = _launch(_instance("tile_row_grads", spec), rows, p, ids, spec, (out,), count)
     tile_row_grads.launches += 1
+    tile_row_grads.by_family[spec.family] += 1
     return out, counts
 
 
@@ -665,13 +660,15 @@ def tile_row_grads(
     rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, gt: torch.Tensor, spec: TileSpec
 ) -> torch.Tensor:
     """K5: (n_pad, 16) -- or (n_pad, 4) for the debye kind -- row
-    gradients of gt . K4's sums. CPU tensors run :func:`tile_row_grads_plain`."""
+    gradients of gt . K4's sums. CPU tensors run :func:`tile_row_grads_plain`.
+    ``launches`` counts every launch, ``by_family`` each family's."""
     if rows.device.type == "cpu":
         return tile_row_grads_plain(rows, params, ids, gt, spec)
     return _tile_row_grads(rows, params, ids, gt, spec)[0]
 
 
 tile_row_grads.launches = 0
+tile_row_grads.by_family = {"dna2": 0, "dna1": 0}
 
 
 class UnbondedTileEnergies(torch.autograd.Function):

@@ -5,15 +5,16 @@ and optimizer update, without the mesh or the gradient psum): simulate,
 treat the saved states as data, re-evaluate their energies under the
 current parameters (ComposedEnergyFunction.map with ``map_neighbors``: the
 tile kernels K4 and, backward, K5), Boltzmann-reweight the observable, and
-take one optimizer step on the loss against a target.
+take one optimizer step on the loss against a target. The reweighting is
+:func:`optimization.objective.compute_loss`, the one the objectives use.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mythos_tpu_torch.losses import SquaredError
-from mythos_tpu_torch.optimization.objective import check_no_overflow, compute_weights_and_neff
+from mythos_tpu_torch.losses import ObservableLossFn, SquaredError
+from mythos_tpu_torch.optimization.objective import check_no_overflow, compute_loss
 from mythos_tpu_torch.rigid_body import RigidBody
 
 
@@ -23,10 +24,15 @@ def difftre_loss(energy_fn, map_neighbors, observable, target, opt_params: dict,
     the re-evaluated ones without gradient, so the weights start uniform and
     gradients flow only through the reweighting."""
     states = RigidBody(states.center.detach(), states.orientation.detach())
-    new_e = energy_fn.replace(map_neighbors=map_neighbors).with_params(opt_params).map(states)
-    weights, n_eff = compute_weights_and_neff(1.0 / kT, new_e, new_e.detach())
-    expectation = torch.sum(weights * observable(states))
-    return loss_fn(expectation, target), n_eff
+    obs_loss = ObservableLossFn(observable=observable, loss_fn=loss_fn, return_observable=True)
+
+    def grad_or_loss_fn(ref_states, weights, *_):
+        loss, measured = obs_loss(ref_states, target, weights)
+        return loss, (("observable", measured), None)
+
+    loss, (n_eff, _, _) = compute_loss(opt_params, energy_fn.replace(map_neighbors=map_neighbors), 1.0 / kT,
+                                       grad_or_loss_fn, states, None, [])
+    return loss, n_eff
 
 
 def difftre_step(energy_fn, sim, map_neighbors, observable, target, optimizer: torch.optim.Optimizer,

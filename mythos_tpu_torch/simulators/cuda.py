@@ -329,7 +329,7 @@ class BlockSimulator:
         )
         with contextlib.nullcontext() if graph else torch.no_grad():
             energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
-            ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm, forces_only=True)
+            ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
         checkpointed = graph and ck > 0
 
         def grad_fn(body: BodySoA, tables):
@@ -464,6 +464,6 @@ class PairSimulator:
         traj = torch.stack(saves)
         trajectory = SimulatorTrajectory(
             center=traj[..., :3], orientation=traj[..., 3:],
-            temperature=torch.full((traj.shape[0],), float(self.kT), device=traj.device),
+            temperature=torch.full((traj.shape[0],), float(self.kT), dtype=traj.dtype, device=traj.device),
         )
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})

@@ -824,7 +824,7 @@ def dna1_tile_inputs(card):
         e, sim = build_sim(top, KT, mode="block", model="dna1", init_centers=body.center, device=card)
         nbl = sim.neighbors
         gen = torch.Generator(device="cuda").manual_seed(2)
-        (ctx,) = tiles.prepare_contexts(e, nbl.idx, nbl.block_size, perm=nbl.perm, forces_only=True)
+        (ctx,) = tiles.prepare_contexts(e, nbl.idx, nbl.block_size, perm=nbl.perm)
         out[shape] = (ctx, nbl.idx, tiles.dynamic_rows(ctx, to_soa(_jittered(body, gen))).contiguous())
     return out
 
@@ -834,8 +834,7 @@ def dna1_tile_inputs(card):
 def test_k3_dna1_kernel_matches_plain(dna1_tile_inputs, shape):
     """K3's oxDNA1 instance against its plain version on the one-level table
     (short kind), its pair classes those of the plain gate (no Debye
-    class), equal bits on a second call, one launch counted for the family;
-    K4 and K5 refuse oxDNA1 (not ported)."""
+    class), equal bits on a second call, one launch counted for the family."""
     ctx, ids, rows = dna1_tile_inputs[shape]
     sp = ctx.spec
     assert (sp.family, sp.kind) == ("dna1", "short")
@@ -848,8 +847,99 @@ def test_k3_dna1_kernel_matches_plain(dna1_tile_inputs, shape):
     assert torch.equal(got, again)
     assert _tally(counts) == tiles.tile_gate_counts(rows, ctx.params, ids, sp)
     assert _tally(counts)["debye"] == 0
-    with pytest.raises(NotImplementedError):
-        tiles.tile_energies(rows, ctx.params, ids, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["straight", "bent"])
+def test_k4_k5_dna1_kernels_match_plain(dna1_tile_inputs, shape):
+    """K4's and K5's oxDNA1 instances against their plain versions on the
+    one-level table (short kind; K2's tolerance), their pair classes those
+    of the plain gate (K4's under the triangular mask, no Debye class),
+    equal bits on a second call, one launch each counted for the family,
+    and K5's body fields for the term weights equal to K3's dna1 instance."""
+    ctx, ids, rows = dna1_tile_inputs[shape]
+    sp, P = ctx.spec, ctx.params
+    gt = tiles.term_weights(P, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device="cuda")
+    before4, before5 = dict(tiles.tile_energies.by_family), dict(tiles.tile_row_grads.by_family)
+    k4 = tiles.tile_energies(rows, P, ids, sp)
+    k5 = tiles.tile_row_grads(rows, P, ids, gt, sp)
+    torch.cuda.synchronize()
+    assert tiles.tile_energies.by_family == {**before4, "dna1": before4["dna1"] + 1}
+    assert tiles.tile_row_grads.by_family == {**before5, "dna1": before5["dna1"] + 1}
+    assert k4.shape == (4,) and k5.shape == (sp.n_pad, 16)
+    _close(k4, tiles.tile_energies_plain(rows, P, ids, sp))
+    _close(k5, tiles.tile_row_grads_plain(rows, P, ids, gt, sp))
+    again4, counts4 = tiles._tile_energies(rows, P, ids, sp, count=True)
+    again5, counts5 = tiles._tile_row_grads(rows, P, ids, gt, sp, count=True)
+    assert torch.equal(k4, again4) and torch.equal(k5, again5)
+    assert _tally(counts4) == tiles.tile_gate_counts(rows, P, ids, sp, triangular=True)
+    assert _tally(counts5) == tiles.tile_gate_counts(rows, P, ids, sp)
+    assert _tally(counts4)["debye"] == _tally(counts5)["debye"] == 0
+    body = tiles.tile_row_grads(rows, P, ids, tiles.term_weights(P, sp), sp)[:, : sp.n_force_fields]
+    torch.testing.assert_close(body, tiles.tile_forces(rows, P, ids, sp), rtol=1e-5, atol=5e-6)
+
+
+@pytest.mark.cuda
+def test_dna1_difftre_on_card_matches_cpu(card, tmp_path):
+    """DiffTRe under oxDNA1 on the card: the tile map of 3 jittered 40-bp
+    states launches K4's dna1 instance once a state and, backward, K5's,
+    its energies and parameter gradients against the CPU (rtol 1e-4, atol
+    1e-5 max|grad|); and the example's main() on a 40-bp duplex from oxDNA
+    files (40 MD steps on the pair list, one Adam step): its step's loss
+    and gradients card vs CPU on the card's trajectory, as chip_smoke.py
+    phase 16c."""
+    import mythos_tpu_torch.energy.dna1 as dna1
+    from mythos_tpu_torch.examples import difftre_propeller_fit as fit_example
+    from mythos_tpu_torch.io.topology import to_oxdna_files
+    from mythos_tpu_torch.simulators import neighbors as tnb
+
+    gen = torch.Generator().manual_seed(5)
+    top, b = synthetic_duplex(40, dtype=torch.float32, device="cpu")
+    cs = b.center[None] + 0.01 * torch.randn((3, *b.center.shape), generator=gen)
+    qs = b.orientation[None] + 0.01 * torch.randn((3, *b.orientation.shape), generator=gen)
+    qs = qs / qs.norm(dim=-1, keepdim=True)
+
+    def mapped(device):
+        e = dna1.create_default_energy_fn(top, device=device)
+        nbl = tnb.block_neighbor_list_for_topology(top, dna1.default_neighbor_cutoff(), block_size=8,
+                                                   init_centers=cs[0].to(device), perm=tnb.strand_interleave_perm(top))
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in e.opt_params().items()}
+        energies = e.replace(map_neighbors=nbl).with_params(p).map(RigidBody(cs.to(device), qs.to(device)))
+        g = torch.autograd.grad((energies * torch.tensor([1.0, -0.5, 2.0], device=device)).sum(), list(p.values()),
+                                allow_unused=True)
+        return energies.detach().cpu(), {k: (torch.zeros_like(v) if gk is None else gk).cpu()
+                                         for (k, v), gk in zip(p.items(), g, strict=True)}
+
+    before4, before5 = tiles.tile_energies.by_family["dna1"], tiles.tile_row_grads.by_family["dna1"]
+    e_gpu, g_gpu = mapped(card)
+    torch.cuda.synchronize()
+    assert tiles.tile_energies.by_family["dna1"] == before4 + 3
+    assert tiles.tile_row_grads.by_family["dna1"] == before5 + 3
+    e_cpu, g_cpu = mapped("cpu")
+    torch.testing.assert_close(e_gpu, e_cpu, rtol=1e-4, atol=1e-5)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], g, rtol=1e-4, atol=1e-5 * scale, msg=k)
+
+    top_f, body_f = synthetic_duplex(40, dtype=torch.float64, device="cpu")
+    top_path, conf_path = to_oxdna_files(tmp_path, top_f, body_f, new_format=True)
+    argv = [str(top_path), str(conf_path), "--sim-steps", "40", "--save-every", "5", "--n-eq-states", "2",
+            "--opt-steps", "1"]
+    outs = []
+    fit_example.main(argv + ["--device", "cuda"],
+                     callback=lambda optimizer_output, step: (outs.append(optimizer_output), (None, True))[1])
+    cpu_opt, params_cpu = fit_example.build_fit(fit_example.parse_args(argv + ["--device", "cpu"]))
+    name = cpu_opt.simulator.exposes()[0]
+    traj = outs[0].state.observables[name]
+    assert traj.center.device.type == "cuda"
+    ref = cpu_opt.objective.calculate({name: traj.replace(center=traj.center.cpu(), orientation=traj.orientation.cpu(),
+                                                          temperature=traj.temperature.cpu())}, opt_params=params_cpu)
+    assert ref.is_ready
+    loss = float(outs[0].observables["propeller"]["loss"])
+    assert abs(loss - float(ref.observables["loss"])) <= 1e-4 * abs(float(ref.observables["loss"])) + 1e-5
+    scale = max(float(g.abs().max()) for g in ref.grads.values())
+    for k, g in ref.grads.items():
+        torch.testing.assert_close(outs[0].grads[k].cpu(), g, rtol=1e-4, atol=1e-5 * scale, msg=k)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """PyTorch port (mythos_tpu_torch): the oxDNA1 block tier -- K3's dna1
 plain version on a one-level symmetric table (oxDNA1 has no Debye term)
 and ``build_sim(mode="block", model="dna1")`` -- against the JAX package's
-XLA tile path, and the refusal of DiffTRe under oxDNA1.
+XLA tile path, and DiffTRe under oxDNA1's one table (its refusal of a
+(tight, wide) table pair).
 
 The JAX side is its XLA path, never Pallas interpret mode: ``jax.grad`` of
 the block energy over a triangular table (float64, rtol 1e-6; XLA-CPU
@@ -58,7 +59,7 @@ def f64_system():
     e_t = tdna1.create_default_energy_fn(top_t, dtype=torch.float64, device="cpu")
     nbl = tnb.block_neighbor_list_for_topology(top_t, tdna1.default_neighbor_cutoff(), block_size=8,
                                                init_centers=tbody.center, perm=tnb.strand_interleave_perm(top_t))
-    ctxs = tiles.prepare_contexts(e_t, nbl.idx, nbl.block_size, perm=nbl.perm, forces_only=True)
+    ctxs = tiles.prepare_contexts(e_t, nbl.idx, nbl.block_size, perm=nbl.perm)
     return jbody, e_j, tbody, e_t, nbl, ctxs
 
 
@@ -93,14 +94,26 @@ def test_tile_plain_versions_match_jax(f64_system):
 
 
 def test_difftre_under_dna1_is_refused(f64_system):
-    """DiffTRe under oxDNA1 (K4 and K5's dna1 instances) is not ported: the
-    tile map's contexts and the composed energy's map raise, naming it."""
-    jbody, _, tbody, e_t, nbl, _ = f64_system
-    with pytest.raises(NotImplementedError, match="DiffTRe under oxDNA1"):
-        tiles.prepare_contexts(e_t, nbl.idx, nbl.block_size, perm=nbl.perm)
+    """What DiffTRe under oxDNA1 still refuses: a (tight, wide) table pair,
+    which needs a Debye table oxDNA1 lacks; the error names the one short
+    table it takes instead."""
+    _, _, _, e_t, nbl, _ = f64_system
+    with pytest.raises(ValueError, match="short kind"):
+        tiles.prepare_contexts(e_t, (nbl.idx, nbl.idx), nbl.block_size, perm=nbl.perm)
+
+
+def test_difftre_under_dna1_takes_one_short_table(f64_system):
+    """DiffTRe under oxDNA1 takes one table: its contexts are the block
+    tier's (one of the short kind, K3-K5's dna1 instances), and the tile
+    map of a state equals the pair-list energy (f64, rtol 1e-6: the tiles'
+    polynomial arccos; tests/test_torch_dna1_difftre.py holds the map and
+    its gradients against the reference)."""
+    _, _, tbody, e_t, nbl, ctxs = f64_system
+    (ctx,) = tiles.prepare_contexts(e_t, nbl.idx, nbl.block_size, perm=nbl.perm)
+    assert ctx.spec == ctxs[0].spec
     states = RigidBody(tbody.center[None], tbody.orientation[None])
-    with pytest.raises(NotImplementedError, match="DiffTRe under oxDNA1"):
-        e_t.replace(map_neighbors=nbl).map(states)
+    got = e_t.replace(map_neighbors=nbl).map(states)
+    np.testing.assert_allclose(got.numpy(), e_t.map(states).numpy(), rtol=1e-6)
 
 
 def test_dna1_block_run_matches_jax_tpu_simulator():
