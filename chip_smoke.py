@@ -74,7 +74,7 @@ Phases, one line each; any failure exits non-zero:
    window, and a 40-bp run on the card agrees with the CPU; (10d) the
    same run from the B-form helix, its overflow flag printed;
 11. the stencil's per-step branch (``save_every`` 1) at 10k nt: oxDNA2 400
-   steps and oxRNA2 200 steps after a warm-up run, a state emitted every
+   steps and oxRNA2 120 steps after a warm-up run, a state emitted every
    step, K2 launched once a step and once for the initial force, K1 never,
    no overflow; a torch.profiler window of 40 steps (launches a step, idle
    share, K2's device time a call and its share of a step); 40-bp
@@ -82,8 +82,9 @@ Phases, one line each; any failure exits non-zero:
 12. direct differentiation through ``CudaSimulator.run`` (d loss / d every
    parameter by ``loss.backward()``; K1 and K2 forward, their plain
    versions backward): (12a) the reference's configuration, 1,000 nt, the
-   propeller-twist loss through 200 steps (5 chunks) after a 40-step
-   warm-up -- finite, nonzero, d / d eps_stack_base nonzero, K1 launched 5
+   propeller-twist loss through 80 steps (2 chunks; the reference's 200,
+   cut for time) after a 40-step
+   warm-up -- finite, nonzero, d / d eps_stack_base nonzero, K1 launched 2
    times and K2 once, the forward's and the backward's seconds, peak
    memory; (12b) 40 bp, one 40-step chunk at kT 0 from a jittered state,
    card vs CPU for oxDNA2 and oxRNA2 (loss rtol 1e-5, gradients rtol 1e-2
@@ -92,11 +93,11 @@ Phases, one line each; any failure exits non-zero:
    forward, 40 more in the backward) against 0 (the same gradient, rtol
    1e-5), with the memory the graph holds after the forward and the
    peak's rise over the evaluation, each; (12d) oxRNA2 at
-   1,000 nt, 80 steps through K1's rna2 instance;
+   1,000 nt, 40 steps through K1's rna2 instance;
 13. direct differentiation through ``BlockSimulator.run`` (K3 forward
    through ``TileForces``, its plain version backward): (13a) 1,000 nt
-   under ``build_sim(mode="block")``, the propeller-twist loss through 200
-   steps after a 40-step warm-up -- finite, nonzero, d / d eps_stack_base
+   under ``build_sim(mode="block")``, the propeller-twist loss through 80
+   steps (200 before phase 17) after a 40-step warm-up -- finite, nonzero, d / d eps_stack_base
    nonzero, K3 launched as in the same run without gradients and never in
    the backward, the forward's and backward's seconds, peak memory; (13b)
    40 bp, 40 steps at kT 0 from a jittered state, card vs CPU (loss rtol
@@ -128,7 +129,7 @@ Phases, one line each; any failure exits non-zero:
    model="dna1")`` on the arc, 200 steps, and 40 bp card vs CPU; (15e) the
    small-system path: ``entry.entry()``'s 8-bp step 100 times, a 40-bp
    duplex written as oxDNA files and read back by the port's readers,
-   ``build_sim(mode="pairs", model="dna1")`` on them for 300 steps (no
+   ``build_sim(mode="pairs", model="dna1")`` on them for 150 steps (no
    kernel: autograd on the card; 1000 before phase 16 came), 40 steps card
    vs CPU;
 16. DiffTRe under oxDNA1: (16a) K4's and K5's dna1 instances against
@@ -143,10 +144,26 @@ Phases, one line each; any failure exits non-zero:
    gradients, ``eps_stack_base`` moves, no overflow, n_eff printed each
    step, seconds a step, the map's states/s, K4's and K5's launches; (16c)
    the example's own ``main()`` on a 40-bp duplex from oxDNA files (200 MD
-   steps on the pair list, 2 Adam steps), its first step's loss and
+   steps on the pair list, 1 Adam step), its first step's loss and
    gradients card vs CPU (rtol 1e-4, atol 1e-5 max|grad|); (16d) the
    native trajectory parser on the fit's 10k-nt, 50-state trajectory,
-   equal to the numpy parser's.
+   equal to the numpy parser's;
+17. probabilistic sequences (sequence design): a ``bp_pseq`` over the
+   10k-nt duplex's 5,000 base pairs drawn from a seed with numpy; (17a)
+   the pseq instances of K2 (oxDNA1, oxDNA2) and of K3, K4 and K5 (K5's 21
+   fields; oxDNA1's short table, oxDNA2's full table) against their plain
+   versions on the 0.01-jittered duplex (phase 6's tolerances and
+   tallies), bits, registers and spill, device time a call; (17b) each on
+   the one-hot pseq of the duplex's sequence within K2's tolerance of its
+   discrete instance; (17c) a sequence-design step under oxDNA1: 400 steps
+   on the stencil's per-step branch (a state every 40; K1 refuses a pseq),
+   the propeller-twist DiffTRe loss over the 10 states on a B = 8 table
+   (K4, backward K5) and d loss / d bp_pseq, also through
+   ``DiffTReObjective``, the seconds of MD, map and backward; oxDNA2's
+   step at 40 steps, and 40 block-tier steps of each family under the
+   pseq, every pseq instance's launches counted; (17d) the pseq energy of
+   a 40-bp duplex on the tile map and d E / d bp_pseq card vs CPU (rtol
+   1e-4, atol 1e-5 max|grad|).
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
 phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
@@ -202,13 +219,16 @@ FLOP_LJ_TEST, FLOP_LJ_ENERGY, FLOP_LJ_GRAD = 22, 12, 30
 MARTINI_LATTICE = (16, 16, 6)  # phase 9: 512 lipids, 8,112 waters, 10,160 beads
 MARTINI_STEPS, MARTINI_SAVE, MARTINI_WARM = 1000, 50, 50
 MARTINI_BAROSTAT = {"pressure0": 1.0, "tau": 4.0, "every": 10}
-PER_STEP_STEPS = {"dna2": 400, "rna2": 200}  # phase 11: a state every step (400 x 7 x 10k floats: 112 MB)
+#: phase 11: a state every step (200 x 7 x 10k floats: 56 MB), a multiple of the 40-step
+#: rebuild interval; 400 / 200 until phase 17 came
+PER_STEP_STEPS = {"dna2": 200, "rna2": 120}
 PER_STEP_WINDOW = 40  # phase 11's profiled steps
 #: phase 12: the reference's direct-differentiation configuration
 #: (benchmarks/RESULTS.md, "Direct differentiation"): 1,000 nt, 200 steps
-#: after a 40-step warm-up; 40 per-step steps; 80 oxRNA2 steps
-DIRECT_N_BP, DIRECT_STEPS, DIRECT_WARM = 500, 200, 40
-DIRECT_PER_STEP, DIRECT_RNA2_STEPS = 40, 80
+#: (cut to 80, 2 chunks, to make room for phase 17) after a 40-step
+#: warm-up; 40 per-step steps; 40 oxRNA2 steps (80 before phase 17)
+DIRECT_N_BP, DIRECT_STEPS, DIRECT_WARM = 500, 80, 40
+DIRECT_PER_STEP, DIRECT_RNA2_STEPS = 40, 40
 #: phase 14: the reference example's fit (examples/martini_bilayer_native.py:
 #: 5 Adam steps, each a 300-step NPT run of lattice_bilayer(4, 4, 2)), and
 #: 50 steps of phase 9's bilayer
@@ -225,14 +245,20 @@ FAMILY_CODE = {"dna2": 0, "rna2": 1, "dna1": 2}
 #: phase 15: oxDNA1's block run on the arc (phase 7 runs 400), the
 #: small-system path's duplex, its steps, and entry()'s steps
 DNA1_BLOCK_STEPS = 200
-SMALL_BP, SMALL_STEPS, ENTRY_STEPS = 40, 300, 100
+SMALL_BP, SMALL_STEPS, ENTRY_STEPS = 40, 150, 100  # 15e: 1000, 300 before phases 16, 17
 #: phase 16: the DiffTRe fit under oxDNA1 at 10k nt (MD steps a simulation,
 #: a state every FIT_SAVE steps, equilibration states sliced off, Adam
 #: steps at FIT_LR; the reference example's 100-step cadence is no multiple
 #: of the 40-step chunk, its 50 optimizer steps are cut for time), the
 #: example's own shape at 40 bp (cut for time), the parser's states
 FIT_MD_STEPS, FIT_SAVE, FIT_EQ, FIT_OPT_STEPS, FIT_LR = 10_000, 200, 10, 5, 1e-3
-EXAMPLE_MD, EXAMPLE_SAVE, EXAMPLE_EQ, EXAMPLE_OPT = 200, 10, 5, 2
+EXAMPLE_MD, EXAMPLE_SAVE, EXAMPLE_EQ, EXAMPLE_OPT = 200, 10, 5, 1  # 2 Adam steps before phase 17
+#: phase 17: the seed of bp_pseq, the oxDNA1 sequence-design step's MD steps
+#: on the per-step branch and its cadence (10 states), and the shorter
+#: oxDNA2 step's and the block runs' steps (4 states)
+PSEQ_SEED = 41
+PSEQ_MD_STEPS, PSEQ_SAVE = 400, 40
+PSEQ_SHORT_STEPS, PSEQ_SHORT_SAVE = 40, 10
 
 
 def _events_ms(fn, reps: int) -> tuple[list[float], object]:
@@ -847,8 +873,9 @@ def _k2_held(label: str, ctx, dyn, ptx: dict, site_cutoffs=None) -> dict:
             print(f"    {label} worst element: row {r}, slot {t} (z {float(dyn[2, t]):.1f}, near the clamp: "
                   f"{bool(near[t])}): kernel {float(k2[r, t]):.5f} f32 {float(plain[r, t]):.5f} f64 "
                   f"{float(plain64[r, t]):.5f}")
-    regs, spill = ptx.get(f"stencil_field_grads_kernel<{FAMILY_CODE[ctx.family]}>", (0, -1))
-    bound = _bound(2 * 7 * n * 4, tally["short"] * FLOP_PAIR_GRAD + tally["debye"] * FLOP_DEBYE_GRAD)
+    regs, spill = ptx.get(_instance_key("stencil_field_grads", ctx.family, ctx.pseq), (0, -1))
+    hbf_bytes = 10 * n * 4 if ctx.pseq else 0  # a pseq's hb factors
+    bound = _bound(2 * 7 * n * 4 + hbf_bytes, tally["short"] * FLOP_PAIR_GRAD + tally["debye"] * FLOP_DEBYE_GRAD)
     clamp = "" if site_cutoffs is None else (f" {int(near.sum())} slots with a short-range pair whose angle cosine lies "
                                              f"within {CLAMP_ULPS} float32 ulps of +-1;")
     print(f"[{label}] n={n} w_terms={ctx.w_terms} w_wide={ctx.w_wide}:{clamp} max_abs_err={err:.3e} ({rule}) ok={ok}; "
@@ -863,10 +890,16 @@ def _k2_held(label: str, ctx, dyn, ptx: dict, site_cutoffs=None) -> dict:
     return {"err": err, "ms": k2_ms, "plain_ms": p_ms, "dev_ms": dev_ms, "tally": tally, "bound": bound, "k2": k2}
 
 
+def _instance_key(name: str, family: str, pseq: bool = False) -> str:
+    """The key of a kernel instance in :func:`_ptxas`' dict."""
+    return f"{name}_kernel<{FAMILY_CODE[family]}{',pseq' if pseq else ''}>"
+
+
 def _ptxas(log_path) -> tuple[list, dict]:
     """What ``nvcc -Xptxas -v`` said of each kernel in the build log: the
     lines "kernel: registers..., spill" and {kernel: (registers, spill store
-    bytes)}, a template instance named ``name<argument>``."""
+    bytes)}, a template instance named ``name<family>``, and a pseq instance
+    (its second template argument true) ``name<family,pseq>``."""
     regs, fn, spill, ptx = [], "?", "", {}
     for ln in log_path.read_text().splitlines():
         if "Compiling entry function" in ln:
@@ -874,8 +907,9 @@ def _ptxas(log_path) -> tuple[list, dict]:
             mangled = re.match(r"_Z(\d+)", fn)  # _Z<length><name>[I<template arguments>E]<arguments>
             if mangled:
                 end = mangled.end() + int(mangled.group(1))
-                targs = re.match(r"ILi(\d+)E", fn[end:])
-                fn = fn[mangled.end() : end] + (f"<{targs.group(1)}>" if targs else "")
+                targs = re.match(r"ILi(\d+)E(Lb([01])E)?", fn[end:])
+                pseq = ",pseq" if targs and targs.group(3) == "1" else ""
+                fn = fn[mangled.end() : end] + (f"<{targs.group(1)}{pseq}>" if targs else "")
         elif "spill stores" in ln:
             spill = ln.split(",", 1)[1].strip()
         elif "registers" in ln:
@@ -1139,10 +1173,10 @@ def _direct(dev, smi: str) -> dict:
     d loss / d every ``opt_params`` tensor by ``loss.backward()``, K1 and K2
     forward on the card, their plain versions backward (the reference's
     custom-JVP rule). 12a the reference's own configuration at 1,000 nt
-    (the propeller-twist loss through 200 steps, 5 chunks), timed after a
+    (the propeller-twist loss through DIRECT_STEPS steps), timed after a
     40-step warm-up; 12b 40 bp, one 40-step chunk at kT 0, card vs CPU, both
     families; 12c the per-step branch at 1,000 nt with ``checkpoint_every``
-    1 against 0; 12d oxRNA2 at 1,000 nt, two chunks. Returns {"K1", "K2",
+    1 against 0; 12d oxRNA2 at 1,000 nt, DIRECT_RNA2_STEPS steps. Returns {"K1", "K2",
     "K1 rna2": launches of 12a/12d; "bwd_ms_chunk": 12a's backward a chunk}."""
     import torch
     from torch.utils.checkpoint import checkpoint
@@ -1171,7 +1205,7 @@ def _direct(dev, smi: str) -> dict:
         obs = PropellerTwist(rigid_body_transform_fn=dna2.default_transform_soa_fn(), h_bonded_base_pairs=bps)
         return lambda traj: (obs(traj).mean() - 21.7) ** 2
 
-    # 12a. the full-width slice: 1,000 nt, 200 steps, a state every 40
+    # 12a. the full-width slice: 1,000 nt, DIRECT_STEPS steps, a state every 40
     topology, body = synthetic_duplex(DIRECT_N_BP, dtype=torch.float32, device=dev)
     n_nt = topology.n_nucleotides
     energy_fn, sim = build_sim(topology, KT, init_centers=body.center, init_orientation=body.orientation, device=dev)
@@ -1343,7 +1377,7 @@ def _block_direct(dev, smi: str) -> dict:
     """Phase 13: direct differentiation through ``BlockSimulator.run`` --
     d loss / d every ``opt_params`` tensor by ``loss.backward()``, K3 forward
     on the card through ``TileForces``, its plain version backward. 13a the
-    1,000-nt duplex, the propeller-twist loss through 200 steps after a
+    1,000-nt duplex, the propeller-twist loss through DIRECT_STEPS steps after a
     40-step warm-up, K3 launched as the same run without gradients does and
     none backward; 13b 40 bp, 40 steps at kT 0, card vs CPU; 13c 1,000 nt,
     40 steps in 4 rebuild intervals, ``checkpoint_every`` 1 against 0; 13d
@@ -1370,7 +1404,7 @@ def _block_direct(dev, smi: str) -> dict:
         obs = PropellerTwist(rigid_body_transform_fn=dna2.default_transform_soa_fn(), h_bonded_base_pairs=bps)
         return lambda traj: (obs(traj).mean() - 21.7) ** 2
 
-    # 13a. 1,000 nt, 200 steps, a rebuild and a state every 40
+    # 13a. 1,000 nt, DIRECT_STEPS steps, a rebuild and a state every 40
     topology, body = synthetic_duplex(DIRECT_N_BP, dtype=torch.float32, device=dev)
     n_nt = topology.n_nucleotides
     energy_fn, sim = build_sim(topology, KT, mode="block", init_centers=body.center, device=dev)
@@ -2065,6 +2099,287 @@ def _dna1_difftre(dev, smi: str, ptx: dict) -> list[dict]:
     ]
 
 
+def _pseq_energy(model: str, topology, dev, seed: int | None = None):
+    """The default oxDNA1 or oxDNA2 energy of ``topology`` (a duplex) under a
+    probabilistic sequence, with ``from_bps`` over all its base pairs (i,
+    n - 1 - i): ``bp_pseq`` drawn with numpy from ``seed``, or with ``seed``
+    None the one-hot pseq of the duplex's own sequence. (energy, (up_pseq,
+    bp_pseq))."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from mythos_tpu_torch.io import sequence_constraints as seqc
+
+    n = topology.n_nucleotides
+    sc = seqc.from_bps(n, np.array([[i, n - 1 - i] for i in range(n // 2)]))
+    if seed is None:
+        up, bp = seqc.dseq_to_pseq(np.asarray(topology.seq), sc)
+    else:
+        bp = np.random.default_rng(seed).random((sc.n_bp, 4))
+        up, bp = np.zeros((0, 4)), bp / bp.sum(1, keepdims=True)
+    pseq = tuple(torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (up, bp))
+    pkg = importlib.import_module(f"mythos_tpu_torch.energy.{model}")
+    return pkg.create_default_energy_fn(topology, device=dev).with_params(pseq=pseq, pseq_constraints=sc), pseq
+
+
+def _pseq(dev, smi: str, ptx: dict) -> list[dict]:
+    """Phase 17: probabilistic sequences (sequence design) -- the pseq
+    instances of K2 (oxDNA1, oxDNA2) and of K3, K4 and K5 (oxDNA1's short
+    table, oxDNA2's full table) against their plain versions at 10k nt
+    (17a), each on the one-hot pseq against its discrete instance (17b), a
+    sequence-design step and the pseq runs of both tiers (17c, this phase's
+    main path), and the pseq energy and its gradient card vs CPU at 40 bp
+    (17d). The eight pseq records."""
+    import importlib
+
+    import torch
+
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.losses import ObservableLossFn, SquaredError
+    from mythos_tpu_torch.observables import PropellerTwist
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.ops import tiles
+    from mythos_tpu_torch.optimization import DiffTReObjective
+    from mythos_tpu_torch.optimization.objective import compute_loss
+    from mythos_tpu_torch.rigid_body import RigidBody
+    from mythos_tpu_torch.simulators.io import SimulatorTrajectory
+    from mythos_tpu_torch.simulators.neighbors import block_neighbor_list_for_topology, strand_interleave_perm
+    from mythos_tpu_torch.soa import to_soa
+
+    topology, body = synthetic_duplex(N_BP, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device=dev)
+    jb = RigidBody(body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device=dev),
+                   q / q.norm(dim=-1, keepdim=True))
+    pkgs = {m: importlib.import_module(f"mythos_tpu_torch.energy.{m}") for m in ("dna1", "dna2")}
+    rec, setups = {}, {}
+    tile_names = {"K3": "tile_forces", "K4": "tile_energies", "K5": "tile_row_grads"}
+    for model, pkg in pkgs.items():
+        e, _ = _pseq_energy(model, topology, dev, seed=PSEQ_SEED)
+        e0, sim = build_sim(topology, KT, model=model, init_centers=body.center, init_orientation=body.orientation,
+                            device=dev)
+        ctx = st.prepare_stencil_context(e, sim.band, device=dev)
+        dyn = torch.cat([ctx.to_slots(jb.center.T), ctx.to_slots(jb.orientation.T)]).contiguous()
+        nbl = block_neighbor_list_for_topology(topology, pkg.default_neighbor_cutoff(), block_size=8,
+                                               init_centers=jb.center, perm=strand_interleave_perm(topology))
+        setups[model] = (e0, sim, dyn, nbl)
+        # 17a. K2's pseq instance, then K3, K4 and K5's on the block table
+        k2r = _k2_held(f"17a K2 {model} pseq", ctx, dyn, ptx, pkg.per_term_site_cutoffs())
+        rec[f"K2 {model}"] = dict(err=k2r["err"], ms=statistics.median(k2r["ms"]),
+                                  plain_ms=statistics.median(k2r["plain_ms"]), bound=k2r["bound"])
+        (tctx,) = tiles.prepare_contexts(e, nbl.idx, nbl.block_size, perm=nbl.perm)
+        sp, P, ids = tctx.spec, tctx.params, tiles.pad_ids(tctx.spec, nbl.idx)
+        rows = tiles.dynamic_rows(tctx, to_soa(jb)).contiguous()
+        rows64, P64 = rows.double(), P.double()
+        full, tri, short, hb, debye, ulps, _ = _pair_geometry(tctx, ids, rows, pkg.per_term_site_cutoffs())
+        near = ((ulps <= CLAMP_ULPS) & short & full).any(-1).reshape(-1)
+        gt = tiles.term_weights(P, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device=dev)
+        print(f"[17a tiles {model} pseq] {sp.n} nt, B={sp.block_size} cap {sp.cap} kind {sp.kind} pseq {sp.pseq} "
+              f"overflow={bool(nbl.did_overflow)}; {int(near.sum())} rows near the float32 arccos clamp")
+        runs = {
+            "K3": (lambda: tiles.tile_forces(rows, P, ids, sp), lambda: tiles.tile_forces_plain(rows, P, ids, sp),
+                   lambda: tiles.tile_forces_plain(rows64, P64, ids, sp),
+                   lambda: tiles._tile_forces(rows, P, ids, sp, count=True), False),
+            "K4": (lambda: tiles.tile_energies(rows, P, ids, sp), lambda: tiles.tile_energies_plain(rows, P, ids, sp),
+                   lambda: tiles.tile_energies_plain(rows64, P64, ids, sp),
+                   lambda: tiles._tile_energies(rows, P, ids, sp, count=True), True),
+            "K5": (lambda: tiles.tile_row_grads(rows, P, ids, gt, sp),
+                   lambda: tiles.tile_row_grads_plain(rows, P, ids, gt, sp),
+                   lambda: tiles.tile_row_grads_plain(rows64, P64, ids, gt.double(), sp),
+                   lambda: tiles._tile_row_grads(rows, P, ids, gt, sp, count=True), False),
+        }
+        for key, (kern, plain, plain64, counted, triangular) in runs.items():
+            k_ms, got = _events_ms(kern, 20)
+            p_ms, ref = _events_ms(plain, 3)
+            ok, rule, err = _checked(f"17a {key} {model} pseq", got, ref, plain64(), near)
+            again, counts = counted()
+            tally = dict(zip(("short", "debye", "skipped"), counts.tolist(), strict=True))
+            gate = tiles.tile_gate_counts(rows, P, ids, sp, triangular=triangular)
+            same = torch.equal(got, again)
+            tally_ok = sum(abs(tally[k] - gate[k]) for k in gate) <= 1e-4 * sum(gate.values())
+            dev_ms = _kernels_ms(_profiled(kern, 10), "tile_")
+            regs, spill = ptx.get(_instance_key(tile_names[key], model, True), (0, -1))
+            print(f"[17a {key} {model} pseq] {tuple(got.shape)} err {err:.2e} ({rule}) ok={ok}; "
+                  f"{statistics.median(k_ms):.4f} ms by events, {_dev(dev_ms)} of device time a call, plain "
+                  f"{statistics.median(p_ms):.2f} ms; {regs} registers, {spill} B spill stores (the discrete "
+                  f"instance's: {ptx.get(_instance_key(tile_names[key], model), (0, -1))}); the pairs a call: kernel "
+                  f"{tally}, plain gate {gate}; equal bits on a second call: {same}")
+            if not (ok and same and tally_ok):
+                raise SystemExit(f"{key}'s {model} pseq instance disagrees with its plain version or gate, or is not "
+                                 "deterministic")
+            rec[f"{key} {model}"] = dict(err=err, ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                                         dev_ms=dev_ms)
+        n_short, n_hb, n_debye = (int((m & tri).sum()) for m in (short, hb, debye))
+        in_bytes = sp.n_pad * sp.n_fields * 4 + sp.n_blocks * sp.cap * 4 + 4 * st.param_offsets()["TOTAL"]
+        rec[f"K3 {model}"]["bound"] = _bound(in_bytes + sp.n_pad * 12 * 4,
+                                             n_short * FLOP_PAIR_GRAD + n_debye * FLOP_DEBYE_GRAD)
+        rec[f"K4 {model}"]["bound"] = _bound(in_bytes + 5 * 4,
+                                             n_short * FLOP_PAIR_ENERGY + n_debye * FLOP_DEBYE_ENERGY)
+        # K5 under pseq: 21 fields, and the role-swapped hb product on each pair in the hb reach
+        rec[f"K5 {model}"]["bound"] = _bound(in_bytes + sp.n_pad * 21 * 4, n_short * FLOP_PAIR_GRAD
+                                             + 2 * n_hb * FLOP_PAIR_HB + n_debye * FLOP_DEBYE_GRAD)
+        print(f"[17a bounds {model}] {int(tri.sum())} unordered pairs, {n_short} inside the short-range reach "
+              f"({n_hb} the hb reach), {n_debye} Debye only: " + "; ".join(
+                  f"{k} {rec[f'{k} {model}']['bound'][0]:.5f} ms ({rec[f'{k} {model}']['bound'][1]}; "
+                  f"{_share(rec[f'{k} {model}']['bound'][0], rec[f'{k} {model}']['dev_ms'])} of its device time)"
+                  for k in ("K3", "K4", "K5")))
+    _lap("17a pseq kernels")
+
+    # 17b. on the one-hot pseq of the duplex's sequence, each pseq instance
+    # against the discrete one (K2's tolerance)
+    errs = {}
+    for model, (e0, sim, dyn, nbl) in setups.items():
+        e1, _ = _pseq_energy(model, topology, dev)
+        ctx0 = st.prepare_stencil_context(e0, sim.band, device=dev)
+        ctx1 = st.prepare_stencil_context(e1, sim.band, device=dev)
+        outs = {"K2": (st.field_grads(ctx1, dyn), st.field_grads(ctx0, dyn))}
+        pair = []
+        for energy in (e1, e0):
+            (tc,) = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
+            r, ids = tiles.dynamic_rows(tc, to_soa(jb)).contiguous(), tiles.pad_ids(tc.spec, nbl.idx)
+            g = tiles.term_weights(tc.params, tc.spec)
+            pair.append((tiles.tile_forces(r, tc.params, ids, tc.spec), tiles.tile_energies(r, tc.params, ids, tc.spec),
+                         tiles.tile_row_grads(r, tc.params, ids, g, tc.spec)[:, :16]))
+        outs.update({k: v for k, v in zip(("K3", "K4", "K5"), zip(*pair, strict=True), strict=True)})
+        for key, (one, discrete) in outs.items():
+            ok, err = _within(one, discrete, rtol=1e-4, atol=1e-4 * float(discrete.abs().max()))
+            errs[f"{key} {model}"] = err
+            if not ok:
+                raise SystemExit(f"{key}'s {model} pseq instance on the one-hot pseq is off the discrete instance")
+    print("[17b one-hot pseq vs discrete] max|pseq instance - discrete| (K2's tolerance met): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    _lap("17b one-hot")
+
+    # 17c. the main path of this phase: a sequence-design step at 10k nt under
+    # oxDNA1 -- PSEQ_MD_STEPS on the stencil's per-step branch (K2's pseq
+    # instance; K1 refuses a pseq), the propeller-twist DiffTRe loss over the
+    # saved states on a B = 8 table (K4, backward K5) and d loss / d bp_pseq
+    # -- then oxDNA2's step at PSEQ_SHORT_STEPS, and both block tiers under
+    # the pseq (K3), every pseq instance counted from 0
+    bps = torch.tensor([[i, 2 * N_BP - 1 - i] for i in range(N_BP)], dtype=torch.int32, device=dev)
+    for fn in (st.field_grads, st.multistep_chunk, tiles.tile_forces, tiles.tile_energies, tiles.tile_row_grads):
+        fn.by_family = dict.fromkeys(fn.by_family, 0)
+    design = {}
+    for model, pkg in pkgs.items():
+        n_md, save = (PSEQ_MD_STEPS, PSEQ_SAVE) if model == "dna1" else (PSEQ_SHORT_STEPS, PSEQ_SHORT_SAVE)
+        e, (up, bp) = _pseq_energy(model, topology, dev, seed=PSEQ_SEED)
+        _, sim = setups[model][0], setups[model][1]
+        sim = sim.replace(energy_fn=e, save_every=save, neighbor_update_every=save)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = sim.run(e.opt_params(), body, n_md, torch.Generator(device=dev).manual_seed(42)).observables[0]
+        torch.cuda.synchronize()
+        el_md = time.perf_counter() - t0
+        finite = bool(torch.isfinite(traj.center).all() and torch.isfinite(traj.orientation).all())
+        overflow = bool(traj.metadata["neighbor_overflow"].any())
+        map_nbl = block_neighbor_list_for_topology(topology, pkg.default_neighbor_cutoff(), block_size=8,
+                                                   init_centers=body.center, perm=strand_interleave_perm(topology))
+        obs = ObservableLossFn(observable=PropellerTwist(rigid_body_transform_fn=pkg.default_transform_soa_fn(),
+                                                         h_bonded_base_pairs=bps),
+                               loss_fn=SquaredError(), return_observable=True)
+
+        def loss_fn(ref_states, weights, *_, obs=obs):
+            loss, measured = obs(ref_states, 21.7, weights)
+            return loss, (("propeller_twist", measured), None)
+
+        leaves = (up.clone().requires_grad_(True), bp.clone().requires_grad_(True))
+        states = RigidBody(traj.center, traj.orientation)
+        mapped = e.replace(map_neighbors=map_nbl)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, (n_eff, _, _) = compute_loss({"pseq": leaves}, mapped, 1.0 / KT, loss_fn, states, None, [])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        (g_bp,) = torch.autograd.grad(loss, leaves[1])
+        torch.cuda.synchronize()
+        el_map, el_bwd = t2 - t1, time.perf_counter() - t2
+        objective = DiffTReObjective(name="design", required_observables=("traj",), grad_or_loss_fn=loss_fn,
+                                     energy_fn=mapped)
+        out = objective.calculate({"traj": SimulatorTrajectory(center=traj.center, orientation=traj.orientation,
+                                                              temperature=traj.temperature)},
+                                  opt_params={"pseq": (up, bp)})
+        # the objective's beta is the trajectory's float32 1 / kT a state: float32 apart
+        ok_obj = out.is_ready and _within(out.grads["pseq"][1], g_bp, rtol=1e-4, atol=1e-5 * float(g_bp.abs().max()))[0]
+        g_max = float(g_bp.abs().max())
+        print(f"[17c design {model}] {n_md} pseq MD steps at {topology.n_nucleotides} nt (the per-step branch, a state "
+              f"every {save}): {el_md:.3f} s = {n_md / el_md * 60.0:.1f} steps/min on {smi}; states "
+              f"{tuple(traj.center.shape)} finite={finite} overflow={overflow}; map of {traj.center.shape[0]} states "
+              f"+ loss {el_map:.3f} s, backward {el_bwd:.3f} s; loss {float(loss.detach()):.6g} n_eff {float(n_eff):.6g} "
+              f"max|d loss / d bp_pseq| {g_max:.4g} finite={bool(torch.isfinite(g_bp).all())}; DiffTReObjective's "
+              f"gradient the same (rtol 1e-4, atol 1e-5 max): {ok_obj}")
+        if not (finite and not overflow and bool(torch.isfinite(g_bp).all()) and g_max > 0 and ok_obj):
+            raise SystemExit(f"the {model} sequence-design step gave a bad trajectory, overflowed, or a non-finite, "
+                             "zero or inconsistent sequence gradient")
+        design[model] = (el_md, el_map, el_bwd)
+    for model in pkgs:
+        e, _ = _pseq_energy(model, topology, dev, seed=PSEQ_SEED)
+        _, sim_b = build_sim(topology, KT, mode="block", model=model, init_centers=body.center, device=dev)
+        sim_b = sim_b.replace(energy_fn=e, save_every=PSEQ_SHORT_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = sim_b.run(e.opt_params(), body, PSEQ_SHORT_STEPS, torch.Generator(device=dev).manual_seed(43))
+        torch.cuda.synchronize()
+        el_b = time.perf_counter() - t0
+        tr = tr.observables[0]
+        ok_b = bool(torch.isfinite(tr.center).all()) and not bool(tr.metadata["neighbor_overflow"].any())
+        print(f"[17c block {model} pseq] {PSEQ_SHORT_STEPS} steps at {topology.n_nucleotides} nt: {el_b:.3f} s = "
+              f"{PSEQ_SHORT_STEPS / el_b * 60.0:.1f} steps/min; finite, no overflow: {ok_b}")
+        if not ok_b:
+            raise SystemExit(f"the {model} block tier under a pseq produced a bad trajectory")
+    launches = {f"{k} {m}": fn.by_family[f"{m}_pseq"] for m in pkgs
+                for k, fn in (("K2", st.field_grads), ("K3", tiles.tile_forces), ("K4", tiles.tile_energies),
+                              ("K5", tiles.tile_row_grads))}
+    print(f"[17c launches] the pseq instances in the design steps and block runs: {launches}; K1 "
+          f"{sum(st.multistep_chunk.by_family.values())} (it refuses a pseq)")
+    if min(launches.values()) < 1 or sum(st.multistep_chunk.by_family.values()):
+        raise SystemExit(f"the pseq path did not run through every pseq instance, or ran K1: {launches}")
+    if launches["K2 dna1"] != PSEQ_MD_STEPS + 1:
+        raise SystemExit(f"the dna1 design step launched K2's pseq instance {launches['K2 dna1']} times")
+    _lap("17c sequence design")
+
+    # 17d. card vs CPU at 40 bp: the pseq energy on the tile map and d E / d bp_pseq
+    def energy_grad(model, device):
+        top40, b40 = synthetic_duplex(40, dtype=torch.float32, device="cpu")
+        g40 = torch.Generator().manual_seed(44)
+        q40 = b40.orientation + 0.01 * torch.randn(b40.orientation.shape, generator=g40)
+        b40 = RigidBody((b40.center + 0.01 * torch.randn(b40.center.shape, generator=g40)).to(device),
+                        (q40 / q40.norm(dim=-1, keepdim=True)).to(device))
+        e40, (up40, bp40) = _pseq_energy(model, top40, device, seed=PSEQ_SEED)
+        leaf = bp40.clone().requires_grad_(True)
+        e40 = e40.with_params(pseq=(up40, leaf))
+        nbl40 = block_neighbor_list_for_topology(top40, pkgs[model].default_neighbor_cutoff(), block_size=8,
+                                                 init_centers=b40.center, perm=strand_interleave_perm(top40))
+        ctxs = tiles.prepare_contexts(e40, nbl40.idx, nbl40.block_size, perm=nbl40.perm)
+        energy = tiles.fused_energy_ctx(e40, ctxs, to_soa(b40), nbl40.idx)
+        (g,) = torch.autograd.grad(energy, leaf)
+        return energy.item(), g.cpu()
+
+    for model in pkgs:
+        (e_gpu, g_gpu), (e_cpu, g_cpu) = energy_grad(model, dev), energy_grad(model, "cpu")
+        ok_e = abs(e_gpu - e_cpu) <= 1e-4 * abs(e_cpu) + 1e-5
+        ok_g, err_g = _within(g_gpu, g_cpu, rtol=1e-4, atol=1e-5 * float(g_cpu.abs().max()))
+        print(f"[17d card vs CPU {model}] 40 bp pseq energy card {e_gpu:.8g} CPU {e_cpu:.8g}; max|d E / d bp_pseq "
+              f"card - CPU| {err_g:.3e} (max {float(g_cpu.abs().max()):.3e}; rtol 1e-4, atol 1e-5 max|grad|)")
+        if not (ok_e and ok_g):
+            raise SystemExit(f"the card's {model} pseq energy or its sequence gradient disagrees with the CPU")
+    _lap("17 pseq")
+    src = "mythos_tpu_torch/ops/csrc/"
+    meta = {"K2": ("field_grads", "stencil_grads.cu", "mythos_tpu/ops/stencil.py:1420"),
+            "K3": ("tile_forces", "tiles.cu", "mythos_tpu/ops/oxdna_tiles.py:1094"),
+            "K4": ("tile_energies", "tiles.cu", "mythos_tpu/ops/oxdna_tiles.py:1079"),
+            "K5": ("tile_row_grads", "tiles.cu", "mythos_tpu/ops/oxdna_tiles.py:1094")}
+    return [
+        {"name": f"{k} {meta[k][0]} ({m} pseq)", "route": "cuda", "source": src + meta[k][1], "replaces": meta[k][2],
+         "launches": launches[f"{k} {m}"], "max_abs_err": rec[f"{k} {m}"]["err"], "ms": rec[f"{k} {m}"]["ms"],
+         "plain_ms": rec[f"{k} {m}"]["plain_ms"], "bound_ms": rec[f"{k} {m}"]["bound"][0],
+         "bound_by": rec[f"{k} {m}"]["bound"][1], "library_ms": None}
+        for m in pkgs for k in ("K2", "K3", "K4", "K5")
+    ]
+
+
 def _against(root: str, ctx, dyn, ou, noise, state, k2, k1) -> None:
     """Build the kernels of the checkout at ``root`` and run its K2 and K1
     (oxDNA2) on phases 3 and 4's inputs: does its K1 give this checkout's
@@ -2550,8 +2865,9 @@ def main() -> int:
 
     # 12. direct differentiation through the stencil run
     direct = _direct(dev, smi)
-    print(f"[12 kernels] a 1,000-nt grad evaluation of 200 steps launched K1 {direct['K1']} times and K2 "
-          f"{direct['K2']} (the oxRNA2 one of 80 steps K1 {direct['K1 rna2']}); the backward, the plain versions, "
+    print(f"[12 kernels] a 1,000-nt grad evaluation of {DIRECT_STEPS} steps launched K1 {direct['K1']} times and "
+          f"K2 {direct['K2']} (the oxRNA2 one of {DIRECT_RNA2_STEPS} steps K1 {direct['K1 rna2']}); the backward, the "
+          f"plain versions, "
           f"took {direct['bwd_ms_chunk']:.1f} ms a chunk on {smi}")
 
     # 13. direct differentiation through the block tier
@@ -2562,7 +2878,10 @@ def main() -> int:
     dna1_records = _dna1(dev, smi, ptx)
     # 16. DiffTRe under oxDNA1: K4 and K5's dna1 instances, the fit, the example, the native parser
     dna1_records += _dna1_difftre(dev, smi, ptx)
-    print(f"[13-14 kernels] a 1,000-nt block grad evaluation of 200 steps launched K3 {block_direct['K3 fwd']} times "
+    # 17. probabilistic sequences: the pseq instances of K2-K5, one-hot vs discrete, a sequence-design step
+    pseq_records = _pseq(dev, smi, ptx)
+    print(f"[13-14 kernels] a 1,000-nt block grad evaluation of {DIRECT_STEPS} steps launched K3 "
+          f"{block_direct['K3 fwd']} times "
           f"forward and {block_direct['K3 bwd']} backward (the plain version, {block_direct['bwd_s']:.3f} s); a "
           f"10,160-bead NPT grad evaluation of {MARTINI_DIRECT_STEPS} steps launched K6's forward "
           f"{martini_direct['K6 fwd']} and backward {martini_direct['K6 bwd']} times forward, none backward (the plain "
@@ -2589,7 +2908,7 @@ def main() -> int:
          "launches": tile_launch[k], "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
         for k, r in tile_rec.items()
-    ] + k6_records + dna1_records
+    ] + k6_records + dna1_records + pseq_records
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -24,14 +24,18 @@ ERR_COMPOSED_ENERGY_FN_LEN_MISMATCH = "Weights must have the same length as ener
 class BaseConfiguration:
     """Parameter container of one energy term.
 
-    Subclasses list ``required_params`` and ``dependent_params`` and
-    implement :meth:`derive` (the dependent values from the required ones).
+    Subclasses list ``required_params``, ``dependent_params`` and
+    ``optional_params`` and implement :meth:`derive` (the dependent values from the required ones).
     Values are tensors (or plain Python values for flags).
     """
 
     required_params: tuple[str, ...] = ()
     non_optimizable_required_params: tuple[str, ...] = ()
     dependent_params: tuple[str, ...] = ()
+    #: settable, never required, derived or optimised through
+    #: ``params_to_optimize`` (a probabilistic sequence and its constraints,
+    #: a sequence-dependent weight table): ``with_params`` reaches them
+    optional_params: tuple[str, ...] = ()
     OPT_ALL: tuple[str, ...] = ("*",)
 
     def __init__(self, params_to_optimize: tuple[str, ...] = (), **values) -> None:
@@ -54,7 +58,7 @@ class BaseConfiguration:
 
     @classmethod
     def fields(cls) -> tuple[str, ...]:
-        return cls.required_params + cls.dependent_params
+        return cls.required_params + cls.dependent_params + cls.optional_params
 
     def __getattr__(self, name: str):
         values = self.__dict__["_values"]

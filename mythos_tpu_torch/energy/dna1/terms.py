@@ -8,7 +8,10 @@ configuration's attribute names) and a geometry tuple, shared by the
 pair-list and dense paths here and the stencil band twin (ops/stencil.py).
 The unbonded terms evaluate either a pair list or, with ``dense_mask``,
 every (i, j) by broadcasts under the mask (:class:`_UnbondedPairs`).
-Probabilistic sequences are not ported yet.
+Stacking and hydrogen bonding take a probabilistic sequence (``pseq``,
+with its ``pseq_constraints``; energy/seqdep.py) in place of the
+topology's sequence, and a sequence-dependent weight table
+(``ss_stack_weights``/``ss_hb_weights``, io.sequence_dependence).
 """
 
 from __future__ import annotations
@@ -26,8 +29,18 @@ from mythos_tpu_torch.soa import vnorm
 from mythos_tpu_torch.utils.math import smooth_abs
 
 
+ERR_PSEQ_CONSTRAINTS = "pseq_constraints must be provided when pseq is provided."
+#: the configuration fields of a probabilistic sequence
+PSEQ_FIELDS = ("pseq", "pseq_constraints")
+
+
 def _table(values, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(values, dtype=like.dtype, device=like.device)
+
+
+def _check_pseq(cfg) -> None:
+    if cfg.pseq is not None and cfg.pseq_constraints is None:
+        raise ValueError(ERR_PSEQ_CONSTRAINTS)
 
 
 def v_fene_smooth(r, eps_backbone, r0_backbone, delta_backbone, fmax=500.0, finf=4.0):
@@ -211,7 +224,9 @@ def f4_of(p, name: str, k, theta):
 
 class StackingConfiguration(BaseConfiguration):
     """Stacking: eps = (eps_stack_base + eps_stack_kt_coeff kt) x the
-    sequence table (its ``kt`` fixed, not optimised)."""
+    sequence-averaged table, or with ``ss_stack_weights`` that table x (1 -
+    eps_stack_kt_coeff + 9 kt eps_stack_kt_coeff) (its ``kt`` fixed, not
+    optimised)."""
 
     required_params = (
         "eps_stack_base", "eps_stack_kt_coeff", "dr_low_stack", "dr_high_stack", "a_stack",
@@ -227,9 +242,16 @@ class StackingConfiguration(BaseConfiguration):
         "b_neg_cos_phi2_stack", "neg_cos_phi2_c_stack", "eps_stack",
     )
 
+    optional_params = (*PSEQ_FIELDS, "ss_stack_weights")
+
     def derive(self) -> dict:
-        eps = self.eps_stack_base + self.eps_stack_kt_coeff * self.kt
-        eps_stack = eps * _table(seqdep.STACK_WEIGHTS_SA, eps)
+        _check_pseq(self)
+        if self.ss_stack_weights is None:
+            eps = self.eps_stack_base + self.eps_stack_kt_coeff * self.kt
+            eps_stack = eps * _table(seqdep.STACK_WEIGHTS_SA, eps)
+        else:
+            scale = 1.0 - self.eps_stack_kt_coeff + self.kt * 9.0 * self.eps_stack_kt_coeff
+            eps_stack = _table(self.ss_stack_weights, self.kt) * scale
         b_low, dr_c_low, b_high, dr_c_high = sm.get_f1_smoothing_params(
             self.dr0_stack, self.a_stack, self.dr_c_stack, self.dr_low_stack, self.dr_high_stack
         )
@@ -283,9 +305,13 @@ class Stacking(BaseEnergyFunction):
             geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
             geom.gather(nuc.a2, i), geom.gather(nuc.a2, j),
         )
-        seq = self.seq_index(g.r_stack.device)
-        w = self.params.eps_stack[seq[i], seq[j]]
-        return (w * stack_product(self.params, g)).sum()
+        p = self.params
+        if p.pseq is not None:
+            w = seqdep.pair_weights(p.pseq, i, j, p.eps_stack, p.pseq_constraints)
+        else:
+            seq = self.seq_index(g.r_stack.device)
+            w = p.eps_stack[seq[i], seq[j]]
+        return (w * stack_product(p, g)).sum()
 
 
 # Hydrogen bonding ---------------------------------------------------------------
@@ -304,8 +330,14 @@ class HydrogenBondingConfiguration(BaseConfiguration):
         "eps_hb_weights",
     )
 
+    optional_params = (*PSEQ_FIELDS, "ss_hb_weights")
+
     def derive(self) -> dict:
-        eps_hb_weights = _table(seqdep.HB_WEIGHTS_SA, self.eps_hb) * self.eps_hb
+        _check_pseq(self)
+        if self.ss_hb_weights is None:
+            eps_hb_weights = _table(seqdep.HB_WEIGHTS_SA, self.eps_hb) * self.eps_hb
+        else:
+            eps_hb_weights = _table(self.ss_hb_weights, self.eps_hb)
         b_low, dr_c_low, b_high, dr_c_high = sm.get_f1_smoothing_params(
             self.dr0_hb, self.a_hb, self.dr_c_hb, self.dr_low_hb, self.dr_high_hb
         )
@@ -336,13 +368,29 @@ def hb_product(p, g: geom.UnbondedGeometry):
 
 
 class HydrogenBonding(_UnbondedPairs):
-    """Hydrogen bonding over unbonded pairs."""
+    """Hydrogen bonding over unbonded pairs. Under a probabilistic sequence
+    the pair list takes the expected weight of each pair
+    (``seqdep.pair_weights``), the dense path the factorized form
+    (``seqdep.factorized_weights``: marginal factors plus the correction on
+    each base pair's partner), as the reference's."""
+
+    def weights(self, device) -> torch.Tensor:
+        """The pairs' hb weights: (U,) on the pair list, (N, N) dense."""
+        p = self.params
+        if p.pseq is None:
+            s_i, s_j = self.seq_sides(device)
+            return p.eps_hb_weights[s_i, s_j]
+        if self.dense_mask is None:
+            i, j = self.unbonded_index(device)
+            return seqdep.pair_weights(p.pseq, i, j, p.eps_hb_weights, p.pseq_constraints)
+        left, right, partner, corr = seqdep.factorized_weights(p.pseq, p.eps_hb_weights, p.pseq_constraints)
+        same = torch.arange(left.shape[0], device=device)[None, :] == torch.as_tensor(partner, device=device)[:, None]
+        return left @ right.T + torch.where(same, corr[:, None], torch.zeros_like(corr)[:, None])
 
     def compute_energy(self, nuc) -> torch.Tensor:
         (base_i, base_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.base, nuc.a1, nuc.a3)
         g = geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, a3_i, a3_j)
-        s_i, s_j = self.seq_sides(g.r_base.device)
-        return self.pair_sum(self.params.eps_hb_weights[s_i, s_j] * hb_product(self.params, g))
+        return self.pair_sum(self.weights(g.r_base.device) * hb_product(self.params, g))
 
 
 # Cross stacking ------------------------------------------------------------------

@@ -27,6 +27,8 @@ from mythos_tpu_torch.utils.math import safe_arccos
 
 _STACK_ANGLES = (5, 6, 9, 10)
 
+ERR_RNA2_PSEQ = "oxRNA2 does not take probabilistic sequences yet (oxDNA1 and oxDNA2 do)"
+
 
 class StackingConfiguration(BaseConfiguration):
     """f1(r) x f4(theta5, 6, 9, 10) x f5(-cos phi1) x f5(-cos phi2); the
@@ -46,7 +48,13 @@ class StackingConfiguration(BaseConfiguration):
         "eps_stack",
     )
 
+    #: accepted so that a probabilistic sequence given to an oxRNA2 energy
+    #: raises here (ERR_RNA2_PSEQ) instead of reaching hydrogen bonding alone
+    optional_params = t1.PSEQ_FIELDS
+
     def derive(self) -> dict:
+        if self.pseq is not None:
+            raise ValueError(ERR_RNA2_PSEQ)
         eps = self.eps_stack_base + self.eps_stack_kt_coeff * self.kt
         b_low, dr_c_low, b_high, dr_c_high = sm.get_f1_smoothing_params(
             self.dr0_stack, self.a_stack, self.dr_c_stack, self.dr_low_stack, self.dr_high_stack

@@ -3,8 +3,9 @@
 Counterpart of mythos_tpu/io/topology.py (``Topology``, ``from_oxdna_file``
 with its format sniffing, ``_bonded_neighbors``, ``unbonded_pairs``). The
 JAX module imports ``mythos_tpu.utils.types``, which imports jax, so the
-port owns this module. Discrete sequences only (the probabilistic ones
-are not ported).
+port owns this module. ``seq`` is discrete, or a probabilistic sequence
+``(up_pseq, bp_pseq)`` (``check_valid_seq``; the energies take one through
+their ``pseq`` parameter, io.sequence_constraints).
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ ERR_STRAND_COUNTS_NOT_MATCH = "Strand counts do not match number of nucleotides"
 ERR_BONDED_NEIGHBORS_INVALID_SHAPE = "Invalid bonded neighbors shape"
 ERR_INVALID_SEQUENCE_NUCLEOTIDES = "Invalid sequence nucleotides"
 ERR_INVALID_DISCRETE_SEQUENCE_SHAPE = "Invalid discrete sequence shape"
+ERR_INVALID_UNPAIRED_PSEQ_SHAPE = "Invalid unpaired probabilistic sequence shape"
+ERR_MISMATCH_PSEQ_SHAPE = "Pseq shape does not match number of nucleotides"
+ERR_INVALID_BP_PSEQ_SHAPE = "Invalid base-paired probabilistic sequence shape"
+ERR_INVALID_PROBABILITIES = "Probabilities must be > 0"
+ERR_PSEQ_NOT_NORMALIZED = "Probabilities must be normalized"
+ERR_INVALID_SEQUENCE_TYPE = "Invalid sequence type. Must be discrete or probabilistic"
 ERR_INVALID_OXDNA_FORMAT = (
     "Invalid oxDNA topology format. See "
     "https://lorenzo-rovigatti.github.io/oxDNA/configurations.html#topology-file"
@@ -56,12 +63,41 @@ class NucleotideType(enum.IntEnum):
     RNA = 2
 
 
+def check_valid_seq(seq, n_nucleotides: int) -> None:
+    """Validate a discrete (N,) sequence or a probabilistic one, ``(up_pseq
+    (n_unpaired, 4), bp_pseq (n_bp, 4))`` with n_unpaired + 2 n_bp = N,
+    non-negative rows summing to 1."""
+    if isinstance(seq, tuple) and len(seq) == 2:
+        up_pseq, bp_pseq = (np.asarray(torch.as_tensor(x).detach().cpu()) for x in seq)
+        if up_pseq.ndim != 2 or up_pseq.shape[1] != const.N_NT:
+            raise ValueError(ERR_INVALID_UNPAIRED_PSEQ_SHAPE)
+        if bp_pseq.ndim != 2 or bp_pseq.shape[1] != const.N_BP_TYPES:
+            raise ValueError(ERR_INVALID_BP_PSEQ_SHAPE)
+        if up_pseq.shape[0] + const.N_NT_PER_BP * bp_pseq.shape[0] != n_nucleotides:
+            raise ValueError(ERR_MISMATCH_PSEQ_SHAPE)
+        if (up_pseq < 0).any() or (bp_pseq < 0).any():
+            raise ValueError(ERR_INVALID_PROBABILITIES)
+        if not np.allclose(up_pseq.sum(axis=1), 1) or not np.allclose(bp_pseq.sum(axis=1), 1):
+            raise ValueError(ERR_PSEQ_NOT_NORMALIZED)
+    elif hasattr(seq, "shape"):
+        arr = np.asarray(seq)
+        if arr.ndim != 1:  # the shape first: a 2-D array's rows are unhashable
+            raise ValueError(ERR_INVALID_DISCRETE_SEQUENCE_SHAPE)
+        if set(arr.tolist()) - {0, 1, 2, 3}:
+            raise ValueError(ERR_INVALID_SEQUENCE_NUCLEOTIDES)
+        if arr.shape != (n_nucleotides,):
+            raise ValueError(ERR_INVALID_DISCRETE_SEQUENCE_SHAPE)
+    else:
+        raise ValueError(ERR_INVALID_SEQUENCE_TYPE)
+
+
 @dc.dataclass(frozen=True)
 class Topology:
     """Connectivity and sequence of a nucleic-acid system.
 
     ``bonded_neighbors``: (B, 2) int pairs (i 3'-side, j 5'-side).
-    ``seq``: discrete (N,) int array. ``is_end``: (N,) 1 at the termini of
+    ``seq``: discrete (N,) int array or a probabilistic sequence tuple
+    (``check_valid_seq``). ``is_end``: (N,) 1 at the termini of
     non-circular strands. ``nt_type``: (N,) NucleotideType values where a
     file gave them. ``unbonded_neighbors`` (all i<j pairs minus bonded)
     derives lazily, once.
@@ -70,7 +106,7 @@ class Topology:
     n_nucleotides: int
     strand_counts: np.ndarray
     bonded_neighbors: np.ndarray
-    seq: np.ndarray
+    seq: np.ndarray | tuple
     is_end: np.ndarray
     nt_type: np.ndarray | None = None
 
@@ -83,13 +119,7 @@ class Topology:
             raise ValueError(ERR_STRAND_COUNTS_NOT_MATCH)
         if self.bonded_neighbors.ndim != 2 or self.bonded_neighbors.shape[1] != 2:
             raise ValueError(ERR_BONDED_NEIGHBORS_INVALID_SHAPE)
-        seq = np.asarray(self.seq)
-        if seq.ndim != 1:
-            raise ValueError(ERR_INVALID_DISCRETE_SEQUENCE_SHAPE)
-        if set(seq.tolist()) - {0, 1, 2, 3}:
-            raise ValueError(ERR_INVALID_SEQUENCE_NUCLEOTIDES)
-        if seq.shape != (self.n_nucleotides,):
-            raise ValueError(ERR_INVALID_DISCRETE_SEQUENCE_SHAPE)
+        check_valid_seq(self.seq, self.n_nucleotides)
 
     @property
     def unbonded_neighbors(self) -> np.ndarray:

@@ -63,6 +63,17 @@
 // (ops/stencil.py::band_gate_counts) -- by warp ballots, one row of counts
 // a block, which the wrapper adds up: no atomics anywhere.
 //
+// Probabilistic sequences (sequence design): the kernel is templated on
+// kPseq too, and oxDNA2 and oxDNA1 have a pseq instance
+// (stencil_field_grads_pseq, stencil_field_grads_dna1_pseq; the discrete
+// instances carry none of its code). It takes the hb weight of band pair
+// (i, i + d) from per-slot factors instead of the sequence and the weight
+// table: hw_i . oh_{i+d}, plus corr_i where i + d is i's base-pair partner
+// (the reference's weight_d under pseq, mythos_tpu/ops/stencil.py:360-371).
+// The factors, (10, n) rows hw (4), oh (4), corr, partner (a slot id as a
+// float), are staged with the slots, 10 floats a slot in place of the
+// sequence's one int (ops/stencil.py::StencilContext.hbf).
+//
 // Step barrier: K2 is a single evaluation, so there is none; on the
 // stencil's per-step branch the steps are ordered by launch order on one
 // stream.
@@ -76,14 +87,16 @@
 #define K2_BODY 12  // com, a1, a2, a3 of a staged slot
 #define K2_RES 24   // a pair's two shares: body i's then body j's com, a1, a2, a3
 #define K2_TALLY 8  // exc, hb, cross, coax, debye, short-range, Debye only, skipped
+#define K2_HBF 10   // a pseq's hb factors of a slot: hw (4), oh (4), corr, partner
 
-// The dynamic shared memory of a block, in floats/ints, for reach w_wide.
+// The dynamic shared memory of a block, in floats/ints, for reach w_wide
+// (the pseq instance's hb factors after the rest).
 struct K2Smem {
   int n_loc, n_cand;
-  int body, seq, pn0, pn1, qf, place, reach, shorts, debyes, res, total;
+  int body, seq, pn0, pn1, qf, place, reach, shorts, debyes, res, hbf, total;
 };
 
-__host__ __device__ inline K2Smem k2_smem(int w_wide) {
+__host__ __device__ inline K2Smem k2_smem(int w_wide, bool pseq = false) {
   K2Smem m;
   m.n_loc = K2_SLOTS + 2 * w_wide;
   m.n_cand = (K2_SLOTS + w_wide) * w_wide;
@@ -97,7 +110,8 @@ __host__ __device__ inline K2Smem k2_smem(int w_wide) {
   m.shorts = m.reach + m.n_cand;
   m.debyes = m.shorts + m.n_cand;
   m.res = m.debyes + m.n_cand;
-  m.total = m.res + K2_RES * K2_THREADS;
+  m.hbf = m.res + K2_RES * K2_THREADS;
+  m.total = m.hbf + (pseq ? K2_HBF * m.n_loc : 0);
   return m;
 }
 
@@ -147,17 +161,32 @@ __device__ __forceinline__ void put_grad(float* res, int k, const Grad& g) {
   }
 }
 
-template <int kFam>
+// The hb weight of staged slots il and jl = il + d (slot j): the table's
+// entry of their bases, or under a pseq hw_il . oh_jl plus corr_il where j
+// is il's partner.
+template <bool kPseq>
+__device__ __forceinline__ float band_hb_weight(const float* W_hb, const int* s_seq, const float* s_hbf, int n_loc,
+                                                int il, int jl, int j) {
+  if constexpr (kPseq) {
+    float w = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w += s_hbf[k * n_loc + il] * s_hbf[(4 + k) * n_loc + jl];
+    return s_hbf[9 * n_loc + il] == (float)j ? w + s_hbf[8 * n_loc + il] : w;
+  }
+  return W_hb[s_seq[il] * 4 + s_seq[jl]];
+}
+
+template <int kFam, bool kPseq>
 __global__ void __launch_bounds__(K2_THREADS)
     stencil_field_grads_kernel(const float* __restrict__ P_in, const int* __restrict__ seq,
                                const int* __restrict__ partners, const float* __restrict__ qf, int n, int w0, int w1,
-                               int w2, int w3, int W, const float* __restrict__ pos, float* __restrict__ out,
-                               int* __restrict__ counts) {
+                               int w2, int w3, int W, const float* __restrict__ hbf, const float* __restrict__ pos,
+                               float* __restrict__ out, int* __restrict__ counts) {
   extern __shared__ float smem[];
   __shared__ float P[P_TOTAL];
   __shared__ int s_warp[K2_WARPS][2];
   __shared__ int s_tally[K2_WARPS][K2_TALLY];
-  const K2Smem m = k2_smem(W);
+  const K2Smem m = k2_smem(W, kPseq);
   float* s_body = smem + m.body;
   int* s_seq = (int*)(smem + m.seq);
   int* s_pn0 = (int*)(smem + m.pn0);
@@ -168,6 +197,7 @@ __global__ void __launch_bounds__(K2_THREADS)
   int* s_short = (int*)(smem + m.shorts);  // candidates needing a short-range term, in candidate order
   int* s_debye = (int*)(smem + m.debyes);  // ... and those needing Debye alone
   float* s_res = smem + m.res;             // a batch's pair shares, (K2_RES, K2_THREADS)
+  float* s_hbf = smem + m.hbf;             // under a pseq, (K2_HBF, n_loc) hb factors
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = blockIdx.x * K2_SLOTS, base = t0 - W;  // local slot l is slot base + l
   const int w[4] = {w0, w1, w2, w3};
@@ -189,6 +219,8 @@ __global__ void __launch_bounds__(K2_THREADS)
       s_pn0[l] = partners[g];
       s_pn1[l] = partners[n + g];
       s_qf[l] = has_debye<kFam>() ? qf[g] : 0.f;  // oxDNA1 reads no charge factor
+      if constexpr (kPseq)
+        for (int k = 0; k < K2_HBF; ++k) s_hbf[k * m.n_loc + l] = hbf[(size_t)k * n + g];
     }
   }
   __syncthreads();
@@ -267,8 +299,9 @@ __global__ void __launch_bounds__(K2_THREADS)
       const float qq = s_qf[il] * s_qf[jl];
       Grad gi = zero_grad(), gj = zero_grad();
       if (is_short) {
-        unbonded_pair_terms<true, kFam, true>(P, bi, bj, W_hb[s_seq[il] * 4 + s_seq[jl]], qq, d, w, W, s_reach[c],
-                                              false, gi, nullptr, &gj);
+        unbonded_pair_terms<true, kFam, true>(P, bi, bj,
+                                              band_hb_weight<kPseq>(W_hb, s_seq, s_hbf, m.n_loc, il, jl, base + jl),
+                                              qq, d, w, W, s_reach[c], false, gi, nullptr, &gj);
       } else if constexpr (has_debye<kFam>()) {
         debye_pair<kFam>(P, bi, bj, qq, gi, gj);
       }
@@ -330,22 +363,22 @@ __global__ void __launch_bounds__(K2_THREADS)
   }
 }
 
-template <int kFam>
+template <int kFam, bool kPseq = false>
 static int launch_field_grads(const float* params, const int* seq, const int* partners, const float* qf, int n,
-                              int w0, int w1, int w2, int w3, int w_wide, const float* dyn, float* out, int* counts,
-                              void* stream) {
-  if (n < 1 || w_wide < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)k2_smem(w_wide).total * sizeof(float);
+                              int w0, int w1, int w2, int w3, int w_wide, const float* hbf, const float* dyn,
+                              float* out, int* counts, void* stream) {
+  if (n < 1 || w_wide < 1 || (kPseq && !hbf)) return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)k2_smem(w_wide, kPseq).total * sizeof(float);
   static size_t allowed = 0;  // the dynamic shared memory this instance was allowed so far
   if (bytes > allowed) {
-    const cudaError_t rc = cudaFuncSetAttribute(stencil_field_grads_kernel<kFam>,
+    const cudaError_t rc = cudaFuncSetAttribute(stencil_field_grads_kernel<kFam, kPseq>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc != cudaSuccess) return (int)rc;
     allowed = bytes;
   }
   const int grid = (n + K2_SLOTS - 1) / K2_SLOTS;
-  stencil_field_grads_kernel<kFam><<<grid, K2_THREADS, bytes, (cudaStream_t)stream>>>(
-      params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, counts);
+  stencil_field_grads_kernel<kFam, kPseq><<<grid, K2_THREADS, bytes, (cudaStream_t)stream>>>(
+      params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, hbf, dyn, out, counts);
   return (int)cudaGetLastError();
 }
 
@@ -357,20 +390,37 @@ extern "C" int stencil_field_grads_blocks(int n) { return (n + K2_SLOTS - 1) / K
 extern "C" int stencil_field_grads(const float* params, const int* seq, const int* partners, const float* qf,
                                    int n, int w0, int w1, int w2, int w3, int w_wide, const float* dyn, float* out,
                                    int* counts, void* stream) {
-  return launch_field_grads<FAM_DNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, counts,
-                                      stream);
+  return launch_field_grads<FAM_DNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, nullptr, dyn, out,
+                                      counts, stream);
 }
 
 extern "C" int stencil_field_grads_rna2(const float* params, const int* seq, const int* partners, const float* qf,
                                         int n, int w0, int w1, int w2, int w3, int w_wide, const float* dyn,
                                         float* out, int* counts, void* stream) {
-  return launch_field_grads<FAM_RNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, counts,
-                                      stream);
+  return launch_field_grads<FAM_RNA2>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, nullptr, dyn, out,
+                                      counts, stream);
 }
 
 extern "C" int stencil_field_grads_dna1(const float* params, const int* seq, const int* partners, const float* qf,
                                         int n, int w0, int w1, int w2, int w3, int w_wide, const float* dyn,
                                         float* out, int* counts, void* stream) {
-  return launch_field_grads<FAM_DNA1>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, dyn, out, counts,
-                                      stream);
+  return launch_field_grads<FAM_DNA1>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, nullptr, dyn, out,
+                                      counts, stream);
+}
+
+// The pseq instances: the discrete entries' arguments with hbf, (10, n)
+// slot-order hb factors, before dyn (seq is not read).
+extern "C" int stencil_field_grads_pseq(const float* params, const int* seq, const int* partners, const float* qf,
+                                        int n, int w0, int w1, int w2, int w3, int w_wide, const float* hbf,
+                                        const float* dyn, float* out, int* counts, void* stream) {
+  return launch_field_grads<FAM_DNA2, true>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, hbf, dyn, out,
+                                            counts, stream);
+}
+
+extern "C" int stencil_field_grads_dna1_pseq(const float* params, const int* seq, const int* partners,
+                                             const float* qf, int n, int w0, int w1, int w2, int w3, int w_wide,
+                                             const float* hbf, const float* dyn, float* out, int* counts,
+                                             void* stream) {
+  return launch_field_grads<FAM_DNA1, true>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, hbf, dyn, out,
+                                            counts, stream);
 }

@@ -613,6 +613,28 @@ HD void unbonded_pair_gated(const float* P, const Body& bi, const Body& bj, floa
   unbonded_pair_terms<true, kFam>(P, bi, bj, w_hb, qq, 0, nullptr, 0, reach, false, acc, hb);
 }
 
+// The weight-free HB product f1(r) * prod f4 of pair (i, j) with the roles
+// swapped -- the product of pair (j, i), formed from the same bodies: theta1
+// and theta4 are the same, theta2 and theta3 trade places, theta7 becomes
+// pi - theta8 and theta8 pi - theta7 (the hb-weight right factor's gradient
+// of a probabilistic sequence, K5; exact for any f4 parameters).
+HD float hb_product_swapped(const float* P, const Body& bi, const Body& bj) {
+  const float hbo = P[P_GEOM + 2];
+  const V3 v = (bj.com + hbo * bj.a1) - (bi.com + hbo * bi.a1);
+  const float r = norm(v);
+  const V3 u = v * (1.f / r);
+  // cosines of angles 1, 2, 3, 4, 7, 8 of pair (j, i)
+  const float c[6] = {-dot(bi.a1, bj.a1), dot(bi.a1, u), -dot(bj.a1, u), dot(bi.a3, bj.a3), dot(bi.a3, u),
+                      -dot(bj.a3, u)};
+  float h = f1(r < 1e-8f ? 1e-8f : r, P + P_HB, 1.f).v;
+  for (int k = 0; k < 6; ++k) {
+    float th = acos_poly(c[k]).v;
+    if (k == 5) th = PI_F - th;
+    h *= f4(th, P + P_HB + 9 + 5 * k).v;
+  }
+  return h;
+}
+
 // Unweighted energies of unbonded pair (i, j) of family kFam (oxDNA2 or
 // oxDNA1), each term (each excluded-volume distance) only where its `reach`
 // bit is set (K4): e[0..4] = excluded volume, hydrogen bonding (times w_hb),

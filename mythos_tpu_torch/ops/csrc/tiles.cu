@@ -79,6 +79,21 @@
 // (com + bx a1) and its coaxial stacking (the f5 of cos phi3 and cos phi4
 // on the backbone sites); they read no charge factor, and K4's Debye sum
 // stays 0.
+//
+// Probabilistic sequences (sequence design): tile_block is templated on
+// kPseq too, and each family has a pseq instance of each kernel
+// (tile_forces_pseq, tile_forces_dna1_pseq, ...; the discrete instances
+// carry none of its code). Its hb weight adds the row's correction corr_i
+// (row field 20) where the column is the row's base-pair partner (field 22,
+// a slot id): hw_i . oh_j + [partner_i == j] corr_i, the reference's
+// weight under pseq (oxdna_tiles.py:507-510, 884-888). K5's pseq instance
+// writes 21 fields: K5's 16, then the right factor's gradient -- for j < i
+// with the HB bit set, gt_hb x the HB product of pair (j, i)
+// (hb_product_swapped, the same bodies with the roles swapped) x hw_j --
+// and the correction's, gt_hb x the HB product where j > i and j is the
+// partner: the triangular forward's derivatives in oh and corr
+// (oxdna_tiles.py:664-724). A thread then adds up two (row, field) sums
+// (8 rows x 21 fields on 128 threads), each in the same fixed order.
 #include <cuda_runtime.h>
 
 #include "stencil_physics.cuh"
@@ -91,7 +106,9 @@
 #define F_ROW 26
 #define R_HW 12
 #define R_OH 16
+#define R_CORR 20
 #define R_QF 21
+#define R_PARTNER 22
 #define R_PREV 23
 #define R_NXT 24
 // debye row layout
@@ -121,8 +138,14 @@ __device__ __forceinline__ Body row_body(const float* r) {
   return b;
 }
 
-__device__ __forceinline__ float hb_weight(const float* ri, const float* rj) {
-  return ri[R_HW] * rj[R_OH] + ri[R_HW + 1] * rj[R_OH + 1] + ri[R_HW + 2] * rj[R_OH + 2] + ri[R_HW + 3] * rj[R_OH + 3];
+// the hb weight of row i and column j (a slot id): hw_i . oh_j, plus under
+// a probabilistic sequence corr_i where j is i's base-pair partner
+template <bool kPseq>
+__device__ __forceinline__ float hb_weight(const float* ri, const float* rj, int j) {
+  const float w =
+      ri[R_HW] * rj[R_OH] + ri[R_HW + 1] * rj[R_OH + 1] + ri[R_HW + 2] * rj[R_OH + 2] + ri[R_HW + 3] * rj[R_OH + 3];
+  if constexpr (kPseq) return ri[R_PARTNER] == (float)j ? w + ri[R_CORR] : w;
+  return w;
 }
 
 // dE/d(back_i) of the weighted Debye term of one backbone-site pair
@@ -146,9 +169,11 @@ __device__ __forceinline__ int lower_bound(const short* list, int len, int p) {
   return lo;
 }
 
-// Fields a pair writes: K3 12 (3 for the debye kind), K5 16 (4), K4 5.
-__host__ __device__ constexpr int out_fields(int out, bool debye_kind) {
-  return out == OUT_ENERGIES ? 5 : (out == OUT_ROW_GRADS ? (debye_kind ? 4 : 16) : (debye_kind ? 3 : 12));
+// Fields a pair writes: K3 12 (3 for the debye kind), K5 16 (4; 21 under
+// pseq), K4 5.
+__host__ __device__ constexpr int out_fields(int out, bool debye_kind, bool pseq = false) {
+  return out == OUT_ENERGIES ? 5
+                             : (out == OUT_ROW_GRADS ? (debye_kind ? 4 : (pseq ? 21 : 16)) : (debye_kind ? 3 : 12));
 }
 
 // A pair of the debye kind (the backbone site alone): its Debye energy (K4),
@@ -172,10 +197,10 @@ __device__ __forceinline__ void pair_results_debye(const float* P, const float* 
   }
 }
 
-// One pair's results into res (out_fields(kOut, debye_kind) floats): row i (ri) and
-// column j (rj) of family kFam, its reach bits. P_GT holds K3's term weights or K5's
-// cotangent; K4 ignores it.
-template <int kOut, int kFam>
+// One pair's results into res (out_fields(kOut, debye_kind, kPseq) floats): row i
+// (ri) and column j (rj) of family kFam, its reach bits. P_GT holds K3's term
+// weights or K5's cotangent; K4 ignores it.
+template <int kOut, int kFam, bool kPseq>
 __device__ __forceinline__ void pair_results(const float* P, const float* ri, const float* rj, int i, int j,
                                              int reach, bool debye_kind, float* res) {
   if constexpr (has_debye<kFam>()) {
@@ -186,12 +211,12 @@ __device__ __forceinline__ void pair_results(const float* P, const float* ri, co
   }
   if constexpr (kOut == OUT_ENERGIES) {
     const float qq = has_debye<kFam>() ? ri[R_QF] * rj[R_QF] : 0.f;  // oxDNA1 reads no charge factor
-    unbonded_pair_energy_gated<kFam>(P, row_body(ri), row_body(rj), hb_weight(ri, rj), qq, reach, res);
+    unbonded_pair_energy_gated<kFam>(P, row_body(ri), row_body(rj), hb_weight<kPseq>(ri, rj, j), qq, reach, res);
   } else {
     Grad g = zero_grad();
     float hb = 0.f;
     const float qq = has_debye<kFam>() ? ri[R_QF] * rj[R_QF] : 0.f;  // oxDNA1 reads no charge factor
-    unbonded_pair_gated<kFam>(P, row_body(ri), row_body(rj), hb_weight(ri, rj), qq, reach, g,
+    unbonded_pair_gated<kFam>(P, row_body(ri), row_body(rj), hb_weight<kPseq>(ri, rj, j), qq, reach, g,
                               kOut == OUT_ROW_GRADS ? &hb : nullptr);
     const V3 parts[4] = {g.com, g.a1, g.a2, g.a3};
 #pragma unroll
@@ -206,6 +231,15 @@ __device__ __forceinline__ void pair_results(const float* P, const float* ri, co
       const float h = (j > i && (reach & REACH_HB)) ? P[P_GT + 1] * hb : 0.f;
 #pragma unroll
       for (int k = 0; k < 4; ++k) res[12 + k] = h * rj[R_OH + k];
+      if constexpr (kPseq) {
+        // the right factor oh_i meets the column's left factor where i is the
+        // column of the triangular sum (j < i); the correction its partner
+        const float ht = (j < i && (reach & REACH_HB)) ? P[P_GT + 1] * hb_product_swapped(P, row_body(ri), row_body(rj))
+                                                       : 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) res[16 + k] = ht * rj[R_HW + k];
+        res[20] = ri[R_PARTNER] == (float)j ? h : 0.f;
+      }
     }
   }
 }
@@ -214,12 +248,15 @@ __device__ __forceinline__ void pair_results(const float* P, const float* ri, co
 // header). out: K3/K5 (n_pad, nf) row results, K4 (blocks, 5) partials;
 // counts, if set, gains the ordered pairs under the mask that needed the
 // short-range terms, Debye alone, and nothing.
-template <int kOut, int kFam>
+template <int kOut, int kFam, bool kPseq>
 __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const float* __restrict__ rows,
                                            const int* __restrict__ ids, int n, int n_blocks, int bsz, int cap,
                                            int kind, float* __restrict__ out, int* __restrict__ counts) {
   static_assert(kFam == FAM_DNA2 || kFam == FAM_DNA1, "the tile kernels have oxDNA2 and oxDNA1 instances");
-  constexpr int NF = out_fields(kOut, false);
+  constexpr int NF = out_fields(kOut, false, kPseq);
+  // a second (row, field) sum a thread adds up where TILE_ROWS x NF passes TILE_THREADS (K5's pseq instance)
+  constexpr bool kTwo = TILE_ROWS * NF > TILE_THREADS;
+  static_assert(TILE_ROWS * NF <= 2 * TILE_THREADS, "at most two (row, field) sums a thread");
   constexpr bool triangular = kOut == OUT_ENERGIES;
   __shared__ float P[P_TOTAL];
   __shared__ float s_row[TILE_ROWS * F_ROW];
@@ -237,14 +274,15 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
   const int rb = blockIdx.x / groups, r_lo = (blockIdx.x - rb * groups) * TILE_ROWS;
   const int nr = min(TILE_ROWS, bsz - r_lo), i0 = rb * bsz + r_lo;
   const bool debye_kind = has_debye<kFam>() && kind == KIND_DEBYE;
-  const int F = debye_kind ? F_DB : F_ROW, nf = out_fields(kOut, debye_kind);
+  const int F = debye_kind ? F_DB : F_ROW, nf = out_fields(kOut, debye_kind, kPseq);
   const int prev = debye_kind ? D_PREV : R_PREV, nxt = debye_kind ? D_NXT : R_NXT;
   const int* row_ids = ids + (size_t)rb * cap;
   for (int k = tid; k < P_TOTAL; k += TILE_THREADS) P[k] = P_in[k];
   for (int k = tid; k < nr * F; k += TILE_THREADS) s_row[k] = rows[(size_t)i0 * F + k];
   const unsigned below = (1u << lane) - 1u;
   const int sum_r = tid / nf, sum_f = tid - sum_r * nf;  // the row and field this thread adds up
-  float acc = 0.f;
+  const int sum_r2 = (tid + TILE_THREADS) / nf, sum_f2 = tid + TILE_THREADS - sum_r2 * nf;  // with kTwo
+  float acc = 0.f, acc2 = 0.f;
   int n_short_all = 0, n_debye_all = 0, n_skipped = 0;  // the tally of the ordered pairs
   const int n_cols = cap * bsz;
   for (int c0 = 0; c0 < n_cols; c0 += TILE_PANEL) {
@@ -324,13 +362,19 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
       const int place = tid < sh - sl ? s_short[sl + tid] : (tid < b1 - b0 ? s_debye[dl + tid - (sh - sl)] : -1);
       if (place >= 0) {
         const int s = s_kept[place], r = s / nc, c = s - r * nc;
-        pair_results<kOut, kFam>(P, s_row + r * F, s_col + c * F, i0 + r, s_cid[c], s_reach[place], debye_kind,
-                                 s_res + (place - b0) * nf);
+        pair_results<kOut, kFam, kPseq>(P, s_row + r * F, s_col + c * F, i0 + r, s_cid[c], s_reach[place],
+                                        debye_kind, s_res + (place - b0) * nf);
       }
       __syncthreads();
       if (sum_r < nr) {
         const int k1 = min((int)s_first[sum_r + 1], b1);
         for (int k = max((int)s_first[sum_r], b0); k < k1; ++k) acc += s_res[(k - b0) * nf + sum_f];
+      }
+      if constexpr (kTwo) {
+        if (sum_r2 < nr) {
+          const int k1 = min((int)s_first[sum_r2 + 1], b1);
+          for (int k = max((int)s_first[sum_r2], b0); k < k1; ++k) acc2 += s_res[(k - b0) * nf + sum_f2];
+        }
       }
       __syncthreads();  // before s_res is written again
     }
@@ -347,6 +391,9 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
   } else if (sum_r < nr) {
     out[(size_t)i0 * nf + tid] = acc;
   }
+  if constexpr (kTwo) {
+    if (sum_r2 < nr) out[(size_t)i0 * nf + tid + TILE_THREADS] = acc2;
+  }
   if (counts && tid == 0) {
     atomicAdd(counts, n_short_all);
     atomicAdd(counts + 1, n_debye_all);
@@ -357,33 +404,34 @@ __device__ __forceinline__ void tile_block(const float* __restrict__ P_in, const
 // K3: (n_pad, 12) dE/d(com, a1, a2, a3), or (n_pad, 3) dE/d(back) for the
 // debye kind (oxDNA2 only), weighted by the term weights at P_GT. One
 // instance per family.
-template <int kFam>
+template <int kFam, bool kPseq>
 __global__ void __launch_bounds__(TILE_THREADS)
     tile_forces_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                        int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
                        int* __restrict__ counts) {
-  tile_block<OUT_FORCES, kFam>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  tile_block<OUT_FORCES, kFam, kPseq>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
 }
 
 // K5: (n_pad, 16) = K3's 12 fields + the triangular hb-weight gradient, or
-// (n_pad, 4) = back site + charge factor for the debye kind; the cotangent
-// sits at P_GT (the wrapper writes it there). One instance per family.
-template <int kFam>
+// (n_pad, 4) = back site + charge factor for the debye kind, (n_pad, 21)
+// under pseq; the cotangent sits at P_GT (the wrapper writes it there). One
+// instance per family, and a pseq instance of each.
+template <int kFam, bool kPseq>
 __global__ void __launch_bounds__(TILE_THREADS)
     tile_row_grads_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                           int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ out,
                           int* __restrict__ counts) {
-  tile_block<OUT_ROW_GRADS, kFam>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
+  tile_block<OUT_ROW_GRADS, kFam, kPseq>(P, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
 }
 
 // K4, first pass: (blocks, 5) partials, each block's per-term sums over its
 // rows' pairs j > i. One instance per family.
-template <int kFam>
+template <int kFam, bool kPseq>
 __global__ void __launch_bounds__(TILE_THREADS)
     tile_energies_kernel(const float* __restrict__ P, const float* __restrict__ rows, const int* __restrict__ ids,
                          int n, int n_blocks, int bsz, int cap, int kind, float* __restrict__ partials,
                          int* __restrict__ counts) {
-  tile_block<OUT_ENERGIES, kFam>(P, rows, ids, n, n_blocks, bsz, cap, kind, partials, counts);
+  tile_block<OUT_ENERGIES, kFam, kPseq>(P, rows, ids, n, n_blocks, bsz, cap, kind, partials, counts);
 }
 
 // K4, second pass: out[t] = sum of the block partials, in block order. The
@@ -416,10 +464,10 @@ static int tile_grid(int n_blocks, int bsz) { return n_blocks * ((bsz + TILE_ROW
 
 static bool tile_args_ok(int n_blocks, int bsz, int cap) { return bsz >= 1 && cap >= 1 && n_blocks >= 1; }
 
-template <int kFam>
+template <int kFam, bool kPseq = false>
 static int launch_forces(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                          int cap, int kind, float* out, int* counts, void* stream) {
-  tile_forces_kernel<kFam><<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  tile_forces_kernel<kFam, kPseq><<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
       params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
   return (int)cudaGetLastError();
 }
@@ -438,10 +486,10 @@ extern "C" int tile_forces_dna1(const float* params, const float* rows, const in
   return launch_forces<FAM_DNA1>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
 }
 
-template <int kFam>
+template <int kFam, bool kPseq = false>
 static int launch_row_grads(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                             int cap, int kind, float* out, int* counts, void* stream) {
-  tile_row_grads_kernel<kFam><<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  tile_row_grads_kernel<kFam, kPseq><<<tile_grid(n_blocks, bsz), TILE_THREADS, 0, (cudaStream_t)stream>>>(
       params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts);
   return (int)cudaGetLastError();
 }
@@ -463,11 +511,11 @@ extern "C" int tile_row_grads_dna1(const float* params, const float* rows, const
 // rows of the (rows, 5) partials scratch that tile_energies needs: one per block
 extern "C" int tile_energies_partials(int n_blocks, int bsz) { return tile_grid(n_blocks, bsz); }
 
-template <int kFam>
+template <int kFam, bool kPseq = false>
 static int launch_energies(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
                            int cap, int kind, float* partials, float* out, int* counts, void* stream) {
   const int grid = tile_grid(n_blocks, bsz);
-  tile_energies_kernel<kFam><<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks, bsz,
+  tile_energies_kernel<kFam, kPseq><<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(params, rows, ids, n, n_blocks, bsz,
                                                                              cap, kind, partials, counts);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
@@ -488,4 +536,50 @@ extern "C" int tile_energies_dna1(const float* params, const float* rows, const 
                                   int bsz, int cap, int kind, float* partials, float* out, int* counts, void* stream) {
   if (!tile_args_ok(n_blocks, bsz, cap) || kind != KIND_SHORT) return (int)cudaErrorInvalidValue;
   return launch_energies<FAM_DNA1>(params, rows, ids, n, n_blocks, bsz, cap, kind, partials, out, counts, stream);
+}
+
+// The pseq instances (a probabilistic sequence's correction in the hb weight;
+// K5 writes (n_pad, 21)), of the full or short kind: the same arguments as
+// the discrete entries. oxDNA1's take KIND_SHORT alone.
+static bool pseq_args_ok(int n_blocks, int bsz, int cap, int kind, bool dna1) {
+  return tile_args_ok(n_blocks, bsz, cap) && (dna1 ? kind == KIND_SHORT : kind != KIND_DEBYE);
+}
+
+extern "C" int tile_forces_pseq(const float* params, const float* rows, const int* ids, int n, int n_blocks, int bsz,
+                                int cap, int kind, float* out, int* counts, void* stream) {
+  if (!pseq_args_ok(n_blocks, bsz, cap, kind, false)) return (int)cudaErrorInvalidValue;
+  return launch_forces<FAM_DNA2, true>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
+}
+
+extern "C" int tile_forces_dna1_pseq(const float* params, const float* rows, const int* ids, int n, int n_blocks,
+                                     int bsz, int cap, int kind, float* out, int* counts, void* stream) {
+  if (!pseq_args_ok(n_blocks, bsz, cap, kind, true)) return (int)cudaErrorInvalidValue;
+  return launch_forces<FAM_DNA1, true>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
+}
+
+extern "C" int tile_row_grads_pseq(const float* params, const float* rows, const int* ids, int n, int n_blocks,
+                                   int bsz, int cap, int kind, float* out, int* counts, void* stream) {
+  if (!pseq_args_ok(n_blocks, bsz, cap, kind, false)) return (int)cudaErrorInvalidValue;
+  return launch_row_grads<FAM_DNA2, true>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
+}
+
+extern "C" int tile_row_grads_dna1_pseq(const float* params, const float* rows, const int* ids, int n, int n_blocks,
+                                        int bsz, int cap, int kind, float* out, int* counts, void* stream) {
+  if (!pseq_args_ok(n_blocks, bsz, cap, kind, true)) return (int)cudaErrorInvalidValue;
+  return launch_row_grads<FAM_DNA1, true>(params, rows, ids, n, n_blocks, bsz, cap, kind, out, counts, stream);
+}
+
+extern "C" int tile_energies_pseq(const float* params, const float* rows, const int* ids, int n, int n_blocks,
+                                  int bsz, int cap, int kind, float* partials, float* out, int* counts, void* stream) {
+  if (!pseq_args_ok(n_blocks, bsz, cap, kind, false)) return (int)cudaErrorInvalidValue;
+  return launch_energies<FAM_DNA2, true>(params, rows, ids, n, n_blocks, bsz, cap, kind, partials, out, counts,
+                                         stream);
+}
+
+extern "C" int tile_energies_dna1_pseq(const float* params, const float* rows, const int* ids, int n, int n_blocks,
+                                       int bsz, int cap, int kind, float* partials, float* out, int* counts,
+                                       void* stream) {
+  if (!pseq_args_ok(n_blocks, bsz, cap, kind, true)) return (int)cudaErrorInvalidValue;
+  return launch_energies<FAM_DNA1, true>(params, rows, ids, n, n_blocks, bsz, cap, kind, partials, out, counts,
+                                         stream);
 }

@@ -48,6 +48,16 @@ Direct differentiation through a run goes through two autograd Functions,
 twin backward (the reference differentiates its XLA functions, not its
 Pallas kernels), and :func:`bonded_grads_plain` with ``create_graph``.
 
+Probabilistic sequences (sequence design; oxDNA1 and oxDNA2): K2 has a
+pseq instance of each of those families, which takes the hb weight from
+per-slot factors (``StencilContext.hbf``: the marginal factors hw and oh,
+the correction ``corr`` and its base-pair ``partner``, energy/seqdep.py)
+instead of the sequence and the weight table; the stacking weights
+``wstack`` are the expected weights of the bonds. :class:`FieldGrads`
+takes the factors as an input, so that its backward reaches the sequence
+distribution. K1 refuses a pseq (ERR_MS_PSEQ), as the reference's does:
+under one the simulator steps on K2 (simulators/cuda.py).
+
 Arrays are flat ``(rows, n)`` slot-order tensors. All term parameters ride
 in one flat vector whose layout (:data:`PARAM_GROUPS`) the CUDA header
 ``stencil_physics.cuh`` mirrors (``P_*`` offsets); a name the family's
@@ -67,6 +77,7 @@ import torch
 import mythos_tpu_torch.energy.dna1.terms as t1
 import mythos_tpu_torch.energy.dna2.terms as t2
 import mythos_tpu_torch.energy.rna2.terms as tr
+from mythos_tpu_torch.energy import seqdep
 from mythos_tpu_torch.energy.dna1 import geometry as geom
 from mythos_tpu_torch.simulators.neighbors import SITE_FAMILIES, StencilBand
 from mythos_tpu_torch.soa import Quat, Vec3, free_rotor_soa, quat_cotangent_to_torque_soa, quat_frame_soa, vnorm
@@ -78,6 +89,7 @@ BONDED_ORDER = ("Fene", "BondedExcludedVolume", "Stacking")
 ERR_MS_SCALAR = "multi-step path requires scalar mass/gamma/inertia (got per-particle)"
 ERR_MS_BONDS = "multi-step path requires every bond at slot offset 2 (duplex interleave)"
 ERR_MS_PSEQ = "multi-step path does not support probabilistic sequences yet"
+ERR_RNA2_PSEQ = "the stencil takes probabilistic sequences under oxDNA1 and oxDNA2, not {}"
 ERR_TERMS = "the stencil path implements exactly the oxDNA1, oxDNA2 or oxRNA2 term set {}; got {}"
 
 #: model family -> its (cross stacking, coaxial stacking, stacking) classes
@@ -192,6 +204,20 @@ class StencilContext:
     #: (the per-step branch's ``checkpoint_every``): they keep the tensors
     #: their energy saves for its own gradient (:func:`_own_saves`)
     checkpointed: bool = False
+    #: under a probabilistic sequence, (10, n) per-slot hb weight factors:
+    #: hw (4), oh (4), corr, partner's slot (a float; -1 where none) --
+    #: the weight of band pair (i, i + d) is hw_i . oh_{i+d}, plus corr_i
+    #: where partner_i = i + d. None for a discrete sequence
+    hbf: torch.Tensor | None = None
+
+    @property
+    def pseq(self) -> bool:
+        return self.hbf is not None
+
+    @property
+    def branch(self) -> str:
+        """K2's instance: the family, ``_pseq`` under pseq."""
+        return self.family + ("_pseq" if self.pseq else "")
 
     def to_slots(self, x: torch.Tensor) -> torch.Tensor:
         """(..., N) original nucleotide order -> slot order."""
@@ -206,7 +232,7 @@ class StencilContext:
         float64 twin run as the reference of the float32 arithmetic)."""
         return dc.replace(
             self, params=self.params.to(dtype), qf=self.qf.to(dtype), wstack=self.wstack.to(dtype),
-            dirf=self.dirf.to(dtype),
+            dirf=self.dirf.to(dtype), hbf=None if self.hbf is None else self.hbf.to(dtype),
         )
 
 
@@ -281,22 +307,32 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
     energy over ``band``.
 
     ``composed`` must carry its bound parameters (``with_params`` applied).
-    Raises for configurations the stencil kernels do not implement: another
-    term set, probabilistic sequences, or bonds off slot offset 2.
+    Under a probabilistic sequence (hydrogen bonding's ``pseq``) the
+    context carries the hb weight factors (``hbf``, from
+    ``ops.tiles.pair_static_fields``) and the bonds' expected stacking
+    weights, both on the autograd graph of the pseq. Raises for
+    configurations the stencil kernels do not implement: another term set,
+    a pseq under oxRNA2, or bonds off slot offset 2.
     """
+    from mythos_tpu_torch.ops import tiles
+
     family = model_family(composed)
     names = tuple(type(fn).__name__ for fn in composed.energy_fns)
     first = composed.energy_fns[0]
-    if getattr(first.topology, "seq", None) is None or np.asarray(first.topology.seq).ndim != 1:
-        raise ValueError(ERR_MS_PSEQ)
+    hb = composed.energy_fns[names.index("HydrogenBonding")].params
+    stack = composed.energy_fns[names.index("Stacking")].params
+    pseq = hb.pseq is not None
+    if pseq and family not in ("dna2", "dna1"):
+        raise ValueError(ERR_RNA2_PSEQ.format(family))
     params = pack_params(composed, dtype=dtype, device=device)
     device = params.device
     n = band.n
     perm = band.perm
     inv_perm = None if perm is None else np.argsort(perm)
     topo = first.topology
-    seq = np.asarray(topo.seq)
-    bonded = np.asarray(topo.bonded_neighbors).reshape(-1, 2)
+    seq = np.zeros(n, np.int64) if pseq else np.asarray(topo.seq)  # K2's pseq instance reads no sequence
+    bonded0 = np.asarray(topo.bonded_neighbors).reshape(-1, 2)
+    bonded = bonded0
     if perm is not None:
         seq = seq[perm]
         bonded = inv_perm[bonded]
@@ -312,14 +348,24 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
         if hi - lo != 2:
             raise ValueError(ERR_MS_BONDS)
         dirf[lo] = 1.0 if a < b else -1.0
-    # stacking weight of bond (p, p+2): eps_stack[seq_3', seq_5']
-    seq_j = np.roll(seq, -2)
-    s3 = np.where(dirf > 0, seq, seq_j)
-    s5 = np.where(dirf > 0, seq_j, seq)
-    eps_stack = composed.energy_fns[names.index("Stacking")].params.eps_stack
-    wstack = eps_stack.to(device=device, dtype=dtype)[torch.as_tensor(s3, device=device).long(),
-                                                      torch.as_tensor(s5, device=device).long()]
-    wstack = torch.where(torch.as_tensor(dirf != 0, device=device), wstack, torch.zeros_like(wstack))
+    # stacking weight of bond (p, p+2): eps_stack[seq_3', seq_5'], or under a
+    # pseq the bond's expected weight
+    if stack.pseq is not None:
+        w_bond = seqdep.pair_weights(stack.pseq, bonded0[:, 0], bonded0[:, 1], stack.eps_stack,
+                                     stack.pseq_constraints).to(device=device, dtype=dtype)
+        wstack = torch.zeros(n, dtype=dtype, device=device).index_put(
+            (torch.as_tensor(bonded.min(axis=1), device=device).long(),), w_bond)
+    else:
+        seq_j = np.roll(seq, -2)
+        s3 = np.where(dirf > 0, seq, seq_j)
+        s5 = np.where(dirf > 0, seq_j, seq)
+        wstack = stack.eps_stack.to(device=device, dtype=dtype)[torch.as_tensor(s3, device=device).long(),
+                                                                torch.as_tensor(s5, device=device).long()]
+        wstack = torch.where(torch.as_tensor(dirf != 0, device=device), wstack, torch.zeros_like(wstack))
+    hbf = None
+    if pseq:
+        hw, oh, corr, partner, _ = tiles.pair_static_fields(composed, perm)
+        hbf = torch.cat([hw.T, oh.T, corr[None], partner[None]]).to(device=device, dtype=dtype).contiguous()
     if family in NO_DEBYE:
         qf = torch.ones(n, dtype=dtype, device=device)
     else:
@@ -346,6 +392,7 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
         check_dm=int(band.check_dm),
         perm=perm,
         inv_perm=inv_perm,
+        hbf=hbf,
     )
 
 
@@ -463,9 +510,8 @@ def band_pair_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Te
         pre(base_i, k_ang), pre(base_j, k_ang), at(s.a1, lo, k_ang), at(s.a1, hi, k_ang), at(s.a3, lo, k_ang),
         at(s.a3, hi, k_ang), arccos_poly,
     )
-    seq = ctx.seq.long()
     hb = t1.hb_product(P["HB"], type(g)(*(x[:k_hb] for x in g)))
-    hb = hb * P["HB"].eps_hb_weights[seq[lo[:k_hb]], seq[hi[:k_hb]]]
+    hb = hb * band_hb_weights(ctx, lo[:k_hb], hi[:k_hb], P["HB"].eps_hb_weights)
     cross = (tr.cross_value if rna2 else t1.cross_product)(P["CROSS"], type(g)(*(x[:k_cross] for x in g)))
     dna1_coax = ctx.family != "dna2"  # oxRNA2 composes oxDNA1's coaxial stacking
     gc = geom.coax_geometry_vec(
@@ -479,6 +525,18 @@ def band_pair_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Te
     else:
         debye = t2.debye_of(P["DEBYE"], r_bb) * ctx.qf[lo] * ctx.qf[hi]
     return lo, hi, [exc, hb, cross, coax, debye]
+
+
+def band_hb_weights(ctx: StencilContext, lo: torch.Tensor, hi: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The hb weights of band pairs (lo, hi): ``table[seq_lo, seq_hi]``, or
+    under a pseq hw_lo . oh_hi plus corr_lo where hi is lo's partner (the
+    reference's ``weight_d``, mythos_tpu/ops/stencil.py:360-371)."""
+    if ctx.hbf is None:
+        seq = ctx.seq.long()
+        return table[seq[lo], seq[hi]]
+    f = ctx.hbf
+    w = (f[0:4][:, lo] * f[4:8][:, hi]).sum(0)
+    return w + torch.where(f[9][lo] == hi.to(f.dtype), f[8][lo], torch.zeros_like(w))
 
 
 def band_energy_terms(ctx: StencilContext, com: Vec3, quat: Quat, params: torch.Tensor) -> list:
@@ -717,6 +775,8 @@ def multistep_chunk_plain(
     [com 3, quat 4, momentum 3, angmom 3, force 3, torque 3] with the given
     (n_inner, 6, n) normals; returns (20, n), row 19 the entry-position
     band-check violation counts. ``ou``: :meth:`OUConstants.vector`."""
+    if ctx.pseq:
+        raise ValueError(ERR_MS_PSEQ)
     params = ctx.params if params is None else params
     half, half_inv_m, c_t, s_t = (float(v) for v in ou[:4])
     c_r, s_r, inv_i = ([float(v) for v in ou[k : k + 3]] for k in (4, 7, 10))
@@ -780,32 +840,41 @@ def _field_grads(ctx: StencilContext, dyn: torch.Tensor, count: bool = False):
     if dyn.dtype != torch.float32 or ctx.params.dtype != torch.float32 or dyn.shape != (7, ctx.n):
         raise ValueError(f"field_grads takes (7, {ctx.n}) float32, got {tuple(dyn.shape)} {dyn.dtype}")
     name = _instance("stencil_field_grads", ctx)
+    pseq = ()
+    if ctx.pseq:
+        _check_cuda("field_grads", hbf=ctx.hbf)
+        if ctx.hbf.dtype != torch.float32 or ctx.hbf.shape != (10, ctx.n):
+            raise ValueError(f"field_grads takes (10, {ctx.n}) float32 hb factors, got {tuple(ctx.hbf.shape)}")
+        name, pseq = name + "_pseq", (_ptr(ctx.hbf),)
     out = torch.empty_like(dyn)
     lib = _build.load_library()
     parts = torch.empty((lib.stencil_field_grads_blocks(ctx.n), len(BAND_TALLY)), dtype=torch.int32,
                         device=dyn.device) if count else None
     rc = getattr(lib, name)(
-        *_ctx_args(ctx), _ptr(dyn), _ptr(out), ctypes.c_void_p(None if parts is None else parts.data_ptr()),
+        *_ctx_args(ctx), *pseq, _ptr(dyn), _ptr(out), ctypes.c_void_p(None if parts is None else parts.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     field_grads.launches += 1
-    field_grads.by_family[ctx.family] += 1
+    field_grads.by_family[ctx.branch] = field_grads.by_family.get(ctx.branch, 0) + 1
     return out, None if parts is None else dict(zip(BAND_TALLY, parts.sum(0).tolist(), strict=True))
 
 
 def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
     """K2: (7, n) [com, quat] -> (7, n) [dE/dcom, dE/dquat] of the weighted
-    unbonded band energy. CPU tensors run :func:`field_grads_plain`.
-    ``launches`` counts every launch, ``by_family`` each family's."""
+    unbonded band energy (its pseq instance under a pseq). CPU tensors run
+    :func:`field_grads_plain`. ``launches`` counts every launch,
+    ``by_family`` each instance's (:data:`K2_BRANCHES`)."""
     if dyn.device.type == "cpu":
         return field_grads_plain(ctx, dyn)
     return _field_grads(ctx, dyn)[0]
 
 
+#: K2's instances: each family's, and the pseq instances of oxDNA2 and oxDNA1
+K2_BRANCHES = (*FAMILIES, "dna2_pseq", "dna1_pseq")
 field_grads.launches = 0
-field_grads.by_family = dict.fromkeys(FAMILIES, 0)
+field_grads.by_family = dict.fromkeys(K2_BRANCHES, 0)
 
 
 def multistep_chunk(ctx: StencilContext, ou: torch.Tensor, noise: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -816,6 +885,8 @@ def multistep_chunk(ctx: StencilContext, ou: torch.Tensor, noise: torch.Tensor, 
     chunk's ``n_inner + 1`` kernels on the current stream and never
     synchronises. ``launches`` counts every call that launched, ``by_family``
     each family's."""
+    if ctx.pseq:
+        raise ValueError(ERR_MS_PSEQ)
     if state.device.type == "cpu":
         return multistep_chunk_plain(ctx, ou, noise, state)
     from mythos_tpu_torch.ops import _build
@@ -861,7 +932,8 @@ def _no_hidden_grads(name: str, ctx: StencilContext, hidden: tuple) -> None:
     its Function does not take as an input: the gradient would drop
     silently."""
     for field in hidden:
-        if getattr(ctx, field).requires_grad:
+        t = getattr(ctx, field)
+        if t is not None and t.requires_grad:
             raise ValueError(f"{name}: ctx.{field} needs a gradient but is not an input of the Function")
 
 
@@ -869,30 +941,39 @@ class FieldGrads(torch.autograd.Function):
     """K2 forward; backward through :func:`field_grads_plain` (the double
     backward of the band energy).
 
-    ``FieldGrads.apply(dyn, params, ctx)``: the forward is the kernel call
-    of :func:`field_grads` (its plain version on CPU tensors), the backward
-    always the plain version -- the port of the reference's custom-JVP
-    rule, which differentiates its XLA band instead of the Pallas kernel
-    (``_kernel_field_grads_jvp`` -> ``_xla_field_grads_layout``,
-    mythos_tpu/ops/stencil.py:1486-1488). K2 reads no ``wstack``; a
-    ``ctx.qf`` that needs a gradient raises."""
+    ``FieldGrads.apply(dyn, params, ctx, hbf=None)``: the forward is the
+    kernel call of :func:`field_grads` (its plain version on CPU tensors),
+    the backward always the plain version -- the port of the reference's
+    custom-JVP rule, which differentiates its XLA band instead of the
+    Pallas kernel (``_kernel_field_grads_jvp`` -> ``_xla_field_grads_layout``,
+    mythos_tpu/ops/stencil.py:1486-1488). Under a pseq ``hbf`` is the
+    context's hb weight factors (``ctx.hbf``), an input so that the
+    backward reaches the sequence distribution (the reference's rule
+    differentiates ``weight_d``). K2 reads no ``wstack``; a ``ctx.qf``, or
+    a ``ctx.hbf`` not given as ``hbf``, that needs a gradient raises."""
 
     @staticmethod
-    def forward(fctx, dyn, params, ctx):
-        _no_hidden_grads("FieldGrads", ctx, _K2_HIDDEN)
-        fctx.save_for_backward(dyn, params)
+    def forward(fctx, dyn, params, ctx, hbf=None):
+        _no_hidden_grads("FieldGrads", ctx, _K2_HIDDEN if hbf is not None else (*_K2_HIDDEN, "hbf"))
+        fctx.save_for_backward(dyn, params, hbf)
         fctx.sctx = ctx
-        return field_grads(dc.replace(ctx, params=params.detach()), dyn.detach())
+        fixed = dict(hbf=hbf.detach()) if hbf is not None else {}
+        return field_grads(dc.replace(ctx, params=params.detach(), **fixed), dyn.detach())
 
     @staticmethod
     def backward(fctx, g_out):
-        dyn, params = fctx.saved_tensors
+        dyn, params, hbf = fctx.saved_tensors
         with torch.enable_grad():
             dyn_ = dyn.detach().requires_grad_(True)
             par_ = params.detach().requires_grad_(True)
-            out = field_grads_plain(fctx.sctx, dyn_, par_, create_graph=True)
-            g_dyn, g_par = torch.autograd.grad(out, (dyn_, par_), g_out, allow_unused=True)
-        return g_dyn, g_par, None
+            ins, sctx = [dyn_, par_], fctx.sctx
+            if hbf is not None:
+                hbf_ = hbf.detach().requires_grad_(True)
+                ins.append(hbf_)
+                sctx = dc.replace(sctx, hbf=hbf_)
+            out = field_grads_plain(sctx, dyn_, par_, create_graph=True)
+            g = torch.autograd.grad(out, ins, g_out, allow_unused=True)
+        return g[0], g[1], None, g[2] if hbf is not None else None
 
 
 class MultistepChunk(torch.autograd.Function):

@@ -7,8 +7,9 @@ table (simulators.neighbors.BlockNeighborList) lists each row block's
 column blocks. Per-particle data is one (n_pad, F) row array: the body
 fields (com, a1, a2, a3 -- a2 as its own fields, as the reference keeps
 it, so that quaternion cotangents off the unit sphere agree) followed by
-a static tail (hb weight factors, Debye charge factor, bonded partners,
-the global id). The "debye" kind carries only the backbone site.
+a static tail (hb weight factors, the probabilistic-sequence correction
+and partner, Debye charge factor, bonded partners, the global id). The
+"debye" kind carries only the backbone site.
 
 Three kernels, hand-written in CUDA (``ops/csrc/tiles.cu``), carry the
 tables, beside their plain PyTorch versions (autograd over a gathered
@@ -35,6 +36,15 @@ force and the DiffTRe re-evaluation under oxDNA1. (The reference takes
 oxDNA1's one table as its "full" kind with no Debye term to sum; the
 short kind here sums the same four terms.)
 
+Probabilistic sequences (``TileSpec.pseq``; sequence design): the hb
+weight factors hold the marginal factors of ``energy.seqdep``, and the
+correction ``corr_i`` adds to the weight of the pair whose column is the
+row's base-pair partner (``partner_i``, a slot id). Each kernel has a
+pseq instance of each family (``<name>[_dna1]_pseq``); K5's writes 21
+fields: beside the 16, the right factor's gradient (pairs j < i, the
+role-swapped hb product) and the correction's (j > i, j = partner_i), so
+that the map's gradient reaches the sequence distribution.
+
 :class:`UnbondedTileEnergies` ties K4 to K5, and its parameter gradient
 to :func:`params_grad` (the port of ``_params_grad_xla``: autograd over
 the batched tile evaluation, as the reference leaves it to XLA). The
@@ -53,7 +63,7 @@ import torch
 
 import mythos_tpu_torch.energy.dna1.terms as t1
 import mythos_tpu_torch.energy.dna2.terms as t2
-from mythos_tpu_torch.energy import blocks
+from mythos_tpu_torch.energy import blocks, seqdep
 from mythos_tpu_torch.energy.dna1 import geometry as geom
 from mythos_tpu_torch.energy.dna1.nucleotide import NucleotideSoA as NucleotideSoA1
 from mythos_tpu_torch.energy.dna2.nucleotide import NucleotideSoA
@@ -65,9 +75,9 @@ from mythos_tpu_torch.utils.math import arccos_poly
 _COM, _A1, _A2, _A3 = 0, 3, 6, 9
 _HW = 12  # left hb-weight factor one_hot(seq) @ W (4)
 _OH = 16  # right hb-weight factor one_hot(seq) (4)
-_CORR = 20  # probabilistic-sequence correction (always 0 here)
+_CORR = 20  # probabilistic-sequence correction of the partner's weight (0 for a discrete sequence)
 _QF = 21  # Debye end-charge factor
-_PARTNER = 22  # probabilistic-sequence partner (always -1 here)
+_PARTNER = 22  # probabilistic-sequence partner's slot id (-1 for a discrete sequence)
 _PREV, _NXT, _GID = 23, 24, 25
 N_FIELDS = 26
 #: row layout of the "debye" kind: backbone site, charge factor, partners, id
@@ -85,7 +95,6 @@ _KIND_CODE = {"full": 0, "short": 1, "debye": 2}
 #: offset of each term's weight in the P_GT group
 _GT_SLOT = {nm: k for k, nm in enumerate(KIND_TERMS["full"])}
 
-ERR_PSEQ = "the tile path does not support probabilistic sequences"
 ERR_TERMS = "the tile kernels implement the oxDNA2 term set and oxDNA1's {}; got {}"
 ERR_DNA1_KIND = "oxDNA1 has no Debye-Hueckel term: its one table is of the short kind, got {!r}"
 ERR_HIDDEN_GRAD = (
@@ -108,6 +117,7 @@ class TileSpec:
     kind: str  # "full" | "short" | "debye"
     geometry: tuple  # (back a1, back a2, base a1, stack a1) site offsets
     family: str = "dna2"  # "dna2" | "dna1" (ops.stencil.FAMILIES)
+    pseq: bool = False  # hb weights from a probabilistic sequence (the correction on)
 
     @property
     def n_pad(self) -> int:
@@ -127,7 +137,16 @@ class TileSpec:
 
     @property
     def n_grad_fields(self) -> int:
-        return 4 if self.kind == "debye" else 16
+        """K5's width: back site + charge factor (debye kind); the body and
+        hw (16); under pseq also oh and corr (21)."""
+        if self.kind == "debye":
+            return 4
+        return _CORR + 1 if self.pseq else _HW + 4
+
+    @property
+    def branch(self) -> str:
+        """The kernels' instance: the family, ``_pseq`` under pseq."""
+        return self.family + ("_pseq" if self.pseq else "")
 
     @property
     def id_offsets(self) -> tuple[int, int, int]:
@@ -154,20 +173,41 @@ def _geometry_of(composed, family: str) -> tuple:
             float(g["com_to_stacking"]))
 
 
-def pair_static_fields(composed, seq: torch.Tensor, perm: torch.Tensor | None):
+def pair_static_fields(composed, perm: np.ndarray | None):
     """Static per-slot pair fields in slot order: (hw (n, 4), oh (n, 4),
-    qf (n,)). hw/oh are the left/right factors of the hb weight, hw =
-    one_hot(seq) @ eps_hb_weights (autograd reaches the weights through
-    it); qf the Debye end-charge factor (ones without a Debye term, read by
-    no kernel). (The reference's probabilistic-sequence fields
-    corr/partner are constants here: pseq is refused.)"""
+    corr (n,), partner (n,), qf (n,)), as the reference's
+    (oxdna_tiles.py:1481-1539). hw/oh are the left/right factors of the hb
+    weight: hw = one_hot(seq) @ eps_hb_weights, oh = one_hot(seq), corr 0
+    and partner -1 for a discrete sequence; under a probabilistic sequence
+    the marginal factors, the correction of each base pair's partner and
+    that partner's slot (``seqdep.factorized_weights``). Autograd reaches
+    the weights and the sequence distribution through them. qf is the Debye
+    end-charge factor (ones without a Debye term, read by no kernel)."""
     by_name = {type(fn).__name__: fn for fn in composed.energy_fns}
-    w = by_name["HydrogenBonding"].params.eps_hb_weights
-    oh = torch.nn.functional.one_hot(seq.long(), 4).to(w.dtype)
+    hb = by_name["HydrogenBonding"].params
+    w = hb.eps_hb_weights
+    n = composed.energy_fns[0].topology.n_nucleotides
+    perm_t = None if perm is None else torch.as_tensor(perm, device=w.device)
+    if hb.pseq is None:
+        seq = torch.as_tensor(np.asarray(composed.energy_fns[0].topology.seq), device=w.device)
+        if perm_t is not None:
+            seq = seq[perm_t]
+        oh = torch.nn.functional.one_hot(seq.long(), 4).to(w.dtype)
+        hw, corr = oh @ w, torch.zeros(n, dtype=w.dtype, device=w.device)
+        partner = torch.full((n,), -1.0, dtype=w.dtype, device=w.device)
+    else:
+        hw, oh, partner_np, corr = seqdep.factorized_weights(hb.pseq, w, hb.pseq_constraints)
+        hw, oh, corr = hw.to(w.dtype), oh.to(w.dtype), corr.to(w.dtype)
+        if perm is not None:
+            hw, oh, corr = hw[perm_t], oh[perm_t], corr[perm_t]
+            partner_np = np.argsort(perm)[partner_np[perm]]
+        partner = torch.as_tensor(partner_np, dtype=w.dtype, device=w.device)
     if "Debye" not in by_name:
-        return oh @ w, oh, torch.ones(seq.shape[0], dtype=w.dtype, device=w.device)
-    qf = by_name["Debye"].charge_factors(w)
-    return oh @ w, oh, qf if perm is None else qf[perm]
+        qf = torch.ones(n, dtype=w.dtype, device=w.device)
+    else:
+        qf = by_name["Debye"].charge_factors(w)
+        qf = qf if perm_t is None else qf[perm_t]
+    return hw, oh, corr, partner, qf
 
 
 def _tile_family(composed) -> str:
@@ -191,8 +231,6 @@ def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind:
         raise ValueError(ERR_DNA1_KIND.format(kind))
     names = tuple(type(fn).__name__ for fn in composed.energy_fns)
     first = composed.energy_fns[0]
-    if np.asarray(first.topology.seq).ndim != 1:
-        raise ValueError(ERR_PSEQ)
     fene = composed.energy_fns[names.index("Fene")]
     dtype = fene.params.eps_backbone.dtype
     params = stencil.pack_params(composed, dtype=dtype)
@@ -201,15 +239,15 @@ def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind:
     nb, cap = sym_ids.shape
     if nb != -(-n // block_size):
         raise ValueError(f"table has {nb} row blocks; {n} particles in blocks of {block_size} need {-(-n // block_size)}")
+    pseq = composed.energy_fns[names.index("HydrogenBonding")].params.pseq is not None
     spec = TileSpec(block_size=block_size, cap=cap, n=n, n_blocks=nb, kind=kind,
-                    geometry=_geometry_of(composed, family), family=family)
+                    geometry=_geometry_of(composed, family), family=family, pseq=pseq and kind != "debye")
     n_pad = spec.n_pad
-    perm_t = None if perm is None else torch.as_tensor(np.asarray(perm), device=device)
-    seq = torch.as_tensor(np.asarray(first.topology.seq), device=device)
+    perm = None if perm is None else np.asarray(perm)
+    perm_t = None if perm is None else torch.as_tensor(perm, device=device)
     bonded = np.asarray(first.topology.bonded_neighbors)
     if perm is not None:
-        seq = seq[perm_t]
-        bonded = np.argsort(np.asarray(perm))[bonded]  # bonds in slot indices
+        bonded = np.argsort(perm)[bonded]  # bonds in slot indices
     prev, nxt = blocks.bonded_partner_table(n_pad, bonded)
     idx = np.arange(n_pad)
     ids = [torch.as_tensor(a, dtype=dtype, device=device) for a in (prev, nxt, np.where(idx < n, idx, _BIG))]
@@ -217,13 +255,13 @@ def prepare_tile_context(composed, sym_ids: torch.Tensor, block_size: int, kind:
     def pad(c, value=0.0):
         return torch.nn.functional.pad(c.to(dtype), (0, n_pad - n), value=value)
 
-    hw, oh, qf = pair_static_fields(composed, seq, perm_t)
+    hw, oh, corr, partner, qf = pair_static_fields(composed, perm)
     zeros = torch.zeros(n_pad, dtype=dtype, device=device)
     if kind == "debye":
         tail = [pad(qf), *ids, zeros]
     else:
         tail = [pad(hw[:, k]) for k in range(4)] + [pad(oh[:, k]) for k in range(4)]
-        tail += [zeros, pad(qf), torch.full_like(zeros, -1.0), *ids]
+        tail += [pad(corr), pad(qf), pad(partner, -1.0), *ids]  # a padded row's partner -1 matches no column
     by_name = {nm: i for i, nm in enumerate(names)}
     return TileContext(
         spec=spec,
@@ -330,6 +368,8 @@ def _tile_terms(ri: torch.Tensor, cj: torch.Tensor, params: torch.Tensor, spec: 
     g = geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, a3_i, a3_j, arccos_poly)
     hb_prod = t1.hb_product(P["HB"], g)
     weight = sum(ri[..., _HW + k] * cj[..., _OH + k] for k in range(4))
+    if spec.pseq:
+        weight = weight + torch.where(cj[..., _GID] == ri[..., _PARTNER], ri[..., _CORR], 0.0)
     stack_i, stack_j = com_i + sto * a1_i, com_j + sto * a1_j
     if spec.family == "dna1":  # oxDNA1's coaxial stacking: the phi cosines on the backbone sites
         coax = t1.coax_product(P["COAX"], geom.coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, a3_i, a3_j,
@@ -483,20 +523,25 @@ def tile_row_grads_plain(
     """Plain version of K5: d(gt . K4's sums)/d(rows), (n_pad, 16) -- the
     12 body fields under the full mask, the hb weight factor hw under the
     triangular mask (it enters the forward on the row side only) -- or
-    (n_pad, 4) back site + charge factor for the debye kind."""
+    (n_pad, 4) back site + charge factor for the debye kind. Under pseq
+    (n_pad, 21): also the right factor oh (it enters on the column side, so
+    its gradient gathers the pairs j < i) and the correction corr, each the
+    whole derivative of K4's triangular hb sum, by autograd through the
+    rows and the columns alike."""
     if spec.kind == "debye":
         return _body_row_grads(rows, params, ids, gt, spec, 4)
     body = _body_row_grads(rows, params, ids, gt, spec, 12)
     rows = rows.detach()
+    hi = spec.n_grad_fields
     with torch.enable_grad():
-        hw = rows[:, _HW : _HW + 4].clone().requires_grad_(True)
-        r = torch.cat([rows[:, :_HW], hw, rows[:, _HW + 4 :]], dim=1)
-        ri, cj = _split(r, _gather_cols(rows, ids, spec), spec)
+        tail = rows[:, _HW:hi].clone().requires_grad_(True)
+        r = torch.cat([rows[:, :_HW], tail, rows[:, hi:]], dim=1)
+        ri, cj = _split(r, _gather_cols(r if spec.pseq else rows, ids, spec), spec)
         mask = _tile_mask(ri, cj, spec, triangular=True)
         terms, _ = _tile_terms(ri, cj, params.detach(), spec)
         hb = terms[spec.terms.index("HydrogenBonding")]
-        (g_hw,) = torch.autograd.grad(gt[1].detach() * torch.where(mask, hb, torch.zeros_like(hb)).sum(), hw)
-    return torch.cat([body, g_hw], dim=1)
+        (g,) = torch.autograd.grad(gt[1].detach() * torch.where(mask, hb, torch.zeros_like(hb)).sum(), tail)
+    return torch.cat([body, g], dim=1)
 
 
 def params_grad(
@@ -554,8 +599,19 @@ def _launch(name: str, rows, params, ids, spec: TileSpec, outs: tuple, count: bo
 
 
 def _instance(name: str, spec: TileSpec) -> str:
-    """The C entry of kernel ``name``'s instance for the spec's family."""
-    return name if spec.family == "dna2" else f"{name}_{spec.family}"
+    """The C entry of kernel ``name``'s instance for the spec's family, and
+    under pseq its pseq instance (``<name>[_dna1][_pseq]``)."""
+    return name + ("" if spec.family == "dna2" else f"_{spec.family}") + ("_pseq" if spec.pseq else "")
+
+
+def _count(fn, spec: TileSpec) -> None:
+    fn.launches += 1
+    fn.by_family[spec.branch] = fn.by_family.get(spec.branch, 0) + 1
+
+
+#: the kernels' instances a wrapper counts (``by_family``): each family's,
+#: and each family's pseq instance
+BRANCHES = ("dna2", "dna1", "dna2_pseq", "dna1_pseq")
 
 
 def _tile_forces(rows, params, ids, spec: TileSpec, count: bool = False):
@@ -565,22 +621,22 @@ def _tile_forces(rows, params, ids, spec: TileSpec, count: bool = False):
     and nothing (:func:`tile_gate_counts`), else None."""
     out = torch.empty((spec.n_pad, spec.n_force_fields), dtype=torch.float32, device=rows.device)
     counts = _launch(_instance("tile_forces", spec), rows, params, ids, spec, (out,), count)
-    tile_forces.launches += 1
-    tile_forces.by_family[spec.family] += 1
+    _count(tile_forces, spec)
     return out, counts
 
 
 def tile_forces(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """K3: (n_pad, 12) row forces dE/d(com, a1, a2, a3), or (n_pad, 3)
     dE/d(back) for the debye kind. CPU tensors run :func:`tile_forces_plain`.
-    ``launches`` counts every launch, ``by_family`` each family's."""
+    ``launches`` counts every launch, ``by_family`` each instance's
+    (:data:`BRANCHES`)."""
     if rows.device.type == "cpu":
         return tile_forces_plain(rows, params, ids, spec)
     return _tile_forces(rows, params, ids, spec)[0]
 
 
 tile_forces.launches = 0
-tile_forces.by_family = {"dna2": 0, "dna1": 0}
+tile_forces.by_family = dict.fromkeys(BRANCHES, 0)
 
 
 class TileForces(torch.autograd.Function):
@@ -625,22 +681,21 @@ def _tile_energies(rows, params, ids, spec: TileSpec, count: bool = False):
     buf = torch.empty(parts * 5 + 5, dtype=torch.float32, device=rows.device)
     counts = _launch(_instance("tile_energies", spec), rows, params, ids, spec, (buf[: parts * 5], buf[parts * 5 :]),
                      count)
-    tile_energies.launches += 1
-    tile_energies.by_family[spec.family] += 1
+    _count(tile_energies, spec)
     return buf[parts * 5 :][_term_slots(spec)], counts
 
 
 def tile_energies(rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """K4: (T,) unweighted per-term sums under the triangular mask. CPU
     tensors run :func:`tile_energies_plain`. ``launches`` counts every
-    launch, ``by_family`` each family's."""
+    launch, ``by_family`` each instance's (:data:`BRANCHES`)."""
     if rows.device.type == "cpu":
         return tile_energies_plain(rows, params, ids, spec)
     return _tile_energies(rows, params, ids, spec)[0]
 
 
 tile_energies.launches = 0
-tile_energies.by_family = {"dna2": 0, "dna1": 0}
+tile_energies.by_family = dict.fromkeys(BRANCHES, 0)
 
 
 def _tile_row_grads(rows, params, ids, gt, spec: TileSpec, count: bool = False):
@@ -651,24 +706,24 @@ def _tile_row_grads(rows, params, ids, gt, spec: TileSpec, count: bool = False):
     p[_gt_slots(spec)] = gt.detach().to(p.dtype)
     out = torch.empty((spec.n_pad, spec.n_grad_fields), dtype=torch.float32, device=rows.device)
     counts = _launch(_instance("tile_row_grads", spec), rows, p, ids, spec, (out,), count)
-    tile_row_grads.launches += 1
-    tile_row_grads.by_family[spec.family] += 1
+    _count(tile_row_grads, spec)
     return out, counts
 
 
 def tile_row_grads(
     rows: torch.Tensor, params: torch.Tensor, ids: torch.Tensor, gt: torch.Tensor, spec: TileSpec
 ) -> torch.Tensor:
-    """K5: (n_pad, 16) -- or (n_pad, 4) for the debye kind -- row
-    gradients of gt . K4's sums. CPU tensors run :func:`tile_row_grads_plain`.
-    ``launches`` counts every launch, ``by_family`` each family's."""
+    """K5: (n_pad, 16) -- (n_pad, 21) under pseq, (n_pad, 4) for the debye
+    kind -- row gradients of gt . K4's sums. CPU tensors run
+    :func:`tile_row_grads_plain`. ``launches`` counts every launch,
+    ``by_family`` each instance's (:data:`BRANCHES`)."""
     if rows.device.type == "cpu":
         return tile_row_grads_plain(rows, params, ids, gt, spec)
     return _tile_row_grads(rows, params, ids, gt, spec)[0]
 
 
 tile_row_grads.launches = 0
-tile_row_grads.by_family = {"dna2": 0, "dna1": 0}
+tile_row_grads.by_family = dict.fromkeys(BRANCHES, 0)
 
 
 class UnbondedTileEnergies(torch.autograd.Function):

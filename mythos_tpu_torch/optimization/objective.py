@@ -5,9 +5,10 @@ follows Thaler & Zavadlav, Nat. Commun. 12, 6884 (2021), eqs. 4-5:
 Boltzmann reweighting of reference states under perturbed parameters, with
 the normalized effective sample size n_eff as the validity criterion. The
 gradient is ``torch.autograd.grad`` over the parameter leaves (the
-reference's ``jax.value_and_grad``); the re-evaluation is the composed
-energy's ``map`` (with ``map_neighbors``: the tile kernels K4 forward and
-K5 backward).
+reference's ``jax.value_and_grad``; a probabilistic sequence ``{"pseq":
+(up_pseq, bp_pseq)}`` gets a tuple of gradients, as its pytree does); the
+re-evaluation is the composed energy's ``map`` (with ``map_neighbors``:
+the tile kernels K4 forward and K5 backward).
 """
 
 from __future__ import annotations
@@ -115,13 +116,21 @@ def compute_loss(opt_params: dict, energy_fn, beta, loss_fn: Callable, ref_state
     return loss, (neff, measured_value, new_energies)
 
 
+def _map(fn, params: dict) -> dict:
+    """``fn`` on each tensor of ``params``, a tuple's (a probabilistic
+    sequence ``(up_pseq, bp_pseq)``) element by element, as the reference's
+    pytree gradient treats it."""
+    return {k: tuple(fn(x) for x in v) if isinstance(v, tuple) else fn(v) for k, v in params.items()}
+
+
 def _leaves(opt_params: dict) -> dict:
-    return {k: torch.as_tensor(v).detach().requires_grad_(True) for k, v in opt_params.items()}
+    return _map(lambda v: torch.as_tensor(v).detach().requires_grad_(True), opt_params)
 
 
 def _grads(loss: torch.Tensor, leaves: dict) -> dict:
-    g = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    return {k: torch.zeros_like(v) if gk is None else gk for (k, v), gk in zip(leaves.items(), g, strict=True)}
+    flat = [x for v in leaves.values() for x in (v if isinstance(v, tuple) else (v,))]
+    g = dict(zip(map(id, flat), torch.autograd.grad(loss, flat, allow_unused=True), strict=True))
+    return _map(lambda v: torch.zeros_like(v) if g[id(v)] is None else g[id(v)], leaves)
 
 
 def check_no_overflow(*trajectories) -> None:
@@ -134,7 +143,7 @@ def check_no_overflow(*trajectories) -> None:
 
 
 def _detached(params: dict) -> dict:
-    return {k: torch.as_tensor(v).detach() for k, v in params.items()}
+    return _map(lambda v: torch.as_tensor(v).detach(), params)
 
 
 @dc.dataclass(frozen=True, kw_only=True)

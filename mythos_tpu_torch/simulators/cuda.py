@@ -28,6 +28,12 @@ A stencil run:
   sweep (``StencilBand.slot_check``, as the reference's band build), then
   that many BAOAB steps of ``integrators.nvt_langevin_soa`` whose force is
   K2 plus the bonded gradient, and saves every state;
+* under a probabilistic sequence (hydrogen bonding's ``pseq``), which K1
+  does not take (``ops.stencil.ERR_MS_PSEQ``, as the reference's), the
+  per-step branch at any ``save_every``, saving every ``save_every``-th
+  state (the reference's generic branch, simulators/tpu.py:274-296 and
+  484-500); the run decides this from its prepared context, before any
+  launch;
 * un-permutes the saved states once, at the end, and reads the overflow
   flag back once.
 
@@ -37,11 +43,12 @@ Functions (ops.stencil.MultistepChunk, FieldGrads) and the bonded gradient,
 so that ``loss.backward()`` reaches every parameter; ``checkpoint_every``
 recomputes the per-step branch's rebuild intervals in the backward.
 
-``save_every`` alone picks the branch. Neither is a fallback of the other:
-a configuration the stencil kernels cannot run raises on both (scalar
-mass/friction, every bond at slot offset 2, discrete sequence), and so
-does a ``save_every`` that is not a multiple of ``neighbor_update_every``
-on the chunk path, or an ``n_steps`` that is not on the per-step branch.
+``save_every`` and the sequence pick the branch. Neither is a fallback of
+the other: a configuration the stencil kernels cannot run raises on both
+(scalar mass/friction, every bond at slot offset 2, a pseq under
+oxRNA2), and so does a ``save_every`` that is not a multiple of
+``neighbor_update_every`` (where it is above 1), or an ``n_steps`` that
+is not a multiple of the save or rebuild cadence.
 
 A block run rebuilds its (tight, wide) tables every
 ``neighbor_update_every`` steps, with the previous tables as ``prev`` (the
@@ -100,6 +107,14 @@ def _every_step(save_every: int, u: int, n_steps: int) -> bool:
     return False
 
 
+def _tensors(opt_params) -> list:
+    """The tensors of ``opt_params``, a pseq tuple's two arrays among them."""
+    out = []
+    for v in (opt_params or {}).values():
+        out += list(v) if isinstance(v, tuple) else [v]
+    return [t for t in out if isinstance(t, torch.Tensor)]
+
+
 def _positions(state) -> torch.Tensor:
     """(7, n) com + quat rows of a LangevinStateSoA."""
     return torch.stack([*state.position.center, *state.position.orientation])
@@ -139,11 +154,13 @@ class CudaSimulator:
 
     ``checkpoint_every`` has the reference's meaning (simulators/tpu.py:
     110-132, 224-229): iterations of the outer loop -- on the per-step
-    branch, rebuild intervals of ``neighbor_update_every`` steps -- kept
+    branch, rebuild intervals of ``neighbor_update_every`` steps, or saves
+    of ``save_every`` steps where it saves every ``save_every``-th state
+    (a pseq) -- kept
     under one checkpoint, their inner states recomputed in the backward
     (``torch.utils.checkpoint``, each step's normals drawn before the
-    checkpointed stretch so that it replays them); it must divide
-    ``n_steps // neighbor_update_every`` (ERR_CHKPNT_SCN). The chunk path
+    checkpointed stretch so that it replays them); it must divide their
+    number (ERR_CHKPNT_SCN). The chunk path
     accepts and ignores it, as the reference's fused branch (a plain
     ``lax.scan``, tpu.py:386-444): K1's Function already keeps only each
     chunk's entry state, which is what checkpointing every chunk keeps.
@@ -179,7 +196,7 @@ class CudaSimulator:
 
         def grad_fn(b: BodySoA):
             rows = torch.stack([*b.center, *b.orientation])
-            g = ops_stencil.FieldGrads.apply(rows, ctx.params, ctx)
+            g = ops_stencil.FieldGrads.apply(rows, ctx.params, ctx, ctx.hbf)
             g = g + ops_stencil.bonded_grads_plain(ctx, rows, create_graph=graph)
             return Vec3(*g[:3]), Quat(*g[3:])
 
@@ -197,19 +214,21 @@ class CudaSimulator:
     def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
         u = self.neighbor_update_every
         every_step = _every_step(self.save_every, u, n_steps)
-        if every_step and self.checkpoint_every > 0 and (n_steps // u) % self.checkpoint_every:
-            raise ValueError(ERR_CHKPNT_SCN.format(self.checkpoint_every, n_steps // u))
         device = init_state.center.device
-        graph = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*(opt_params or {}).values(), init_state.center, init_state.orientation)
-        )
+        graph = torch.is_grad_enabled() and any(t.requires_grad for t in (*_tensors(opt_params), init_state.center,
+                                                                          init_state.orientation))
         ctx, ou = self._context(opt_params, device)
+        per_save = 1 if every_step else self.save_every // u  # rebuild intervals a save (per-step branch)
+        n_outer, ck = n_steps // u // per_save, self.checkpoint_every
+        if (every_step or ctx.pseq) and ck > 0 and n_outer % ck:
+            raise ValueError(ERR_CHKPNT_SCN.format(ck, n_outer))
         overflow = torch.as_tensor(self.band.did_overflow, device=device).clone()
-        if every_step:
+        if every_step or ctx.pseq:
             if graph and self.checkpoint_every > 0:
                 ctx = dc.replace(ctx, checkpointed=True)
             s, step_fn = self._init(ctx, init_state, generator, graph)
-            s, saves, overflow = self._every_step_run(ctx, s, step_fn, n_steps, generator, overflow, graph)
+            s, saves, overflow = self._every_step_run(ctx, s, step_fn, n_steps, generator, overflow, graph,
+                                                      per_save, every_step)
             state = torch.stack([*_positions(s), *s.momentum, *s.angmom, *s.force, *s.torque])
         else:
             state = self.initial_state(ctx, init_state, generator, graph)
@@ -229,17 +248,19 @@ class CudaSimulator:
         trajectory = _trajectory(ctx.from_slots(torch.stack(saves)), self.kT, overflow)
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})
 
-    def _every_step_run(self, ctx, s, step_fn, n_steps, generator, overflow, graph):
-        """The per-step branch from state ``s``: (the last state, the
-        positions of every step, the overflow flag). Each group of
-        ``checkpoint_every`` rebuild intervals (one interval without it)
-        draws its steps' normals first, then runs its intervals: each the
-        band's exact checks and far sweep (``StencilBand.slot_check``), then
+    def _every_step_run(self, ctx, s, step_fn, n_steps, generator, overflow, graph, per_save=1, every_step=True):
+        """The per-step branch from state ``s``: (the last state, the saved
+        positions -- of every step, or with ``every_step`` False of the last
+        step of each ``per_save`` rebuild intervals --, the overflow flag).
+        Each group of ``checkpoint_every`` outer iterations (one without it;
+        an iteration is ``per_save`` rebuild intervals) draws its steps'
+        normals first, then runs its intervals: each the band's exact checks
+        and far sweep (``StencilBand.slot_check``), then
         ``neighbor_update_every`` steps. With ``graph`` and
         ``checkpoint_every`` > 0 a group runs under ``torch.utils.checkpoint``:
         its inner states are recomputed (K2 launched again) in the backward."""
         u = self.neighbor_update_every
-        group = self.checkpoint_every if self.checkpoint_every > 0 else 1
+        group = (self.checkpoint_every if self.checkpoint_every > 0 else 1) * per_save
         n = ctx.n
         device = s.position.center.x.device
 
@@ -250,6 +271,9 @@ class CudaSimulator:
                     ovf = ovf | self.band.slot_check(s.position.center, s.position.orientation)
                 for xi in xis[k * u : (k + 1) * u]:
                     s = step_fn(s, xi=xi)
+                    if every_step:
+                        pos.append(_positions(s))
+                if not every_step and (k + 1) % per_save == 0:
                     pos.append(_positions(s))
             return s, ovf, pos
 
@@ -324,9 +348,8 @@ class BlockSimulator:
         if ck > 0 and n_outer % ck:
             raise ValueError(ERR_CHKPNT_SCN.format(ck, n_outer))
         nbl = self.neighbors
-        graph = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*(opt_params or {}).values(), init_state.center, init_state.orientation)
-        )
+        graph = torch.is_grad_enabled() and any(t.requires_grad for t in (*_tensors(opt_params), init_state.center,
+                                                                          init_state.orientation))
         with contextlib.nullcontext() if graph else torch.no_grad():
             energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
             ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
@@ -432,9 +455,8 @@ class PairSimulator:
         ck = self.checkpoint_every
         if ck > 0 and n_outer % ck:
             raise ValueError(ERR_CHKPNT_SCN.format(ck, n_outer))
-        graph = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*(opt_params or {}).values(), init_state.center, init_state.orientation)
-        )
+        graph = torch.is_grad_enabled() and any(t.requires_grad for t in (*_tensors(opt_params), init_state.center,
+                                                                          init_state.orientation))
         gamma = RigidBody(torch.tensor([self.gamma_t], dtype=torch.float64),
                           torch.tensor([self.gamma_r], dtype=torch.float64))
         init_fn, step_fn = nvt_langevin(self._energy(opt_params), spaces.free()[1], self.dt, self.kT, gamma,

@@ -43,9 +43,17 @@ K2's and K1's dna1 instances as oxRNA2's (K2's tally with no Debye class,
 coaxial stacking alone on pairs inside coax's reach), K3's dna1 instance
 on the one-level table, 40-bp stencil (both branches) and block runs card
 vs CPU with their launches, the small-system path card vs CPU (pairs and
-dense) and entry()'s step on the card.
+dense) and entry()'s step on the card. Probabilistic sequences: the pseq
+instances of K2 (oxDNA1, oxDNA2) and of K3, K4 and K5 (K5's 21 fields)
+against their plain versions with their tallies, equal bits on a second
+call, each launch counted for the instance; on the one-hot pseq of the
+duplex's sequence each within K2's tolerance of its discrete instance,
+which counts its launches under the family alone; and 40-bp pseq runs of
+the stencil (the per-step branch, K1 never) and the block tier card vs
+CPU.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -984,3 +992,142 @@ def test_small_system_run_on_card_matches_cpu(card, mode):
     step, (state0,) = entry.entry()
     state = step(state0)
     assert state.position.center.device.type == "cuda" and bool(torch.isfinite(state.position.center).all())
+
+
+def _pseq_energy(model: str, device, onehot: bool = False, seed: int = 0):
+    """The default oxDNA1 or oxDNA2 energy of the 40-bp duplex under a pseq
+    (all but the two outermost base pairs constrained): drawn from ``seed``,
+    or the one-hot pseq of the duplex's own sequence."""
+    import mythos_tpu_torch.energy.dna1 as dna1
+    import mythos_tpu_torch.energy.dna2 as dna2
+    from mythos_tpu_torch.io import sequence_constraints as sc_mod
+
+    top, body = synthetic_duplex(40, dtype=torch.float32, device=device)
+    n = top.n_nucleotides
+    sc = sc_mod.from_bps(n, np.array([[i, n - 1 - i] for i in range(1, 39)]))
+    if onehot:
+        up, bp = sc_mod.dseq_to_pseq(np.asarray(top.seq), sc)
+    else:
+        rng = np.random.default_rng(seed)
+        up, bp = rng.random((sc.n_unpaired, 4)), rng.random((sc.n_bp, 4))
+        up, bp = up / up.sum(1, keepdims=True), bp / bp.sum(1, keepdims=True)
+    pseq = tuple(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (up, bp))
+    pkg = dna1 if model == "dna1" else dna2
+    return pkg.create_default_energy_fn(top, device=device).with_params(pseq=pseq, pseq_constraints=sc), top, body
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dna1", "dna2"])
+def test_k2_pseq_kernel_matches_twin(card, model):
+    """K2's pseq instance of each family (the hb weight from the per-slot
+    factors) against its plain version on the jittered 40-bp duplex (rtol
+    1e-4, atol 1e-4 max|plain|), its tally equal to band_gate_counts',
+    equal bits on a second call, one launch counted for the instance; and
+    on the one-hot pseq of the duplex's sequence, within that tolerance of
+    the discrete instance, which counts its launch under the family."""
+    e, top, body = _pseq_energy(model, card)
+    _, sim = build_sim(top, KT, model=model, init_centers=body.center, init_orientation=body.orientation,
+                       device=card)
+    ctx = ts.prepare_stencil_context(e, sim.band, device=card)
+    b = _jittered(body, torch.Generator(device="cuda").manual_seed(5))
+    dyn = torch.cat([ctx.to_slots(b.center.T), ctx.to_slots(b.orientation.T)]).contiguous()
+    before = dict(ts.field_grads.by_family)
+    got, tally = ts._field_grads(ctx, dyn, count=True)
+    assert ts.field_grads.by_family == {**before, f"{model}_pseq": before[f"{model}_pseq"] + 1}
+    ref = ts.field_grads_plain(ctx, dyn)
+    torch.cuda.synchronize()
+    _close(got, ref)
+    assert tally == ts.band_gate_counts(ctx, dyn) and tally["short"] > 0
+    assert torch.equal(got, ts.field_grads(ctx, dyn))
+    e1, _, _ = _pseq_energy(model, card, onehot=True)
+    one = ts.field_grads(ts.prepare_stencil_context(e1, sim.band, device=card), dyn)
+    before = dict(ts.field_grads.by_family)
+    discrete = ts.field_grads(ts.prepare_stencil_context(sim.energy_fn, sim.band, device=card), dyn)
+    assert ts.field_grads.by_family == {**before, model: before[model] + 1}
+    _close(one, discrete)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dna1", "dna2"])
+def test_tile_pseq_kernels_match_plain(card, model):
+    """K3's, K4's and K5's pseq instances of each family (the correction in
+    the hb weight; K5 21 fields) against their plain versions on the
+    jittered 40-bp duplex's block table (oxDNA1 one short table, oxDNA2 one
+    full table; K2's tolerance), their pair classes those of the plain
+    gate, equal bits on a second call, one launch each counted for the
+    instance; K5's body fields for the term weights equal to K3's; and on
+    the one-hot pseq, each within K2's tolerance of the discrete instance."""
+    from mythos_tpu_torch.simulators import neighbors as tnb
+
+    e, top, body = _pseq_energy(model, card, seed=1)
+    b = _jittered(body, torch.Generator(device="cuda").manual_seed(2))
+    cutoff = importlib.import_module(f"mythos_tpu_torch.energy.{model}").default_neighbor_cutoff()
+    nbl = tnb.block_neighbor_list_for_topology(top, cutoff, block_size=8, init_centers=b.center,
+                                               perm=tnb.strand_interleave_perm(top))
+    (ctx,) = tiles.prepare_contexts(e, nbl.idx, nbl.block_size, perm=nbl.perm)
+    sp, P, ids = ctx.spec, ctx.params, tiles.pad_ids(ctx.spec, nbl.idx)
+    assert sp.pseq and sp.n_grad_fields == 21
+    rows = tiles.dynamic_rows(ctx, to_soa(b)).contiguous()
+    gt = tiles.term_weights(P, sp) * torch.linspace(0.5, 1.5, len(sp.terms), device="cuda")
+    counters = (tiles.tile_forces, tiles.tile_energies, tiles.tile_row_grads)
+    before = [dict(f.by_family) for f in counters]
+    k3 = tiles.tile_forces(rows, P, ids, sp)
+    k4 = tiles.tile_energies(rows, P, ids, sp)
+    k5 = tiles.tile_row_grads(rows, P, ids, gt, sp)
+    torch.cuda.synchronize()
+    for f, bf in zip(counters, before, strict=True):
+        assert f.by_family == {**bf, sp.branch: bf[sp.branch] + 1}
+    assert k5.shape == (sp.n_pad, 21)
+    _close(k3, tiles.tile_forces_plain(rows, P, ids, sp))
+    _close(k4, tiles.tile_energies_plain(rows, P, ids, sp))
+    _close(k5, tiles.tile_row_grads_plain(rows, P, ids, gt, sp))
+    again3, c3 = tiles._tile_forces(rows, P, ids, sp, count=True)
+    again4, c4 = tiles._tile_energies(rows, P, ids, sp, count=True)
+    again5, c5 = tiles._tile_row_grads(rows, P, ids, gt, sp, count=True)
+    assert torch.equal(k3, again3) and torch.equal(k4, again4) and torch.equal(k5, again5)
+    assert _tally(c3) == _tally(c5) == tiles.tile_gate_counts(rows, P, ids, sp)
+    assert _tally(c4) == tiles.tile_gate_counts(rows, P, ids, sp, triangular=True)
+    body_f = tiles.tile_row_grads(rows, P, ids, tiles.term_weights(P, sp), sp)[:, : sp.n_force_fields]
+    torch.testing.assert_close(body_f, k3, rtol=1e-5, atol=5e-6)
+    e1, _, _ = _pseq_energy(model, card, onehot=True)
+    e0 = e1.with_params(pseq=None, pseq_constraints=None)
+    outs = []
+    for energy in (e1, e0):
+        (cx,) = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
+        r = tiles.dynamic_rows(cx, to_soa(b)).contiguous()
+        g = tiles.term_weights(cx.params, cx.spec)
+        outs.append((tiles.tile_forces(r, cx.params, ids, cx.spec), tiles.tile_energies(r, cx.params, ids, cx.spec),
+                     tiles.tile_row_grads(r, cx.params, ids, g, cx.spec)[:, :16]))
+    for one, discrete in zip(*outs, strict=True):
+        _close(one, discrete)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stencil", "block"])
+def test_pseq_run_on_card_matches_cpu(card, mode):
+    """A 40-bp oxDNA1 run under a pseq, 40 steps, thermostat off, a state
+    every 10: the stencil on its per-step branch (K2's pseq instance 41
+    times, K1 never) and the block tier (K3's pseq instance once a step
+    and once for the initial force), card vs CPU (rtol 1e-4, atol 1e-5)."""
+
+    def run(device):
+        e, top, b = _pseq_energy("dna1", device, seed=4)
+        kw = dict(init_orientation=b.orientation) if mode == "stencil" else {}
+        _, sim = build_sim(top, 0.0, mode=mode, model="dna1", init_centers=b.center, neighbor_update_every=10,
+                           device=device, **kw)
+        sim = sim.replace(energy_fn=e, save_every=10)
+        return sim.run(e.opt_params(), b, 40, torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    k1, k2, k3 = dict(ts.multistep_chunk.by_family), dict(ts.field_grads.by_family), dict(tiles.tile_forces.by_family)
+    gpu = run(card)
+    torch.cuda.synchronize()
+    if mode == "stencil":
+        assert ts.field_grads.by_family == {**k2, "dna1_pseq": k2["dna1_pseq"] + 41}
+        assert ts.multistep_chunk.by_family == k1
+    else:
+        assert tiles.tile_forces.by_family == {**k3, "dna1_pseq": k3["dna1_pseq"] + 41}
+    cpu = run("cpu")
+    assert gpu.center.shape == (4, 80, 3)
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    assert not bool(torch.as_tensor(gpu.metadata["neighbor_overflow"]).any())
