@@ -76,7 +76,7 @@ Phases, one line each; any failure exits non-zero:
 11. the stencil's per-step branch (``save_every`` 1) at 10k nt: oxDNA2 400
    steps and oxRNA2 120 steps after a warm-up run, a state emitted every
    step, K2 launched once a step and once for the initial force, K1 never,
-   no overflow; a torch.profiler window of 40 steps (launches a step, idle
+   no overflow; a torch.profiler window of 10 steps (launches a step, idle
    share, K2's device time a call and its share of a step); 40-bp
    per-step runs of both families and of the block tier, card vs CPU;
 12. direct differentiation through ``CudaSimulator.run`` (d loss / d every
@@ -163,7 +163,26 @@ Phases, one line each; any failure exits non-zero:
    step at 40 steps, and 40 block-tier steps of each family under the
    pseq, every pseq instance's launches counted; (17d) the pseq energy of
    a 40-bp duplex on the tile map and d E / d bp_pseq card vs CPU (rtol
-   1e-4, atol 1e-5 max|grad|).
+   1e-4, atol 1e-5 max|grad|);
+18. the model paths the reference runs on XLA alone (``_rna2_na1``): (18a)
+   K2's oxRNA2 pseq instance against its plain version on the 0.01-jittered
+   10k-nt A-form duplex (slots off and at the float32 arccos clamp apart,
+   as phase 10a), its bits, registers and spill, device time a call and
+   bound, and on the one-hot pseq the discrete instance's bits; (18b) the
+   oxRNA2 block tier at 10k nt (B = 8, one non-symmetric table, the plain
+   block sums' autograd as the force), 100 steps: steps/min, kernel
+   launches and device time of a force evaluation, peak memory, the
+   overflow flag, no K3 launch, while 40 dna2 block steps launch K3; (18c)
+   an oxRNA2 DiffTRe step: 400 stencil steps (K1 rna2), the 10 states
+   mapped through the block sums on one table that each of them must not
+   outgrow, the propeller-twist loss and finite gradients, the seconds of
+   MD, map and backward; (18d) the oxNA hybrid: 40 block-tier steps of a
+   10k-nt DNA/RNA duplex, then a 40-bp one on ``PairSimulator`` over a
+   ``FixedCapacityNeighborList`` (100 steps, rebuilt every 10), and 10
+   kT-0 steps (rebuilt every 5) card vs CPU; (18e) an oxRNA2
+   sequence-design step at 10k nt, 40 steps on the stencil's per-step
+   branch (K2's rna2 pseq instance 41 times, K1 none) and d loss / d
+   bp_pseq through the block sums.
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
 phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
@@ -222,7 +241,12 @@ MARTINI_BAROSTAT = {"pressure0": 1.0, "tau": 4.0, "every": 10}
 #: phase 11: a state every step (200 x 7 x 10k floats: 56 MB), a multiple of the 40-step
 #: rebuild interval; 400 / 200 until phase 17 came
 PER_STEP_STEPS = {"dna2": 200, "rna2": 120}
-PER_STEP_WINDOW = 40  # phase 11's profiled steps
+#: the profiled steps of the host-bound runs (phases 7, 11, 15d, 15e), each
+#: on its own rebuild interval: the profiler's post-processing costs tens of
+#: seconds a window of ~10^5 launches, and a launch count a step needs few
+#: steps (40, 40, 40 and 20 before PR 15's review)
+PROFILE_STEPS = 10
+PER_STEP_WINDOW = PROFILE_STEPS
 #: phase 12: the reference's direct-differentiation configuration
 #: (benchmarks/RESULTS.md, "Direct differentiation"): 1,000 nt, 200 steps
 #: (cut to 80, 2 chunks, to make room for phase 17) after a 40-step
@@ -259,6 +283,19 @@ EXAMPLE_MD, EXAMPLE_SAVE, EXAMPLE_EQ, EXAMPLE_OPT = 200, 10, 5, 1  # 2 Adam step
 PSEQ_SEED = 41
 PSEQ_MD_STEPS, PSEQ_SAVE = 400, 40
 PSEQ_SHORT_STEPS, PSEQ_SHORT_SAVE = 40, 10
+#: phase 18: the steps and rebuild cadence of the rna2 and na1 block runs
+#: (the host-bound block sums take 0.1-0.4 s a step; na1's 10k-nt run is
+#: cut to 40 steps, two rebuilds, for the script's time), the rna2 DiffTRe
+#: step's stencil steps and cadence (10 states), the na1 pair-list run's
+#: duplex, steps (cut from 150 for time) and rebuild cadence, its
+#: card-vs-CPU steps and their rebuild cadence, and the rna2
+#: sequence-design step's per-step steps and cadence (4 states)
+RNA2_BLOCK_STEPS, RNA2_BLOCK_UPDATE = 100, 50
+NA1_BLOCK_STEPS, NA1_BLOCK_UPDATE = 40, 20
+RNA2_DIFFTRE_MD, RNA2_DIFFTRE_SAVE = 400, 40
+NA1_SMALL_BP, NA1_SMALL_STEPS, NA1_SMALL_UPDATE = 40, 100, 10
+NA1_CMP_STEPS, NA1_CMP_UPDATE = 10, 5
+RNA2_PSEQ_STEPS, RNA2_PSEQ_SAVE = 40, 10
 
 
 def _events_ms(fn, reps: int) -> tuple[list[float], object]:
@@ -1139,7 +1176,8 @@ def _per_step(dev, smi: str) -> dict:
             raise SystemExit(f"the {model} per-step branch produced a bad trajectory")
         if k2 != steps + 1 or k1 != 0:
             raise SystemExit(f"the {model} per-step branch did not launch K2 once a step (and K1 never): {k2}, {k1}")
-        w = _profiled(lambda: sim.run(params, body, PER_STEP_WINDOW, torch.Generator(device=dev).manual_seed(22)))
+        w = _profiled(lambda: sim.replace(neighbor_update_every=PER_STEP_WINDOW).run(
+            params, body, PER_STEP_WINDOW, torch.Generator(device=dev).manual_seed(22)))
         k2_call = _per_call(w, {"stencil_field_grads": 1})
         step_ms = w["wall_ms"] / PER_STEP_WINDOW
         print(f"[11 profile {model}] {PER_STEP_WINDOW} steps under torch.profiler: wall {w['wall_ms']:.1f} ms "
@@ -1763,8 +1801,9 @@ def _dna1(dev, smi: str, ptx: dict) -> list[dict]:
           f"overflow={ovf_a}")
     if not fin_a or ovf_a or k3_launches < DNA1_BLOCK_STEPS:
         raise SystemExit("the dna1 block tier produced a bad trajectory or did not run through K3's dna1 instance")
-    u_a = sim_a.save_every
-    w = _profiled(lambda: sim_a.run(e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(26)))
+    u_a = PROFILE_STEPS
+    w = _profiled(lambda: sim_a.replace(save_every=u_a, neighbor_update_every=u_a).run(
+        e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(26)))
     print(f"[15d profile] {u_a} steps under torch.profiler: wall {w['wall_ms']:.1f} ms, device kernels "
           f"{w['device_ms']:.1f} ms (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}), "
           f"{w['launches'] / u_a:.0f} launches per step")
@@ -1820,11 +1859,11 @@ def _dna1(dev, smi: str, ptx: dict) -> list[dict]:
     el_p = time.perf_counter() - t0
     tr_p = out_p.observables[0]
     fin_p = bool(torch.isfinite(tr_p.center).all() and torch.isfinite(tr_p.orientation).all())
-    w = _profiled(lambda: sim_p.run(params_p, body_r, 20, torch.Generator(device=dev).manual_seed(29)))
+    w = _profiled(lambda: sim_p.run(params_p, body_r, PROFILE_STEPS, torch.Generator(device=dev).manual_seed(29)))
     print(f"[15e pairs] {SMALL_STEPS} steps of {top_r.n_nucleotides} nt on the pair list on the card: {el_p:.3f} s = "
           f"{SMALL_STEPS / el_p * 60.0:.1f} steps/min on {smi}; states {tuple(tr_p.center.shape)} finite={fin_p}; "
-          f"20 steps under torch.profiler: {w['launches'] / 20:.0f} launches per step, idle share "
-          f"{1 - w['device_ms'] / w['wall_ms']:.0%} (no kernel of the port: autograd on the card)")
+          f"{PROFILE_STEPS} steps under torch.profiler: {w['launches'] / PROFILE_STEPS:.0f} launches per step, idle "
+          f"share {1 - w['device_ms'] / w['wall_ms']:.0%} (no kernel of the port: autograd on the card)")
     if not fin_p or tr_p.center.device.type != torch.device(dev).type:
         raise SystemExit("the small-system path produced a bad trajectory or left the card")
 
@@ -2100,7 +2139,7 @@ def _dna1_difftre(dev, smi: str, ptx: dict) -> list[dict]:
 
 
 def _pseq_energy(model: str, topology, dev, seed: int | None = None):
-    """The default oxDNA1 or oxDNA2 energy of ``topology`` (a duplex) under a
+    """The default oxDNA1, oxDNA2 or oxRNA2 energy of ``topology`` (a duplex) under a
     probabilistic sequence, with ``from_bps`` over all its base pairs (i,
     n - 1 - i): ``bp_pseq`` drawn with numpy from ``seed``, or with ``seed``
     None the one-hot pseq of the duplex's own sequence. (energy, (up_pseq,
@@ -2379,6 +2418,284 @@ def _pseq(dev, smi: str, ptx: dict) -> list[dict]:
         for m in pkgs for k in ("K2", "K3", "K4", "K5")
     ]
 
+
+def _na1_energy(topology, dev, dtype=None):
+    """The oxNA hybrid composed as the reference's tests compose it (the
+    package's recipe: each term's merged default table, the topology's
+    nucleotide types, kT, salt 0.5, half-charged ends), and the COM cutoff
+    of its tables: every unbonded term's site cutoff plus twice the largest
+    site offset of either geometry."""
+    import torch
+
+    import mythos_tpu_torch.energy.dna2 as dna2
+    import mythos_tpu_torch.energy.na1 as na1
+    import mythos_tpu_torch.energy.rna2 as rna2
+    from mythos_tpu_torch.energy.base import ComposedEnergyFunction, params_from_numpy
+
+    _, params = na1.default_configs()
+    shared = {"stacking": {"kt": KT}, "debye": {"kt": KT, "salt_conc": 0.5}}
+    fns = []
+    for key, cls, cfg_cls in na1.TERMS:
+        values = params_from_numpy(params[key] | shared.get(key, {}), dev, dtype or torch.float32)
+        extra = {"half_charged_ends": True} if key == "debye" else {}
+        cfg = cfg_cls(**values, nt_type=topology.nt_type, **extra)
+        fns.append(cls(cfg.init_params(), topology, na1.default_transform_soa_fn()))
+    energy = ComposedEnergyFunction(fns)
+    cut = max(fn.pair_cutoff() for fn in fns if hasattr(fn, "pair_energies"))
+    return energy, cut + 2.0 * max(dna2.max_site_offset(), rna2.max_site_offset())
+
+
+def _hybrid(n_bp: int, dev, dtype=None):
+    """A duplex of one DNA strand and one RNA strand: (topology, body)."""
+    import numpy as np
+    import torch
+
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.io.topology import NucleotideType
+
+    topology, body = synthetic_duplex(n_bp, dtype=dtype or torch.float32, device=dev)
+    nt = np.array([NucleotideType.DNA] * n_bp + [NucleotideType.RNA] * n_bp, np.int32)
+    return dataclasses.replace(topology, nt_type=nt), body
+
+
+def _rna2_na1(dev, smi: str, ptx: dict) -> list[dict]:
+    """Phase 18: the model paths the reference runs on XLA alone -- K2's
+    oxRNA2 pseq instance against its plain version and one-hot against
+    discrete (18a), the oxRNA2 block tier on the plain block sums (18b),
+    an oxRNA2 DiffTRe step through them (18c), the oxNA hybrid on block
+    tables and on a FixedCapacityNeighborList (18d), and an oxRNA2
+    sequence-design step on the stencil's per-step branch (18e, the main
+    path of K2's rna2 pseq instance). Its record."""
+    import torch
+
+    import mythos_tpu_torch.energy.rna2 as rna2
+    from mythos_tpu_torch.entry import build_sim
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.losses import ObservableLossFn, SquaredError
+    from mythos_tpu_torch.observables import PropellerTwist
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.ops import tiles
+    from mythos_tpu_torch.optimization.objective import compute_loss
+    from mythos_tpu_torch.rigid_body import RigidBody
+    from mythos_tpu_torch.simulators import neighbors as nbs
+    from mythos_tpu_torch.simulators.cuda import BlockSimulator, PairSimulator
+    from mythos_tpu_torch.soa import to_soa
+
+    topology, body = synthetic_duplex(N_BP, form="A", dtype=torch.float32, device=dev)
+    n = topology.n_nucleotides
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device=dev)
+    jb = RigidBody(body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device=dev),
+                   q / q.norm(dim=-1, keepdim=True))
+    bps = torch.tensor([[i, n - 1 - i] for i in range(n // 2)], dtype=torch.int32, device=dev)
+    obs = ObservableLossFn(observable=PropellerTwist(rigid_body_transform_fn=rna2.default_transform_soa_fn(),
+                                                     h_bonded_base_pairs=bps),
+                           loss_fn=SquaredError(), return_observable=True)
+
+    def loss_fn(ref_states, weights, *_):
+        loss, measured = obs(ref_states, 21.7, weights)
+        return loss, (("propeller_twist", measured), None)
+
+    # 18a. K2's rna2 pseq instance against its plain version (slots off and
+    # at the float32 arccos clamp apart), bits, registers, spill; on the
+    # one-hot pseq of the duplex's sequence it gives the discrete bits
+    e0, sim = build_sim(topology, KT, model="rna2", init_centers=body.center, init_orientation=body.orientation,
+                        device=dev)
+    e_pseq, (up, bp) = _pseq_energy("rna2", topology, dev, seed=PSEQ_SEED)
+    ctx = st.prepare_stencil_context(e_pseq, sim.band, device=dev)
+    dyn = torch.cat([ctx.to_slots(jb.center.T), ctx.to_slots(jb.orientation.T)]).contiguous()
+    k2r = _k2_held("18a K2 rna2 pseq", ctx, dyn, ptx, rna2.per_term_site_cutoffs())
+    e1, _ = _pseq_energy("rna2", topology, dev)
+    one = st.field_grads(st.prepare_stencil_context(e1, sim.band, device=dev), dyn)
+    discrete = st.field_grads(st.prepare_stencil_context(e0, sim.band, device=dev), dyn)
+    same = torch.equal(one, discrete)
+    print(f"[18a one-hot vs discrete] K2 rna2 pseq instance on the one-hot pseq: equal bits to the discrete "
+          f"instance: {same} (max diff {float((one - discrete).abs().max()):.2e}); registers/spill of the discrete "
+          f"instance {ptx.get(_instance_key('stencil_field_grads', 'rna2'), (0, -1))}")
+    if not same:
+        raise SystemExit("K2's rna2 pseq instance on the one-hot pseq does not give the discrete instance's bits")
+    _lap("18a K2 rna2 pseq")
+
+    # 18b. the rna2 block tier: one non-symmetric table, the block sums'
+    # autograd as the force -- no K3 -- while dna2's block tier still
+    # launches K3
+    e_b, sim_b = build_sim(topology, KT, mode="block", model="rna2", init_centers=body.center,
+                           neighbor_update_every=RNA2_BLOCK_UPDATE, device=dev)
+    sim_b = sim_b.replace(save_every=RNA2_BLOCK_UPDATE)
+    nbl = sim_b.neighbors
+    k3_before = tiles.tile_forces.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = sim_b.run(e_b.opt_params(), body, RNA2_BLOCK_STEPS, torch.Generator(device=dev).manual_seed(181))
+    torch.cuda.synchronize()
+    el_b = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tr = out.observables[0]
+    fin_b = bool(torch.isfinite(tr.center).all() and torch.isfinite(tr.orientation).all())
+    ovf_b = bool(torch.as_tensor(tr.metadata["neighbor_overflow"]).any())
+    grad_fn = sim_b._grad_fn(e_b, False, False)
+    w = _profiled(lambda: grad_fn(to_soa(body), nbl.idx), 3)
+    k3_rna2 = tiles.tile_forces.launches - k3_before
+    top_d, body_d = synthetic_duplex(N_BP, dtype=torch.float32, device=dev)
+    e_d, sim_d = build_sim(top_d, KT, mode="block", model="dna2", init_centers=body_d.center, device=dev)
+    k3_before = tiles.tile_forces.launches
+    sim_d.run(e_d.opt_params(), body_d, 40, torch.Generator(device=dev).manual_seed(182))
+    k3_dna2 = tiles.tile_forces.launches - k3_before
+    print(f"[18b rna2 block] {RNA2_BLOCK_STEPS} steps at {n} nt, B={nbl.block_size}, one non-symmetric table of "
+          f"{nbl.n_blocks} x {nbl.capacity} blocks over the strand interleave (rebuild every "
+          f"{sim_b.neighbor_update_every}): {el_b:.3f} s = {RNA2_BLOCK_STEPS / el_b * 60.0:.1f} steps/min on {smi}; "
+          f"peak card memory {peak:.2f} GiB; finite={fin_b} overflow={ovf_b}; a force evaluation under "
+          f"torch.profiler: {w['launches'] / 3:.0f} kernel launches, {w['device_ms'] / 3:.2f} ms of device time of "
+          f"{w['wall_ms'] / 3:.2f} ms wall (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}); K3 launched "
+          f"{k3_rna2} times under rna2, {k3_dna2} times in 40 dna2 block steps")
+    if not fin_b or ovf_b or k3_rna2 != 0 or k3_dna2 < 40 or sim_b.uses_kernels() or not sim_d.uses_kernels():
+        raise SystemExit("the rna2 block tier gave a bad trajectory, overflowed or launched K3, or dna2's did not")
+    _lap("18b rna2 block")
+
+    # 18c. an rna2 DiffTRe step: RNA2_DIFFTRE_MD stencil steps (K1 rna2), the
+    # saved states mapped through the block sums on a non-symmetric table,
+    # the propeller-twist loss and its gradient in every parameter
+    k1_before = st.multistep_chunk.by_family["rna2"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = sim.replace(save_every=RNA2_DIFFTRE_SAVE).run(e0.opt_params(), body, RNA2_DIFFTRE_MD,
+                                                         torch.Generator(device=dev).manual_seed(183)).observables[0]
+    torch.cuda.synchronize()
+    el_md = time.perf_counter() - t0
+    k1_md = st.multistep_chunk.by_family["rna2"] - k1_before
+    map_nbl = nbs.block_neighbor_list_for_topology(topology, rna2.default_neighbor_cutoff(), block_size=8,
+                                                   init_centers=traj.center[0], perm=nbs.strand_interleave_perm(topology),
+                                                   symmetric=False)
+    e_map = rna2.create_default_energy_fn(topology, device=dev, block_unbonded=True, block_size=8).with_props(
+        block_ids=map_nbl.idx, block_perm=map_nbl.perm)
+    # every state is mapped through this one table: none may have a pair
+    # inside the cutoff that it lacks (the block sums cannot flag it)
+    ovf_map = torch.zeros((), dtype=torch.bool, device=dev)
+    for c in traj.center:
+        ovf_map = ovf_map | map_nbl.build(c, prev=map_nbl.idx)[1]
+    ovf_map = bool(ovf_map)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in e_map.opt_params().items()}
+    states = RigidBody(traj.center, traj.orientation)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss, (n_eff, _, energies) = compute_loss(leaves, e_map, 1.0 / KT, loss_fn, states, None, [])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    torch.cuda.synchronize()
+    el_map, el_bwd = t2 - t1, time.perf_counter() - t2
+    g = torch.stack([x.abs().max() for x in grads if x is not None])
+    fin_c = bool(torch.isfinite(energies).all() and torch.isfinite(g).all())
+    print(f"[18c rna2 DiffTRe] {RNA2_DIFFTRE_MD} stencil steps at {n} nt ({k1_md} K1 rna2 chunks): {el_md:.3f} s; map of "
+          f"{traj.center.shape[0]} states through the block sums ({map_nbl.n_blocks} x {map_nbl.capacity} table) + "
+          f"loss {el_map:.3f} s, backward {el_bwd:.3f} s on {smi}; a state's pair missing from the table: {ovf_map}; loss {float(loss.detach()):.6g} n_eff "
+          f"{float(n_eff.detach()):.6g}; {len(g)} parameter gradients, max |grad| {float(g.max()):.4g}, finite={fin_c}")
+    if not fin_c or ovf_map or float(g.max()) <= 0 or k1_md != RNA2_DIFFTRE_MD // sim.neighbor_update_every:
+        raise SystemExit("the rna2 DiffTRe step gave non-finite or zero gradients, mapped a state its table does not "
+                         "cover, or did not run K1")
+    _lap("18c rna2 DiffTRe")
+
+    # 18d. the oxNA hybrid: a 10k-nt DNA/RNA duplex on the block tier, then a
+    # 40-bp one on PairSimulator over a FixedCapacityNeighborList, card vs CPU
+    top_h, body_h = _hybrid(N_BP, dev)
+    e_h, cut_h = _na1_energy(top_h, dev)
+    nbl_h = nbs.block_neighbor_list_for_topology(top_h, cut_h, block_size=8, init_centers=body_h.center,
+                                                 perm=nbs.strand_interleave_perm(top_h), symmetric=False)
+    sim_h = BlockSimulator(energy_fn=e_h, neighbors=nbl_h, dt=5e-3, kT=KT, gamma_t=KT / 2.5, gamma_r=KT / 7.5,
+                           save_every=NA1_BLOCK_UPDATE, neighbor_update_every=NA1_BLOCK_UPDATE)
+    k3_before = tiles.tile_forces.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr_h = sim_h.run({}, body_h, NA1_BLOCK_STEPS, torch.Generator(device=dev).manual_seed(184)).observables[0]
+    torch.cuda.synchronize()
+    el_h = time.perf_counter() - t0
+    e_last = e_h(RigidBody(tr_h.center[-1], tr_h.orientation[-1]))
+    fin_h = bool(torch.isfinite(tr_h.center).all() and torch.isfinite(e_last))
+    ovf_h = bool(torch.as_tensor(tr_h.metadata["neighbor_overflow"]).any())
+    print(f"[18d na1 block] {NA1_BLOCK_STEPS} steps of the {top_h.n_nucleotides}-nt DNA/RNA hybrid on one "
+          f"non-symmetric table ({nbl_h.n_blocks} x {nbl_h.capacity}, cutoff {cut_h:.3f}): {el_h:.3f} s = "
+          f"{NA1_BLOCK_STEPS / el_h * 60.0:.1f} steps/min on {smi}; final energy {float(e_last):.6g} "
+          f"({float(e_last) / top_h.n_nucleotides:.4f} a nucleotide), finite={fin_h} overflow={ovf_h}; K3 "
+          f"{tiles.tile_forces.launches - k3_before} launches")
+    if not fin_h or ovf_h or tiles.tile_forces.launches != k3_before:
+        raise SystemExit("the na1 block run gave a bad trajectory or energy, overflowed or launched K3")
+
+    builds = []
+    build = nbs.FixedCapacityNeighborList.build
+
+    def counted(self, centers, prev=None):
+        builds.append(1)
+        return build(self, centers, prev)
+
+    def small(device, kt: float, steps: int, seed: int, update: int):
+        top_s, body_s = _hybrid(NA1_SMALL_BP, device)
+        e_s, cut_s = _na1_energy(top_s, device)
+        fixed = nbs.neighbor_list_for_topology(top_s, cut_s, init_centers=body_s.center)
+        sim_s = PairSimulator(energy_fn=e_s, neighbors=fixed, dt=5e-3, kT=kt, gamma_t=kt / 2.5, gamma_r=kt / 7.5,
+                              neighbor_update_every=update)
+        return sim_s.run({}, body_s, steps, torch.Generator(device=device).manual_seed(seed)).observables[0], fixed
+
+    nbs.FixedCapacityNeighborList.build = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr_s, fixed = small(dev, KT, NA1_SMALL_STEPS, 185, NA1_SMALL_UPDATE)
+        torch.cuda.synchronize()
+        el_s = time.perf_counter() - t0
+    finally:
+        nbs.FixedCapacityNeighborList.build = build
+    fin_s = bool(torch.isfinite(tr_s.center).all())
+    ovf_s = bool(torch.as_tensor(tr_s.metadata["neighbor_overflow"]).any())
+    (gpu, _), (cpu, _) = (small(d, 0.0, NA1_CMP_STEPS, 0, NA1_CMP_UPDATE) for d in (dev, "cpu"))
+    okc, errc = _within(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    okq, errq = _within(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    print(f"[18d na1 pairs] {NA1_SMALL_STEPS} steps of the {2 * NA1_SMALL_BP}-nt hybrid on a FixedCapacityNeighborList "
+          f"of capacity {fixed.capacity} rebuilt every {NA1_SMALL_UPDATE}: {len(builds)} rebuilds, {el_s:.3f} s = "
+          f"{NA1_SMALL_STEPS / el_s * 60.0:.1f} steps/min on {smi}; finite={fin_s} overflow={ovf_s}; {NA1_CMP_STEPS} steps at "
+          f"kT 0, rebuilt every {NA1_CMP_UPDATE}, card vs CPU: center err {errc:.2e}, quat err {errq:.2e} (rtol 1e-4, atol 1e-5)")
+    if not (fin_s and not ovf_s and len(builds) == NA1_SMALL_STEPS // NA1_SMALL_UPDATE and okc and okq):
+        raise SystemExit("the na1 pair-list run overflowed, missed rebuilds, or the card disagrees with the CPU")
+    _lap("18d na1")
+
+    # 18e. the main path of K2's rna2 pseq instance: an rna2 sequence-design
+    # step at 10k nt -- RNA2_PSEQ_STEPS on the stencil's per-step branch (K1
+    # refuses a pseq), the saved states mapped through the block sums, and
+    # d loss / d bp_pseq -- its launches counted from 0
+    st.field_grads.by_family = dict.fromkeys(st.field_grads.by_family, 0)
+    st.multistep_chunk.by_family = dict.fromkeys(st.multistep_chunk.by_family, 0)
+    sim_p = sim.replace(energy_fn=e_pseq, save_every=RNA2_PSEQ_SAVE, neighbor_update_every=RNA2_PSEQ_SAVE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr_p = sim_p.run(e_pseq.opt_params(), body, RNA2_PSEQ_STEPS, torch.Generator(device=dev).manual_seed(186))
+    torch.cuda.synchronize()
+    el_p = time.perf_counter() - t0
+    launches = st.field_grads.by_family["rna2_pseq"]
+    k1_p = sum(st.multistep_chunk.by_family.values())
+    tr_p = tr_p.observables[0]
+    leaf = bp.clone().requires_grad_(True)
+    e_design = e_map.with_params(pseq=(up, leaf), pseq_constraints=e_pseq.energy_fns[2].params.pseq_constraints)
+    t1 = time.perf_counter()
+    loss_p, (n_eff_p, _, _) = compute_loss({}, e_design, 1.0 / KT, loss_fn, RigidBody(tr_p.center, tr_p.orientation),
+                                           None, [])
+    (g_bp,) = torch.autograd.grad(loss_p, leaf)
+    torch.cuda.synchronize()
+    el_d = time.perf_counter() - t1
+    fin_p = bool(torch.isfinite(tr_p.center).all() and torch.isfinite(g_bp).all())
+    print(f"[18e rna2 design] {RNA2_PSEQ_STEPS} pseq steps at {n} nt on the per-step branch: {el_p:.3f} s = "
+          f"{RNA2_PSEQ_STEPS / el_p * 60.0:.1f} steps/min on {smi}; K2 rna2 pseq launches {launches}, K1 {k1_p}; map "
+          f"of {tr_p.center.shape[0]} states through the block sums, loss and d loss / d bp_pseq {el_d:.3f} s: loss "
+          f"{float(loss_p.detach()):.6g} n_eff {float(n_eff_p):.6g} max|grad| {float(g_bp.abs().max()):.4g} "
+          f"finite={fin_p}")
+    if not fin_p or launches != RNA2_PSEQ_STEPS + 1 or k1_p or float(g_bp.abs().max()) <= 0:
+        raise SystemExit("the rna2 sequence-design step gave non-finite or zero gradients, ran K1, or missed K2's rna2 "
+                         "pseq instance")
+    _lap("18 rna2 block, rna2 pseq, na1")
+    return [{"name": "K2 field_grads (rna2 pseq)", "route": "cuda",
+             "source": "mythos_tpu_torch/ops/csrc/stencil_grads.cu", "replaces": "mythos_tpu/ops/stencil.py:1420",
+             "launches": launches, "max_abs_err": k2r["err"], "ms": statistics.median(k2r["ms"]),
+             "plain_ms": statistics.median(k2r["plain_ms"]), "bound_ms": k2r["bound"][0],
+             "bound_by": k2r["bound"][1], "library_ms": None}]
 
 def _against(root: str, ctx, dyn, ou, noise, state, k2, k1) -> None:
     """Build the kernels of the checkout at ``root`` and run its K2 and K1
@@ -2738,10 +3055,11 @@ def main() -> int:
         raise SystemExit("block tier produced a bad trajectory")
     if k3_launches < BLOCK_STEPS * n_tables:
         raise SystemExit(f"block tier did not run through K3: {k3_launches} launches")
-    # where a block step's time goes: one rebuild interval under the profiler
+    # where a block step's time goes: one short rebuild interval under the profiler
     # (its host overhead makes the idle share an upper bound)
-    u_a = sim_a.save_every
-    w = _profiled(lambda: sim_a.run(e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(9)))
+    u_a = PROFILE_STEPS
+    w = _profiled(lambda: sim_a.replace(save_every=u_a, neighbor_update_every=u_a).run(
+        e_a.opt_params(), body_a, u_a, torch.Generator(device=dev).manual_seed(9)))
     print(f"[7 profile] {u_a} steps under torch.profiler: wall {w['wall_ms']:.1f} ms, device kernels "
           f"{w['device_ms']:.1f} ms (idle share {1 - w['device_ms'] / w['wall_ms']:.0%}), "
           f"{w['launches'] / u_a:.0f} launches per step; host top: " + ", ".join(f"{k} {ms:.0f} ms" for k, ms in w["host"]))
@@ -2880,6 +3198,8 @@ def main() -> int:
     dna1_records += _dna1_difftre(dev, smi, ptx)
     # 17. probabilistic sequences: the pseq instances of K2-K5, one-hot vs discrete, a sequence-design step
     pseq_records = _pseq(dev, smi, ptx)
+    # 18. the XLA-only model paths: K2's rna2 pseq instance, the rna2 block tier and DiffTRe, na1
+    pseq_records += _rna2_na1(dev, smi, ptx)
     print(f"[13-14 kernels] a 1,000-nt block grad evaluation of {DIRECT_STEPS} steps launched K3 "
           f"{block_direct['K3 fwd']} times "
           f"forward and {block_direct['K3 bwd']} backward (the plain version, {block_direct['bwd_s']:.3f} s); a "

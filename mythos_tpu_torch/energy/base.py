@@ -134,15 +134,27 @@ class BaseEnergyFunction:
     pair lists (bonded pairs, or the unbonded pairs): the small-system path
     the stencil kernels are held against. An unbonded term takes its pairs
     from ``unbonded_neighbors`` ((U, 2), every i<j pair less the bonded ones
-    when None) or, with ``dense_mask`` set ((N, N) bool, upper triangular),
-    evaluates every (i, j) by broadcasts and sums under the mask -- the
-    reference's ``dense_unbonded`` path (simulators.neighbors.dense_pair_mask).
+    when None; or a (2, P) tensor padded with N, a
+    ``FixedCapacityNeighborList``'s), or, with ``dense_mask`` set ((N, N)
+    bool, upper triangular), evaluates every (i, j) by broadcasts and sums
+    under the mask -- the reference's ``dense_unbonded`` path
+    (simulators.neighbors.dense_pair_mask) --, or, with ``block_ids`` set
+    ((n_blocks, K) int tensor, a non-symmetric block table), sums its pairs
+    over the table's (B, K B) tiles (energy/blocks.py, the reference's XLA
+    tile path; ``block_perm`` the table's slot order).
     """
 
-    #: a static (U, 2) pair list replacing the topology's (NoNeighborList)
-    unbonded_neighbors: np.ndarray | None = None
+    #: a static (U, 2) pair list replacing the topology's (NoNeighborList),
+    #: or a (2, P) tensor padded with N (FixedCapacityNeighborList)
+    unbonded_neighbors: np.ndarray | torch.Tensor | None = None
     #: (N, N) bool mask of the dense evaluation (DensePairs)
     dense_mask: np.ndarray | None = None
+    #: (n_blocks, K) block table of the block sums, its block size and slot order
+    block_ids: torch.Tensor | None = None
+    block_size: int = 0
+    block_perm: np.ndarray | None = None
+
+    _PROPS = ("unbonded_neighbors", "dense_mask", "block_ids", "block_size", "block_perm")
 
     def __init__(self, params: BaseConfiguration, topology, transform_fn: Callable) -> None:
         self.params = params
@@ -150,19 +162,29 @@ class BaseEnergyFunction:
         self.transform_fn = transform_fn
 
     def with_props(self, **props) -> "BaseEnergyFunction":
-        """A copy with ``unbonded_neighbors`` and/or ``dense_mask`` set (the
-        reference's ``with_props``); the device caches start afresh."""
-        unknown = set(props) - {"unbonded_neighbors", "dense_mask"}
+        """A copy with any of ``unbonded_neighbors``, ``dense_mask``,
+        ``block_ids``, ``block_size``, ``block_perm`` set (the reference's
+        ``with_props``); the device caches of the pairs start afresh."""
+        unknown = set(props) - set(self._PROPS)
         if unknown:
             raise TypeError(f"unknown properties {sorted(unknown)}")
         new = copy.copy(self)
-        new.__dict__.pop("_device_cache", None)
+        cache = self.__dict__.get("_device_cache", {})
+        new.__dict__["_device_cache"] = {k: v for k, v in cache.items() if k[0] not in ("unbonded", "dense")}
         for k, v in props.items():
-            setattr(new, k, None if v is None else np.asarray(v))
+            if v is not None and k in ("dense_mask", "block_perm"):
+                v = np.asarray(v)
+            elif v is not None and k == "unbonded_neighbors" and not isinstance(v, torch.Tensor):
+                v = np.asarray(v)
+            setattr(new, k, v)
         return new
 
     def unbonded_index(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(i, j) of the unbonded pairs as long tensors on ``device``, cached."""
+        """(i, j) of the unbonded pairs as long tensors on ``device`` (a
+        static list cached; a (2, P) tensor's rows as they are, padded with N)."""
+        if isinstance(self.unbonded_neighbors, torch.Tensor):
+            pairs = self.unbonded_neighbors.to(device=device, dtype=torch.long)
+            return pairs[0], pairs[1]
 
         def make():
             pairs = self.topology.unbonded_neighbors if self.unbonded_neighbors is None else self.unbonded_neighbors
@@ -216,7 +238,8 @@ class ComposedEnergyFunction:
     """Weighted sum of energy terms sharing one parameter namespace.
 
     ``map_neighbors`` (a symmetric simulators.neighbors.BlockNeighborList)
-    switches :meth:`map` to the tile kernels: the DiffTRe re-evaluation.
+    switches :meth:`map` to the tile kernels: the DiffTRe re-evaluation
+    under oxDNA1 and oxDNA2.
     """
 
     def __init__(
@@ -256,14 +279,38 @@ class ComposedEnergyFunction:
         return [1.0 if self.weights is None else self.weights[i] for i in range(len(self.energy_fns))]
 
     def compute_terms(self, body) -> torch.Tensor:
-        """Each member's energy on the pair-list path (transforms shared)."""
+        """Each member's energy; each distinct transform runs once.
+
+        Unbonded members bound to the same block table and transform
+        (``with_props(block_ids=...)``) are summed together, all their pair
+        functions on the same gathered tiles (energy/blocks.py), as the
+        reference's ``compute_terms``; the rest run their own pairs."""
+        from mythos_tpu_torch.energy import blocks
+
         cache: dict[int, object] = {}
-        vals = []
-        for fn in self.energy_fns:
+
+        def nuc_of(fn):
             key = id(fn.transform_fn)
             if key not in cache:
                 cache[key] = fn.transform_fn(body)
-            vals.append(fn.compute_energy(cache[key]))
+            return cache[key]
+
+        groups: dict[tuple[int, int], list[int]] = {}
+        for k, fn in enumerate(self.energy_fns):
+            if fn.block_ids is not None and hasattr(fn, "pair_energies"):
+                groups.setdefault((id(fn.block_ids), id(fn.transform_fn)), []).append(k)
+        vals: list = [None] * len(self.energy_fns)
+        for idxs in groups.values():
+            first = self.energy_fns[idxs[0]]
+            sums = blocks.block_pair_sums(
+                [self.energy_fns[k].pair_energies for k in idxs], nuc_of(first), first.block_ids,
+                first.block_size, first.topology.n_nucleotides, first.bonded_neighbors, perm=first.block_perm,
+            )
+            for k, v in zip(idxs, sums, strict=True):
+                vals[k] = v
+        for k, fn in enumerate(self.energy_fns):
+            if vals[k] is None:
+                vals[k] = fn.compute_energy(nuc_of(fn))
         return torch.stack(vals)
 
     def __call__(self, body) -> torch.Tensor:
@@ -278,8 +325,10 @@ class ComposedEnergyFunction:
         row fields) are prepared once, each state rebuilds its tables, and
         the unbonded terms run through K4 (ops.tiles.unbonded_tile_energies,
         differentiable in the parameters); a state whose table overflowed
-        reads NaN, so that reweighting it fails loudly. Without it, every
-        state runs the pair-list reference path.
+        reads NaN, so that reweighting it fails loudly. The tile kernels
+        take oxDNA1 and oxDNA2 (ops.tiles.ERR_UNSUPPORTED_MODEL for another
+        family). Without it, every state runs through the energy's own
+        pairs: its pair list, dense mask or block table (the block sums).
         """
         from mythos_tpu_torch.rigid_body import RigidBody
 

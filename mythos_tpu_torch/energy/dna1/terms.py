@@ -22,7 +22,7 @@ import torch
 
 import mythos_tpu_torch.energy.functions as bf
 import mythos_tpu_torch.energy.smoothing as sm
-from mythos_tpu_torch.energy import seqdep
+from mythos_tpu_torch.energy import blocks, seqdep
 from mythos_tpu_torch.energy.base import BaseConfiguration, BaseEnergyFunction
 from mythos_tpu_torch.energy.dna1 import geometry as geom
 from mythos_tpu_torch.soa import vnorm
@@ -68,14 +68,25 @@ class FeneConfiguration(BaseConfiguration):
     required_params = ("eps_backbone", "r0_backbone", "delta_backbone", "fmax", "finf")
 
 
-class Fene(BaseEnergyFunction):
-    """Smoothed FENE backbone springs over bonded pairs."""
+class _BondedPairs(BaseEnergyFunction):
+    """A bonded term: ``bond_energies(nuc)``, one value a bond of the
+    topology (the oxNA hybrid selects among them), summed."""
+
+    def bond_energies(self, nuc) -> torch.Tensor:
+        raise NotImplementedError
 
     def compute_energy(self, nuc) -> torch.Tensor:
+        return self.bond_energies(nuc).sum()
+
+
+class Fene(_BondedPairs):
+    """Smoothed FENE backbone springs over bonded pairs."""
+
+    def bond_energies(self, nuc) -> torch.Tensor:
         i, j = self.bond_index(nuc.back.x.device)
         p = self.params
         r = vnorm(geom.gather(nuc.back, i) - geom.gather(nuc.back, j), 0.0)
-        return v_fene_smooth(r, p.eps_backbone, p.r0_backbone, p.delta_backbone, p.fmax, p.finf).sum()
+        return v_fene_smooth(r, p.eps_backbone, p.r0_backbone, p.delta_backbone, p.fmax, p.finf)
 
 
 # Excluded volumes -------------------------------------------------------------
@@ -108,10 +119,10 @@ def exc_family(p, fam: str, r):
     )
 
 
-class BondedExcludedVolume(BaseEnergyFunction):
+class BondedExcludedVolume(_BondedPairs):
     """Excluded volume on bonded pairs (3 site pairs, no backbone-backbone)."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
+    def bond_energies(self, nuc) -> torch.Tensor:
         i, j = self.bond_index(nuc.back.x.device)
         base_i, base_j = geom.gather(nuc.base, i), geom.gather(nuc.base, j)
         back_i, back_j = geom.gather(nuc.back, i), geom.gather(nuc.back, j)
@@ -120,7 +131,7 @@ class BondedExcludedVolume(BaseEnergyFunction):
             exc_family(p, "base", vnorm(base_i - base_j))
             + exc_family(p, "back_base", vnorm(back_i - base_j))
             + exc_family(p, "base_back", vnorm(base_i - back_j))
-        ).sum()
+        )
 
 
 class UnbondedExcludedVolumeConfiguration(BaseConfiguration):
@@ -155,54 +166,64 @@ def unbonded_exc(p, r_ee, r_eb, r_be, r_bb):
 
 
 class _UnbondedPairs(BaseEnergyFunction):
-    """An unbonded term over its pairs (i, j): a pair list (the topology's
-    every unbonded i<j pair, or a static ``unbonded_neighbors``), or with
-    ``dense_mask`` every (i, j) at once, rows i against columns j, summed
-    under the mask."""
+    """An unbonded term over its pairs (i, j). ``pair_energies(side_i,
+    side_j)`` is the term's physics on two :class:`energy.blocks.PairSide`
+    views of the nucleotide (any broadcastable shapes; ``side.idx`` the
+    nucleotide ids); the term sums it over a pair list (the topology's every
+    unbonded i<j pair, a static ``unbonded_neighbors``, or a (2, P) tensor
+    padded with N), over every (i, j) at once under ``dense_mask`` (rows i
+    against columns j), or over a block table's tiles (``block_ids``:
+    energy.blocks.block_pair_sums)."""
 
-    def sides(self, *fields):
-        """Each (n,) field as its (i side, j side): gathered along the pair
-        list, or (n, 1) rows and (1, n) columns on the dense path."""
-        if self.dense_mask is not None:
-            return [(type(f)(*(c[:, None] for c in f)), type(f)(*(c[None, :] for c in f))) for f in fields]
-        i, j = self.unbonded_index(fields[0][0].device)
-        return [(geom.gather(f, i), geom.gather(f, j)) for f in fields]
+    def pair_energies(self, side_i: blocks.PairSide, side_j: blocks.PairSide) -> torch.Tensor:
+        raise NotImplementedError
 
-    def seq_sides(self, device):
-        """The sequence indices of the i and j sides (as :meth:`sides`)."""
-        seq = self.seq_index(device)
+    def pair_cutoff(self) -> float:
+        """The site distance beyond which every pair energy is zero."""
+        raise NotImplementedError
+
+    def compute_energy(self, nuc) -> torch.Tensor:
+        if self.block_ids is not None:
+            return blocks.block_pair_sum(self.pair_energies, nuc, self.block_ids, self.block_size,
+                                         self.topology.n_nucleotides, self.bonded_neighbors, perm=self.block_perm)
+        device = _device_of(nuc)
+        n = self.topology.n_nucleotides
         if self.dense_mask is not None:
-            return seq[:, None], seq[None, :]
+            idx = torch.arange(n, device=device)
+            side_i = blocks.PairSide(nuc, idx[:, None], lambda c: c[:, None])
+            side_j = blocks.PairSide(nuc, idx[None, :], lambda c: c[None, :])
+            values = self.pair_energies(side_i, side_j)
+            return torch.where(self.dense_mask_on(device), values, 0.0).sum()
         i, j = self.unbonded_index(device)
-        return seq[i], seq[j]
-
-    @property
-    def norm_eps(self) -> float:
-        """The epsilon under the square root of a distance that may be 0: none
-        on a pair list (the reference's plain norm), 1e-18 on the dense path,
-        whose diagonal (masked out) must keep finite gradients (the
-        reference's ``_norm_safe``)."""
-        return 0.0 if self.dense_mask is None else 1e-18
-
-    def pair_sum(self, values: torch.Tensor) -> torch.Tensor:
-        """The term's total: the pair list's sum, or the dense values' under the mask."""
-        if self.dense_mask is not None:
-            values = torch.where(self.dense_mask_on(values.device), values, torch.zeros_like(values))
+        # a padded list's (n, n) entries read the last nucleotide and are masked
+        values = self.pair_energies(blocks.gathered_side(nuc, i.clamp(max=n - 1)),
+                                    blocks.gathered_side(nuc, j.clamp(max=n - 1)))
+        if isinstance(self.unbonded_neighbors, torch.Tensor):
+            values = torch.where(i < n, values, 0.0)
         return values.sum()
+
+
+def _device_of(nuc) -> torch.device:
+    """The device of a nucleotide view (nested views too)."""
+    field = nuc[0]
+    return field.x.device if hasattr(field, "x") else _device_of(field)
 
 
 class UnbondedExcludedVolume(_UnbondedPairs):
     """Excluded volume over unbonded pairs (4 site pairs incl. backbones)."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        (base_i, base_j), (back_i, back_j) = self.sides(nuc.base, nuc.back)
-        return self.pair_sum(unbonded_exc(
+    def pair_cutoff(self) -> float:
+        p = self.params
+        return float(max(p.dr_c_base, p.dr_c_back_base, p.dr_c_base_back, p.dr_c_backbone))
+
+    def pair_energies(self, si, sj) -> torch.Tensor:
+        return unbonded_exc(
             self.params,
-            vnorm(base_j - base_i),
-            vnorm(base_j - back_i),
-            vnorm(back_j - base_i),
-            vnorm(back_j - back_i, self.norm_eps),
-        ))
+            vnorm(sj.base - si.base),
+            vnorm(sj.base - si.back),
+            vnorm(sj.back - si.base),
+            vnorm(sj.back - si.back),
+        )
 
 
 # Stacking ---------------------------------------------------------------------
@@ -290,13 +311,13 @@ def stack_product(p, g: geom.BondedGeometry):
     )
 
 
-class Stacking(BaseEnergyFunction):
+class Stacking(_BondedPairs):
     """Stacking over bonded pairs with sequence-dependent epsilon, its cos
     phi sites the backbone sites (``site``; oxDNA2 overrides it)."""
 
     site = "back"
 
-    def compute_energy(self, nuc) -> torch.Tensor:
+    def bond_energies(self, nuc) -> torch.Tensor:
         i, j = self.bond_index(nuc.back.x.device)
         back = getattr(nuc, self.site)
         g = geom.bonded_geometry_vec(
@@ -311,7 +332,7 @@ class Stacking(BaseEnergyFunction):
         else:
             seq = self.seq_index(g.r_stack.device)
             w = p.eps_stack[seq[i], seq[j]]
-        return (w * stack_product(p, g)).sum()
+        return w * stack_product(p, g)
 
 
 # Hydrogen bonding ---------------------------------------------------------------
@@ -370,27 +391,28 @@ def hb_product(p, g: geom.UnbondedGeometry):
 class HydrogenBonding(_UnbondedPairs):
     """Hydrogen bonding over unbonded pairs. Under a probabilistic sequence
     the pair list takes the expected weight of each pair
-    (``seqdep.pair_weights``), the dense path the factorized form
-    (``seqdep.factorized_weights``: marginal factors plus the correction on
-    each base pair's partner), as the reference's."""
+    (``seqdep.pair_weights``), the dense and block paths the factorized
+    form (``seqdep.factorized_weights``: marginal factors plus the
+    correction on each base pair's partner), as the reference's."""
 
-    def weights(self, device) -> torch.Tensor:
-        """The pairs' hb weights: (U,) on the pair list, (N, N) dense."""
+    def weights(self, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+        """The hb weights of pairs (i, j) of nucleotide ids (broadcastable)."""
         p = self.params
         if p.pseq is None:
-            s_i, s_j = self.seq_sides(device)
-            return p.eps_hb_weights[s_i, s_j]
-        if self.dense_mask is None:
-            i, j = self.unbonded_index(device)
+            seq = self.seq_index(i.device)
+            return p.eps_hb_weights[seq[i], seq[j]]
+        if i.dim() == 1:
             return seqdep.pair_weights(p.pseq, i, j, p.eps_hb_weights, p.pseq_constraints)
         left, right, partner, corr = seqdep.factorized_weights(p.pseq, p.eps_hb_weights, p.pseq_constraints)
-        same = torch.arange(left.shape[0], device=device)[None, :] == torch.as_tensor(partner, device=device)[:, None]
-        return left @ right.T + torch.where(same, corr[:, None], torch.zeros_like(corr)[:, None])
+        partner = torch.as_tensor(partner, device=i.device)
+        return (left[i] * right[j]).sum(-1) + torch.where(j == partner[i], corr[i], 0.0)
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        (base_i, base_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.base, nuc.a1, nuc.a3)
-        g = geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, a3_i, a3_j)
-        return self.pair_sum(self.weights(g.r_base.device) * hb_product(self.params, g))
+    def pair_cutoff(self) -> float:
+        return float(self.params.dr_c_high_hb)
+
+    def pair_energies(self, si, sj) -> torch.Tensor:
+        g = geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3)
+        return self.weights(si.idx, sj.idx) * hb_product(self.params, g)
 
 
 # Cross stacking ------------------------------------------------------------------
@@ -448,10 +470,11 @@ def cross_product(p, g: geom.UnbondedGeometry):
 class CrossStacking(_UnbondedPairs):
     """Cross stacking over unbonded pairs (shares geometry with HB)."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        (base_i, base_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.base, nuc.a1, nuc.a3)
-        return self.pair_sum(cross_product(self.params, geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j,
-                                                                                  a3_i, a3_j)))
+    def pair_cutoff(self) -> float:
+        return float(self.params.dr_c_high_cross)
+
+    def pair_energies(self, si, sj) -> torch.Tensor:
+        return cross_product(self.params, geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3))
 
 
 # Coaxial stacking ------------------------------------------------------------------
@@ -518,7 +541,9 @@ def coax_product(p, g: geom.CoaxGeometry):
 class CoaxialStacking(_UnbondedPairs):
     """oxDNA1 coaxial stacking over unbonded pairs (oxRNA2 composes it)."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        (st_i, st_j), (a1_i, a1_j), (a3_i, a3_j), (bk_i, bk_j) = self.sides(nuc.stack, nuc.a1, nuc.a3, nuc.back)
-        g = geom.coax_geometry_vec(st_i, st_j, a1_i, a1_j, a3_i, a3_j, back_i=bk_i, back_j=bk_j)
-        return self.pair_sum(coax_product(self.params, g))
+    def pair_cutoff(self) -> float:
+        return float(self.params.dr_c_high_coax)
+
+    def pair_energies(self, si, sj) -> torch.Tensor:
+        g = geom.coax_geometry_vec(si.stack, sj.stack, si.a1, sj.a1, si.a3, sj.a3, back_i=si.back, back_j=sj.back)
+        return coax_product(self.params, g)

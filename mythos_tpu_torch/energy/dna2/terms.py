@@ -16,7 +16,7 @@ import mythos_tpu_torch.energy.functions as bf
 import mythos_tpu_torch.energy.smoothing as sm
 from mythos_tpu_torch.energy.base import BaseConfiguration
 from mythos_tpu_torch.energy.dna1 import geometry as geom
-from mythos_tpu_torch.soa import Vec3, vnorm
+from mythos_tpu_torch.soa import vnorm
 
 
 class Stacking(t1.Stacking):
@@ -81,9 +81,11 @@ def coax_value(p, g: geom.CoaxGeometry):
 class CoaxialStacking(t1._UnbondedPairs):
     """oxDNA2 coaxial stacking over unbonded pairs."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        (st_i, st_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.stack, nuc.a1, nuc.a3)
-        return self.pair_sum(coax_value(self.params, geom.coax_geometry_vec(st_i, st_j, a1_i, a1_j, a3_i, a3_j)))
+    def pair_cutoff(self) -> float:
+        return float(self.params.dr_c_high_coax)
+
+    def pair_energies(self, si, sj) -> torch.Tensor:
+        return coax_value(self.params, geom.coax_geometry_vec(si.stack, sj.stack, si.a1, sj.a1, si.a3, sj.a3))
 
 
 def debye_potential(r, kappa, prefactor, smoothing_coeff, r_cut, r_high):
@@ -129,9 +131,10 @@ class Debye(t1._UnbondedPairs):
         half = torch.where(is_end, 0.5, 1.0).to(like.dtype)
         return half if bool(self.params.half_charged_ends) else torch.ones_like(half)
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        ((back_i, back_j),) = self.sides(nuc.back)
-        r = vnorm(back_j - back_i, self.norm_eps)
+    def pair_cutoff(self) -> float:
+        return float(self.params.r_cut)
+
+    def pair_energies(self, si, sj) -> torch.Tensor:
+        r = vnorm(sj.back - si.back)
         qf = self.charge_factors(r)
-        ((q_i, q_j),) = self.sides(Vec3(qf, qf, qf))
-        return self.pair_sum(debye_of(self.params, r) * q_i.x * q_j.x)
+        return debye_of(self.params, r) * qf[si.idx] * qf[sj.idx]

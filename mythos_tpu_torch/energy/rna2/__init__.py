@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from mythos_tpu_torch.energy.base import BaseConfiguration, ComposedEnergyFunction
+from mythos_tpu_torch.energy.blocks import n_blocks_for
 from mythos_tpu_torch.energy.defaults import default_configs_for
 from mythos_tpu_torch.energy.dna1.terms import (
     BondedExcludedVolume,
@@ -104,17 +105,32 @@ def default_transform_soa_fn():
 
 
 def create_default_energy_fn(
-    topology, dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda"
+    topology,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cuda",
+    block_unbonded: bool = False,
+    block_size: int = 16,
 ) -> ComposedEnergyFunction:
     """The full default oxRNA2 composed energy function for a topology,
-    its parameters on ``device`` (the card unless the caller asks for the CPU)."""
+    its parameters on ``device`` (the card unless the caller asks for the CPU).
+
+    ``block_unbonded``: the unbonded terms sum over a block table of
+    ``block_size`` (energy/blocks.py), bound later with
+    ``with_props(block_ids=nbl.idx, block_perm=nbl.perm)`` of a
+    non-symmetric BlockNeighborList; until then an empty placeholder that
+    raises when evaluated (as the reference's)."""
     device = devices.resolve(device)
     transform = default_transform_soa_fn()
     fns = [
         cls(cfg.init_params(), topology, transform)
         for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype, device), strict=True)
     ]
-    return ComposedEnergyFunction(fns)
+    energy = ComposedEnergyFunction(fns)
+    if block_unbonded:
+        nb = n_blocks_for(topology.n_nucleotides, block_size)
+        energy = energy.with_props(block_ids=torch.zeros((nb, 0), dtype=torch.int32, device=device),
+                                   block_size=block_size)
+    return energy
 
 
 def max_site_offset() -> float:

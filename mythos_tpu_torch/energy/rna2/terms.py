@@ -20,20 +20,19 @@ import mythos_tpu_torch.energy.dna1.terms as t1
 import mythos_tpu_torch.energy.functions as bf
 import mythos_tpu_torch.energy.smoothing as sm
 from mythos_tpu_torch.energy import seqdep
-from mythos_tpu_torch.energy.base import BaseConfiguration, BaseEnergyFunction
+from mythos_tpu_torch.energy.base import BaseConfiguration
 from mythos_tpu_torch.energy.dna1 import geometry as geom
 from mythos_tpu_torch.soa import Vec3, vdot, vnorm
 from mythos_tpu_torch.utils.math import safe_arccos
 
 _STACK_ANGLES = (5, 6, 9, 10)
 
-ERR_RNA2_PSEQ = "oxRNA2 does not take probabilistic sequences yet (oxDNA1 and oxDNA2 do)"
-
 
 class StackingConfiguration(BaseConfiguration):
     """f1(r) x f4(theta5, 6, 9, 10) x f5(-cos phi1) x f5(-cos phi2); the
     sequence weights ``(eps_stack_base + eps_stack_kt_coeff kt)`` times the
-    sequence-averaged table."""
+    sequence-averaged table, or with ``ss_stack_weights`` that table x (1 +
+    kt eps_stack_kt_coeff) (oxRNA2's temperature law)."""
 
     required_params = (
         "eps_stack_base", "eps_stack_kt_coeff", "dr_low_stack", "dr_high_stack", "a_stack", "dr0_stack",
@@ -48,21 +47,22 @@ class StackingConfiguration(BaseConfiguration):
         "eps_stack",
     )
 
-    #: accepted so that a probabilistic sequence given to an oxRNA2 energy
-    #: raises here (ERR_RNA2_PSEQ) instead of reaching hydrogen bonding alone
-    optional_params = t1.PSEQ_FIELDS
+    optional_params = (*t1.PSEQ_FIELDS, "ss_stack_weights")
 
     def derive(self) -> dict:
-        if self.pseq is not None:
-            raise ValueError(ERR_RNA2_PSEQ)
-        eps = self.eps_stack_base + self.eps_stack_kt_coeff * self.kt
+        t1._check_pseq(self)
+        if self.ss_stack_weights is None:
+            eps = self.eps_stack_base + self.eps_stack_kt_coeff * self.kt
+            eps_stack = eps * t1._table(seqdep.STACK_WEIGHTS_SA, eps)
+        else:
+            eps_stack = t1._table(self.ss_stack_weights, self.kt) * (1.0 + self.kt * self.eps_stack_kt_coeff)
         b_low, dr_c_low, b_high, dr_c_high = sm.get_f1_smoothing_params(
             self.dr0_stack, self.a_stack, self.dr_c_stack, self.dr_low_stack, self.dr_high_stack
         )
         out = {
             "b_low_stack": b_low, "dr_c_low_stack": dr_c_low,
             "b_high_stack": b_high, "dr_c_high_stack": dr_c_high,
-            "eps_stack": eps * t1._table(seqdep.STACK_WEIGHTS_SA, eps),
+            "eps_stack": eps_stack,
         }
         for k in _STACK_ANGLES:
             b, dth_c = sm.get_f4_smoothing_params(
@@ -127,10 +127,12 @@ def stack_product(p, g: StackGeometry):
     )
 
 
-class Stacking(BaseEnergyFunction):
-    """oxRNA2 stacking over bonded pairs (3'-side stack5 to 5'-side stack3)."""
+class Stacking(t1._BondedPairs):
+    """oxRNA2 stacking over bonded pairs (3'-side stack5 to 5'-side stack3);
+    under a probabilistic sequence each bond's expected weight
+    (``seqdep.pair_weights``), as the reference's pair list."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
+    def bond_energies(self, nuc) -> torch.Tensor:
         i, j = self.bond_index(nuc.back.x.device)
         g = stack_geometry_vec(
             geom.gather(nuc.stack5, i), geom.gather(nuc.stack3, j),
@@ -139,9 +141,13 @@ class Stacking(BaseEnergyFunction):
             geom.gather(nuc.bb_p5, i), geom.gather(nuc.bb_p3, j),
             geom.gather(nuc.a2, i), geom.gather(nuc.a2, j),
         )
-        seq = self.seq_index(g.r_stack.device)
-        w = self.params.eps_stack[seq[i], seq[j]]
-        return (w * stack_product(self.params, g)).sum()
+        p = self.params
+        if p.pseq is not None:
+            w = seqdep.pair_weights(p.pseq, i, j, p.eps_stack, p.pseq_constraints)
+        else:
+            seq = self.seq_index(g.r_stack.device)
+            w = p.eps_stack[seq[i], seq[j]]
+        return w * stack_product(p, g)
 
 
 _CROSS_ANGLES = (1, 2, 3, 7, 8)
@@ -200,7 +206,8 @@ def cross_value(p, g: geom.UnbondedGeometry):
 class CrossStacking(t1._UnbondedPairs):
     """oxRNA2 cross stacking over unbonded pairs (theta1, 2, 3, 7, 8)."""
 
-    def compute_energy(self, nuc) -> torch.Tensor:
-        (base_i, base_j), (a1_i, a1_j), (a3_i, a3_j) = self.sides(nuc.base, nuc.a1, nuc.a3)
-        return self.pair_sum(cross_value(self.params, geom.unbonded_geometry_vec(base_i, base_j, a1_i, a1_j,
-                                                                                a3_i, a3_j)))
+    def pair_cutoff(self) -> float:
+        return float(self.params.dr_c_high_cross)
+
+    def pair_energies(self, si, sj) -> torch.Tensor:
+        return cross_value(self.params, geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3))

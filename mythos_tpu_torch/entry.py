@@ -14,10 +14,13 @@ friction gamma = (kT/2.5, kT/7.5):
   and dna2 the B-DNA slacks and ``site_margin`` 1, and dna1's band is as
   wide as its widest short-range term (no Debye-Hueckel);
 * ``mode="block"`` -- the block tier for general conformations: a
-  symmetric block-neighbor table over the same slot order, rebuilt every
-  ``neighbor_update_every`` steps (kernel K3): a two-level (tight, wide)
-  pair under dna2, one table under dna1 (no Debye term). rna2 raises, as
-  the reference's fused tiles refuse it;
+  block-neighbor table over the same slot order, rebuilt every
+  ``neighbor_update_every`` steps: under dna2 and dna1 symmetric tables
+  and kernel K3 -- a two-level (tight, wide) pair under dna2, one table
+  under dna1 (no Debye term) --; under rna2, which the reference's fused
+  tiles refuse, one non-symmetric table and the plain block sums
+  (energy/blocks.py), the force by autograd, as the reference's XLA tile
+  path (``create_default_energy_fn(block_unbonded=True)``);
 * ``mode="pairs"`` / ``mode="dense"`` -- the small-system path
   (simulators.cuda.PairSimulator): the static pair list of every unbonded
   pair (``NoNeighborList``), or the dense (N, N) masks (``DensePairs``),
@@ -36,8 +39,7 @@ through ``ops.tiles.TileForces``; the small-system path: autograd);
 stencil forward holds falls from 79.7 to 26.4 MiB with a checkpoint every
 10-step interval, while the evaluation's peak, set by the backward's
 working set at that length, stays ~104-109 MiB above its start:
-``chip_smoke.py`` phase 12c; the block tier's: phase 13c). Not ported,
-and raising: the rna2 block tier. The DiffTRe fit runs on any of these
+``chip_smoke.py`` phase 12c; the block tier's: phase 13c). The DiffTRe fit runs on any of these
 simulators through ``simulators.base.BoundSimulator``,
 ``optimization.DiffTReObjective`` and ``SimpleOptimizer``
 (``examples/difftre_propeller_fit.py``).
@@ -63,10 +65,11 @@ Example (one H100)::
     energy_fn, sim = build_sim(topology, kT, mode="block", init_centers=body.center, checkpoint_every=1)
     loss(sim.run(p, body, 200, gen)).backward()
 
-    # oxRNA2 starts from the A-form helix
+    # oxRNA2 starts from the A-form helix; its block tier runs the block sums
     topology, body = synthetic_duplex(5000, form="A", dtype=torch.float32)
     energy_fn, sim = build_sim(topology, kT, model="rna2", init_centers=body.center,
                                init_orientation=body.orientation)
+    energy_fn, sim = build_sim(topology, kT, mode="block", model="rna2", init_centers=body.center)
 
     # a user's oxDNA files under oxDNA1, on the small-system path
     top = topology.from_oxdna_file("sys.top")
@@ -129,8 +132,6 @@ def build_sim(
     as the reference's fused branch."""
     if mode not in MODES or model not in MODELS:
         raise NotImplementedError(f"mode={mode!r}, model={model!r}: modes {MODES}, models {tuple(MODELS)}")
-    if mode == "block" and model == "rna2":
-        raise NotImplementedError("the rna2 block tier is not ported yet (the reference's fused tiles refuse rna2)")
     if dtype != torch.float32 and mode in ("stencil", "block"):
         raise ValueError(f"the {mode} tier's kernels take float32, not {dtype}")
     device = devices.resolve(device)
@@ -147,7 +148,12 @@ def build_sim(
         neighbors = DensePairs() if dense else NoNeighborList(unbonded_nbrs=topology.unbonded_neighbors)
         return energy_fn, PairSimulator(energy_fn=energy_fn, neighbors=neighbors, dt=5e-3, kT=float(kT),
                                         gamma_t=gamma_t, gamma_r=gamma_r, checkpoint_every=checkpoint_every)
-    energy_fn = pkg.create_default_energy_fn(topology, dtype=torch.float32, device=device)
+    kernels = model != "rna2"  # the tile kernels' families; rna2's block tier runs the block sums
+    if mode == "block" and not kernels:
+        energy_fn = pkg.create_default_energy_fn(topology, dtype=torch.float32, device=device, block_unbonded=True,
+                                                 block_size=block_size)
+    else:
+        energy_fn = pkg.create_default_energy_fn(topology, dtype=torch.float32, device=device)
     dynamics = dict(
         dt=5e-3, kT=float(kT), mass=1.0, inertia=(1.0, 1.0, 1.0), gamma_t=gamma_t, gamma_r=gamma_r,
         save_every=neighbor_update_every, neighbor_update_every=neighbor_update_every,
@@ -160,10 +166,13 @@ def build_sim(
             pkg.default_neighbor_cutoff(),
             block_size=block_size,
             init_centers=torch.as_tensor(init_centers, device=device),
-            # oxDNA1 has no Debye term: one table (the reference's r_inner None)
+            # oxDNA1 has no Debye term, and the block sums take one table: the reference's r_inner None
             r_cutoff_inner=pkg.short_range_neighbor_cutoff() if model == "dna2" else None,
             perm=strand_interleave_perm(topology),
+            symmetric=kernels,
         )
+        if not kernels:
+            energy_fn = energy_fn.with_props(block_ids=neighbors.idx, block_perm=neighbors.perm)
         return energy_fn, BlockSimulator(energy_fn=energy_fn, neighbors=neighbors, checkpoint_every=checkpoint_every,
                                          **dynamics)
     if init_centers is None or init_orientation is None:

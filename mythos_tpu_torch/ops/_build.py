@@ -63,10 +63,9 @@ for _name in ("tile_forces", "tile_row_grads", "tile_energies"):
     SIGNATURES[f"{_name}_dna1"] = SIGNATURES[_name]
     # the pseq instances of K3-K5 take the same arguments too
     SIGNATURES[f"{_name}_pseq"] = SIGNATURES[f"{_name}_dna1_pseq"] = SIGNATURES[_name]
-# K2's pseq instances (oxDNA2, oxDNA1): its arguments with the (10, n) hb factors before dyn
-SIGNATURES["stencil_field_grads_pseq"] = SIGNATURES["stencil_field_grads_dna1_pseq"] = (
-    *SIGNATURES["stencil_field_grads"][:10], _P, *SIGNATURES["stencil_field_grads"][10:]
-)
+# K2's pseq instances (oxDNA2, oxRNA2, oxDNA1): its arguments with the (10, n) hb factors before dyn
+for _name in ("stencil_field_grads_pseq", "stencil_field_grads_rna2_pseq", "stencil_field_grads_dna1_pseq"):
+    SIGNATURES[_name] = (*SIGNATURES["stencil_field_grads"][:10], _P, *SIGNATURES["stencil_field_grads"][10:])
 
 
 def _sources() -> list[Path]:

@@ -64,9 +64,11 @@
 // a block, which the wrapper adds up: no atomics anywhere.
 //
 // Probabilistic sequences (sequence design): the kernel is templated on
-// kPseq too, and oxDNA2 and oxDNA1 have a pseq instance
-// (stencil_field_grads_pseq, stencil_field_grads_dna1_pseq; the discrete
-// instances carry none of its code). It takes the hb weight of band pair
+// kPseq too, and each family has a pseq instance (stencil_field_grads_pseq,
+// stencil_field_grads_rna2_pseq, stencil_field_grads_dna1_pseq; the
+// discrete instances carry none of its code). oxRNA2's stages the most:
+// w_wide 25 gives 82 slots of 10 hb factors, 10,904 floats (43.6 KB) of
+// dynamic shared memory a block in all. It takes the hb weight of band pair
 // (i, i + d) from per-slot factors instead of the sequence and the weight
 // table: hw_i . oh_{i+d}, plus corr_i where i + d is i's base-pair partner
 // (the reference's weight_d under pseq, mythos_tpu/ops/stencil.py:360-371).
@@ -414,6 +416,14 @@ extern "C" int stencil_field_grads_pseq(const float* params, const int* seq, con
                                         int n, int w0, int w1, int w2, int w3, int w_wide, const float* hbf,
                                         const float* dyn, float* out, int* counts, void* stream) {
   return launch_field_grads<FAM_DNA2, true>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, hbf, dyn, out,
+                                            counts, stream);
+}
+
+extern "C" int stencil_field_grads_rna2_pseq(const float* params, const int* seq, const int* partners,
+                                             const float* qf, int n, int w0, int w1, int w2, int w3, int w_wide,
+                                             const float* hbf, const float* dyn, float* out, int* counts,
+                                             void* stream) {
+  return launch_field_grads<FAM_RNA2, true>(params, seq, partners, qf, n, w0, w1, w2, w3, w_wide, hbf, dyn, out,
                                             counts, stream);
 }
 

@@ -48,8 +48,8 @@ Direct differentiation through a run goes through two autograd Functions,
 twin backward (the reference differentiates its XLA functions, not its
 Pallas kernels), and :func:`bonded_grads_plain` with ``create_graph``.
 
-Probabilistic sequences (sequence design; oxDNA1 and oxDNA2): K2 has a
-pseq instance of each of those families, which takes the hb weight from
+Probabilistic sequences (sequence design): K2 has a pseq instance of
+each family (oxDNA2, oxRNA2, oxDNA1), which takes the hb weight from
 per-slot factors (``StencilContext.hbf``: the marginal factors hw and oh,
 the correction ``corr`` and its base-pair ``partner``, energy/seqdep.py)
 instead of the sequence and the weight table; the stacking weights
@@ -89,7 +89,6 @@ BONDED_ORDER = ("Fene", "BondedExcludedVolume", "Stacking")
 ERR_MS_SCALAR = "multi-step path requires scalar mass/gamma/inertia (got per-particle)"
 ERR_MS_BONDS = "multi-step path requires every bond at slot offset 2 (duplex interleave)"
 ERR_MS_PSEQ = "multi-step path does not support probabilistic sequences yet"
-ERR_RNA2_PSEQ = "the stencil takes probabilistic sequences under oxDNA1 and oxDNA2, not {}"
 ERR_TERMS = "the stencil path implements exactly the oxDNA1, oxDNA2 or oxRNA2 term set {}; got {}"
 
 #: model family -> its (cross stacking, coaxial stacking, stacking) classes
@@ -312,7 +311,7 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
     ``ops.tiles.pair_static_fields``) and the bonds' expected stacking
     weights, both on the autograd graph of the pseq. Raises for
     configurations the stencil kernels do not implement: another term set,
-    a pseq under oxRNA2, or bonds off slot offset 2.
+    or bonds off slot offset 2.
     """
     from mythos_tpu_torch.ops import tiles
 
@@ -322,8 +321,6 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
     hb = composed.energy_fns[names.index("HydrogenBonding")].params
     stack = composed.energy_fns[names.index("Stacking")].params
     pseq = hb.pseq is not None
-    if pseq and family not in ("dna2", "dna1"):
-        raise ValueError(ERR_RNA2_PSEQ.format(family))
     params = pack_params(composed, dtype=dtype, device=device)
     device = params.device
     n = band.n
@@ -871,8 +868,8 @@ def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
     return _field_grads(ctx, dyn)[0]
 
 
-#: K2's instances: each family's, and the pseq instances of oxDNA2 and oxDNA1
-K2_BRANCHES = (*FAMILIES, "dna2_pseq", "dna1_pseq")
+#: K2's instances: each family's, and each family's pseq instance
+K2_BRANCHES = (*FAMILIES, *(f"{f}_pseq" for f in FAMILIES))
 field_grads.launches = 0
 field_grads.by_family = dict.fromkeys(K2_BRANCHES, 0)
 

@@ -95,7 +95,13 @@ _KIND_CODE = {"full": 0, "short": 1, "debye": 2}
 #: offset of each term's weight in the P_GT group
 _GT_SLOT = {nm: k for k, nm in enumerate(KIND_TERMS["full"])}
 
+#: term modules the tile kernels implement (as the reference's, ops/oxdna_tiles.py:1226)
+KERNEL_MODULES = ("mythos_tpu_torch.energy.dna1.terms", "mythos_tpu_torch.energy.dna2.terms")
 ERR_TERMS = "the tile kernels implement the oxDNA2 term set and oxDNA1's {}; got {}"
+ERR_UNSUPPORTED_MODEL = (
+    "the tile kernels support dna1/dna2 terms only, the oxDNA2 term set and oxDNA1's (got {}); use a "
+    "non-symmetric block table (symmetric=False) for the block sums"
+)
 ERR_DNA1_KIND = "oxDNA1 has no Debye-Hueckel term: its one table is of the short kind, got {!r}"
 ERR_HIDDEN_GRAD = (
     "fused_grads_ctx: a context's parameters or static tail need a gradient, which K3 would drop; pass "
@@ -210,15 +216,28 @@ def pair_static_fields(composed, perm: np.ndarray | None):
     return hw, oh, corr, partner, qf
 
 
-def _tile_family(composed) -> str:
-    """The composed energy's family, oxDNA2 or oxDNA1; raises for another."""
+def kernel_family(composed) -> str | None:
+    """The composed energy's family where every term is oxDNA2's or oxDNA1's
+    (KERNEL_MODULES): the tile kernels, and ERR_TERMS for a term set of those
+    modules that they do not implement. None where a term is another model's
+    (oxRNA2, the oxNA hybrid): the block sums of energy/blocks.py."""
+    if any(type(fn).__module__ not in KERNEL_MODULES for fn in composed.energy_fns):
+        return None
     try:
-        family = stencil.model_family(composed)
-    except ValueError:
-        family = None
-    if family not in ("dna2", "dna1"):
+        return stencil.model_family(composed)
+    except ValueError as e:
         raise ValueError(ERR_TERMS.format(stencil.UNBONDED_ORDER + stencil.BONDED_ORDER,
-                                          [f"{type(fn).__module__}.{type(fn).__name__}" for fn in composed.energy_fns]))
+                                          [f"{type(fn).__module__}.{type(fn).__name__}" for fn in composed.energy_fns]
+                                          )) from e
+
+
+def _tile_family(composed) -> str:
+    """The composed energy's family, oxDNA2 or oxDNA1; raises for another
+    (the reference's unsupported-model message)."""
+    family = kernel_family(composed)
+    if family is None:
+        raise ValueError(ERR_UNSUPPORTED_MODEL.format(
+            sorted({type(fn).__module__ for fn in composed.energy_fns})))
     return family
 
 

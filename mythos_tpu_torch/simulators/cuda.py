@@ -5,13 +5,18 @@ Counterpart of mythos_tpu.simulators.tpu.TpuSimulator. :class:`CudaSimulator`
 is its banded-stencil tier: the fused multi-step branch (``build_run_fn``,
 simulators/tpu.py:253-296 and 386-450) and, with ``save_every`` <= 1, the
 generic per-step branch (:451-482); :class:`BlockSimulator` its symmetric
-block-table branch (simulators/tpu.py:297-322 and 451-501), on the
-(tight, wide) tables of oxDNA2 or one table (oxDNA1, or where the tight
-table would be as wide); :class:`PairSimulator` its static-neighbour
-branch (simulators/tpu.py:194-229, 249-252, 367-381): ``NoNeighborList``
-or ``DensePairs``, AoS BAOAB (``integrators.nvt_langevin``) with the force
-by torch autograd of the energy, on the card as the reference's is
-``jax.grad`` under XLA -- no kernel.
+block-table branches (simulators/tpu.py:297-331 and 451-501): under
+oxDNA2 and oxDNA1 the symmetric tables of the tile kernels, (tight, wide)
+or one; under oxRNA2 and the oxNA hybrid, which the kernels do not
+implement, one non-symmetric table and the force by autograd of the block
+sums (energy/blocks.py), as the reference's ``jax.grad`` of its XLA tile
+path -- the family decides, before any launch; :class:`PairSimulator` its
+pair-list branches (simulators/tpu.py:194-229, 249-252, 332-335,
+367-381, 451-509): ``NoNeighborList``, ``DensePairs`` or a
+``FixedCapacityNeighborList`` rebuilt every ``neighbor_update_every``
+steps, AoS BAOAB (``integrators.nvt_langevin``) with the force by torch
+autograd of the energy, on the card as the reference's is ``jax.grad``
+under XLA -- no kernel.
 
 A stencil run:
 
@@ -50,12 +55,13 @@ oxRNA2), and so does a ``save_every`` that is not a multiple of
 ``neighbor_update_every`` (where it is above 1), or an ``n_steps`` that
 is not a multiple of the save or rebuild cadence.
 
-A block run rebuilds its (tight, wide) tables every
-``neighbor_update_every`` steps, with the previous tables as ``prev`` (the
-missed-interaction detector), takes each step's force from K3 on each
-table plus the bonded gradient by autograd (ops.tiles.fused_grads_ctx),
-and saves every ``save_every``-th state (every state with ``save_every``
-<= 1, under the same rule). It is differentiable as the stencil run is:
+A block run rebuilds its tables every ``neighbor_update_every`` steps,
+with the previous tables as ``prev`` (the missed-interaction detector),
+takes each step's force from K3 on each table plus the bonded gradient by
+autograd (ops.tiles.fused_grads_ctx) -- or, outside the kernels' families,
+from autograd of the energy bound to the table -- and saves every
+``save_every``-th state (every state with ``save_every`` <= 1, under the
+same rule). It is differentiable as the stencil run is:
 K3 forward through ``ops.tiles.TileForces``, its plain version backward,
 and ``checkpoint_every`` on both of its branches.
 """
@@ -76,7 +82,13 @@ from mythos_tpu_torch.rigid_body import RigidBody
 from mythos_tpu_torch.simulators.base import SimulatorOutput
 from mythos_tpu_torch.simulators.integrators import nvt_langevin, nvt_langevin_soa
 from mythos_tpu_torch.simulators.io import SimulatorTrajectory
-from mythos_tpu_torch.simulators.neighbors import BlockNeighborList, DensePairs, NoNeighborList, StencilBand
+from mythos_tpu_torch.simulators.neighbors import (
+    BlockNeighborList,
+    DensePairs,
+    FixedCapacityNeighborList,
+    NoNeighborList,
+    StencilBand,
+)
 from mythos_tpu_torch.soa import BodySoA, Quat, Vec3, to_soa
 
 ERR_CHKPNT_SCN = "`checkpoint_every` must evenly divide the length of `xs`. Got {} and {}."
@@ -291,9 +303,13 @@ class CudaSimulator:
 
 @dc.dataclass(frozen=True)
 class BlockSimulator:
-    """Rigid-body BAOAB Langevin of a composed oxDNA2 or oxDNA1 energy on
-    symmetric block tables (the block tier: general conformations): a
-    (tight, wide) pair or one table (K3's instance of the family on each).
+    """Rigid-body BAOAB Langevin of a composed energy on block tables (the
+    block tier: general conformations). Under oxDNA2 and oxDNA1, symmetric
+    tables, a (tight, wide) pair or one, and K3's instance of the family on
+    each; under any other family (oxRNA2, the oxNA hybrid) one
+    non-symmetric table and the force by autograd of the energy bound to it
+    (``with_props(block_ids=...)``: the plain block sums, the reference's
+    XLA tile path; :meth:`uses_kernels`).
 
     ``run(opt_params, init_state, n_steps, generator)`` returns a
     SimulatorOutput with one SimulatorTrajectory (every ``save_every``-th
@@ -339,6 +355,43 @@ class BlockSimulator:
     def replace(self, **kw) -> "BlockSimulator":
         return dc.replace(self, **kw)
 
+    def uses_kernels(self) -> bool:
+        """Whether the run takes K3 (oxDNA2, oxDNA1) or the plain block sums
+        (oxRNA2, the oxNA hybrid): decided from the modules of the energy's
+        term classes (``tiles.kernel_family``, which raises for an oxDNA term
+        set that K3 does not implement)."""
+        return tiles.kernel_family(self.energy_fn) is not None
+
+    def _grad_fn(self, energy, graph: bool, checkpointed: bool):
+        """grad_fn(body, tables) of the integrator: K3 on the prepared
+        contexts, or autograd of the energy's block sums on the table."""
+        nbl = self.neighbors
+        if self.uses_kernels():
+            if not nbl.symmetric:
+                raise ValueError("the tile kernels take symmetric block tables")
+            with contextlib.nullcontext() if graph else torch.no_grad():
+                ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
+
+            def grad_fn(body: BodySoA, tables):
+                return tiles.fused_grads_ctx(energy, ctxs, body, tables, create_graph=graph,
+                                             checkpointed=checkpointed)
+
+            return grad_fn
+        if nbl.symmetric:
+            raise ValueError("the block sums take a non-symmetric table (each pair once): "
+                             "block_neighbor_list_for_topology(..., symmetric=False)")
+
+        def grad_fn(body: BodySoA, tables):
+            comps = (*body.center, *body.orientation)
+            leaves = [c if graph and c.requires_grad else c.detach().requires_grad_(True) for c in comps]
+            bound = energy.with_props(block_ids=tables, block_size=nbl.block_size, block_perm=nbl.perm)
+            with torch.enable_grad(), tiles._keep_saves(checkpointed):
+                e = bound(RigidBody(torch.stack(leaves[:3], -1), torch.stack(leaves[3:], -1)))
+                g = torch.autograd.grad(e, leaves, create_graph=graph)
+            return Vec3(*g[:3]), Quat(*g[3:])
+
+        return grad_fn
+
     def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
         u = self.neighbor_update_every
         every_step = _every_step(self.save_every, u, n_steps)
@@ -352,12 +405,8 @@ class BlockSimulator:
                                                                           init_state.orientation))
         with contextlib.nullcontext() if graph else torch.no_grad():
             energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
-            ctxs = tiles.prepare_contexts(energy, nbl.idx, nbl.block_size, perm=nbl.perm)
         checkpointed = graph and ck > 0
-
-        def grad_fn(body: BodySoA, tables):
-            return tiles.fused_grads_ctx(energy, ctxs, body, tables, create_graph=graph, checkpointed=checkpointed)
-
+        grad_fn = self._grad_fn(energy, graph, checkpointed)
         init_fn, step_fn = nvt_langevin_soa(grad_fn, self.dt, self.kT, self.gamma_t, self.gamma_r)
         body = to_soa(RigidBody(init_state.center.to(torch.float32), init_state.orientation.to(torch.float32)))
         state = init_fn(generator, body, self.mass, self.inertia, tables=nbl.idx)
@@ -401,28 +450,34 @@ class BlockSimulator:
 
 @dc.dataclass(frozen=True)
 class PairSimulator:
-    """Rigid-body BAOAB Langevin of a composed energy over static neighbours:
-    the small-system path (the reference's ``NoNeighborList``/``DensePairs``
+    """Rigid-body BAOAB Langevin of a composed energy over pair lists: the
+    small-system path (the reference's ``NoNeighborList``/``DensePairs``
     branch of TpuSimulator, the one ``__graft_entry__.entry()`` and
-    ``examples/dna1_simulation.py`` run). Any model; no kernel: the force is
+    ``examples/dna1_simulation.py`` run, and its generic branch over a
+    ``FixedCapacityNeighborList``). Any model; no kernel: the force is
     torch autograd of the energy, which runs where the state lives.
 
     ``neighbors``: a ``NoNeighborList`` (the energy's unbonded terms take
-    its pair list) or ``DensePairs`` (the energy must carry its dense mask:
-    ``create_default_energy_fn(dense_unbonded=True)``). ``run(opt_params,
+    its pair list), ``DensePairs`` (the energy must carry its dense mask:
+    ``create_default_energy_fn(dense_unbonded=True)``) or a
+    ``FixedCapacityNeighborList`` (allocated; rebuilt every
+    ``neighbor_update_every`` steps against the previous list, the
+    terms taking its padded (2, capacity) pairs). ``run(opt_params,
     init_state, n_steps, generator)`` returns a SimulatorOutput with one
     SimulatorTrajectory: every ``save_every``-th state (every state with
-    ``save_every`` <= 1, the reference's default), in the original order,
-    with no overflow metadata (a static list never overflows), as the
+    ``save_every`` <= 1, the reference's default), in the original order;
+    a rebuilt list's trajectory carries ``neighbor_overflow`` metadata
+    (the flags of every rebuild ORed), a static list's none, as the
     reference's. The run is differentiable in ``opt_params`` and the
-    initial state (the forces with ``create_graph``);
-    ``checkpoint_every`` keeps that many outer iterations (steps, or saves
-    of ``save_every`` steps) under one ``torch.utils.checkpoint``, their
-    normals drawn first, and must divide their number (ERR_CHKPNT_SCN).
+    initial state (the forces with ``create_graph``; the list carries no
+    gradient); ``checkpoint_every`` keeps that many outer iterations (steps
+    or rebuild intervals, or saves of ``save_every`` steps) under one
+    ``torch.utils.checkpoint``, their normals drawn first, and must divide
+    their number (ERR_CHKPNT_SCN).
     """
 
     energy_fn: object
-    neighbors: NoNeighborList | DensePairs
+    neighbors: NoNeighborList | DensePairs | FixedCapacityNeighborList
     dt: float
     kT: float  # noqa: N815 - domain casing
     mass: float = 1.0
@@ -431,27 +486,30 @@ class PairSimulator:
     gamma_r: float = 0.0
     save_every: int = 1
     checkpoint_every: int = 0
+    neighbor_update_every: int = 1
 
     def replace(self, **kw) -> "PairSimulator":
         return dc.replace(self, **kw)
 
     def _energy(self, opt_params):
-        """The energy with ``opt_params`` bound and the neighbours' pairs: the
-        static list, or the dense mask the energy must carry."""
+        """The energy with ``opt_params`` bound and the static neighbours'
+        pairs: the static list, or the dense mask the energy must carry."""
         energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
         if isinstance(self.neighbors, NoNeighborList):
             return energy.with_props(unbonded_neighbors=self.neighbors.unbonded_nbrs)
-        if any(fn.dense_mask is None for fn in energy.energy_fns if isinstance(fn, _UnbondedPairs)):
+        if isinstance(self.neighbors, DensePairs) and any(
+            fn.dense_mask is None for fn in energy.energy_fns if isinstance(fn, _UnbondedPairs)
+        ):
             raise ValueError("DensePairs needs an energy with its dense mask (create_default_energy_fn("
                              "dense_unbonded=True))")
         return energy
 
     def run(self, opt_params, init_state: RigidBody, n_steps: int, generator: torch.Generator) -> SimulatorOutput:
-        every_step = self.save_every <= 1
-        if not every_step and n_steps % self.save_every:
-            raise ValueError(ERR_SAVE_EVERY.format(self.save_every, n_steps))
-        per_save = 1 if every_step else self.save_every
-        n_outer = n_steps // per_save
+        nbl = self.neighbors if isinstance(self.neighbors, FixedCapacityNeighborList) else None
+        u = self.neighbor_update_every if nbl is not None else 1
+        every_step = _every_step(self.save_every, u, n_steps)
+        per_save = 1 if every_step else self.save_every // u  # intervals of u steps an outer iteration
+        n_outer = n_steps // u // per_save
         ck = self.checkpoint_every
         if ck > 0 and n_outer % ck:
             raise ValueError(ERR_CHKPNT_SCN.format(ck, n_outer))
@@ -459,33 +517,56 @@ class PairSimulator:
                                                                           init_state.orientation))
         gamma = RigidBody(torch.tensor([self.gamma_t], dtype=torch.float64),
                           torch.tensor([self.gamma_r], dtype=torch.float64))
-        init_fn, step_fn = nvt_langevin(self._energy(opt_params), spaces.free()[1], self.dt, self.kT, gamma,
+        energy = self._energy(opt_params)
+
+        def bound(pairs):
+            return energy if nbl is None else energy.with_props(unbonded_neighbors=pairs)
+
+        init_fn, step_fn = nvt_langevin(lambda body, energy: energy(body), spaces.free()[1], self.dt, self.kT, gamma,
                                         create_graph=graph)
         mass = RigidBody(torch.tensor([self.mass], dtype=torch.float64), torch.tensor([self.inertia], dtype=torch.float64))
-        state = init_fn(generator, init_state, mass)
+        prev = None if nbl is None else nbl.idx
+        state = init_fn(generator, init_state, mass, energy=bound(prev))
         c = init_state.center
         group = ck if ck > 0 else 1
 
-        def outer(state, xis):
-            pos = []
-            for k in range(group):
-                for xi in xis[k * per_save : (k + 1) * per_save]:
-                    state = step_fn(state, xi=xi)
-                pos.append(torch.cat([state.position.center, state.position.orientation], dim=-1))
-            return state, pos
+        def outer(state, prev, xis):
+            """``group`` outer iterations: each ``per_save`` intervals of a
+            rebuild (a rebuilt list's) and ``u`` steps; (state, last list,
+            overflow, saved states)."""
+            ovf, pos, k = torch.zeros((), dtype=torch.bool, device=c.device), [], 0
+            for _ in range(group):
+                for _ in range(per_save):
+                    if nbl is not None:
+                        prev, o = nbl.build(state.position.center, prev=prev)
+                        ovf = ovf | o
+                    e_k = bound(prev)
+                    for _ in range(u):
+                        state = step_fn(state, xi=xis[k], energy=e_k)
+                        k += 1
+                        if every_step:
+                            pos.append(torch.cat([state.position.center, state.position.orientation], dim=-1))
+                if not every_step:
+                    pos.append(torch.cat([state.position.center, state.position.orientation], dim=-1))
+            return state, prev, ovf, pos
 
+        overflow = torch.zeros((), dtype=torch.bool, device=c.device) if nbl is None else nbl.did_overflow.clone()
         saves = []
         for _ in range(n_outer // group):
             xis = [torch.randn((2, *c.shape), generator=generator, device=c.device, dtype=c.dtype)
-                   for _ in range(group * per_save)]
+                   for _ in range(group * per_save * u)]
             if graph and ck > 0:
-                state, pos = checkpoint(outer, state, xis, use_reentrant=False, preserve_rng_state=False)
+                state, prev, ovf, pos = checkpoint(outer, state, prev, xis, use_reentrant=False,
+                                                   preserve_rng_state=False)
             else:
-                state, pos = outer(state, xis)
+                state, prev, ovf, pos = outer(state, prev, xis)
+            overflow |= ovf
             saves += pos
         traj = torch.stack(saves)
         trajectory = SimulatorTrajectory(
             center=traj[..., :3], orientation=traj[..., 3:],
             temperature=torch.full((traj.shape[0],), float(self.kT), dtype=traj.dtype, device=traj.device),
         )
+        if nbl is not None:
+            trajectory = trajectory.with_state_metadata(neighbor_overflow=bool(overflow.item()))
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})

@@ -3,15 +3,20 @@ block tables.
 
 Counterpart of mythos_tpu/simulators/neighbors.py:
 
-* the static half (small systems): ``NoNeighborList`` (a fixed pair list),
-  ``DensePairs`` (the dense (N, N)-mask path's marker) and their masks,
-  ``bonded_exclusion_mask`` and ``dense_pair_mask``;
+* the pair-list half (small systems): ``NoNeighborList`` (a fixed pair
+  list), ``DensePairs`` (the dense (N, N)-mask path's marker) and their
+  masks, ``bonded_exclusion_mask`` and ``dense_pair_mask``, and
+  ``FixedCapacityNeighborList`` (a distance-culled pair list of fixed
+  capacity, rebuilt on the positions' device) with
+  ``neighbor_list_for_topology``;
 * the stencil half: ``strand_interleave_perm``,
   ``stencil_band_for_site_cutoffs`` (host numpy sizing, carried over as is)
   and ``StencilBand``'s site-mode checks (``_check_site``, ``far_check``);
-* the block half: ``BlockNeighborList`` (symmetric tables, the two-level
-  tight/wide mode, ``perm``, banded windows, the
-  distance-prioritised compaction and the missed-interaction detector),
+* the block half: ``BlockNeighborList`` (symmetric tables for the tile
+  kernels, non-symmetric ones -- column blocks b >= a -- for the block sums
+  of energy/blocks.py, the two-level tight/wide mode, ``perm``, banded
+  windows, the distance-prioritised compaction and the missed-interaction
+  detector),
   ``_max_span``, ``_snap_capacity`` and ``block_neighbor_list_for_topology``
   (oxDNA1 has no Debye term and takes a one-level table: no
   ``r_cutoff_inner``).
@@ -58,6 +63,96 @@ def dense_pair_mask(topology) -> np.ndarray:
     """(N, N) upper-triangular unbonded-pair mask for the dense energy path."""
     n = topology.n_nucleotides
     return np.triu(~bonded_exclusion_mask(n, topology.bonded_neighbors), k=1)
+
+
+@dc.dataclass
+class FixedCapacityNeighborList:
+    """Distance-culled unbonded pairs of static capacity (free space).
+
+    The rebuild takes the upper triangle of the (N, N) centre distances,
+    drops the excluded (self and bonded) pairs and compacts the hits within
+    ``r_cutoff + dr_threshold`` into a (2, capacity) list, nearest first,
+    padded with N (a stable sort: equal distances keep the reference's
+    order). ``did_overflow`` is raised when more pairs lie inside the bare
+    ``r_cutoff`` than ``capacity``, or, given the previous list, when a pair
+    inside the bare cutoff is missing from it -- the condition under which
+    the last interval's forces were wrong. The list carries no gradient."""
+
+    exclusion_mask: np.ndarray  # (N, N) bool, True = never a neighbour
+    r_cutoff: float
+    dr_threshold: float
+    capacity: int
+    idx_: torch.Tensor | None = None
+    did_overflow: torch.Tensor | None = None
+
+    @property
+    def idx(self) -> torch.Tensor | None:
+        return self.idx_
+
+    def replace(self, **kw) -> "FixedCapacityNeighborList":
+        return dc.replace(self, **kw)
+
+    def _build(self, centers: torch.Tensor, prev: torch.Tensor | None = None):
+        """((2, capacity) long pairs, 0-d bool overflow) of (N, 3) centres."""
+        with torch.no_grad():
+            n = centers.shape[0]
+            device = centers.device
+            iu = torch.triu_indices(n, n, offset=1, device=device)
+            dr = centers[iu[1]] - centers[iu[0]]
+            d2u = (dr * dr).sum(-1)
+            allowed = ~torch.as_tensor(self.exclusion_mask, device=device)[iu[0], iu[1]]
+            hit = (d2u < (self.r_cutoff + self.dr_threshold) ** 2) & allowed
+            order = torch.argsort(torch.where(hit, d2u, torch.inf), stable=True)[: self.capacity]
+            valid = hit[order]
+            pairs = torch.where(valid, iu[:, order], n)
+            if pairs.shape[1] < self.capacity:
+                pairs = torch.nn.functional.pad(pairs, (0, self.capacity - pairs.shape[1]), value=n)
+            hard = (d2u < self.r_cutoff * self.r_cutoff) & allowed
+            overflow = hard.sum() > self.capacity
+            if prev is not None:
+                member = torch.zeros((n + 1, n + 1), dtype=torch.bool, device=device)
+                member[prev[0].long(), prev[1].long()] = True
+                overflow = overflow | (hard & ~member[iu[0], iu[1]]).any()
+        return pairs, overflow
+
+    def build(self, centers: torch.Tensor, prev: torch.Tensor | None = None):
+        """(pairs, overflow) of (N, 3) centres; ``prev`` arms the
+        missed-interaction detector."""
+        return self._build(centers, prev=prev)
+
+    def allocate(self, centers: torch.Tensor) -> "FixedCapacityNeighborList":
+        idx, overflow = self._build(centers)
+        return self.replace(idx_=idx, did_overflow=overflow)
+
+    def update(self, centers: torch.Tensor) -> "FixedCapacityNeighborList":
+        idx, overflow = self._build(centers, prev=self.idx_)
+        return self.replace(idx_=idx, did_overflow=self.did_overflow | overflow)
+
+
+#: capacity over the initial hits of neighbor_list_for_topology
+PAIR_CAPACITY_MULTIPLIER = 1.25
+
+
+def neighbor_list_for_topology(
+    topology, r_cutoff: float, dr_threshold: float = 0.2, capacity: int | None = None, init_centers=None,
+) -> FixedCapacityNeighborList:
+    """A FixedCapacityNeighborList, its capacity (when not given) the
+    initial hits x PAIR_CAPACITY_MULTIPLIER, at least 16 (the reference's
+    sizing); allocated when ``init_centers`` ((N, 3) tensor) is given."""
+    nbl = FixedCapacityNeighborList(
+        exclusion_mask=bonded_exclusion_mask(topology.n_nucleotides, topology.bonded_neighbors),
+        r_cutoff=float(r_cutoff), dr_threshold=float(dr_threshold), capacity=capacity or 0,
+    )
+    if capacity is None:
+        if init_centers is None:
+            raise ValueError("capacity or init_centers must be provided")
+        c = torch.as_tensor(init_centers).detach()
+        iu = torch.triu_indices(len(c), len(c), offset=1, device=c.device)
+        dr = c[iu[1]] - c[iu[0]]
+        allowed = ~torch.as_tensor(nbl.exclusion_mask, device=c.device)[iu[0], iu[1]]
+        hits = int((((dr * dr).sum(-1) < (r_cutoff + dr_threshold) ** 2) & allowed).sum())
+        nbl = nbl.replace(capacity=max(16, int(hits * PAIR_CAPACITY_MULTIPLIER)))
+    return nbl.allocate(torch.as_tensor(init_centers)) if init_centers is not None else nbl
 
 
 def strand_interleave_perm(topology) -> np.ndarray | None:
@@ -348,9 +443,12 @@ class BlockNeighborList:
     Particles (in ``perm`` order when set) form index blocks of
     ``block_size``; each row block keeps up to ``capacity`` column blocks
     whose axis-aligned bounding boxes lie within ``r_cutoff +
-    dr_threshold`` (padded with n_blocks). The table is symmetric: it
-    lists every pair from both sides, which the tile kernels need, as their
-    row-side gradient under the full mask is the whole force (ops/tiles.py).
+    dr_threshold`` (padded with n_blocks). A ``symmetric`` table lists
+    every pair from both sides, which the tile kernels need, as their
+    row-side gradient under the full mask is the whole force (ops/tiles.py);
+    a non-symmetric one only column blocks b >= a, each pair once, which the
+    block sums of energy/blocks.py take (one table: no ``r_cutoff_inner``,
+    no ``banded``).
     With ``r_cutoff_inner`` set, :meth:`build` returns a (tight, wide) pair
     of tables from one AABB pass: the short-range terms run on the tight one,
     Debye-Hueckel alone on the wide one. ``banded`` tables hold consecutive
@@ -362,6 +460,7 @@ class BlockNeighborList:
     r_cutoff: float
     dr_threshold: float
     n: int
+    symmetric: bool = True
     r_cutoff_inner: float | None = None
     capacity_inner: int = 0
     perm: np.ndarray | None = None
@@ -399,11 +498,12 @@ class BlockNeighborList:
             gap = torch.clamp(torch.maximum(lo[:, None] - hi[None, :], lo[None, :] - hi[:, None]), min=0.0)
             dist2 = dist2 + gap * gap
         col = torch.arange(nb, device=device)
+        upper = torch.ones((), dtype=torch.bool, device=device) if self.symmetric else col[None, :] >= col[:, None]
 
         def compact(cut_bare: float, capacity: int):
             cut = cut_bare + self.dr_threshold
-            hit = dist2 < cut * cut
-            hard = dist2 < cut_bare * cut_bare
+            hit = (dist2 < cut * cut) & upper
+            hard = (dist2 < cut_bare * cut_bare) & upper
             if self.banded:
                 # window start: the first hit, clamped into range; any bare
                 # hit outside the window overflows
@@ -426,7 +526,7 @@ class BlockNeighborList:
             return ids.to(torch.int32), (hard.sum(dim=1) > capacity).any()
 
         def missed(prev_ids, cut_bare: float):
-            hit = dist2 < cut_bare * cut_bare
+            hit = (dist2 < cut_bare * cut_bare) & upper
             member = torch.zeros((nb, nb + 1), dtype=torch.bool, device=device)
             member.scatter_(1, prev_ids.long(), True)
             return (hit & ~member[:, :nb]).any()
@@ -471,11 +571,11 @@ def _max_span(ids: np.ndarray, nblk: int) -> int:
 CAPACITY_MULTIPLIER = 1.5
 
 
-def _snap_capacity(hits: int, block_size: int) -> int:
-    """Capacity from an observed per-row hit count: the smallest of the
-    reference's symmetric-path slot quanta 128/(B*q) with a spare block (so
+def _snap_capacity(hits: int, block_size: int, symmetric: bool = True) -> int:
+    """Capacity from an observed per-row hit count: on a symmetric table the
+    smallest of the reference's slot quanta 128/(B*q) with a spare block (so
     both packages size the same tables), else hits x CAPACITY_MULTIPLIER."""
-    if 128 % block_size == 0:
+    if symmetric and 128 % block_size == 0:
         quanta = sorted(128 // (block_size * q) for q in (1, 2, 4, 8, 16) if block_size * q <= 128)
         for s in quanta:
             if s >= hits + 1:
@@ -492,15 +592,19 @@ def block_neighbor_list_for_topology(
     init_centers=None,
     r_cutoff_inner: float | None = None,
     perm: np.ndarray | None = None,
+    symmetric: bool = True,
 ) -> BlockNeighborList:
     """A BlockNeighborList sized from the initial positions (free space).
 
-    ``r_cutoff_inner`` switches on the two-level mode; ``perm`` reorders
-    the particles before blocking (strand_interleave_perm). A table sized
-    here is banded when the window costs no extra capacity (the
-    reference's ``banded=None``). ``init_centers``: (N, 3) tensor in the
-    original order; the table lives on its device.
+    ``r_cutoff_inner`` switches on the two-level mode (symmetric tables
+    only); ``perm`` reorders the particles before blocking
+    (strand_interleave_perm). A symmetric table sized here is banded when
+    the window costs no extra capacity (the reference's ``banded=None``).
+    ``init_centers``: (N, 3) tensor in the original order; the table lives
+    on its device.
     """
+    if not symmetric and r_cutoff_inner is not None:
+        raise ValueError("two-level (tight, wide) tables are symmetric: the block sums take one table")
     n = topology.n_nucleotides
     bn = np.asarray(topology.bonded_neighbors)
     if bn.size and np.bincount(bn.ravel(), minlength=n).max() > 2:
@@ -511,6 +615,7 @@ def block_neighbor_list_for_topology(
         r_cutoff=float(r_cutoff),
         dr_threshold=float(dr_threshold),
         n=n,
+        symmetric=symmetric,
         r_cutoff_inner=None if r_cutoff_inner is None else float(r_cutoff_inner),
         capacity_inner=(capacity or 0) if r_cutoff_inner is not None else 0,
         perm=None if perm is None else np.asarray(perm),
@@ -526,9 +631,9 @@ def block_neighbor_list_for_topology(
             ids_in, ids = ids
         ids = ids.cpu().numpy()
         hits = int(np.max(np.sum(ids < nblk, axis=1)))
-        cap = min(nblk, _snap_capacity(hits, block_size))
-        cap_band = min(nblk, _snap_capacity(_max_span(ids, nblk), block_size))
-        use_banded = nblk > cap_band and cap_band <= cap
+        cap = min(nblk, _snap_capacity(hits, block_size, symmetric))
+        cap_band = min(nblk, _snap_capacity(_max_span(ids, nblk), block_size, symmetric))
+        use_banded = symmetric and nblk > cap_band and cap_band <= cap
         if use_banded:
             cap = cap_band
         cap_in = 0

@@ -50,7 +50,9 @@ call, each launch counted for the instance; on the one-hot pseq of the
 duplex's sequence each within K2's tolerance of its discrete instance,
 which counts its launches under the family alone; and 40-bp pseq runs of
 the stencil (the per-step branch, K1 never) and the block tier card vs
-CPU.
+CPU. oxRNA2's pseq instance of K2 likewise, and on the one-hot pseq the
+discrete instance's bits; the block tier of oxRNA2 and of the oxNA hybrid
+(the plain block sums) card vs CPU, K3 never launched.
 """
 
 import importlib
@@ -995,14 +997,13 @@ def test_small_system_run_on_card_matches_cpu(card, mode):
 
 
 def _pseq_energy(model: str, device, onehot: bool = False, seed: int = 0):
-    """The default oxDNA1 or oxDNA2 energy of the 40-bp duplex under a pseq
-    (all but the two outermost base pairs constrained): drawn from ``seed``,
-    or the one-hot pseq of the duplex's own sequence."""
-    import mythos_tpu_torch.energy.dna1 as dna1
-    import mythos_tpu_torch.energy.dna2 as dna2
+    """The default oxDNA1, oxDNA2 or oxRNA2 energy of the 40-bp duplex
+    (A-form under oxRNA2) under a pseq (all but the two outermost base
+    pairs constrained): drawn from ``seed``, or the one-hot pseq of the
+    duplex's own sequence."""
     from mythos_tpu_torch.io import sequence_constraints as sc_mod
 
-    top, body = synthetic_duplex(40, dtype=torch.float32, device=device)
+    top, body = synthetic_duplex(40, form="A" if model == "rna2" else "B", dtype=torch.float32, device=device)
     n = top.n_nucleotides
     sc = sc_mod.from_bps(n, np.array([[i, n - 1 - i] for i in range(1, 39)]))
     if onehot:
@@ -1012,7 +1013,7 @@ def _pseq_energy(model: str, device, onehot: bool = False, seed: int = 0):
         up, bp = rng.random((sc.n_unpaired, 4)), rng.random((sc.n_bp, 4))
         up, bp = up / up.sum(1, keepdims=True), bp / bp.sum(1, keepdims=True)
     pseq = tuple(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (up, bp))
-    pkg = dna1 if model == "dna1" else dna2
+    pkg = importlib.import_module(f"mythos_tpu_torch.energy.{model}")
     return pkg.create_default_energy_fn(top, device=device).with_params(pseq=pseq, pseq_constraints=sc), top, body
 
 
@@ -1128,6 +1129,93 @@ def test_pseq_run_on_card_matches_cpu(card, mode):
         assert tiles.tile_forces.by_family == {**k3, "dna1_pseq": k3["dna1_pseq"] + 41}
     cpu = run("cpu")
     assert gpu.center.shape == (4, 80, 3)
+    torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    assert not bool(torch.as_tensor(gpu.metadata["neighbor_overflow"]).any())
+
+
+@pytest.mark.cuda
+def test_k2_rna2_pseq_kernel_matches_twin(card):
+    """K2's oxRNA2 pseq instance (stencil_field_grads_rna2_pseq) against its
+    plain version on the jittered 40-bp A-form duplex (rtol 1e-4, atol 1e-4
+    max|plain|), its tally equal to band_gate_counts', equal bits on a
+    second call, one launch counted for ``rna2_pseq``; on the one-hot pseq
+    of the duplex's sequence it gives the discrete instance's bits."""
+    e, top, body = _pseq_energy("rna2", card)
+    _, sim = build_sim(top, KT, model="rna2", init_centers=body.center, init_orientation=body.orientation,
+                       device=card)
+    ctx = ts.prepare_stencil_context(e, sim.band, device=card)
+    assert ctx.branch == "rna2_pseq"
+    b = _jittered(body, torch.Generator(device="cuda").manual_seed(6))
+    dyn = torch.cat([ctx.to_slots(b.center.T), ctx.to_slots(b.orientation.T)]).contiguous()
+    before = dict(ts.field_grads.by_family)
+    got, tally = ts._field_grads(ctx, dyn, count=True)
+    assert ts.field_grads.by_family == {**before, "rna2_pseq": before["rna2_pseq"] + 1}
+    ref = ts.field_grads_plain(ctx, dyn)
+    torch.cuda.synchronize()
+    _close(got, ref)
+    assert tally == ts.band_gate_counts(ctx, dyn) and tally["short"] > 0
+    assert torch.equal(got, ts.field_grads(ctx, dyn))
+    e1, _, _ = _pseq_energy("rna2", card, onehot=True)
+    one = ts.field_grads(ts.prepare_stencil_context(e1, sim.band, device=card), dyn)
+    discrete = ts.field_grads(ts.prepare_stencil_context(sim.energy_fn, sim.band, device=card), dyn)
+    assert torch.equal(one, discrete)
+
+
+def _na1_hybrid(device):
+    """The oxNA hybrid energy of a 40-bp duplex of one DNA strand and one RNA
+    strand (tests/test_torch_na1.py's composition) and its table cutoff."""
+    import dataclasses
+
+    import mythos_tpu_torch.energy.na1 as na1
+    import mythos_tpu_torch.energy.rna2 as rna2
+    from mythos_tpu_torch.energy.base import ComposedEnergyFunction, params_from_numpy
+    from mythos_tpu_torch.io.topology import NucleotideType
+
+    top, body = synthetic_duplex(40, dtype=torch.float32, device=device)
+    top = dataclasses.replace(top, nt_type=np.array([NucleotideType.DNA] * 40 + [NucleotideType.RNA] * 40, np.int32))
+    _, params = na1.default_configs()
+    shared = {"stacking": {"kt": KT}, "debye": {"kt": KT, "salt_conc": 0.5}}
+    fns = []
+    for key, cls, cfg_cls in na1.TERMS:
+        cfg = cfg_cls(**params_from_numpy(params[key] | shared.get(key, {}), device), nt_type=top.nt_type,
+                      **({"half_charged_ends": True} if key == "debye" else {}))
+        fns.append(cls(cfg.init_params(), top, na1.default_transform_soa_fn()))
+    cut = max(fn.pair_cutoff() for fn in fns if hasattr(fn, "pair_energies")) + 2.0 * rna2.max_site_offset()
+    return ComposedEnergyFunction(fns), top, body, cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rna2", "na1"])
+def test_block_sum_runs_on_card_launch_no_k3(card, model):
+    """The block tier of the families the tile kernels do not implement --
+    oxRNA2 (``build_sim(mode="block", model="rna2")``) and the oxNA hybrid
+    (BlockSimulator on a non-symmetric table) -- 40 steps of the 40-bp
+    duplex, thermostat off, a state every 10: the plain block sums' autograd
+    as the force, K3 never launched, card vs CPU (rtol 1e-4, atol 1e-5)."""
+    from mythos_tpu_torch.simulators import neighbors as tnb
+    from mythos_tpu_torch.simulators.cuda import BlockSimulator
+
+    def run(device):
+        if model == "rna2":
+            top, b = synthetic_duplex(40, form="A", dtype=torch.float32, device=device)
+            e, sim = build_sim(top, 0.0, mode="block", model="rna2", init_centers=b.center, neighbor_update_every=10,
+                               device=device)
+        else:
+            e, top, b, cut = _na1_hybrid(device)
+            nbl = tnb.block_neighbor_list_for_topology(top, cut, block_size=8, init_centers=b.center,
+                                                       perm=tnb.strand_interleave_perm(top), symmetric=False)
+            sim = BlockSimulator(energy_fn=e, neighbors=nbl, dt=5e-3, kT=0.0, neighbor_update_every=10)
+        assert not sim.uses_kernels()
+        return sim.replace(save_every=10).run(e.opt_params(), b, 40,
+                                              torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    k3 = tiles.tile_forces.launches
+    gpu = run(card)
+    torch.cuda.synchronize()
+    assert tiles.tile_forces.launches == k3
+    cpu = run("cpu")
+    assert gpu.center.shape == (4, 80, 3) and gpu.center.device.type == "cuda"
     torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
     assert not bool(torch.as_tensor(gpu.metadata["neighbor_overflow"]).any())

@@ -70,11 +70,12 @@ def test_small_system_run_matches_jax(model):
 
 
 def test_build_sim_refuses_rna2_block():
-    """The rna2 block tier stays unported (the reference's fused tiles refuse
-    it); every other (mode, model) of the reference builds."""
+    """The rna2 block tier, which the reference's fused tiles refuse, builds
+    on the block sums (one non-symmetric table, no tile kernel); every
+    other (mode, model) of the reference builds too."""
     top, body = synthetic_duplex(8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        entry.build_sim(top, 0.1, mode="block", model="rna2", init_centers=body.center, device="cpu")
+    _, sim = entry.build_sim(top, 0.1, mode="block", model="rna2", init_centers=body.center, device="cpu")
+    assert not sim.uses_kernels() and not sim.neighbors.symmetric
     for model in ("dna1", "dna2", "rna2"):
         for mode in ("pairs", "dense"):
             _, sim = entry.build_sim(top, 0.1, mode=mode, model=model, device="cpu")

@@ -139,10 +139,11 @@ def test_total_energy_gradient_flows_to_params(energies):
 
 def test_port_imports_no_jax():
     """(h) importing every module of the port (the oxRNA2 and oxDNA1
-    packages, the oxDNA file readers, the small-system path, and the
-    fitting loop -- objectives, optimizer, loggers, the native trajectory
-    parser's binding, the examples -- among them) pulls in no jax, chex,
-    sympy, MDAnalysis, nor any module of the JAX package."""
+    packages, the oxDNA file readers, the small-system path, the fitting
+    loop -- objectives, optimizer, loggers, the native trajectory parser's
+    binding, the examples --, the block sums, the oxNA hybrid package and
+    the neighbor lists among them) pulls in no jax, chex, sympy,
+    MDAnalysis, nor any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mythos_tpu_torch\n"
@@ -161,6 +162,10 @@ def test_port_imports_no_jax():
         "'mythos_tpu_torch.utils.helpers', "
         "'mythos_tpu_torch.examples.difftre_propeller_fit', 'mythos_tpu_torch.examples.dna1_simulation'}\n"
         "assert fit <= set(sys.modules), fit - set(sys.modules)\n"
+        "na1 = {'mythos_tpu_torch.energy.na1', 'mythos_tpu_torch.energy.na1.hybrid', "
+        "'mythos_tpu_torch.energy.na1.nucleotide', 'mythos_tpu_torch.energy.blocks', "
+        "'mythos_tpu_torch.simulators.neighbors'}\n"
+        "assert na1 <= set(sys.modules), na1 - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('mythos_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -333,9 +333,21 @@ def test_build_sim_rna2_runs_on_the_card_only():
 
 
 def test_build_sim_rna2_block_tier_raises():
+    """The rna2 block tier builds on one non-symmetric table (the block
+    sums; tests/test_torch_rna2_block.py holds it against the reference),
+    and raises where its tables are of the wrong kind: a symmetric table
+    (the tile kernels', which do not implement oxRNA2) and a two-level one."""
     top, body = synthetic_duplex(8, form="A", device="cpu")
-    with pytest.raises(NotImplementedError):
-        entry.build_sim(top, KT, mode="block", model="rna2", init_centers=body.center, device="cpu")
+    _, sim = entry.build_sim(top, KT, mode="block", model="rna2", init_centers=body.center, device="cpu")
+    assert not sim.neighbors.symmetric and not sim.uses_kernels()
+    sym = tnb.block_neighbor_list_for_topology(top, trna2.default_neighbor_cutoff(), block_size=8,
+                                               init_centers=body.center)
+    with pytest.raises(ValueError, match="non-symmetric"):
+        sim.replace(neighbors=sym).run(sim.energy_fn.opt_params(), body, 40, torch.Generator())
+    with pytest.raises(ValueError, match="symmetric"):
+        tnb.block_neighbor_list_for_topology(top, trna2.default_neighbor_cutoff(), block_size=8,
+                                             init_centers=body.center, symmetric=False,
+                                             r_cutoff_inner=trna2.short_range_neighbor_cutoff())
 
 
 def test_mixed_term_set_is_refused(systems):

@@ -151,11 +151,13 @@ def test_bonds_off_offset_two_raise():
 
 
 def test_build_sim_refuses_unported_modes():
-    """Every (mode, model) of the reference's _build_sim builds but the rna2
-    block tier (the reference's fused tiles refuse it), which raises, as
-    does a mode or model the reference does not know."""
+    """Every (mode, model) of the reference's _build_sim builds -- the rna2
+    block tier on the block sums, as the reference's fused tiles refuse
+    it --, and a mode or model the reference does not know raises."""
     top, body = synthetic_duplex(8, device="cpu")
-    for mode, model in (("block", "rna2"), ("hierarchical", "dna2"), ("stencil", "na1")):
+    _, sim = entry.build_sim(top, KT, mode="block", model="rna2", init_centers=body.center, device="cpu")
+    assert not sim.uses_kernels()
+    for mode, model in (("hierarchical", "dna2"), ("stencil", "na1")):
         with pytest.raises(NotImplementedError):
             entry.build_sim(top, KT, mode=mode, model=model, init_centers=body.center,
                             init_orientation=body.orientation, device="cpu")
