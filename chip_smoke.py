@@ -82,10 +82,10 @@ Phases, one line each; any failure exits non-zero:
 12. direct differentiation through ``CudaSimulator.run`` (d loss / d every
    parameter by ``loss.backward()``; K1 and K2 forward, their plain
    versions backward): (12a) the reference's configuration, 1,000 nt, the
-   propeller-twist loss through 80 steps (2 chunks; the reference's 200,
+   propeller-twist loss through 40 steps (1 chunk; the reference's 200,
    cut for time) after a 40-step
-   warm-up -- finite, nonzero, d / d eps_stack_base nonzero, K1 launched 2
-   times and K2 once, the forward's and the backward's seconds, peak
+   warm-up -- finite, nonzero, d / d eps_stack_base nonzero, K1 launched
+   once a chunk and K2 once, the forward's and the backward's seconds, peak
    memory; (12b) 40 bp, one 40-step chunk at kT 0 from a jittered state,
    card vs CPU for oxDNA2 and oxRNA2 (loss rtol 1e-5, gradients rtol 1e-2
    / atol 1e-3 max|grad|); (12c) the per-step branch at 1,000 nt, 40
@@ -96,10 +96,11 @@ Phases, one line each; any failure exits non-zero:
    1,000 nt, 40 steps through K1's rna2 instance;
 13. direct differentiation through ``BlockSimulator.run`` (K3 forward
    through ``TileForces``, its plain version backward): (13a) 1,000 nt
-   under ``build_sim(mode="block")``, the propeller-twist loss through 80
-   steps (200 before phase 17) after a 40-step warm-up -- finite, nonzero, d / d eps_stack_base
-   nonzero, K3 launched as in the same run without gradients and never in
-   the backward, the forward's and backward's seconds, peak memory; (13b)
+   under ``build_sim(mode="block")``, the propeller-twist loss through 40
+   steps (200 before phase 17, 80 before phase 19) after a 40-step
+   warm-up -- finite, nonzero, d / d eps_stack_base nonzero, K3 launched
+   as in the same run without gradients and never in the backward, the
+   forward's and backward's seconds, peak memory; (13b)
    40 bp, 40 steps at kT 0 from a jittered state, card vs CPU (loss rtol
    1e-5, gradients rtol 1e-2 / atol 1e-3 max|grad|); (13c) 1,000 nt, 40
    steps in 4 rebuild intervals, ``checkpoint_every`` 1 against 0 (the same
@@ -184,6 +185,23 @@ Phases, one line each; any failure exits non-zero:
    branch (K2's rna2 pseq instance 41 times, K1 none) and d loss / d
    bp_pseq through the block sums.
 
+19. the energy constructors' options (``_salt_box``): (19a) the oxDNA2
+   stencil at 10k nt built by hand at salt 0.1
+   (``dna2.create_default_energy_fn(overrides={"salt_conc": 0.1})``, the
+   band from ``dna2.per_term_site_cutoffs(energy_fn)``, ``CudaSimulator``):
+   its ``w_terms`` and ``w_wide``, K2's dynamic shared memory against the
+   card's limit, K2 against its plain version (phase 3's tolerance) with
+   its tally against ``band_gate_counts``, one K1 chunk within phase 4's
+   float32 budget, each one's device time beside phases 3 and 4's at the
+   default band, the bounds recomputed from K2's tally at this band, then
+   400 steps (overflow down, finite, K1 and K2 launched); (19b) on a band
+   sized at the default salt, ``prepare_stencil_context`` of the salt-0.1
+   energy and ``CudaSimulator.run`` with ``lambda_factor`` x 1.5 raise
+   before any launch; (19c) an 80-nt duplex across two faces of a periodic
+   box of 20 on ``PairSimulator`` (``space=spaces.periodic``), 50 steps at
+   kT 0 on the card and on the CPU (phase 15e's tolerance, on minimum-image
+   differences).
+
 With ``--against DIR`` (a checkout of another commit, e.g. the parent),
 phases 3 and 4 also build DIR's kernels and say whether its K1 gives this
 checkout's bits on their inputs, and its K2 this checkout's values within
@@ -249,9 +267,12 @@ PROFILE_STEPS = 10
 PER_STEP_WINDOW = PROFILE_STEPS
 #: phase 12: the reference's direct-differentiation configuration
 #: (benchmarks/RESULTS.md, "Direct differentiation"): 1,000 nt, 200 steps
-#: (cut to 80, 2 chunks, to make room for phase 17) after a 40-step
-#: warm-up; 40 per-step steps; 40 oxRNA2 steps (80 before phase 17)
+#: (cut to 80, 2 chunks, to make room for phase 17, then to 40, one
+#: chunk, for phase 19) after a 40-step warm-up; 40 per-step steps; 40
+#: oxRNA2 steps (80 before phase 17)
 DIRECT_N_BP, DIRECT_STEPS, DIRECT_WARM = 500, 80, 40
+#: the direct phases warm up on a duplex of this many bp (the same code paths at a tenth of the cost)
+DIRECT_WARM_BP = 50
 DIRECT_PER_STEP, DIRECT_RNA2_STEPS = 40, 40
 #: phase 14: the reference example's fit (examples/martini_bilayer_native.py:
 #: 5 Adam steps, each a 300-step NPT run of lattice_bilayer(4, 4, 2)), and
@@ -296,6 +317,11 @@ RNA2_DIFFTRE_MD, RNA2_DIFFTRE_SAVE = 400, 40
 NA1_SMALL_BP, NA1_SMALL_STEPS, NA1_SMALL_UPDATE = 40, 100, 10
 NA1_CMP_STEPS, NA1_CMP_UPDATE = 10, 5
 RNA2_PSEQ_STEPS, RNA2_PSEQ_SAVE = 40, 10
+#: phase 19: the low salt of the oxDNA2 stencil run (Debye r_cut 5.11
+#: against 2.29 at the default 0.5) and its steps; the periodic box (a
+#: cube) and the small-system steps in it
+SALT_LOW, SALT_STEPS = 0.1, 400
+BOX, BOX_STEPS = 20.0, 50
 
 
 def _events_ms(fn, reps: int) -> tuple[list[float], object]:
@@ -365,6 +391,25 @@ def _per_call(window: dict, launches: dict) -> float:
         hits = [(ms, c) for key, (ms, c) in window["kernels"].items() if frag in key]
         total += sum(ms for ms, _ in hits) / max(1, sum(c for _, c in hits)) * k
     return total
+
+
+def _device_ms(fn, reps: int, launches: dict, label: str, tries: int = 3) -> float:
+    """:func:`_per_call` of a :func:`_profiled` window of ``reps`` calls of
+    ``fn``, opening up to ``tries`` windows while one records no event of
+    the kernels (the profiler can drop a short window's kernel events late in
+    a long process); prints the kernels a window recorded where none of
+    these was among them. 0 where no window recorded one."""
+    for k in range(tries):
+        window = _profiled(fn, reps)
+        ms = _per_call(window, launches)
+        if ms > 0:
+            if k:
+                print(f"    {label}: device time from profiler window {k + 1} of {tries}")
+            return ms
+        print(f"    {label}: profiler window {k + 1} recorded no {sorted(launches)} event; kernels recorded: "
+              f"{sorted(key.split('(')[0] for key in window['kernels']) or 'none'}, host launches "
+              f"{window['launches']}")
+    return 0.0
 
 
 def _kernels_ms(window: dict, prefix: str) -> float:
@@ -889,7 +934,7 @@ def _k2_held(label: str, ctx, dyn, ptx: dict, site_cutoffs=None) -> dict:
     n = ctx.n
     k2_ms, k2 = _events_ms(lambda: st.field_grads(ctx, dyn), 20)
     det = torch.equal(k2, st.field_grads(ctx, dyn))
-    dev_ms = _per_call(_profiled(lambda: st.field_grads(ctx, dyn), 10), {"stencil_field_grads": 1})
+    dev_ms = _device_ms(lambda: st.field_grads(ctx, dyn), 10, {"stencil_field_grads": 1}, label)
     _, tally = st._field_grads(ctx, dyn, count=True)
     gate = st.band_gate_counts(ctx, dyn)
     tally_ok = sum(abs(tally[k] - gate[k]) for k in gate) <= 1e-4 * (gate["short"] + gate["debye"] + gate["skipped"])
@@ -1212,7 +1257,7 @@ def _direct(dev, smi: str) -> dict:
     forward on the card, their plain versions backward (the reference's
     custom-JVP rule). 12a the reference's own configuration at 1,000 nt
     (the propeller-twist loss through DIRECT_STEPS steps), timed after a
-    40-step warm-up; 12b 40 bp, one 40-step chunk at kT 0, card vs CPU, both
+    40-step warm-up on a DIRECT_WARM_BP duplex; 12b 40 bp, one 40-step chunk at kT 0, card vs CPU, both
     families; 12c the per-step branch at 1,000 nt with ``checkpoint_every``
     1 against 0; 12d oxRNA2 at 1,000 nt, DIRECT_RNA2_STEPS steps. Returns {"K1", "K2",
     "K1 rna2": launches of 12a/12d; "bwd_ms_chunk": 12a's backward a chunk}."""
@@ -1248,7 +1293,9 @@ def _direct(dev, smi: str) -> dict:
     n_nt = topology.n_nucleotides
     energy_fn, sim = build_sim(topology, KT, init_centers=body.center, init_orientation=body.orientation, device=dev)
     loss_fn = twist_loss(n_nt)
-    counted_eval(energy_fn, sim, body, DIRECT_WARM, 30, loss_fn)
+    warm_top, warm_body = synthetic_duplex(DIRECT_WARM_BP, dtype=torch.float32, device=dev)
+    counted_eval(*build_sim(warm_top, KT, init_centers=warm_body.center, init_orientation=warm_body.orientation,
+                            device=dev), warm_body, DIRECT_WARM, 30, twist_loss(warm_top.n_nucleotides))
     loss, g, t_f, t_b, fwd, bwd, mem = counted_eval(energy_fn, sim, body, DIRECT_STEPS, 31, loss_fn)
     g_max, n_nonzero, finite = _grad_summary(g)
     chunks = DIRECT_STEPS // sim.neighbor_update_every
@@ -1416,7 +1463,7 @@ def _block_direct(dev, smi: str) -> dict:
     d loss / d every ``opt_params`` tensor by ``loss.backward()``, K3 forward
     on the card through ``TileForces``, its plain version backward. 13a the
     1,000-nt duplex, the propeller-twist loss through DIRECT_STEPS steps after a
-    40-step warm-up, K3 launched as the same run without gradients does and
+    40-step warm-up on a DIRECT_WARM_BP duplex, K3 launched as the same run without gradients does and
     none backward; 13b 40 bp, 40 steps at kT 0, card vs CPU; 13c 1,000 nt,
     40 steps in 4 rebuild intervals, ``checkpoint_every`` 1 against 0; 13d
     the 10k-nt 270-degree arc of phase 7, 40 steps, a loss on the last
@@ -1451,7 +1498,10 @@ def _block_direct(dev, smi: str) -> dict:
     def run_with(p, n_steps, seed, s=sim):
         return lambda: s.run(p, body, n_steps, torch.Generator(device=dev).manual_seed(seed)).observables[0]
 
-    _grad_eval(run_with(leaves(energy_fn), DIRECT_WARM, 40), loss_fn, k3)
+    warm_top, warm_body = synthetic_duplex(DIRECT_WARM_BP, dtype=torch.float32, device=dev)
+    warm_e, warm_sim = build_sim(warm_top, KT, mode="block", init_centers=warm_body.center, device=dev)
+    _grad_eval(lambda: warm_sim.run(leaves(warm_e), warm_body, DIRECT_WARM, torch.Generator(device=dev).manual_seed(40))
+               .observables[0], twist_loss(warm_top.n_nucleotides), k3)
     p = leaves(energy_fn)
     r = _grad_eval(run_with(p, DIRECT_STEPS, 41), loss_fn, k3)
     g = _grads_of(p)
@@ -2697,6 +2747,148 @@ def _rna2_na1(dev, smi: str, ptx: dict) -> list[dict]:
              "plain_ms": statistics.median(k2r["plain_ms"]), "bound_ms": k2r["bound"][0],
              "bound_by": k2r["bound"][1], "library_ms": None}]
 
+def _salt_box(dev, smi: str, regs: list, ptx: dict, default: dict) -> dict:
+    """Phase 19: the energy constructors' options on the card. (19a) the
+    oxDNA2 stencil at 10k nt and salt 0.1, its band sized from the bound
+    energy (``per_term_site_cutoffs(energy_fn)``): K2 and one K1 chunk
+    against their plain versions at the wider band (phases 3 and 4's
+    rules), K2's tally against band_gate_counts, each one's device time
+    beside phase 3/4's at the default band (``default``: their readings,
+    ``w_wide`` and the main path's simulator), K2's shared memory and
+    registers, the recomputed bounds, then 400 steps through CudaSimulator
+    (counts zeroed before, read after); (19b) the main path's default-salt
+    band refuses a bound r_cut past its Debye reach before any launch;
+    (19c) an 80-nt duplex across two faces of a periodic box on the
+    small-system path, 50 kT-0 steps on the card against the CPU (phase
+    15e's tolerance). Returns the readings for the summary line."""
+    import torch
+
+    import mythos_tpu_torch.energy.dna2 as dna2
+    from mythos_tpu_torch import spaces
+    from mythos_tpu_torch.io.synthetic import synthetic_duplex
+    from mythos_tpu_torch.ops import stencil as st
+    from mythos_tpu_torch.rigid_body import RigidBody
+    from mythos_tpu_torch.simulators.cuda import CudaSimulator, PairSimulator
+    from mythos_tpu_torch.simulators.neighbors import (
+        NoNeighborList,
+        stencil_band_for_site_cutoffs,
+        strand_interleave_perm,
+    )
+
+    # 19a. salt 0.1 at 10k nt, the band from the bound energy
+    t0 = time.perf_counter()
+    top, body = synthetic_duplex(N_BP, dtype=torch.float32, device=dev)
+    energy_fn = dna2.create_default_energy_fn(top, overrides={"salt_conc": SALT_LOW}, device=dev)
+    band = stencil_band_for_site_cutoffs(top, dna2.per_term_site_cutoffs(energy_fn), body.center, body.orientation,
+                                         perm=strand_interleave_perm(top))
+    sim = CudaSimulator(energy_fn=energy_fn, band=band, dt=5e-3, kT=KT, gamma_t=KT / 2.5, gamma_r=KT / 7.5)
+    ctx = st.prepare_stencil_context(energy_fn, band, device=dev)
+    n, u = ctx.n, sim.neighbor_update_every
+    r_cut = float({type(fn).__name__: fn.params for fn in energy_fn.energy_fns}["Debye"].r_cut)
+    smem = st.field_grads_smem(ctx.w_wide)
+    # the opt-in limit of a block (torch's name for cudaDevAttrMaxSharedMemoryPerBlockOptin); the
+    # H100's 227 KB where this torch does not report it
+    smem_max = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 227 * 1024)
+    static = {}
+    for key in ("stencil_field_grads_kernel<0>", "k1_step_kernel<0>"):
+        line = next((ln for ln in regs if ln.startswith(key + ":")), "")
+        hit = re.search(r"(\d+) bytes smem", line)
+        static[key] = int(hit.group(1)) if hit else -1
+    print(f"[19a band] salt {SALT_LOW}: Debye r_cut {r_cut:.4f} (salt 0.5: 2.2867); w_terms={ctx.w_terms} "
+          f"w_wide={ctx.w_wide} (phase 3: {default['w_wide']}); K2's dynamic shared memory {smem} B a block "
+          f"(+{static['stencil_field_grads_kernel<0>']} B static; the card allows {smem_max} B a block); K1 "
+          f"static shared memory {static['k1_step_kernel<0>']} B")
+    if smem + max(0, static["stencil_field_grads_kernel<0>"]) > smem_max or bool(band.did_overflow):
+        raise SystemExit("19a: K2's shared memory passes the card's limit, or the salt band overflowed at its build")
+    dyn = torch.cat([ctx.to_slots(body.center.T), ctx.to_slots(body.orientation.T)]).contiguous()
+    k2r = _k2_held("19a K2 salt 0.1", ctx, dyn, ptx)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device=dev)
+    c = body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device=dev)
+    jit_body = RigidBody(c, q / q.norm(dim=-1, keepdim=True))
+    ou = st.ou_constants(sim.dt, sim.kT, [sim.mass], [sim.inertia], [sim.gamma_t], [sim.gamma_r]).vector(dev)
+    _, budget, det, _, k1_ms, _, state, noise = _k1_held("19a K1 salt 0.1", ctx, sim, jit_body, ou, gen)
+    if not (budget and det):
+        raise SystemExit("19a: K1 at the salt-0.1 band is outside the float32 budget of its plain version, "
+                         "or not deterministic")
+    k1_dev = _device_ms(lambda: st.multistep_chunk(ctx, ou, noise, state), 3, {"k1_step": u, "k1_entry": 1},
+                        "19a K1 salt 0.1")
+    k1_regs, k1_spill = ptx.get(_instance_key("k1_step", "dna2"), (0, -1))
+    tally = k2r["tally"]
+    k1_bound = _bound((19 + 20) * n * 4 + u * 6 * n * 2, u * (tally["short"] * FLOP_PAIR_GRAD + tally["debye"]
+                                                            * FLOP_DEBYE_GRAD + (n - 2) * FLOP_BOND_GRAD
+                                                            + n * FLOP_BODY_STEP))
+    print(f"[19a kernels] at w_wide {ctx.w_wide} (phase 3/4 at {default['w_wide']}): K2 {_dev(k2r['dev_ms'])} of "
+          f"device time a call (phase 3: {_dev(default['K2 dev_ms'])}), bound {k2r['bound'][0]:.5f} ms "
+          f"({k2r['bound'][1]}) "
+          f"from its tally {tally}; K1 {_dev(k1_dev)} a {u}-step chunk (phase 4: {_dev(default['K1 dev_ms'])}), "
+          f"{statistics.median(k1_ms):.3f} ms by events, bound {k1_bound[0]:.5f} ms ({k1_bound[1]}), "
+          f"{k1_regs} registers, {k1_spill} B spill stores (the same compiled kernel as phase 4's); on {smi}")
+    sim.run(energy_fn.opt_params(), body, u, torch.Generator(device=dev).manual_seed(41))
+    st.field_grads.launches = 0
+    st.multistep_chunk.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = sim.run(energy_fn.opt_params(), body, SALT_STEPS, torch.Generator(device=dev).manual_seed(42))
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t1
+    launches = {"K1": st.multistep_chunk.launches, "K2": st.field_grads.launches}
+    traj = out.observables[0]
+    finite = bool(torch.isfinite(traj.center).all() and torch.isfinite(traj.orientation).all())
+    overflow = bool(traj.metadata["neighbor_overflow"].any())
+    print(f"[19a run] {SALT_STEPS} steps at {n} nt, salt {SALT_LOW}: {el:.3f} s = {SALT_STEPS / el * 60.0:.1f} "
+          f"steps/min on {smi}; finite={finite} overflow={overflow} launches={launches}")
+    if not finite or overflow or launches != {"K1": SALT_STEPS // u, "K2": 1}:
+        raise SystemExit(f"19a: the salt-0.1 run gave a bad trajectory, overflowed, or missed the kernels: {launches}")
+
+    # 19b. a band sized at the default salt (the main path's) refuses a bound r_cut past its reach,
+    # before any launch
+    sim0 = default["sim"]
+    e0 = sim0.energy_fn
+    lam = e0.opt_params()["lambda_factor"]
+    st.field_grads.launches = st.multistep_chunk.launches = 0
+    refused = []
+    for label, call in (("prepare_stencil_context, salt 0.1",
+                         lambda: st.prepare_stencil_context(energy_fn, sim0.band, device=dev)),
+                        ("CudaSimulator.run, lambda_factor x 1.5",
+                         lambda: sim0.run(e0.opt_params() | {"lambda_factor": 1.5 * lam}, body, u,
+                                          torch.Generator(device=dev).manual_seed(43)))):
+        try:
+            call()
+        except ValueError as exc:
+            refused.append(f"{label}: {str(exc)[:90]}...")
+    none_launched = st.field_grads.launches == st.multistep_chunk.launches == 0
+    print(f"[19b guard] default band (w_wide {sim0.band.w_wide}): " + "; ".join(refused)
+          + f"; kernels launched: {not none_launched}")
+    if len(refused) != 2 or not none_launched:
+        raise SystemExit("19b: a band too narrow for the bound r_cut did not raise before any launch")
+
+    # 19c. the small-system path in a periodic box the duplex crosses: card vs CPU
+    def boxed(device):
+        t, b = synthetic_duplex(SMALL_BP, dtype=torch.float32, device=device)
+        shift = torch.tensor([BOX - 0.3, 0.5 * BOX, BOX - 0.5 * float(b.center[:, 2].max())], device=device)
+        space = spaces.periodic(BOX)
+        e = dna2.create_default_energy_fn(t, displacement_fn=space[0], device=device)
+        s_ = PairSimulator(energy_fn=e, neighbors=NoNeighborList(unbonded_nbrs=t.unbonded_neighbors), dt=5e-3,
+                           kT=0.0, space=space)
+        b = RigidBody(torch.remainder(b.center.to(torch.float32) + shift, BOX), b.orientation)
+        return s_.run(e.opt_params(), b, BOX_STEPS, torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    gpu, cpu = boxed(dev), boxed("cpu")
+    dc = torch.remainder(gpu.center.cpu() - cpu.center + 0.5 * BOX, BOX) - 0.5 * BOX
+    okc = bool((dc.abs() <= 1e-5 + 1e-4 * cpu.center.abs()).all())
+    okq, errq = _within(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
+    inside = bool(((gpu.center >= 0) & (gpu.center < BOX)).all())
+    print(f"[19c periodic] {2 * SMALL_BP} nt across two faces of a {BOX} box, {BOX_STEPS} steps at kT 0 on the pair "
+          f"list: card vs CPU center err {float(dc.abs().max()):.2e} (minimum image) quat err {errq:.2e}; states "
+          f"inside the box: {inside}")
+    if not (okc and okq and inside):
+        raise SystemExit("19c: the card's periodic trajectory disagrees with the CPU, or left the box")
+    seconds = time.perf_counter() - t0
+    _lap("19 salt, periodic box")
+    return {"w_wide": ctx.w_wide, "k2_dev_ms": k2r["dev_ms"], "k1_dev_ms": k1_dev, "seconds": seconds}
+
+
 def _against(root: str, ctx, dyn, ou, noise, state, k2, k1) -> None:
     """Build the kernels of the checkout at ``root`` and run its K2 and K1
     (oxDNA2) on phases 3 and 4's inputs: does its K1 give this checkout's
@@ -3200,6 +3392,12 @@ def main() -> int:
     pseq_records = _pseq(dev, smi, ptx)
     # 18. the XLA-only model paths: K2's rna2 pseq instance, the rna2 block tier and DiffTRe, na1
     pseq_records += _rna2_na1(dev, smi, ptx)
+    # 19. the constructors' options: K1 and K2 at the salt-0.1 band, the band guard, a periodic box
+    salt = _salt_box(dev, smi, regs, ptx, {"w_wide": ctx.w_wide, "K2 dev_ms": k2r["dev_ms"], "K1 dev_ms": k1_dev,
+                                           "sim": sim})
+    print(f"[19 summary] w_wide {salt['w_wide']} at salt {SALT_LOW} (phase 3: {ctx.w_wide}); K2 "
+          f"{_dev(salt['k2_dev_ms'])} (phase 3: {_dev(k2r['dev_ms'])}), K1 {_dev(salt['k1_dev_ms'])} a chunk "
+          f"(phase 4: {_dev(k1_dev)}); phase 19 took {salt['seconds']:.1f} s")
     print(f"[13-14 kernels] a 1,000-nt block grad evaluation of {DIRECT_STEPS} steps launched K3 "
           f"{block_direct['K3 fwd']} times "
           f"forward and {block_direct['K3 bwd']} backward (the plain version, {block_direct['bwd_s']:.3f} s); a "

@@ -3,9 +3,19 @@
 Counterpart of mythos_tpu/energy/base.py plus the parameter contract of
 mythos_tpu/energy/configuration.py (which imports chex, so it is ported
 here rather than shared): independent (required) params, non-optimizable
-params, dependent params re-derived by ``init_params()`` on tensors (so
-autograd sees the derivation), the ``opt_params`` filter with the ``OPT_ALL``
-wildcard, and ``with_params`` fanning a flat namespace out to every term.
+params (``with_noopt`` adds to them), dependent params re-derived by
+``init_params()`` on tensors (so autograd sees the derivation), the
+``opt_params`` filter with the ``OPT_ALL`` wildcard, ``with_params``
+fanning a flat namespace out to every term, and the composition API
+(``from_lists``, ``create_from``, ``+``, ``*``, ``without_terms``,
+``add_energy_fn``, ``add_composable_energy_fn``, ``params_dict``,
+``pair_cutoff``).
+
+Every term carries a ``displacement_fn`` (``spaces.free()``'s unless
+given; ``spaces.periodic(box)[0]`` for a periodic box), through which it
+forms every site difference: ``displacement(site_j, site_i)`` of an
+unbonded pair, ``displacement(site_i, site_j)`` of a bond, the
+reference's conventions (mythos_tpu/energy/dna1/geometry.py:11-12).
 """
 
 from __future__ import annotations
@@ -15,6 +25,9 @@ from collections.abc import Callable
 
 import numpy as np
 import torch
+
+from mythos_tpu_torch import spaces
+from mythos_tpu_torch.soa import Vec3
 
 ERR_MISSING_REQUIRED_PARAMS = "Required properties {props} are not initialized."
 ERR_OPT_DEPENDENT_PARAMS = "Only {req_params} permitted for optimization, but found {given_params}"
@@ -38,12 +51,15 @@ class BaseConfiguration:
     optional_params: tuple[str, ...] = ()
     OPT_ALL: tuple[str, ...] = ("*",)
 
-    def __init__(self, params_to_optimize: tuple[str, ...] = (), **values) -> None:
+    def __init__(self, params_to_optimize: tuple[str, ...] = (), non_optimizable_required_params=None,
+                 **values) -> None:
         unknown = set(values) - set(self.fields())
         if unknown:
             raise TypeError(f"{type(self).__name__} has no parameters {sorted(unknown)}")
         self.__dict__["_values"] = dict(values)
         self.__dict__["params_to_optimize"] = tuple(params_to_optimize)
+        if non_optimizable_required_params is not None:  # with_noopt's, over the class's
+            self.__dict__["non_optimizable_required_params"] = tuple(non_optimizable_required_params)
         missing = [p for p in self.required_params if values.get(p) is None]
         if missing:
             raise ValueError(ERR_MISSING_REQUIRED_PARAMS.format(props=",".join(missing)))
@@ -75,7 +91,25 @@ class BaseConfiguration:
         return name in type(self).fields()
 
     def replace(self, **values) -> "BaseConfiguration":
-        return type(self)(self.params_to_optimize, **{**self._values, **values})
+        return type(self)(self.params_to_optimize, self.__dict__.get("non_optimizable_required_params"),
+                          **{**self._values, **values})
+
+    def with_noopt(self, *params: str) -> "BaseConfiguration":
+        """A copy with ``params`` added to the non-optimizable ones."""
+        noopt = tuple(dict.fromkeys((*self.non_optimizable_required_params, *params)))
+        return type(self)(self.params_to_optimize, noopt, **self._values)
+
+    def to_dictionary(self, *, include_dependent: bool, exclude_non_optimizable: bool) -> dict:
+        """The required parameters (with ``include_dependent`` the derived
+        ones too), less the non-optimizable ones with
+        ``exclude_non_optimizable``, as a flat dict."""
+        params = {k: self._values.get(k) for k in self.required_params}
+        if include_dependent:
+            params |= {k: self._values[k] for k in self.dependent_params if self._values.get(k) is not None}
+        if exclude_non_optimizable:
+            for k in self.non_optimizable_required_params:
+                params.pop(k, None)
+        return params
 
     def __or__(self, other: dict) -> "BaseConfiguration":
         return self.replace(**other)
@@ -156,10 +190,39 @@ class BaseEnergyFunction:
 
     _PROPS = ("unbonded_neighbors", "dense_mask", "block_ids", "block_size", "block_perm")
 
-    def __init__(self, params: BaseConfiguration, topology, transform_fn: Callable) -> None:
+    def __init__(self, params: BaseConfiguration, topology, transform_fn: Callable,
+                 displacement_fn: Callable | None = None) -> None:
         self.params = params
         self.topology = topology
         self.transform_fn = transform_fn
+        self.displacement_fn = spaces.free()[0] if displacement_fn is None else displacement_fn
+
+    @property
+    def disp(self) -> Callable:
+        """``displacement_fn`` over Vec3 fields: ``a - b`` in free space,
+        else the (..., 3) displacement of the stacked components."""
+        return vec3_displacement(self.displacement_fn)
+
+    @classmethod
+    def create_from(cls, other: "BaseEnergyFunction", **kwargs) -> "BaseEnergyFunction":
+        """A term of this class with ``other``'s parameters, topology,
+        transform, displacement and properties, ``kwargs`` replacing any."""
+        fields = {k: getattr(other, k) for k in ("params", "topology", "transform_fn", "displacement_fn")}
+        props = {k: getattr(other, k) for k in cls._PROPS}
+        new = cls(**(fields | {k: v for k, v in kwargs.items() if k in fields}))
+        return new.with_props(**(props | {k: v for k, v in kwargs.items() if k in props}))
+
+    def __add__(self, other: "BaseEnergyFunction") -> "ComposedEnergyFunction":
+        if not isinstance(other, BaseEnergyFunction):
+            return NotImplemented
+        return ComposedEnergyFunction([self, other])
+
+    def __mul__(self, other: float) -> "ComposedEnergyFunction":
+        if not isinstance(other, (float, int)):
+            return NotImplemented
+        return ComposedEnergyFunction([self], weights=torch.tensor([float(other)], dtype=torch.float64))
+
+    __rmul__ = __mul__
 
     def with_props(self, **props) -> "BaseEnergyFunction":
         """A copy with any of ``unbonded_neighbors``, ``dense_mask``,
@@ -230,8 +293,36 @@ class BaseEnergyFunction:
         new.params = (self.params | values).init_params()
         return new
 
+    def with_noopt(self, *params: str) -> "BaseEnergyFunction":
+        """A copy with ``params`` marked non-optimizable (dropped from
+        ``opt_params``)."""
+        new = copy.copy(self)
+        new.params = self.params.with_noopt(*params)
+        return new
+
+    def params_dict(self, include_dependent: bool = True, exclude_non_optimizable: bool = False) -> dict:
+        return self.params.to_dictionary(include_dependent=include_dependent,
+                                         exclude_non_optimizable=exclude_non_optimizable)
+
+    def pair_cutoff(self) -> float | None:
+        """The site distance beyond which every pair energy is zero (None:
+        not an unbonded pair term)."""
+        return None
+
     def compute_energy(self, nucleotide) -> torch.Tensor:
         raise NotImplementedError
+
+
+def vec3_displacement(displacement_fn: Callable) -> Callable:
+    """The Vec3 form of a displacement over (..., 3) tensors (spaces.free,
+    spaces.periodic): plain subtraction where it is free space."""
+    if getattr(displacement_fn, "is_periodic", True) is False:
+        return Vec3.__sub__
+
+    def disp(a: Vec3, b: Vec3) -> Vec3:
+        return Vec3(*displacement_fn(torch.stack(tuple(a), -1), torch.stack(tuple(b), -1)).unbind(-1))
+
+    return disp
 
 
 class ComposedEnergyFunction:
@@ -255,8 +346,66 @@ class ComposedEnergyFunction:
         fields = {"energy_fns": self.energy_fns, "weights": self.weights, "map_neighbors": self.map_neighbors}
         return ComposedEnergyFunction(**(fields | kw))
 
+    @classmethod
+    def from_lists(cls, energy_fns: list[type], energy_configs: list[BaseConfiguration], weights=None,
+                   **kwargs) -> "ComposedEnergyFunction":
+        """Each term class with its configuration, derived, and the shared
+        ``kwargs`` (``topology``, ``transform_fn``, ``displacement_fn``);
+        weights default to ones, as the reference's."""
+        weights = torch.ones(len(energy_fns), dtype=torch.float64) if weights is None else weights
+        fns = [ef(ec.init_params(), **kwargs) for ef, ec in zip(energy_fns, energy_configs, strict=True)]
+        return cls(fns, weights=torch.as_tensor(weights))
+
     def opt_params(self) -> dict:
         return {k: v for fn in self.energy_fns for k, v in fn.opt_params().items()}
+
+    def with_noopt(self, *params: str) -> "ComposedEnergyFunction":
+        """Every member with those of ``params`` it has marked non-optimizable."""
+        return self.replace(energy_fns=[fn.with_noopt(*(p for p in params if p in fn.params))
+                                        for fn in self.energy_fns])
+
+    def params_dict(self, *, include_dependent: bool = True, exclude_non_optimizable: bool = False) -> dict:
+        return {k: v for fn in self.energy_fns
+                for k, v in fn.params_dict(include_dependent, exclude_non_optimizable).items()}
+
+    def pair_cutoff(self) -> float | None:
+        """The largest member cutoff (None when no member is an unbonded pair term)."""
+        cutoffs = [c for fn in self.energy_fns if (c := fn.pair_cutoff()) is not None]
+        return max(cutoffs) if cutoffs else None
+
+    def without_terms(self, *terms) -> "ComposedEnergyFunction":
+        """The members that are none of ``terms`` (classes or class names), with their weights."""
+        keep = [k for k, fn in enumerate(self.energy_fns) if type(fn) not in terms and type(fn).__name__ not in terms]
+        weights = None if self.weights is None else torch.as_tensor(self.weights)[keep]
+        return self.replace(energy_fns=[self.energy_fns[k] for k in keep], weights=weights)
+
+    def add_energy_fn(self, energy_fn: BaseEnergyFunction, weight: float = 1.0) -> "ComposedEnergyFunction":
+        """This sum with one more term (of ``weight``)."""
+        n = len(self.energy_fns)
+        if self.weights is None:
+            weights = None if weight == 1.0 else torch.tensor([1.0] * n + [weight], dtype=torch.float64)
+        else:
+            weights = torch.cat([torch.as_tensor(self.weights, dtype=torch.float64),
+                                 torch.tensor([weight], dtype=torch.float64)])
+        return ComposedEnergyFunction([*self.energy_fns, energy_fn], weights=weights)
+
+    def add_composable_energy_fn(self, energy_fn: "ComposedEnergyFunction") -> "ComposedEnergyFunction":
+        """The two sums' members in one, their weights merged (ones where one has none)."""
+        if self.weights is None and energy_fn.weights is None:
+            weights = None
+        else:
+            weights = torch.cat([torch.ones(len(c.energy_fns), dtype=torch.float64) if c.weights is None
+                                 else torch.as_tensor(c.weights, dtype=torch.float64) for c in (self, energy_fn)])
+        return ComposedEnergyFunction(self.energy_fns + energy_fn.energy_fns, weights=weights)
+
+    def __add__(self, other) -> "ComposedEnergyFunction":
+        if isinstance(other, ComposedEnergyFunction):
+            return self.add_composable_energy_fn(other)
+        if isinstance(other, BaseEnergyFunction):
+            return self.add_energy_fn(other)
+        return NotImplemented
+
+    __radd__ = __add__
 
     def with_props(self, **props) -> "ComposedEnergyFunction":
         """Every member with ``unbonded_neighbors``/``dense_mask`` set
@@ -315,7 +464,9 @@ class ComposedEnergyFunction:
 
     def __call__(self, body) -> torch.Tensor:
         vals = self.compute_terms(body)
-        return vals.sum() if self.weights is None else (self.weights * vals).sum()
+        if self.weights is None:
+            return vals.sum()
+        return (torch.as_tensor(self.weights).to(device=vals.device, dtype=vals.dtype) * vals).sum()
 
     def map(self, states) -> torch.Tensor:
         """(S,) energies of stacked states (``center`` (S, N, 3),

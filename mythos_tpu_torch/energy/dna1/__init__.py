@@ -9,7 +9,7 @@ package, read in place), and the pieces oxDNA2 and oxRNA2 share with it
 
 Every tier of the port runs it: the pair list and the dense (N, N) masks
 (``create_default_energy_fn(dense_unbonded=True)``; simulators.cuda.
-PairSimulator), the banded stencil (K1, K2), the block tier on a
+PairSimulator, also in a periodic box: ``displacement_fn``), the banded stencil (K1, K2), the block tier on a
 one-level table (K3), and the DiffTRe re-evaluation on that table
 (``ComposedEnergyFunction.map`` with ``map_neighbors``: K4, backward K5).
 """
@@ -17,12 +17,18 @@ one-level table (K3), and the DiffTRe re-evaluation on that table
 from __future__ import annotations
 
 import functools
+from types import MappingProxyType
 
-import numpy as np
 import torch
 
 from mythos_tpu_torch.energy.base import BaseConfiguration, ComposedEnergyFunction
-from mythos_tpu_torch.energy.defaults import default_configs_for
+from mythos_tpu_torch.energy.defaults import (
+    cast_params,
+    default_configs_for,
+    pair_cutoffs,
+    term_params,
+    unbonded_site_cutoffs,
+)
 from mythos_tpu_torch.energy.dna1.nucleotide import Nucleotide, NucleotideSoA
 from mythos_tpu_torch.energy.dna1.terms import (
     BondedExcludedVolume,
@@ -59,30 +65,38 @@ def default_geometry() -> dict[str, float]:
     return {k: float(cfg["geometry"][k]) for k in GEOMETRY_KEYS}
 
 
-def _cast(values: dict, dtype, device) -> dict:
-    return {k: torch.as_tensor(np.asarray(v, np.float64), dtype=dtype, device=device) for k, v in values.items()}
-
-
 def default_energy_configs(
-    dtype: torch.dtype = torch.float32, device: torch.device | str = "cpu"
+    overrides: dict = MappingProxyType({}),
+    opts: dict = MappingProxyType({}),
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
 ) -> list[BaseConfiguration]:
-    """Default per-term configurations (same order as default_energy_fns);
-    stacking optimises its TOML parameters, its ``kt`` stays fixed."""
+    """Per-term configurations (the order of default_energy_fns), with the
+    reference's merge rules (mythos_tpu/energy/dna1/__init__.py:41-72):
+    ``overrides[term]`` merges over that term's defaults, ``overrides``'
+    ``kT`` goes to stacking (else the simulation default); ``opts[term]``
+    names the parameters a fit moves (default: all, but stacking's ``kT``
+    and ``ss_stack_weights``: its ``kt`` stays fixed)."""
     sim, cfg = default_configs()
 
     def param(x: str) -> dict:
-        return _cast(cfg[x], dtype, device)
+        return cast_params(cfg[x] | overrides.get(x, {}), dtype, device)
 
-    all_ = BaseConfiguration.OPT_ALL
+    def get_opts(x: str, defaults: tuple[str, ...] = BaseConfiguration.OPT_ALL) -> tuple[str, ...]:
+        return tuple(opts.get(x, defaults))
+
     stacking_opts = tuple(set(cfg["stacking"]) - {"kT", "ss_stack_weights"})
+    kt = cast_params({"kt": overrides.get("kT", sim["kT"])}, dtype, device)
     return [
-        FeneConfiguration.from_dict(param("fene"), all_),
-        BondedExcludedVolumeConfiguration.from_dict(param("bonded_excluded_volume"), all_),
-        StackingConfiguration.from_dict(param("stacking") | _cast({"kt": sim["kT"]}, dtype, device), stacking_opts),
-        UnbondedExcludedVolumeConfiguration.from_dict(param("unbonded_excluded_volume"), all_),
-        HydrogenBondingConfiguration.from_dict(param("hydrogen_bonding"), all_),
-        CrossStackingConfiguration.from_dict(param("cross_stacking"), all_),
-        CoaxialStackingConfiguration.from_dict(param("coaxial_stacking"), all_),
+        FeneConfiguration.from_dict(param("fene"), get_opts("fene")),
+        BondedExcludedVolumeConfiguration.from_dict(param("bonded_excluded_volume"),
+                                                    get_opts("bonded_excluded_volume")),
+        StackingConfiguration.from_dict(param("stacking") | kt, get_opts("stacking", stacking_opts)),
+        UnbondedExcludedVolumeConfiguration.from_dict(param("unbonded_excluded_volume"),
+                                                      get_opts("unbonded_excluded_volume")),
+        HydrogenBondingConfiguration.from_dict(param("hydrogen_bonding"), get_opts("hydrogen_bonding")),
+        CrossStackingConfiguration.from_dict(param("cross_stacking"), get_opts("cross_stacking")),
+        CoaxialStackingConfiguration.from_dict(param("coaxial_stacking"), get_opts("coaxial_stacking")),
     ]
 
 
@@ -107,25 +121,29 @@ def default_transform_soa_fn():
 
 def create_default_energy_fn(
     topology,
+    displacement_fn=None,
+    dense_unbonded: bool = False,
+    overrides: dict = MappingProxyType({}),
+    opts: dict = MappingProxyType({}),
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
-    dense_unbonded: bool = False,
 ) -> ComposedEnergyFunction:
-    """The full default oxDNA1 composed energy function for a topology, its
+    """The full oxDNA1 composed energy function for a topology, its
     parameters on ``device`` (the card unless the caller asks for the CPU).
 
-    ``dense_unbonded=True`` evaluates the unbonded terms over the dense
-    (N, N) mask of ``simulators.neighbors.dense_pair_mask`` (pair it with
-    ``DensePairs``), as the reference's; otherwise over the topology's
-    pair list. The block and stencil tiers take the pair-list energy and
-    carry their own tables."""
+    ``displacement_fn``: every term's (``spaces.free()``'s when None;
+    ``spaces.periodic(box)[0]`` for a periodic box, which the small-system
+    path takes). ``dense_unbonded=True`` evaluates the unbonded terms over
+    the dense (N, N) mask of ``simulators.neighbors.dense_pair_mask`` (pair
+    it with ``DensePairs``), as the reference's; otherwise over the
+    topology's pair list. The block and stencil tiers take the pair-list
+    energy and carry their own tables. ``overrides``/``opts``:
+    :func:`default_energy_configs`'."""
     device = devices.resolve(device)
-    transform = default_transform_soa_fn()
-    fns = [
-        cls(cfg.init_params(), topology, transform)
-        for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype, device), strict=True)
-    ]
-    energy = ComposedEnergyFunction(fns)
+    energy = ComposedEnergyFunction([
+        cls(cfg.init_params(), topology, default_transform_soa_fn(), displacement_fn)
+        for cls, cfg in zip(default_energy_fns(), default_energy_configs(overrides, opts, dtype, device), strict=True)
+    ])
     return energy.with_props(dense_mask=dense_pair_mask(topology)) if dense_unbonded else energy
 
 
@@ -135,36 +153,28 @@ def max_site_offset() -> float:
     return max(abs(v) for v in default_geometry().values())
 
 
-def _pair_cutoffs() -> dict[str, float]:
-    """Site-level cutoff of each unbonded term (float64 derivation)."""
-    p = {
-        cls.__name__: cfg.init_params()
-        for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype=torch.float64), strict=True)
-    }
-    px = p["UnbondedExcludedVolume"]
-    return {
-        "UnbondedExcludedVolume": float(max(px.dr_c_base, px.dr_c_back_base, px.dr_c_base_back, px.dr_c_backbone)),
-        "HydrogenBonding": float(p["HydrogenBonding"].dr_c_high_hb),
-        "CrossStacking": float(p["CrossStacking"].dr_c_high_cross),
-        "CoaxialStacking": float(p["CoaxialStacking"].dr_c_high_coax),
-    }
+def _site_terms(energy_fn=None) -> dict:
+    """The unbonded terms' site cutoffs: ``energy_fn``'s bound ones, or the defaults'."""
+    return unbonded_site_cutoffs(term_params(energy_fn, default_energy_fns(), default_energy_configs))
 
 
-def default_neighbor_cutoff() -> float:
-    """COM-distance cutoff covering every unbonded term of the default model
+def default_neighbor_cutoff(energy_fn=None) -> float:
+    """COM-distance cutoff covering every unbonded term of ``energy_fn`` (a
+    composed energy, its bound parameters) or of the default model
     (mythos_tpu.energy.dna1.default_neighbor_cutoff)."""
-    return max(_pair_cutoffs().values()) + 2.0 * max_site_offset()
+    return max(pair_cutoffs(_site_terms(energy_fn)).values()) + 2.0 * max_site_offset()
 
 
-def per_term_neighbor_cutoffs() -> dict[str, float]:
+def per_term_neighbor_cutoffs(energy_fn=None) -> dict[str, float]:
     """COM-distance cutoff of each unbonded term (no Debye-Hueckel: every
     term is short-range)."""
-    return {nm: c + 2.0 * max_site_offset() for nm, c in _pair_cutoffs().items()}
+    return {nm: c + 2.0 * max_site_offset() for nm, c in pair_cutoffs(_site_terms(energy_fn)).items()}
 
 
-def per_term_site_cutoffs() -> dict:
-    """SITE-level radial supports per unbonded term (float64 derivation):
-    one backbone site on a1 and no Debye term. Same contract as
+def per_term_site_cutoffs(energy_fn=None) -> dict:
+    """SITE-level radial supports per unbonded term, ``energy_fn``'s bound
+    ones or (None) the defaults' (float64 derivation): one backbone site on
+    a1 and no Debye term. Same contract as
     mythos_tpu.energy.dna1.per_term_site_cutoffs; feeds
     simulators.neighbors.stencil_band_for_site_cutoffs."""
     g = default_geometry()
@@ -173,22 +183,7 @@ def per_term_site_cutoffs() -> dict:
         "base": (g["com_to_hb"], 0.0),
         "stack": (g["com_to_stacking"], 0.0),
     }
-    params = {
-        cls.__name__: cfg.init_params()
-        for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype=torch.float64), strict=True)
-    }
-    px = params["UnbondedExcludedVolume"]
-    terms = {
-        "UnbondedExcludedVolume": (
-            ("base", "base", float(px.dr_c_base)),
-            ("back", "base", max(float(px.dr_c_back_base), float(px.dr_c_base_back))),
-            ("back", "back", float(px.dr_c_backbone)),
-        ),
-        "HydrogenBonding": (("base", "base", float(params["HydrogenBonding"].dr_c_high_hb)),),
-        "CrossStacking": (("base", "base", float(params["CrossStacking"].dr_c_high_cross)),),
-        "CoaxialStacking": (("stack", "stack", float(params["CoaxialStacking"].dr_c_high_coax)),),
-    }
-    return {"sites": sites, "terms": terms}
+    return {"sites": sites, "terms": _site_terms(energy_fn)}
 
 
 __all__ = [

@@ -6,9 +6,10 @@ One set of formulas serves both evaluation paths of the port: the
 pair-list reference (``safe_arccos``) and the stencil band twin
 (``arccos_poly``, as the kernels use).
 
-Pair-direction conventions (as in the reference):
-* bonded pairs:   dr_site = site[i] - site[j]  (i the 3'-side)
-* unbonded pairs: dr_site = site[j] - site[i]
+Pair-direction conventions (as in the reference), ``disp`` the term's
+displacement over Vec3 fields (plain subtraction in free space):
+* bonded pairs:   dr_site = disp(site[i], site[j])  (i the 3'-side)
+* unbonded pairs: dr_site = disp(site[j], site[i])
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ class BondedGeometry(NamedTuple):
     cosphi2: torch.Tensor
 
 
-def unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos):
-    dr = base_j - base_i
+def unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos, disp=Vec3.__sub__):
+    dr = disp(base_j, base_i)
     r = vnorm(dr)
     inv_r = 1.0 / r
     return UnbondedGeometry(
@@ -73,13 +74,14 @@ def unbonded_geometry_vec(base_i, base_j, a1_i, a1_j, n_i, n_j, arccos=safe_arcc
     )
 
 
-def coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos, back_i=None, back_j=None):
-    dr = stack_j - stack_i
+def coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos, back_i=None, back_j=None,
+                      disp=Vec3.__sub__):
+    dr = disp(stack_j, stack_i)
     r = vnorm(dr)
     u = dr * (1.0 / r)
     cosphi3 = cosphi4 = None
     if back_i is not None:
-        db = back_j - back_i
+        db = disp(back_j, back_i)
         ub = db * (1.0 / vnorm(db))
         cosphi3, cosphi4 = vdot(u, vcross(ub, a1_j)), vdot(u, vcross(ub, a1_i))
     return CoaxGeometry(
@@ -93,11 +95,12 @@ def coax_geometry_vec(stack_i, stack_j, a1_i, a1_j, n_i, n_j, arccos=safe_arccos
     )
 
 
-def bonded_geometry_vec(back_i, back_j, stack_i, stack_j, n_i, n_j, a2_i, a2_j, arccos=safe_arccos):
+def bonded_geometry_vec(back_i, back_j, stack_i, stack_j, n_i, n_j, a2_i, a2_j, arccos=safe_arccos,
+                        disp=Vec3.__sub__):
     """Stacking geometry of bonded pairs (``back`` = the stacking cosphi site)."""
-    dr_back = back_i - back_j
+    dr_back = disp(back_i, back_j)
     inv_rb = 1.0 / vnorm(dr_back)
-    dr_stack = stack_i - stack_j
+    dr_stack = disp(stack_i, stack_j)
     r_stack = vnorm(dr_stack)
     inv_rs = 1.0 / r_stack
     return BondedGeometry(

@@ -85,7 +85,7 @@ class Fene(_BondedPairs):
     def bond_energies(self, nuc) -> torch.Tensor:
         i, j = self.bond_index(nuc.back.x.device)
         p = self.params
-        r = vnorm(geom.gather(nuc.back, i) - geom.gather(nuc.back, j), 0.0)
+        r = vnorm(self.disp(geom.gather(nuc.back, i), geom.gather(nuc.back, j)), 0.0)
         return v_fene_smooth(r, p.eps_backbone, p.r0_backbone, p.delta_backbone, p.fmax, p.finf)
 
 
@@ -126,11 +126,11 @@ class BondedExcludedVolume(_BondedPairs):
         i, j = self.bond_index(nuc.back.x.device)
         base_i, base_j = geom.gather(nuc.base, i), geom.gather(nuc.base, j)
         back_i, back_j = geom.gather(nuc.back, i), geom.gather(nuc.back, j)
-        p = self.params
+        p, disp = self.params, self.disp
         return (
-            exc_family(p, "base", vnorm(base_i - base_j))
-            + exc_family(p, "back_base", vnorm(back_i - base_j))
-            + exc_family(p, "base_back", vnorm(base_i - back_j))
+            exc_family(p, "base", vnorm(disp(base_i, base_j)))
+            + exc_family(p, "back_base", vnorm(disp(back_i, base_j)))
+            + exc_family(p, "base_back", vnorm(disp(base_i, back_j)))
         )
 
 
@@ -217,12 +217,13 @@ class UnbondedExcludedVolume(_UnbondedPairs):
         return float(max(p.dr_c_base, p.dr_c_back_base, p.dr_c_base_back, p.dr_c_backbone))
 
     def pair_energies(self, si, sj) -> torch.Tensor:
+        disp = self.disp
         return unbonded_exc(
             self.params,
-            vnorm(sj.base - si.base),
-            vnorm(sj.base - si.back),
-            vnorm(sj.back - si.base),
-            vnorm(sj.back - si.back),
+            vnorm(disp(sj.base, si.base)),
+            vnorm(disp(sj.base, si.back)),
+            vnorm(disp(sj.back, si.base)),
+            vnorm(disp(sj.back, si.back)),
         )
 
 
@@ -324,7 +325,7 @@ class Stacking(_BondedPairs):
             geom.gather(back, i), geom.gather(back, j),
             geom.gather(nuc.stack, i), geom.gather(nuc.stack, j),
             geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
-            geom.gather(nuc.a2, i), geom.gather(nuc.a2, j),
+            geom.gather(nuc.a2, i), geom.gather(nuc.a2, j), disp=self.disp,
         )
         p = self.params
         if p.pseq is not None:
@@ -411,7 +412,7 @@ class HydrogenBonding(_UnbondedPairs):
         return float(self.params.dr_c_high_hb)
 
     def pair_energies(self, si, sj) -> torch.Tensor:
-        g = geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3)
+        g = geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3, disp=self.disp)
         return self.weights(si.idx, sj.idx) * hb_product(self.params, g)
 
 
@@ -474,7 +475,8 @@ class CrossStacking(_UnbondedPairs):
         return float(self.params.dr_c_high_cross)
 
     def pair_energies(self, si, sj) -> torch.Tensor:
-        return cross_product(self.params, geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3))
+        return cross_product(self.params, geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3,
+                                                                     disp=self.disp))
 
 
 # Coaxial stacking ------------------------------------------------------------------
@@ -545,5 +547,6 @@ class CoaxialStacking(_UnbondedPairs):
         return float(self.params.dr_c_high_coax)
 
     def pair_energies(self, si, sj) -> torch.Tensor:
-        g = geom.coax_geometry_vec(si.stack, sj.stack, si.a1, sj.a1, si.a3, sj.a3, back_i=si.back, back_j=sj.back)
+        g = geom.coax_geometry_vec(si.stack, sj.stack, si.a1, sj.a1, si.a3, sj.a3, back_i=si.back, back_j=sj.back,
+                                   disp=self.disp)
         return coax_product(self.params, g)

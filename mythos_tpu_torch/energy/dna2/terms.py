@@ -85,7 +85,8 @@ class CoaxialStacking(t1._UnbondedPairs):
         return float(self.params.dr_c_high_coax)
 
     def pair_energies(self, si, sj) -> torch.Tensor:
-        return coax_value(self.params, geom.coax_geometry_vec(si.stack, sj.stack, si.a1, sj.a1, si.a3, sj.a3))
+        return coax_value(self.params, geom.coax_geometry_vec(si.stack, sj.stack, si.a1, sj.a1, si.a3, sj.a3,
+                                                              disp=self.disp))
 
 
 def debye_potential(r, kappa, prefactor, smoothing_coeff, r_cut, r_high):
@@ -104,7 +105,10 @@ class DebyeConfiguration(BaseConfiguration):
     dependent_params = ("lambda_", "kappa", "r_high", "prefactor", "smoothing_coeff", "r_cut")
 
     def derive(self) -> dict:
-        lambda_ = self.lambda_factor * torch.sqrt(self.kt / 0.1) / torch.sqrt(self.salt_conc)
+        # kt and salt may come as Python floats (with_params(salt_conc=0.1))
+        kt, salt = (torch.as_tensor(v, dtype=self.lambda_factor.dtype, device=self.lambda_factor.device)
+                    for v in (self.kt, self.salt_conc))
+        lambda_ = self.lambda_factor * torch.sqrt(kt / 0.1) / torch.sqrt(salt)
         r_high = 3.0 * lambda_
         prefactor = self.prefactor_coeff * self.q_eff**2
         smoothing_coeff = -(torch.exp(-r_high / lambda_) * prefactor * (r_high + lambda_) ** 2) / (
@@ -135,6 +139,6 @@ class Debye(t1._UnbondedPairs):
         return float(self.params.r_cut)
 
     def pair_energies(self, si, sj) -> torch.Tensor:
-        r = vnorm(sj.back - si.back)
+        r = vnorm(self.disp(sj.back, si.back))
         qf = self.charge_factors(r)
         return debye_of(self.params, r) * qf[si.idx] * qf[sj.idx]

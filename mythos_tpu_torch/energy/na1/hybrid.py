@@ -80,7 +80,8 @@ def make_hybrid_configuration(
 
 class _HybridTerm(BaseEnergyFunction):
     """What every hybrid term shares: its sub-terms, one a prefix, built from
-    the derived sub-configurations (kept until the parameters change)."""
+    the derived sub-configurations (kept until the parameters change), with
+    the term's displacement."""
 
     subspecs: dict = {}
 
@@ -88,7 +89,7 @@ class _HybridTerm(BaseEnergyFunction):
         subs = self.__dict__.setdefault("_subs", {})
         if prefix not in subs:
             term_cls = self.subspecs[prefix][0]
-            subs[prefix] = term_cls(getattr(self.params, f"{prefix}_config"), self.topology, None)
+            subs[prefix] = term_cls(getattr(self.params, f"{prefix}_config"), self.topology, None, self.displacement_fn)
         return subs[prefix]
 
     def with_params(self, **values) -> "BaseEnergyFunction":

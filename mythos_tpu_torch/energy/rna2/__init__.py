@@ -4,19 +4,27 @@ oxRNA2 composes dna1's FENE, excluded volumes, hydrogen bonding and
 coaxial stacking with its own stacking and cross stacking and dna2's
 Debye-Hueckel, under the rna2 defaults (the data TOML of the JAX package,
 read in place; it ships no simulation defaults, so kT 296.15 K x 0.1 / 300,
-salt 1.0 and no half-charged ends are the package's).
+salt 1.0 and no half-charged ends are the package's, which ``overrides``
+replaces as the reference's does).
 """
 
 from __future__ import annotations
 
 import functools
+from types import MappingProxyType
 
 import numpy as np
 import torch
 
 from mythos_tpu_torch.energy.base import BaseConfiguration, ComposedEnergyFunction
 from mythos_tpu_torch.energy.blocks import n_blocks_for
-from mythos_tpu_torch.energy.defaults import default_configs_for
+from mythos_tpu_torch.energy.defaults import (
+    cast_params,
+    default_configs_for,
+    pair_cutoffs,
+    term_params,
+    unbonded_site_cutoffs,
+)
 from mythos_tpu_torch.energy.dna1.terms import (
     BondedExcludedVolume,
     BondedExcludedVolumeConfiguration,
@@ -29,7 +37,6 @@ from mythos_tpu_torch.energy.dna1.terms import (
     UnbondedExcludedVolume,
     UnbondedExcludedVolumeConfiguration,
 )
-from mythos_tpu_torch.energy.dna2 import _cast
 from mythos_tpu_torch.energy.dna2.terms import Debye, DebyeConfiguration
 from mythos_tpu_torch.energy.rna2.nucleotide import NucleotideSoA
 from mythos_tpu_torch.energy.rna2.terms import (
@@ -38,8 +45,11 @@ from mythos_tpu_torch.energy.rna2.terms import (
     Stacking,
     StackingConfiguration,
 )
+from mythos_tpu_torch.simulators.neighbors import dense_pair_mask
 from mythos_tpu_torch.utils import devices
 
+#: the defaults of kT and salt where ``overrides`` sets none (the package
+#: ships no simulation TOML; the reference's _DEFAULT_KT and _DEFAULT_SALT)
 KT = 296.15 * 0.1 / 300.0
 SALT_CONC = 1.0
 
@@ -68,26 +78,43 @@ def geometry() -> dict[str, float]:
 
 
 def default_energy_configs(
-    dtype: torch.dtype = torch.float32, device: torch.device | str = "cpu"
+    overrides: dict = MappingProxyType({}),
+    opts: dict = MappingProxyType({}),
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
 ) -> list[BaseConfiguration]:
-    """Default per-term configurations (same order as default_energy_fns)."""
+    """Per-term configurations (the order of default_energy_fns), with the
+    reference's merge rules (mythos_tpu/energy/rna2/__init__.py:120-163):
+    ``overrides[term]`` merges over that term's defaults; ``overrides``'
+    ``kT`` goes to stacking and Debye-Hueckel, its ``salt_conc`` and
+    ``half_charged_ends`` to Debye-Hueckel (else KT, SALT_CONC and no
+    half-charged ends); ``opts[term]`` names the parameters a fit moves
+    (default: all, stacking's and Debye's TOML parameters)."""
     _, cfg = default_configs()
 
     def param(x: str) -> dict:
-        return _cast(cfg[x], dtype, device)
+        return cast_params(cfg[x] | overrides.get(x, {}), dtype, device)
 
-    all_ = BaseConfiguration.OPT_ALL
-    debye_extra = _cast({"kt": KT, "salt_conc": SALT_CONC}, dtype, device)
-    debye_extra["half_charged_ends"] = False
+    def get_opts(x: str, defaults: tuple[str, ...] = BaseConfiguration.OPT_ALL) -> tuple[str, ...]:
+        return tuple(opts.get(x, defaults))
+
+    kt = overrides.get("kT", KT)
+    debye_extra = cast_params({
+        "kt": kt, "salt_conc": overrides.get("salt_conc", SALT_CONC),
+        "half_charged_ends": bool(overrides.get("half_charged_ends", False)),
+    }, dtype, device)
     return [
-        FeneConfiguration.from_dict(param("fene"), all_),
-        BondedExcludedVolumeConfiguration.from_dict(param("bonded_excluded_volume"), all_),
-        StackingConfiguration.from_dict(param("stacking") | _cast({"kt": KT}, dtype, device), tuple(cfg["stacking"])),
-        UnbondedExcludedVolumeConfiguration.from_dict(param("unbonded_excluded_volume"), all_),
-        HydrogenBondingConfiguration.from_dict(param("hydrogen_bonding"), all_),
-        CrossStackingConfiguration.from_dict(param("cross_stacking"), all_),
-        CoaxialStackingConfiguration.from_dict(param("coaxial_stacking"), all_),
-        DebyeConfiguration.from_dict(param("debye") | debye_extra, tuple(cfg["debye"])),
+        FeneConfiguration.from_dict(param("fene"), get_opts("fene")),
+        BondedExcludedVolumeConfiguration.from_dict(param("bonded_excluded_volume"),
+                                                    get_opts("bonded_excluded_volume")),
+        StackingConfiguration.from_dict(param("stacking") | cast_params({"kt": kt}, dtype, device),
+                                        get_opts("stacking", tuple(cfg["stacking"]))),
+        UnbondedExcludedVolumeConfiguration.from_dict(param("unbonded_excluded_volume"),
+                                                      get_opts("unbonded_excluded_volume")),
+        HydrogenBondingConfiguration.from_dict(param("hydrogen_bonding"), get_opts("hydrogen_bonding")),
+        CrossStackingConfiguration.from_dict(param("cross_stacking"), get_opts("cross_stacking")),
+        CoaxialStackingConfiguration.from_dict(param("coaxial_stacking"), get_opts("coaxial_stacking")),
+        DebyeConfiguration.from_dict(param("debye") | debye_extra, get_opts("debye", tuple(cfg["debye"]))),
     ]
 
 
@@ -106,31 +133,37 @@ def default_transform_soa_fn():
 
 def create_default_energy_fn(
     topology,
-    dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cuda",
+    displacement_fn=None,
+    dense_unbonded: bool = False,
     block_unbonded: bool = False,
     block_size: int = 16,
+    overrides: dict = MappingProxyType({}),
+    opts: dict = MappingProxyType({}),
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cuda",
 ) -> ComposedEnergyFunction:
-    """The full default oxRNA2 composed energy function for a topology,
-    its parameters on ``device`` (the card unless the caller asks for the CPU).
+    """The full oxRNA2 composed energy function for a topology, its
+    parameters on ``device`` (the card unless the caller asks for the CPU).
 
+    ``displacement_fn``: every term's (``spaces.free()``'s when None;
+    ``spaces.periodic(box)[0]`` for a periodic box). ``dense_unbonded``:
+    the unbonded terms over the dense (N, N) mask (``DensePairs``).
     ``block_unbonded``: the unbonded terms sum over a block table of
     ``block_size`` (energy/blocks.py), bound later with
     ``with_props(block_ids=nbl.idx, block_perm=nbl.perm)`` of a
     non-symmetric BlockNeighborList; until then an empty placeholder that
-    raises when evaluated (as the reference's)."""
+    raises when evaluated (as the reference's). ``overrides``/``opts``:
+    :func:`default_energy_configs`'."""
     device = devices.resolve(device)
-    transform = default_transform_soa_fn()
-    fns = [
-        cls(cfg.init_params(), topology, transform)
-        for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype, device), strict=True)
-    ]
-    energy = ComposedEnergyFunction(fns)
+    energy = ComposedEnergyFunction([
+        cls(cfg.init_params(), topology, default_transform_soa_fn(), displacement_fn)
+        for cls, cfg in zip(default_energy_fns(), default_energy_configs(overrides, opts, dtype, device), strict=True)
+    ])
     if block_unbonded:
         nb = n_blocks_for(topology.n_nucleotides, block_size)
-        energy = energy.with_props(block_ids=torch.zeros((nb, 0), dtype=torch.int32, device=device),
-                                   block_size=block_size)
-    return energy
+        return energy.with_props(block_ids=torch.zeros((nb, 0), dtype=torch.int32, device=device),
+                                 block_size=block_size)
+    return energy.with_props(dense_mask=dense_pair_mask(topology)) if dense_unbonded else energy
 
 
 def max_site_offset() -> float:
@@ -140,42 +173,29 @@ def max_site_offset() -> float:
     return max(back, abs(g["com_to_hb"]), abs(g["com_to_stacking"]))
 
 
-def _params() -> dict:
-    """Each term's default configuration, derived in float64 on the CPU."""
-    return {
-        cls.__name__: cfg.init_params()
-        for cls, cfg in zip(default_energy_fns(), default_energy_configs(dtype=torch.float64), strict=True)
-    }
+def _site_terms(energy_fn=None) -> dict:
+    """The unbonded terms' site cutoffs: ``energy_fn``'s bound ones, or the defaults'."""
+    return unbonded_site_cutoffs(term_params(energy_fn, default_energy_fns(), default_energy_configs))
 
 
-def _pair_cutoffs() -> dict[str, float]:
-    """Site-level cutoff of each unbonded term."""
-    p = _params()
-    px = p["UnbondedExcludedVolume"]
-    return {
-        "UnbondedExcludedVolume": float(max(px.dr_c_base, px.dr_c_back_base, px.dr_c_base_back, px.dr_c_backbone)),
-        "HydrogenBonding": float(p["HydrogenBonding"].dr_c_high_hb),
-        "CrossStacking": float(p["CrossStacking"].dr_c_high_cross),
-        "CoaxialStacking": float(p["CoaxialStacking"].dr_c_high_coax),
-        "Debye": float(p["Debye"].r_cut),
-    }
+def default_neighbor_cutoff(energy_fn=None) -> float:
+    """COM-distance cutoff covering every unbonded term of ``energy_fn`` (a
+    composed energy, its bound parameters) or of the default model."""
+    return max(pair_cutoffs(_site_terms(energy_fn)).values()) + 2.0 * max_site_offset()
 
 
-def default_neighbor_cutoff() -> float:
-    """COM-distance cutoff covering every unbonded term of the default model."""
-    return max(_pair_cutoffs().values()) + 2.0 * max_site_offset()
-
-
-def short_range_neighbor_cutoff() -> float:
-    """COM-distance cutoff over every unbonded term except Debye-Hueckel."""
-    cut = _pair_cutoffs()
-    del cut["Debye"]
+def short_range_neighbor_cutoff(energy_fn=None) -> float:
+    """COM-distance cutoff over every unbonded term except Debye-Hueckel
+    (of ``energy_fn``, else of the default model)."""
+    cut = pair_cutoffs(_site_terms(energy_fn))
+    cut.pop("Debye", None)
     return max(cut.values()) + 2.0 * max_site_offset()
 
 
-def per_term_site_cutoffs() -> dict:
-    """SITE-level radial supports per unbonded term; site coefficients are
-    (a1, a2, a3) triples (the backbone spans a1 and a3). Feeds
+def per_term_site_cutoffs(energy_fn=None) -> dict:
+    """SITE-level radial supports per unbonded term (``energy_fn``'s bound
+    ones, else the defaults'); site coefficients are (a1, a2, a3) triples
+    (the backbone spans a1 and a3). Feeds
     simulators.neighbors.stencil_band_for_site_cutoffs."""
     g = geometry()
     sites = {
@@ -183,20 +203,7 @@ def per_term_site_cutoffs() -> dict:
         "base": (g["com_to_hb"], 0.0, 0.0),
         "stack": (g["com_to_stacking"], 0.0, 0.0),
     }
-    params = _params()
-    px = params["UnbondedExcludedVolume"]
-    terms = {
-        "UnbondedExcludedVolume": (
-            ("base", "base", float(px.dr_c_base)),
-            ("back", "base", max(float(px.dr_c_back_base), float(px.dr_c_base_back))),
-            ("back", "back", float(px.dr_c_backbone)),
-        ),
-        "HydrogenBonding": (("base", "base", float(params["HydrogenBonding"].dr_c_high_hb)),),
-        "CrossStacking": (("base", "base", float(params["CrossStacking"].dr_c_high_cross)),),
-        "CoaxialStacking": (("stack", "stack", float(params["CoaxialStacking"].dr_c_high_coax)),),
-        "Debye": (("back", "back", float(params["Debye"].r_cut)),),
-    }
-    return {"sites": sites, "terms": terms}
+    return {"sites": sites, "terms": _site_terms(energy_fn)}
 
 
 def aform_site_slacks() -> dict:

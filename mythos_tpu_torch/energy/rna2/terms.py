@@ -90,14 +90,15 @@ class StackGeometry(NamedTuple):
 
 def stack_geometry_vec(
     stack5_i: Vec3, stack3_j: Vec3, back_i: Vec3, back_j: Vec3, n_i: Vec3, n_j: Vec3,
-    p5_i: Vec3, p3_j: Vec3, a2_i: Vec3, a2_j: Vec3, arccos=safe_arccos,
+    p5_i: Vec3, p3_j: Vec3, a2_i: Vec3, a2_j: Vec3, arccos=safe_arccos, disp=Vec3.__sub__,
 ) -> StackGeometry:
-    """dr_stack = stack5[i] - stack3[j], dr_back = back[i] - back[j] (i the
-    3'-side); ``p5_i``/``p3_j`` the p5 axis of i and the p3 axis of j."""
-    dr_stack = stack5_i - stack3_j
+    """dr_stack = disp(stack5[i], stack3[j]), dr_back = disp(back[i],
+    back[j]) (i the 3'-side; ``disp`` the term's displacement, subtraction
+    in free space); ``p5_i``/``p3_j`` the p5 axis of i and the p3 axis of j."""
+    dr_stack = disp(stack5_i, stack3_j)
     r_stack = vnorm(dr_stack)
     u = dr_stack * (1.0 / r_stack)
-    dr_back = back_i - back_j
+    dr_back = disp(back_i, back_j)
     ub = dr_back * (1.0 / vnorm(dr_back))
     return StackGeometry(
         r_stack=r_stack,
@@ -139,7 +140,7 @@ class Stacking(t1._BondedPairs):
             geom.gather(nuc.back, i), geom.gather(nuc.back, j),
             geom.gather(nuc.a3, i), geom.gather(nuc.a3, j),
             geom.gather(nuc.bb_p5, i), geom.gather(nuc.bb_p3, j),
-            geom.gather(nuc.a2, i), geom.gather(nuc.a2, j),
+            geom.gather(nuc.a2, i), geom.gather(nuc.a2, j), disp=self.disp,
         )
         p = self.params
         if p.pseq is not None:
@@ -210,4 +211,5 @@ class CrossStacking(t1._UnbondedPairs):
         return float(self.params.dr_c_high_cross)
 
     def pair_energies(self, si, sj) -> torch.Tensor:
-        return cross_value(self.params, geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3))
+        return cross_value(self.params, geom.unbonded_geometry_vec(si.base, sj.base, si.a1, sj.a1, si.a3, sj.a3,
+                                                                   disp=self.disp))

@@ -93,7 +93,6 @@ from mythos_tpu_torch.simulators.neighbors import (
     DensePairs,
     NoNeighborList,
     block_neighbor_list_for_topology,
-    dense_pair_mask,
     stencil_band_for_site_cutoffs,
     strand_interleave_perm,
 )
@@ -123,7 +122,12 @@ def build_sim(
     arguments less ``dr_threshold`` (the block tables' skin is the
     reference's default 0.5; the site-mode stencil band reads none), plus
     ``device`` and ``dtype`` (float32, the kernels' type; the pairs and dense
-    modes also float64). ``block_size`` sizes the block tier's tables;
+    modes also float64). The energy is the model's default one (the
+    reference's ``_build_sim`` takes no ``overrides``), and the band and
+    tables are sized from its bound cutoffs (``per_term_site_cutoffs``,
+    ``default_neighbor_cutoff`` and ``short_range_neighbor_cutoff`` of
+    ``energy_fn``); another temperature, salt or box is built by hand from
+    the same pieces (README, "Energy options"). ``block_size`` sizes the block tier's tables;
     ``site_margin`` defaults to 2 under rna2, else 1. ``checkpoint_every``
     has the reference's meaning on every tier: outer iterations a checkpoint
     of a differentiated run -- rebuild intervals on the per-step branches,
@@ -139,12 +143,7 @@ def build_sim(
     gamma_t, gamma_r = float(kT) / 2.5, float(kT) / 7.5
     if mode in ("pairs", "dense"):
         dense = mode == "dense"
-        if model == "dna1":
-            energy_fn = pkg.create_default_energy_fn(topology, dtype=dtype, device=device, dense_unbonded=dense)
-        else:
-            energy_fn = pkg.create_default_energy_fn(topology, dtype=dtype, device=device)
-            if dense:
-                energy_fn = energy_fn.with_props(dense_mask=dense_pair_mask(topology))
+        energy_fn = pkg.create_default_energy_fn(topology, dense_unbonded=dense, dtype=dtype, device=device)
         neighbors = DensePairs() if dense else NoNeighborList(unbonded_nbrs=topology.unbonded_neighbors)
         return energy_fn, PairSimulator(energy_fn=energy_fn, neighbors=neighbors, dt=5e-3, kT=float(kT),
                                         gamma_t=gamma_t, gamma_r=gamma_r, checkpoint_every=checkpoint_every)
@@ -163,11 +162,11 @@ def build_sim(
             raise ValueError("the block tables are sized from init_centers")
         neighbors = block_neighbor_list_for_topology(
             topology,
-            pkg.default_neighbor_cutoff(),
+            pkg.default_neighbor_cutoff(energy_fn),
             block_size=block_size,
             init_centers=torch.as_tensor(init_centers, device=device),
             # oxDNA1 has no Debye term, and the block sums take one table: the reference's r_inner None
-            r_cutoff_inner=pkg.short_range_neighbor_cutoff() if model == "dna2" else None,
+            r_cutoff_inner=pkg.short_range_neighbor_cutoff(energy_fn) if model == "dna2" else None,
             perm=strand_interleave_perm(topology),
             symmetric=kernels,
         )
@@ -180,7 +179,7 @@ def build_sim(
     aform = model == "rna2"
     band = stencil_band_for_site_cutoffs(
         topology,
-        pkg.per_term_site_cutoffs(),
+        pkg.per_term_site_cutoffs(energy_fn),
         init_centers=init_centers,
         init_orientation=init_orientation,
         perm=strand_interleave_perm(topology),

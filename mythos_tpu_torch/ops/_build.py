@@ -35,6 +35,8 @@ SIGNATURES = {
     "stencil_field_grads": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # n: the blocks of K2, the rows of its tally
     "stencil_field_grads_blocks": (_I,),
+    # w_wide, pseq: the dynamic shared memory of a K2 block, in bytes
+    "stencil_field_grads_smem": (_I, _I),
     "multistep_chunk": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,  # params, seq, partners, qf, n, w x4, w_wide
         _P, _P, _P, _I, _I,  # wstack, dirf, checks, n_checks, check_dm

@@ -387,6 +387,12 @@ static int launch_field_grads(const float* params, const int* seq, const int* pa
 // blocks of K2 for n slots: the rows of its (blocks, K2_TALLY) tally
 extern "C" int stencil_field_grads_blocks(int n) { return (n + K2_SLOTS - 1) / K2_SLOTS; }
 
+// the dynamic shared memory of a K2 block at reach w_wide, in bytes (the
+// pseq instances' with pseq != 0); launch_field_grads asks for it
+extern "C" int stencil_field_grads_smem(int w_wide, int pseq) {
+  return (int)((size_t)k2_smem(w_wide, pseq != 0).total * sizeof(float));
+}
+
 // counts: (stencil_field_grads_blocks(n), K2_TALLY) int32 or null (each
 // block's tally)
 extern "C" int stencil_field_grads(const float* params, const int* seq, const int* partners, const float* qf,

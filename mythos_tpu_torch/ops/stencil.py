@@ -78,6 +78,7 @@ import mythos_tpu_torch.energy.dna1.terms as t1
 import mythos_tpu_torch.energy.dna2.terms as t2
 import mythos_tpu_torch.energy.rna2.terms as tr
 from mythos_tpu_torch.energy import seqdep
+from mythos_tpu_torch.energy.defaults import unbonded_site_cutoffs
 from mythos_tpu_torch.energy.dna1 import geometry as geom
 from mythos_tpu_torch.simulators.neighbors import SITE_FAMILIES, StencilBand
 from mythos_tpu_torch.soa import Quat, Vec3, free_rotor_soa, quat_cotangent_to_torque_soa, quat_frame_soa, vnorm
@@ -208,6 +209,9 @@ class StencilContext:
     #: the weight of band pair (i, i + d) is hw_i . oh_{i+d}, plus corr_i
     #: where partner_i = i + d. None for a discrete sequence
     hbf: torch.Tensor | None = None
+    #: the band at the bound cutoffs (StencilBand.bound): its exact checks
+    #: and far sweep are the host-side overflow checks of a run
+    band: StencilBand | None = None
 
     @property
     def pseq(self) -> bool:
@@ -301,11 +305,20 @@ def pack_params(composed, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def bound_band(composed, band: StencilBand) -> StencilBand:
+    """``band`` for the bound cutoffs of ``composed`` (StencilBand.bound)."""
+    return band.bound(unbonded_site_cutoffs({type(fn).__name__: fn.params for fn in composed.energy_fns}))
+
+
 def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, device=None) -> StencilContext:
     """Build the StencilContext of a composed oxDNA2, oxRNA2 or oxDNA1
     energy over ``band``.
 
-    ``composed`` must carry its bound parameters (``with_params`` applied).
+    ``composed`` must carry its bound parameters (``with_params`` applied);
+    a bound cutoff past the one the band's reach was sized for raises
+    simulators.neighbors.ERR_BAND_CUTOFF before any launch, and the context's checks take the
+    bound cutoffs (``StencilBand.bound``: the reference's "assert the bound
+    cutoffs at prepare time", mythos_tpu/energy/dna2/__init__.py:285-289).
     Under a probabilistic sequence (hydrogen bonding's ``pseq``) the
     context carries the hb weight factors (``hbf``, from
     ``ops.tiles.pair_static_fields``) and the bonds' expected stacking
@@ -316,6 +329,7 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
     from mythos_tpu_torch.ops import tiles
 
     family = model_family(composed)
+    band = bound_band(composed, band)
     names = tuple(type(fn).__name__ for fn in composed.energy_fns)
     first = composed.energy_fns[0]
     hb = composed.energy_fns[names.index("HydrogenBonding")].params
@@ -390,6 +404,7 @@ def prepare_stencil_context(composed, band: StencilBand, dtype=torch.float32, de
         perm=perm,
         inv_perm=inv_perm,
         hbf=hbf,
+        band=band,
     )
 
 
@@ -866,6 +881,16 @@ def field_grads(ctx: StencilContext, dyn: torch.Tensor) -> torch.Tensor:
     if dyn.device.type == "cpu":
         return field_grads_plain(ctx, dyn)
     return _field_grads(ctx, dyn)[0]
+
+
+def field_grads_smem(w_wide: int, pseq: bool = False) -> int:
+    """The dynamic shared memory of a K2 block at reach ``w_wide`` (its
+    pseq instances' with ``pseq``), in bytes: the staged slots and the
+    candidate lists grow with the band (ops/csrc/stencil_grads.cu, k2_smem).
+    Reads the built kernel library."""
+    from mythos_tpu_torch.ops import _build
+
+    return int(_build.load_library().stencil_field_grads_smem(int(w_wide), int(bool(pseq))))
 
 
 #: K2's instances: each family's, and each family's pseq instance

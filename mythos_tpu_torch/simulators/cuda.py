@@ -96,11 +96,34 @@ ERR_SAVE_EVERY = "`save_every` must evenly divide n_steps. Got {} and {}."
 ERR_UPDATE_EVERY = (
     "`neighbor_update_every` must divide save_every (or n_steps when emitting every step). Got {} and {}."
 )
+#: the reference's refusals of a periodic box (mythos_tpu/simulators/tpu.py:49-61): the stencil kernels
+#: (K1, K2) and the tile kernels (K3) compute free-space displacements, and the SoA integrator of the
+#: block sums has no periodic shift
+ERR_PERIODIC_SOA = (
+    "use_soa=True with a periodic space requires space_soa "
+    "(spaces.periodic_soa); the SoA path would otherwise silently integrate "
+    "in free space."
+)
+ERR_PERIODIC_FUSED = (
+    "the fused Pallas kernels (symmetric block table) compute free-space "
+    "displacements; periodic boxes need a non-symmetric table (XLA tile path)."
+)
+ERR_STENCIL = (
+    "StencilBand neighbors require the free-space SoA hot path (use_soa and "
+    "a non-periodic space); use block_neighbor_list_for_topology otherwise"
+)
 
 #: chunks between far fold-back sweeps: fold-backs develop over thousands
 #: of steps and the band's site slack covers ~4 chunks of drift; the exact
 #: near-band checks run every chunk, in K1 (as the reference, tpu.py:401-407)
 FAR_EVERY = 4
+
+
+def _periodic(space, energy_fn) -> bool:
+    """Whether ``space``'s shift or a term's displacement is periodic."""
+    fns = [] if space is None else list(space)
+    fns += [getattr(fn, "displacement_fn", None) for fn in getattr(energy_fn, "energy_fns", ())]
+    return any(getattr(f, "is_periodic", False) for f in fns)
 
 
 def _every_step(save_every: int, u: int, n_steps: int) -> bool:
@@ -189,11 +212,22 @@ class CudaSimulator:
     save_every: int = 40
     neighbor_update_every: int = 40
     checkpoint_every: int = 0
+    #: (displacement, shift); free space (None) only: K1 and K2 compute
+    #: free-space displacements, so a periodic space, or a term with a
+    #: periodic displacement, raises ERR_STENCIL, as the reference's
+    space: tuple | None = None
+
+    def __post_init__(self) -> None:
+        if _periodic(self.space, self.energy_fn):
+            raise ValueError(ERR_STENCIL)
 
     def replace(self, **kw) -> "CudaSimulator":
         return dc.replace(self, **kw)
 
     def _context(self, opt_params, device):
+        """(stencil context, OU constants). The context carries the band at
+        the bound cutoffs (``prepare_stencil_context`` raises before any
+        launch where a bound cutoff passes the band's reach)."""
         energy = self.energy_fn.with_params(opt_params) if opt_params else self.energy_fn
         ctx = ops_stencil.prepare_stencil_context(energy, self.band, device=device)
         ou = ops_stencil.ou_constants(
@@ -249,7 +283,7 @@ class CudaSimulator:
             for chunk in range(n_steps // u):
                 if chunk % FAR_EVERY == 0:
                     with torch.no_grad():
-                        overflow |= self.band.far_check(Vec3(*state[0:3]), Quat(*state[3:7]))
+                        overflow |= ctx.band.far_check(Vec3(*state[0:3]), Quat(*state[3:7]))
                 noise = torch.randn((u, 6, ctx.n), generator=generator, device=device).to(torch.bfloat16)
                 out = ops_stencil.MultistepChunk.apply(state, ctx.params, ctx.wstack, ou, noise, ctx)
                 with torch.no_grad():
@@ -260,7 +294,8 @@ class CudaSimulator:
         trajectory = _trajectory(ctx.from_slots(torch.stack(saves)), self.kT, overflow)
         return SimulatorOutput(observables=[trajectory], state={"final_state": state})
 
-    def _every_step_run(self, ctx, s, step_fn, n_steps, generator, overflow, graph, per_save=1, every_step=True):
+    def _every_step_run(self, ctx, s, step_fn, n_steps, generator, overflow, graph, per_save=1,
+                        every_step=True):
         """The per-step branch from state ``s``: (the last state, the saved
         positions -- of every step, or with ``every_step`` False of the last
         step of each ``per_save`` rebuild intervals --, the overflow flag).
@@ -280,7 +315,7 @@ class CudaSimulator:
             ovf, pos = torch.zeros((), dtype=torch.bool, device=device), []
             for k in range(group):
                 with torch.no_grad():
-                    ovf = ovf | self.band.slot_check(s.position.center, s.position.orientation)
+                    ovf = ovf | ctx.band.slot_check(s.position.center, s.position.orientation)
                 for xi in xis[k * u : (k + 1) * u]:
                     s = step_fn(s, xi=xi)
                     if every_step:
@@ -351,6 +386,15 @@ class BlockSimulator:
     save_every: int = 40
     neighbor_update_every: int = 40
     checkpoint_every: int = 0
+    #: (displacement, shift); free space (None) only: a periodic space (or
+    #: a term with a periodic displacement) raises ERR_PERIODIC_FUSED on a
+    #: symmetric table (K3), ERR_PERIODIC_SOA on the block sums' table (the
+    #: SoA integrator has no periodic shift), as the reference's
+    space: tuple | None = None
+
+    def __post_init__(self) -> None:
+        if _periodic(self.space, self.energy_fn):
+            raise ValueError(ERR_PERIODIC_FUSED if self.neighbors.symmetric else ERR_PERIODIC_SOA)
 
     def replace(self, **kw) -> "BlockSimulator":
         return dc.replace(self, **kw)
@@ -487,6 +531,11 @@ class PairSimulator:
     save_every: int = 1
     checkpoint_every: int = 0
     neighbor_update_every: int = 1
+    #: (displacement, shift), the reference's ``space``: free space when
+    #: None; ``spaces.periodic(box)`` wraps each step's positions into the
+    #: box (the energy's terms take its displacement: create_default_energy_fn(
+    #: displacement_fn=...); a FixedCapacityNeighborList its distances)
+    space: tuple | None = None
 
     def replace(self, **kw) -> "PairSimulator":
         return dc.replace(self, **kw)
@@ -522,7 +571,8 @@ class PairSimulator:
         def bound(pairs):
             return energy if nbl is None else energy.with_props(unbonded_neighbors=pairs)
 
-        init_fn, step_fn = nvt_langevin(lambda body, energy: energy(body), spaces.free()[1], self.dt, self.kT, gamma,
+        shift = (self.space or spaces.free())[1]
+        init_fn, step_fn = nvt_langevin(lambda body, energy: energy(body), shift, self.dt, self.kT, gamma,
                                         create_graph=graph)
         mass = RigidBody(torch.tensor([self.mass], dtype=torch.float64), torch.tensor([self.inertia], dtype=torch.float64))
         prev = None if nbl is None else nbl.idx

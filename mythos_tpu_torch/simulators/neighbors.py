@@ -7,7 +7,8 @@ Counterpart of mythos_tpu/simulators/neighbors.py:
   list), ``DensePairs`` (the dense (N, N)-mask path's marker) and their
   masks, ``bonded_exclusion_mask`` and ``dense_pair_mask``, and
   ``FixedCapacityNeighborList`` (a distance-culled pair list of fixed
-  capacity, rebuilt on the positions' device) with
+  capacity, rebuilt on the positions' device, through a displacement:
+  periodic boxes too) with
   ``neighbor_list_for_topology``;
 * the stencil half: ``strand_interleave_perm``,
   ``stencil_band_for_site_cutoffs`` (host numpy sizing, carried over as is)
@@ -30,6 +31,7 @@ with B = 8). Not ported: the legacy COM-mode band and the hierarchical
 from __future__ import annotations
 
 import dataclasses as dc
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -67,9 +69,11 @@ def dense_pair_mask(topology) -> np.ndarray:
 
 @dc.dataclass
 class FixedCapacityNeighborList:
-    """Distance-culled unbonded pairs of static capacity (free space).
+    """Distance-culled unbonded pairs of static capacity.
 
-    The rebuild takes the upper triangle of the (N, N) centre distances,
+    The rebuild takes the upper triangle of the (N, N) centre distances
+    (``displacement_fn(c_i, c_j)``, the reference's; free space when None,
+    ``spaces.periodic(box)[0]`` for a periodic box),
     drops the excluded (self and bonded) pairs and compacts the hits within
     ``r_cutoff + dr_threshold`` into a (2, capacity) list, nearest first,
     padded with N (a stable sort: equal distances keep the reference's
@@ -84,10 +88,17 @@ class FixedCapacityNeighborList:
     capacity: int
     idx_: torch.Tensor | None = None
     did_overflow: torch.Tensor | None = None
+    displacement_fn: Callable | None = None
 
     @property
     def idx(self) -> torch.Tensor | None:
         return self.idx_
+
+    def pair_d2(self, centers: torch.Tensor, iu: torch.Tensor) -> torch.Tensor:
+        """Squared centre distances of the pairs ``iu`` ((2, P) ids)."""
+        ci, cj = centers[iu[0]], centers[iu[1]]
+        dr = ci - cj if self.displacement_fn is None else self.displacement_fn(ci, cj)
+        return (dr * dr).sum(-1)
 
     def replace(self, **kw) -> "FixedCapacityNeighborList":
         return dc.replace(self, **kw)
@@ -98,8 +109,7 @@ class FixedCapacityNeighborList:
             n = centers.shape[0]
             device = centers.device
             iu = torch.triu_indices(n, n, offset=1, device=device)
-            dr = centers[iu[1]] - centers[iu[0]]
-            d2u = (dr * dr).sum(-1)
+            d2u = self.pair_d2(centers, iu)
             allowed = ~torch.as_tensor(self.exclusion_mask, device=device)[iu[0], iu[1]]
             hit = (d2u < (self.r_cutoff + self.dr_threshold) ** 2) & allowed
             order = torch.argsort(torch.where(hit, d2u, torch.inf), stable=True)[: self.capacity]
@@ -135,22 +145,24 @@ PAIR_CAPACITY_MULTIPLIER = 1.25
 
 def neighbor_list_for_topology(
     topology, r_cutoff: float, dr_threshold: float = 0.2, capacity: int | None = None, init_centers=None,
+    displacement_fn: Callable | None = None,
 ) -> FixedCapacityNeighborList:
     """A FixedCapacityNeighborList, its capacity (when not given) the
     initial hits x PAIR_CAPACITY_MULTIPLIER, at least 16 (the reference's
-    sizing); allocated when ``init_centers`` ((N, 3) tensor) is given."""
+    sizing); allocated when ``init_centers`` ((N, 3) tensor) is given.
+    ``displacement_fn``: the distances' (free space when None)."""
     nbl = FixedCapacityNeighborList(
         exclusion_mask=bonded_exclusion_mask(topology.n_nucleotides, topology.bonded_neighbors),
         r_cutoff=float(r_cutoff), dr_threshold=float(dr_threshold), capacity=capacity or 0,
+        displacement_fn=displacement_fn,
     )
     if capacity is None:
         if init_centers is None:
             raise ValueError("capacity or init_centers must be provided")
         c = torch.as_tensor(init_centers).detach()
         iu = torch.triu_indices(len(c), len(c), offset=1, device=c.device)
-        dr = c[iu[1]] - c[iu[0]]
         allowed = ~torch.as_tensor(nbl.exclusion_mask, device=c.device)[iu[0], iu[1]]
-        hits = int((((dr * dr).sum(-1) < (r_cutoff + dr_threshold) ** 2) & allowed).sum())
+        hits = int(((nbl.pair_d2(c, iu) < (r_cutoff + dr_threshold) ** 2) & allowed).sum())
         nbl = nbl.replace(capacity=max(16, int(hits * PAIR_CAPACITY_MULTIPLIER)))
     return nbl.allocate(torch.as_tensor(init_centers)) if init_centers is not None else nbl
 
@@ -250,6 +262,11 @@ FAMILY_SLACK = {("back", "back"): 0.9, ("back", "base"): 0.75, ("base", "back"):
 FAR_SLACK = 1.5
 #: smallest block of the far sweep (grown so that it has at most 4096 blocks)
 CHECK_BLOCK = 4
+ERR_BAND_CUTOFF = (
+    "the energy's bound {term} cutoff {bound:.6g} ({fa}-{fb} sites) passes the {reach:.6g} its stencil band's "
+    "reach was sized for: pairs inside it could lie beyond the band. Size the band from the bound energy: "
+    "stencil_band_for_site_cutoffs(topology, <model>.per_term_site_cutoffs(energy_fn), ...)"
+)
 
 
 @dc.dataclass
@@ -260,8 +277,12 @@ class StencilBand:
     offsets d in (d_lo, d_hi] no (fa, fb) site pair may sit inside the bare
     cutoff. Beyond ``check_dm`` a site-union block-AABB sweep catches
     fold-backs. ``w_terms`` are the per-term (exc, hb, cross, coax) reaches
-    the kernels use; ``w_wide`` is the Debye reach. ``did_overflow`` is the
-    flag of the conformation the band was sized from.
+    the kernels use; ``w_wide`` is the Debye reach. ``site_cutoffs``
+    records ((term, fa, fb, bare_cutoff, reach_cutoff), ...): each term's
+    site cutoffs and the cutoff its reach was sized for (bare plus the
+    family's slack), which an energy's bound cutoffs must not pass
+    (:meth:`bound`). ``did_overflow`` is the flag of the conformation the
+    band was sized from.
     """
 
     n: int
@@ -273,7 +294,30 @@ class StencilBand:
     check_dm: int
     far_cutoff: float
     w_terms: tuple
+    site_cutoffs: tuple = ()
     did_overflow: torch.Tensor | None = None
+
+    def bound(self, terms: dict) -> "StencilBand":
+        """This band for an energy whose unbonded site cutoffs are ``terms``
+        (energy.defaults.unbonded_site_cutoffs of its bound parameters).
+        Raises ERR_BAND_CUTOFF where one passes the cutoff its term's reach
+        was sized for: pairs inside it could lie beyond the reach. Else the
+        band with its exact checks and far sweep at the bound cutoffs where
+        these are the larger, so that a pair inside one beyond the reach
+        raises the overflow flag. A band that records no cutoffs is
+        returned as it is."""
+        raised = {}
+        for term, fa, fb, bare, reach in self.site_cutoffs:
+            for ga, gb, cut in terms.get(term, ()):
+                if (ga, gb) != (fa, fb):
+                    continue
+                if cut > reach:
+                    raise ValueError(ERR_BAND_CUTOFF.format(term=term, bound=cut, fa=fa, fb=fb, reach=reach))
+                raised[(fa, fb, bare)] = max(raised.get((fa, fb, bare), bare), cut)
+        if not raised:
+            return self
+        checks = tuple((fa, fb, raised.get((fa, fb, cu), cu), lo, hi) for fa, fb, cu, lo, hi in self.site_checks)
+        return dc.replace(self, site_checks=checks, far_cutoff=max(self.far_cutoff, *raised.values()))
 
     def sites(self, com: Vec3, quat: Quat) -> dict[str, Vec3]:
         a1, a2, a3 = quat_frame_soa(quat)
@@ -360,6 +404,11 @@ def stencil_band_for_site_cutoffs(
     ({(fa, fb): slack}, either order) and ``far_slack`` replace the
     B-DNA defaults where a helix form breathes further (A-form rna2:
     ``energy.rna2.aform_site_slacks`` / ``aform_far_slack``).
+    ``site_cutoffs``: a model's ``per_term_site_cutoffs(energy_fn)``, from
+    the energy the band will run (its salt sets the Debye reach
+    ``w_wide``); the band keeps them with the cutoffs its reaches were
+    sized for, and the stencil context of an energy whose bound cutoffs
+    pass those raises (:meth:`StencilBand.bound`, ERR_BAND_CUTOFF).
     """
     n = topology.n_nucleotides
     bn = np.asarray(topology.bonded_neighbors)
@@ -397,6 +446,8 @@ def stencil_band_for_site_cutoffs(
     has_debye = "Debye" in terms_sc
     w_wide = max(1, reach_of(terms_sc["Debye"])) if has_debye else w_short
     w_wide = max(w_wide, w_short)
+    reach_cutoffs = tuple((nm, fa, fb, float(cu), float(cu) + fam_slack.get((fa, fb), SITE_SLACK))
+                          for nm, prs in terms_sc.items() for fa, fb, cu in prs)
     if w_wide > max(8, n // 2):
         raise ValueError(f"initial layout is not banded (site reach {w_wide} of {n} slots)")
     far_cutoff = max(float(cu) for prs in terms_sc.values() for _, _, cu in prs)
@@ -430,6 +481,7 @@ def stencil_band_for_site_cutoffs(
         check_dm=int(check_dm),
         far_cutoff=float(far_cutoff),
         w_terms=tuple(w_t[nm] for nm in _SHORT_TERMS),
+        site_cutoffs=reach_cutoffs,
     )
     ct = torch.as_tensor(init_centers)
     qt = torch.as_tensor(init_orientation)

@@ -52,7 +52,11 @@ which counts its launches under the family alone; and 40-bp pseq runs of
 the stencil (the per-step branch, K1 never) and the block tier card vs
 CPU. oxRNA2's pseq instance of K2 likewise, and on the one-hot pseq the
 discrete instance's bits; the block tier of oxRNA2 and of the oxNA hybrid
-(the plain block sums) card vs CPU, K3 never launched.
+(the plain block sums) card vs CPU, K3 never launched. The constructors'
+options: K2 and K1 at the salt-0.1 band (sized from the bound energy,
+w_wide 32) against their plain versions, K2's tally and bits as above,
+and the small-system path in a periodic box the duplex crosses, card vs
+CPU (rtol 1e-4, atol 1e-5 on minimum-image differences).
 """
 
 import importlib
@@ -1219,3 +1223,85 @@ def test_block_sum_runs_on_card_launch_no_k3(card, model):
     torch.testing.assert_close(gpu.center.cpu(), cpu.center, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)
     assert not bool(torch.as_tensor(gpu.metadata["neighbor_overflow"]).any())
+
+
+@pytest.fixture(scope="module")
+def salt_system(card):
+    """The 40-bp oxDNA2 duplex at salt 0.1: the energy built with
+    ``overrides``, its band sized from the bound Debye r_cut (w_wide 32
+    against 16 at the default salt), and the stencil context."""
+    import mythos_tpu_torch.energy.dna2 as dna2
+    from mythos_tpu_torch.simulators.cuda import CudaSimulator
+    from mythos_tpu_torch.simulators.neighbors import stencil_band_for_site_cutoffs, strand_interleave_perm
+
+    top, body = synthetic_duplex(40, dtype=torch.float32, device=card)
+    e = dna2.create_default_energy_fn(top, overrides={"salt_conc": 0.1}, device=card)
+    band = stencil_band_for_site_cutoffs(top, dna2.per_term_site_cutoffs(e), body.center, body.orientation,
+                                         perm=strand_interleave_perm(top))
+    sim = CudaSimulator(energy_fn=e, band=band, dt=5e-3, kT=KT, gamma_t=KT / 2.5, gamma_r=KT / 7.5)
+    return e, sim, ts.prepare_stencil_context(e, band, device=card), body
+
+
+@pytest.mark.cuda
+def test_k2_salt_band_matches_twin(salt_system):
+    """K2 at the salt-0.1 band (w_wide twice the default's), on the jittered
+    duplex: within K2's tolerance of its plain version, its tally of the
+    band pairs equal to band_gate_counts', equal bits on a second call."""
+    _, _, ctx, body = salt_system
+    assert ctx.w_wide >= 32
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device="cuda")
+    c = body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device="cuda")
+    dyn = torch.cat([ctx.to_slots(c.T), ctx.to_slots((q / q.norm(dim=-1, keepdim=True)).T)]).contiguous()
+    got, tally = ts._field_grads(ctx, dyn, count=True)
+    ref = ts.field_grads_plain(ctx, dyn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    assert tally == ts.band_gate_counts(ctx, dyn) and tally["debye"] > 0
+    assert torch.equal(got, ts.field_grads(ctx, dyn))
+
+
+@pytest.mark.cuda
+def test_k1_salt_band_matches_twin(salt_system):
+    """K1 at the salt-0.1 band, 4 steps from a jittered state with the same
+    bf16 noise: rtol 2e-4, atol 5e-5 of its plain version, equal bits on a
+    second call."""
+    _, sim, ctx, body = salt_system
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = body.orientation + 0.01 * torch.randn(body.orientation.shape, generator=gen, device="cuda")
+    c = body.center + 0.01 * torch.randn(body.center.shape, generator=gen, device="cuda")
+    state = sim.initial_state(ctx, RigidBody(c, q / q.norm(dim=-1, keepdim=True)), gen)
+    noise = torch.randn((4, 6, ctx.n), generator=gen, device="cuda").to(torch.bfloat16)
+    ou = ts.ou_constants(sim.dt, sim.kT, [1.0], [[1.0, 1.0, 1.0]], [sim.gamma_t], [sim.gamma_r]).vector("cuda")
+    got = ts.multistep_chunk(ctx, ou, noise, state)
+    torch.testing.assert_close(got, ts.multistep_chunk_plain(ctx, ou, noise, state), rtol=2e-4, atol=5e-5)
+    assert torch.equal(got, ts.multistep_chunk(ctx, ou, noise, state))
+
+
+@pytest.mark.cuda
+def test_periodic_pair_run_on_card_matches_cpu(card):
+    """The small-system path in a periodic box the 40-bp duplex crosses
+    (``PairSimulator(space=spaces.periodic(20))``, the terms' displacement
+    periodic): 20 steps at kT 0, card vs CPU (rtol 1e-4, atol 1e-5 on the
+    minimum-image position differences and on the quaternions)."""
+    import mythos_tpu_torch.energy.dna2 as dna2
+    from mythos_tpu_torch import spaces
+    from mythos_tpu_torch.simulators.cuda import PairSimulator
+    from mythos_tpu_torch.simulators.neighbors import NoNeighborList
+
+    box = 20.0
+
+    def run(device):
+        top, b = synthetic_duplex(40, dtype=torch.float32, device=device)
+        space = spaces.periodic(box)
+        e = dna2.create_default_energy_fn(top, displacement_fn=space[0], device=device)
+        sim = PairSimulator(energy_fn=e, neighbors=NoNeighborList(unbonded_nbrs=top.unbonded_neighbors), dt=5e-3,
+                            kT=0.0, space=space)
+        shift = torch.tensor([box - 0.3, 0.5 * box, box - 7.0], device=device)
+        b = RigidBody(torch.remainder(b.center + shift, box), b.orientation)
+        return sim.run(e.opt_params(), b, 20, torch.Generator(device=device).manual_seed(0)).observables[0]
+
+    gpu, cpu = run(card), run("cpu")
+    dc = torch.remainder(gpu.center.cpu() - cpu.center + 0.5 * box, box) - 0.5 * box
+    assert bool((dc.abs() <= 1e-5 + 1e-4 * cpu.center.abs()).all())
+    torch.testing.assert_close(gpu.orientation.cpu(), cpu.orientation, rtol=1e-4, atol=1e-5)

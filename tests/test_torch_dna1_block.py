@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # tiny CPU shapes: one thread a worker, no idle pool spinning beside the others
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -77,13 +78,13 @@ def test_tile_plain_versions_match_jax(f64_system):
     (ctx,) = ctxs
     assert (ctx.spec.kind, ctx.spec.family, ctx.spec.terms) == ("short", "dna1", tiles.KIND_TERMS["short"])
     assert ctx.spec.geometry[:2] == (pytest.approx(-0.4), 0.0)
-    terms_j = np.asarray(jax.jit(e_j.compute_terms_soa)(jsoa.to_soa(jbody)))
+    terms_j, g = jax.jit(lambda b: (e_j.compute_terms_soa(b), jax.grad(e_j.energy_soa)(b)))(jsoa.to_soa(jbody))
+    terms_j = np.asarray(terms_j)  # the reference's terms and gradient: one compile
     names = [type(fn).__name__ for fn in e_j.energy_fns]
     rows = tiles.dynamic_rows(ctx, to_soa(tbody))
     sums = tiles.tile_energies_plain(rows, ctx.params, nbl.idx, ctx.spec)
     for nm, s_ in zip(ctx.spec.terms, sums, strict=True):
         np.testing.assert_allclose(float(s_), terms_j[names.index(nm)], rtol=1e-6, atol=1e-12, err_msg=nm)
-    g = jax.jit(jax.grad(e_j.energy_soa))(jsoa.to_soa(jbody))
     g_com, g_quat = tiles.fused_grads_ctx(e_t, ctxs, to_soa(tbody), nbl.idx)
     for got, want in ((g_com, g.center), (g_quat, g.orientation)):
         a_ = torch.stack(tuple(got)).numpy()

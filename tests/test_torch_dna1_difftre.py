@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # tiny CPU shapes: one thread a worker, no idle pool spinning beside the others
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -86,13 +87,13 @@ def test_k4_k5_and_params_grad_plain_match_jax():
     names = [type(fn).__name__ for fn in e_j.energy_fns]
     gt = np.array([0.9, 1.3, 0.7, 1.1])
     jb = jsoa.to_soa(JaxRigidBody(center=jnp.asarray(c), orientation=jnp.asarray(q)))
-    terms_j = np.asarray(jax.jit(e_j.compute_terms_soa)(jb))
 
     def weighted(b):
         t = e_j.compute_terms_soa(b)
         return sum(w * t[names.index(nm)] for w, nm in zip(gt, UNBONDED, strict=True))
 
-    g_j = jax.jit(jax.grad(weighted))(jb)
+    terms_j, g_j = jax.jit(lambda b: (e_j.compute_terms_soa(b), jax.grad(weighted)(b)))(jb)  # one compile
+    terms_j = np.asarray(terms_j)
 
     top, _ = synthetic_duplex(N_BP, device="cpu")
     e_t = tdna1.create_default_energy_fn(top, dtype=torch.float64, device="cpu")
@@ -163,8 +164,13 @@ def test_map_with_map_neighbors_matches_jax_pair_map():
     coef = jnp.asarray([1.0, -0.5, 2.0])
     coef_t = torch.tensor([1.0, -0.5, 2.0], dtype=torch.float64)
     params = e_pair.opt_params()
-    ref_e, ref_g = jax.jit(jax.value_and_grad(lambda p: jnp.sum(coef * e_pair.with_params(p).map(states_j))))(params)
-    ref_map = np.asarray(jax.jit(lambda p: e_pair.with_params(p).map(states_j))(params))
+
+    def weighted_map(p):
+        energies = e_pair.with_params(p).map(states_j)
+        return jnp.sum(coef * energies), energies
+
+    (ref_e, ref_map), ref_g = jax.jit(jax.value_and_grad(weighted_map, has_aux=True))(params)  # one compile
+    ref_map = np.asarray(ref_map)
 
     top, _ = synthetic_duplex(N_BP, device="cpu")
     e = tdna1.create_default_energy_fn(top, dtype=torch.float64, device="cpu")

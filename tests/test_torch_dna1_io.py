@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # tiny CPU shapes: one thread a worker, no idle pool spinning beside the others
 
 import mythos_tpu.io.oxdna_input as joi  # noqa: E402
 import mythos_tpu.io.topology as jtop  # noqa: E402

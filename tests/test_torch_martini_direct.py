@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # tiny CPU shapes: one thread a worker, no idle pool spinning beside the others
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # tiny CPU shapes: one thread a worker, no idle pool spinning beside the others
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -147,12 +148,21 @@ def f64_system():
     return jbody, e_j, top_t, tbody, e_t
 
 
+@pytest.fixture(scope="module")
+def f64_reference(f64_system):
+    """(per-term energies, gradient) of the reference block energy on
+    f64_system's state: one compile for the tests below."""
+    jbody, e_j, *_ = f64_system
+    terms, g = jax.jit(lambda b: (e_j.compute_terms_soa(b), jax.grad(e_j.energy_soa)(b)))(jsoa.to_soa(jbody))
+    return np.asarray(terms), g
+
+
 @pytest.mark.parametrize("two_level", [False, True], ids=["one-table", "tight-wide"])
-def test_tile_energies_plain_match_jax_block_sums(f64_system, two_level):
+def test_tile_energies_plain_match_jax_block_sums(f64_system, f64_reference, two_level):
     """K4's plain version, per term over a symmetric table (triangular
     mask), equals the reference's XLA block sums over a triangular table."""
     jbody, e_j, top_t, tbody, e_t = f64_system
-    terms_j = np.asarray(jax.jit(e_j.compute_terms_soa)(jsoa.to_soa(jbody)))
+    terms_j = f64_reference[0]
     names = [type(fn).__name__ for fn in e_j.energy_fns]
     nbl = tnb.block_neighbor_list_for_topology(
         top_t, tdna2.default_neighbor_cutoff(), block_size=4 if two_level else 8, init_centers=tbody.center,
@@ -169,11 +179,11 @@ def test_tile_energies_plain_match_jax_block_sums(f64_system, two_level):
         np.testing.assert_allclose(got[nm], terms_j[names.index(nm)], rtol=1e-6, atol=1e-12, err_msg=nm)
 
 
-def test_tile_forces_plain_match_jax_grad(f64_system):
+def test_tile_forces_plain_match_jax_grad(f64_system, f64_reference):
     """K3's plain version, through fused_grads_ctx (K3 on each table +
     the bonded gradient), equals jax.grad of the reference block energy."""
     jbody, e_j, top_t, tbody, e_t = f64_system
-    g = jax.jit(jax.grad(e_j.energy_soa))(jsoa.to_soa(jbody))
+    g = f64_reference[1]
     nbl = tnb.block_neighbor_list_for_topology(
         top_t, tdna2.default_neighbor_cutoff(), block_size=4, init_centers=tbody.center,
         r_cutoff_inner=tdna2.short_range_neighbor_cutoff(), perm=tnb.strand_interleave_perm(top_t),
